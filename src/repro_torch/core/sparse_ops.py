@@ -1,0 +1,187 @@
+"""Structural vector-sparse ops (plain PyTorch path) + dispatch to kernels.
+
+The plain path multiplies only the stored tiles (a per-step gather and a
+batched product), so its FLOPs drop with density as the paper's cycle count
+does.  It is the port's CPU path and the yardstick the CUDA kernels are
+held against on the card.
+
+impl (the reference's words):
+  'plain' | 'jnp'          -- the structural PyTorch path, on any device
+  'pallas' | 'pallas-halo' -- the hand-written CUDA kernels (`kernels.ops`);
+                              for convs the halo direct-input layout.  On a
+                              CPU tensor a kernel wrapper runs its plain
+                              version instead
+  'pallas-stack'           -- the row-tap stack layout: a later slice
+  'auto'                   -- the kernels for CUDA tensors, plain otherwise
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.vector_sparse import VectorSparse
+from repro_torch.kernels.vsmm import vsmm_plain
+
+__all__ = [
+    "same_pads", "im2col", "tap_patches", "vs_matmul", "vs_conv2d",
+    "dense_conv2d", "conv_weight_to_matrix",
+]
+
+
+def same_pads(size: int, k: int, stride: int,
+              dilation: int = 1) -> tuple[int, int, int]:
+    """XLA-"SAME" geometry: (out_size, pad_low, pad_high).
+
+    ``dilation`` spaces the kernel taps, so the effective kernel extent is
+    ``(k - 1) * dilation + 1``.  The padding may be asymmetric (the high
+    side gets the odd element), which PyTorch's symmetric ``padding=``
+    cannot express: callers pad explicitly with `F.pad`.
+    """
+    out = -(-size // stride)
+    ke = (k - 1) * dilation + 1
+    total = max((out - 1) * stride + ke - size, 0)
+    lo = total // 2
+    return out, lo, total - lo
+
+
+def _use_kernel(impl: str, x: torch.Tensor) -> bool:
+    if impl in ("plain", "jnp"):
+        return False
+    if impl in ("pallas", "pallas-halo"):
+        return True
+    if impl == "pallas-stack":
+        raise NotImplementedError(
+            "impl='pallas-stack' (the row-tap stack layout) is ported in a "
+            "later slice; use 'pallas' (halo) or 'plain'")
+    if impl == "auto":
+        return x.is_cuda
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+def _require_ungrouped(groups: int) -> None:
+    if groups != 1:
+        raise NotImplementedError(
+            "grouped and depthwise vector-sparse convs are ported in a later "
+            "slice (MobileNetV1); this slice runs groups == 1")
+
+
+def vs_matmul(
+    x: torch.Tensor,
+    vs: VectorSparse,
+    *,
+    bias: torch.Tensor | None = None,
+    residual: torch.Tensor | None = None,
+    scale: torch.Tensor | None = None,
+    fuse_relu: bool = False,
+    impl: str = "plain",
+) -> torch.Tensor:
+    """x (..., K) @ sparse W (K, N) -> (..., N).
+
+    FLOPs = density * dense FLOPs (the weight-side skip).  ``bias`` (N,),
+    ``residual`` (..., N) and ``fuse_relu`` run the epilogue in f32 after
+    the accumulation (residual before the ReLU — the ResNet shortcut); the
+    kernel path fuses it and also skips all-zero activation tiles.
+    """
+    *batch, k = x.shape
+    if k != vs.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} does not match W {vs.shape}")
+    x2 = x.reshape(-1, k)
+    res2 = None if residual is None else residual.reshape(-1, vs.shape[1])
+    if _use_kernel(impl, x):
+        from repro_torch.kernels import ops as kops  # lazy: import cycle
+
+        y = kops.vsmm(x2, vs, bias=bias, residual=res2, scale=scale,
+                      fuse_relu=fuse_relu)
+    else:
+        y = vsmm_plain(x2, vs, bias=bias, residual=res2, scale=scale,
+                       fuse_relu=fuse_relu)
+    return y.reshape(*batch, vs.shape[1])
+
+
+def tap_patches(xp: torch.Tensor, *, kh: int, kw: int, stride: int,
+                dilation: int, h_out: int, w_out: int) -> torch.Tensor:
+    """Already-padded NHWC -> (N, h_out, w_out, kh*kw*C) patches, (ky, kx)
+    row-major: tap (ky, kx) of output pixel (i, j) reads padded pixel
+    (ky*dilation + stride*i, kx*dilation + stride*j)."""
+    cols = [
+        xp[:, ky * dilation: ky * dilation + stride * (h_out - 1) + 1: stride,
+           kx * dilation: kx * dilation + stride * (w_out - 1) + 1: stride]
+        for ky in range(kh)
+        for kx in range(kw)
+    ]
+    return torch.cat(cols, dim=-1)
+
+
+def im2col(x: torch.Tensor, *, kh: int = 3, kw: int = 3, stride: int = 1,
+           dilation: int = 1) -> torch.Tensor:
+    """NHWC, SAME padding -> (N, Hout, Wout, kh*kw*C) patches in the
+    (ky, kx, cin) order `conv_weight_to_matrix` flattens weights into."""
+    _, h, w, _ = x.shape
+    ho, pt, pb = same_pads(h, kh, stride, dilation)
+    wo, pl, pr = same_pads(w, kw, stride, dilation)
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb))
+    return tap_patches(xp, kh=kh, kw=kw, stride=stride, dilation=dilation,
+                       h_out=ho, w_out=wo)
+
+
+def vs_conv2d(
+    x: torch.Tensor,
+    w_vs: VectorSparse,
+    *,
+    kh: int = 3,
+    kw: int = 3,
+    stride: int = 1,
+    groups: int = 1,
+    dilation: int = 1,
+    bias: torch.Tensor | None = None,
+    residual: torch.Tensor | None = None,
+    scale: torch.Tensor | None = None,
+    fuse_relu: bool = False,
+    impl: str = "plain",
+) -> torch.Tensor:
+    """kh x kw / stride / dilation / SAME conv with vector-sparse weights.
+
+    Weight matrix layout: (kh*kw*Cin, Cout) with K ordered (ky, kx, cin).
+    A 1x1 conv is the sparse matmul over pixels (stride subsamples first).
+    ``bias``, ``residual`` (the output-shaped ResNet shortcut, added before
+    the ReLU) and ``fuse_relu`` form the epilogue.  Only ``groups == 1``
+    runs in this slice.
+    """
+    _require_ungrouped(groups)
+    if _use_kernel(impl, x):
+        from repro_torch.kernels import ops as kops  # lazy: import cycle
+
+        return kops.vsconv(
+            x, w_vs, kh=kh, kw=kw, stride=stride, groups=groups,
+            dilation=dilation, bias=bias, residual=residual, scale=scale,
+            fuse_relu=fuse_relu)
+    if kh == 1 and kw == 1:
+        patches = x[:, ::stride, ::stride] if stride != 1 else x
+    else:
+        patches = im2col(x, kh=kh, kw=kw, stride=stride, dilation=dilation)
+    return vs_matmul(patches, w_vs, bias=bias, residual=residual,
+                     scale=scale, fuse_relu=fuse_relu, impl="plain")
+
+
+def dense_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                 groups: int = 1, dilation: int = 1) -> torch.Tensor:
+    """Dense oracle: x NHWC, w (kh, kw, Cin/groups, Cout), SAME padding.
+
+    On CUDA this is cuDNN, which runs f32 convolutions in TF32 unless
+    ``torch.backends.cudnn.allow_tf32`` is False: callers comparing at f32
+    tolerance turn it off.
+    """
+    kh, kw = w.shape[:2]
+    _, h, wd, _ = x.shape
+    _, pt, pb = same_pads(h, kh, stride, dilation)
+    _, pl, pr = same_pads(wd, kw, stride, dilation)
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
+    y = F.conv2d(xp, w.permute(3, 2, 0, 1), stride=stride,
+                 dilation=dilation, groups=groups)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv_weight_to_matrix(w: torch.Tensor) -> torch.Tensor:
+    """(kh,kw,Cin,Cout) -> (kh*kw*Cin, Cout) in the im2col (ky,kx,cin) order."""
+    kh, kw, cin, cout = w.shape
+    return w.reshape(kh * kw * cin, cout)

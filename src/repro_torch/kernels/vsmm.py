@@ -1,0 +1,173 @@
+"""vsmm — the vector-sparse matmul: CUDA kernel, wrapper, plain version.
+
+The kernel (``csrc/vsmm.cu``) replaces the JAX package's Pallas kernel
+`repro/kernels/vsmm.py::vsmm_pallas`: x (M, K) @ vector-sparse W (K, N), only
+the stored (vk, vn) tiles multiplied (the weight-side skip), all-zero
+activation tiles skipped at run time (the input-side skip), and the
+epilogue x scale -> + bias -> + residual -> ReLU fused at the end.
+
+`vsmm_kernel` is the wrapper: it launches the kernel for CUDA tensors and
+runs `vsmm_plain` for CPU tensors, and nothing else — a CUDA tensor that
+the kernel does not take raises, it never falls back.
+``vsmm_kernel.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.vector_sparse import VectorSparse
+from repro_torch.kernels import _build
+
+__all__ = ["vsmm_kernel", "vsmm_plain", "vsmm_kernel_cost", "MAX_VN",
+           "check_operands"]
+
+MAX_VN = 128  # the kernel's thread layout covers at most 128 columns
+
+
+def vsmm_kernel_cost(
+    *, m: int, nb: int, s_steps: int, vk: int, vn: int, in_itemsize: int = 4,
+    w_itemsize: int = 4, out_itemsize: int = 4, residual_bytes: int = 0,
+) -> dict[str, int]:
+    """Cost model of the reference's TPU kernel, kept for cost tooling:
+    every sparse step gathers a fresh (m, vk) activation K-tile, the stored
+    weight tiles stream once, the output strip is written once.  It counts
+    padding columns and per-strip re-reads, so it is not the least work of
+    the function (``chip_smoke.py`` computes that bound itself)."""
+    return {
+        "flops": 2 * m * nb * s_steps * vk * vn,
+        "bytes_accessed": (
+            m * nb * s_steps * vk * in_itemsize
+            + nb * s_steps * vk * vn * w_itemsize
+            + m * nb * vn * out_itemsize
+            + residual_bytes
+        ),
+    }
+
+
+def _epilogue(y: torch.Tensor, *, bias: torch.Tensor | None,
+              residual: torch.Tensor | None, scale: torch.Tensor | None,
+              fuse_relu: bool) -> torch.Tensor:
+    """acc -> *scale -> +bias -> +residual -> max(0), in f32."""
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    if residual is not None:
+        y = y + residual.float()
+    if fuse_relu:
+        y = torch.clamp_min(y, 0.0)
+    return y
+
+
+def vsmm_plain(
+    x: torch.Tensor,
+    vs: VectorSparse,
+    *,
+    bias: torch.Tensor | None = None,
+    residual: torch.Tensor | None = None,
+    scale: torch.Tensor | None = None,
+    fuse_relu: bool = False,
+) -> torch.Tensor:
+    """The plain PyTorch version of the kernel: x (M, K) @ W -> (M, N).
+
+    The structural gather + batched product of the reference's
+    `vs_matmul(impl="jnp")`: step s gathers every strip's activation K-tile
+    idx[:, s] and multiplies it by that strip's stored tile, into an f32
+    accumulator.  Runs on any device.
+    """
+    m, k = x.shape
+    nb, s_steps, vk, vn = vs.vals.shape
+    x3 = x.float().reshape(m, k // vk, vk)
+    vals = vs.vals.float()
+    idx = vs.idx.long()
+    acc = torch.zeros((m, nb, vn), dtype=torch.float32, device=x.device)
+    for s in range(s_steps):
+        xg = x3[:, idx[:, s]]  # (M, NB, vk)
+        acc += torch.einsum("mjk,jkn->mjn", xg, vals[:, s])
+    y = _epilogue(acc.reshape(m, nb * vn), bias=bias, residual=residual,
+                  scale=scale, fuse_relu=fuse_relu)
+    return y.to(x.dtype)
+
+
+def check_operands(named: dict[str, torch.Tensor | None],
+                   device: torch.device) -> None:
+    """Raise unless every given tensor is a contiguous float32 (int32 for
+    ``idx``) tensor on ``device`` — what the CUDA kernels take."""
+    for name, t in named.items():
+        if t is None:
+            continue
+        want = torch.int32 if name == "idx" else torch.float32
+        if t.device != device or t.dtype != want or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: the kernel takes a contiguous {want} tensor on "
+                f"{device}, got {t.dtype} on {t.device} "
+                f"(contiguous={t.is_contiguous()})")
+
+
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("vsmm")
+    fn = lib.vsmm_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def vsmm_kernel(
+    x: torch.Tensor,
+    vs: VectorSparse,
+    *,
+    bias: torch.Tensor | None = None,
+    residual: torch.Tensor | None = None,
+    scale: torch.Tensor | None = None,
+    fuse_relu: bool = False,
+) -> torch.Tensor:
+    """x (M, K) @ vector-sparse W (K, N) -> (M, N) f32, epilogue fused.
+
+    CUDA tensors launch ``csrc/vsmm.cu`` on the current stream (built at
+    first use); CPU tensors run `vsmm_plain`.  ``bias``/``scale`` are (N,),
+    ``residual`` (M, N).  Any M works: the kernel masks the ragged tail.
+    """
+    if x.device.type == "cpu":
+        return vsmm_plain(x, vs, bias=bias, residual=residual, scale=scale,
+                          fuse_relu=fuse_relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"vsmm_kernel runs on cuda or cpu, not {x.device}")
+    m, k = x.shape
+    nb, s_steps, vk, vn = vs.vals.shape
+    n = nb * vn
+    if vs.shape != (k, n) or k % vk:
+        raise ValueError(f"x {tuple(x.shape)} does not match W {vs.shape} "
+                         f"with tiles ({vk}, {vn})")
+    if vn > MAX_VN:
+        raise ValueError(f"vsmm_kernel takes vn <= {MAX_VN}, got {vn}")
+    for name, t, shape in (("bias", bias, (n,)), ("scale", scale, (n,)),
+                           ("residual", residual, (m, n))):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} {tuple(t.shape)}, expected {shape}")
+    check_operands({"x": x, "vals": vs.vals, "idx": vs.idx, "bias": bias,
+                    "scale": scale, "residual": residual}, x.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.vsmm_launch(
+            _ptr(x), _ptr(vs.vals), _ptr(vs.idx), _ptr(scale), _ptr(bias),
+            _ptr(residual), _ptr(out), m, k, nb, s_steps, vk, vn,
+            int(fuse_relu), ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"vsmm kernel launch failed: CUDA error {err}")
+    vsmm_kernel.launches += 1
+    return out
+
+
+vsmm_kernel.launches = 0  # type: ignore[attr-defined]

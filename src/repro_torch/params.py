@@ -1,0 +1,64 @@
+"""The weights bridge: load the JAX package's weights into the port.
+
+Both sides then compute with the same numbers.  Nothing here imports the
+JAX package: the inputs are nested dicts of array-likes (numpy arrays, or
+anything `numpy.asarray` accepts), and a `sparsify` result's entries are
+read by attribute, so any object with the reference's `SparseConv` /
+`SparseFC` fields works.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.core.vector_sparse import VectorSparse
+from repro_torch.models.graph import SparseConv, SparseFC
+
+__all__ = ["params_from_numpy", "sparse_from_numpy"]
+
+
+def _tensor(a: Any, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree: dict, device: str | torch.device | None = None
+                      ) -> dict:
+    """A nested dict of arrays (the reference's ``init_params`` tree) ->
+    the same nesting of tensors on ``device`` (CUDA by default)."""
+    dev = resolve_device(device)
+
+    def walk(node: Any) -> Any:
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return _tensor(node, dev)
+
+    return walk(tree)
+
+
+def sparse_from_numpy(sparse: dict, device: str | torch.device | None = None
+                      ) -> dict:
+    """A reference `sparsify` result {name: SparseConv | SparseFC} -> the
+    port's entries on ``device`` (CUDA by default).  An entry with conv
+    geometry (``kh``) becomes a `SparseConv`, any other a `SparseFC`."""
+    dev = resolve_device(device)
+
+    def opt(a: Any) -> torch.Tensor | None:
+        return None if a is None else _tensor(a, dev)
+
+    out: dict = {}
+    for name, e in sparse.items():
+        vs = VectorSparse(vals=_tensor(e.vs.vals, dev),
+                          idx=_tensor(e.vs.idx, dev).to(torch.int32),
+                          shape=tuple(int(d) for d in e.vs.shape))
+        if hasattr(e, "kh"):
+            out[name] = SparseConv(
+                vs, kh=e.kh, kw=e.kw, stride=e.stride, groups=e.groups,
+                dilation=e.dilation, cin_pad=e.cin_pad, bias=opt(e.bias),
+                scale=opt(e.scale))
+        else:
+            out[name] = SparseFC(vs, dout=e.dout, bias=opt(e.bias),
+                                 scale=opt(e.scale))
+    return out

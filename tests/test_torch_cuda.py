@@ -1,0 +1,141 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
+where there is none (this decision is made inside the fixture, never at
+import time, so every worker collects the same tests).  Run on a machine
+with an H100:
+
+    PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
+
+Tolerance: relative 1e-5 of max|y|.  The kernels and the plain versions
+multiply the same f32 numbers; only the order of the f32 sums differs.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.vector_sparse import VectorSparse, from_mask
+from repro_torch.core.pruning import prune_vectors_balanced
+from repro_torch.kernels import ops
+from repro_torch.kernels.vsconv import (build_halo_input, vsconv_halo_kernel,
+                                        vsconv_plain)
+from repro_torch.kernels.vsmm import vsmm_kernel, vsmm_plain
+from repro_torch.models import graph as TG
+from repro_torch.models.layers import init_params
+
+pytestmark = pytest.mark.gpu
+
+RTOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+def _sparse(rng, k, n, vk, vn, density, device):
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    wp, mask = prune_vectors_balanced(w, density, vk, vn)
+    return from_mask(torch.as_tensor(wp, device=device), mask, vk, vn)
+
+
+def _relu_input(rng, shape, device):
+    """Post-ReLU-like activations, with whole zero runs so the input-side
+    skip fires."""
+    x = np.maximum(rng.standard_normal(shape), 0).astype(np.float32)
+    x[..., : shape[-1] // 4] = 0
+    return torch.as_tensor(x, device=device)
+
+
+@pytest.mark.parametrize("m,k,n,vk,vn,density", [
+    (37, 64, 20, 8, 10, 0.5),       # ragged M, vn = 10 (a 10-class head)
+    (300, 256, 256, 32, 128, 0.25),
+    (8, 512, 1024, 32, 128, 0.235),  # the 224 px FC head at batch 8
+])
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_vsmm_kernel_matches_plain(cuda, m, k, n, vk, vn, density,
+                                   epilogue):
+    rng = np.random.default_rng(m + k)
+    vs = _sparse(rng, k, n, vk, vn, density, cuda)
+    x = _relu_input(rng, (m, k), cuda)
+    kw = {}
+    if epilogue:
+        kw = dict(bias=torch.randn(n, device=cuda),
+                  residual=torch.randn(m, n, device=cuda), fuse_relu=True)
+    before = vsmm_kernel.launches
+    y = vsmm_kernel(x, vs, **kw)
+    torch.cuda.synchronize()
+    assert vsmm_kernel.launches == before + 1
+    assert _rel(y, vsmm_plain(x, vs, **kw)) <= RTOL
+
+
+@pytest.mark.parametrize("size,cin,cout,kh,stride,vk,vn", [
+    (32, 8, 64, 7, 2, 8, 64),     # the stem after cin padding 3 -> 8
+    (16, 64, 64, 3, 1, 32, 64),
+    (16, 64, 128, 3, 2, 32, 128),
+    (3, 128, 128, 3, 1, 32, 128),  # Hout < 4 (the reference's resident body)
+])
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_vsconv_kernel_matches_plain(cuda, size, cin, cout, kh, stride, vk,
+                                     vn, epilogue):
+    rng = np.random.default_rng(size + cin + kh)
+    vs = _sparse(rng, kh * kh * cin, cout, vk, vn, 0.5, cuda)
+    x = _relu_input(rng, (2, size, size, cin), cuda)
+    xh = build_halo_input(x, kh=kh, kw=kh, stride=stride, vk=vk)
+    ho = -(-size // stride)
+    kw = dict(w_out=ho, kh=kh, kw=kh, stride=stride)
+    if epilogue:
+        kw.update(bias=torch.randn(cout, device=cuda), fuse_relu=True,
+                  residual=torch.randn(2, ho, ho, cout, device=cuda))
+    before = vsconv_halo_kernel.launches
+    y = vsconv_halo_kernel(xh, vs, **kw)
+    torch.cuda.synchronize()
+    assert vsconv_halo_kernel.launches == before + 1
+    assert y.shape == (2, ho, ho, cout)
+    assert _rel(y, vsconv_plain(xh, vs, **kw)) <= RTOL
+
+
+def test_kernel_decodes_tiles_in_any_order(cuda):
+    """The conv kernel decodes each stored id as given: reversing every
+    strip's tile order changes nothing but the f32 summation order."""
+    rng = np.random.default_rng(5)
+    vs = _sparse(rng, 9 * 64, 64, 32, 64, 0.5, cuda)
+    rev = VectorSparse(vs.vals.flip(1).contiguous(),
+                       vs.idx.flip(1).contiguous(), vs.shape)
+    x = _relu_input(rng, (1, 12, 12, 64), cuda)
+    y = ops.vsconv(x, vs)
+    assert _rel(ops.vsconv(x, rev), y) <= RTOL
+
+
+def test_cuda_tensor_the_kernel_cannot_take_raises(cuda):
+    rng = np.random.default_rng(6)
+    vs = _sparse(rng, 64, 256, 32, 256, 0.5, cuda)  # vn 256 > 128
+    with pytest.raises(ValueError, match="vn <= 128"):
+        vsmm_kernel(torch.ones(4, 64, device=cuda), vs)
+    with pytest.raises(ValueError, match="contiguous"):
+        vsmm_kernel(torch.ones(64, 4, device=cuda).t(),
+                    _sparse(rng, 64, 64, 32, 64, 0.5, cuda))
+
+
+def test_resnet18_kernels_match_plain(cuda):
+    """ResNet-18 at 32 px: the kernel path (17 halo convs, 3 projections +
+    the head through vsmm) agrees with the plain path on the card."""
+    net = TG.build_resnet18(10)
+    params = init_params(net.schema(), 0, device=cuda)
+    sparse, _ = TG.sparsify(net, params, 0.5)
+    x = torch.randn(2, 32, 32, 3, device=cuda)
+    vsmm_kernel.launches = vsconv_halo_kernel.launches = 0
+    y = TG.net_apply(net, params, x, sparse=sparse, impl="auto")
+    assert (vsconv_halo_kernel.launches, vsmm_kernel.launches) == (17, 4)
+    y_plain = TG.net_apply(net, params, x, sparse=sparse, impl="plain")
+    assert y.shape == (2, 10)
+    assert _rel(y, y_plain) <= RTOL
