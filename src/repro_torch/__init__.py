@@ -7,7 +7,8 @@ to find:
                 structural sparse ops and their kernel dispatch
 - `kernels`  -- the CUDA C++ kernels (`csrc/`), their ctypes wrappers,
                 plain PyTorch versions and dense oracles
-- `models`   -- the network IR, `sparsify`, `net_apply`, ResNet-18
+- `models`   -- the network IR, `sparsify`, `net_apply`, ResNet-18,
+                MobileNetV1
 - `configs`  -- the registered CNN configurations
 - `launch`   -- the lockstep scheduler and the CNN server
 - `params`   -- the bridge that loads `repro`'s numpy weights

@@ -1,17 +1,18 @@
 """Architecture registry of the port: the CNN configs it can serve.
 
-Holds only ResNet-18 in this slice; VGG-16, ResNet-34/50 and MobileNetV1
-join as their slices land.
+Holds ResNet-18 and MobileNetV1; VGG-16 and ResNet-34/50 join as their
+slices land.
 """
 from __future__ import annotations
 
 from typing import Any
 
-from . import vscnn_resnet18
+from . import vscnn_mobilenet_v1, vscnn_resnet18
 
 __all__ = ["CNN_REGISTRY", "get_config", "list_cnn_archs"]
 
-CNN_REGISTRY = {m.CONFIG.name: m.CONFIG for m in [vscnn_resnet18]}
+CNN_REGISTRY = {m.CONFIG.name: m.CONFIG for m in [vscnn_resnet18,
+                                                 vscnn_mobilenet_v1]}
 
 
 def get_config(name: str) -> Any:

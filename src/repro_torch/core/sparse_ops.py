@@ -11,8 +11,10 @@ impl (the reference's words):
                               for convs the halo direct-input layout.  On a
                               CPU tensor a kernel wrapper runs its plain
                               version instead
-  'pallas-stack'           -- the row-tap stack layout: a later slice
-  'auto'                   -- the kernels for CUDA tensors, plain otherwise
+  'pallas-stack'           -- the same kernels, convs over the materialized
+                              row-tap stack layout (the oracle/fallback)
+  'auto'                   -- the kernels (halo) for CUDA tensors, plain
+                              otherwise
 """
 from __future__ import annotations
 
@@ -20,11 +22,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.vector_sparse import VectorSparse
-from repro_torch.kernels.vsmm import vsmm_plain
+from repro_torch.kernels.vsmm import _epilogue, vsmm_plain
 
 __all__ = [
     "same_pads", "im2col", "tap_patches", "vs_matmul", "vs_conv2d",
-    "dense_conv2d", "conv_weight_to_matrix",
+    "dense_conv2d", "conv_weight_to_matrix", "is_depthwise", "patch_conv",
+    "tap_matrix_width",
 ]
 
 
@@ -47,22 +50,23 @@ def same_pads(size: int, k: int, stride: int,
 def _use_kernel(impl: str, x: torch.Tensor) -> bool:
     if impl in ("plain", "jnp"):
         return False
-    if impl in ("pallas", "pallas-halo"):
+    if impl in ("pallas", "pallas-halo", "pallas-stack"):
         return True
-    if impl == "pallas-stack":
-        raise NotImplementedError(
-            "impl='pallas-stack' (the row-tap stack layout) is ported in a "
-            "later slice; use 'pallas' (halo) or 'plain'")
     if impl == "auto":
         return x.is_cuda
     raise ValueError(f"unknown impl {impl!r}")
 
 
-def _require_ungrouped(groups: int) -> None:
-    if groups != 1:
-        raise NotImplementedError(
-            "grouped and depthwise vector-sparse convs are ported in a later "
-            "slice (MobileNetV1); this slice runs groups == 1")
+def _conv_impl(impl: str) -> str:
+    """The conv kernels' input layout for a public impl string."""
+    return "stack" if impl == "pallas-stack" else "halo"
+
+
+def is_depthwise(groups: int, c: int, vs: VectorSparse, kh: int,
+                 kw: int) -> bool:
+    """Multiplier-1 depthwise: groups == C and the (kh*kw, C) tap matrix.
+    A channel-multiplier conv (cout > cin) takes the grouped path."""
+    return groups > 1 and groups == c and vs.shape == (kh * kw, c)
 
 
 def vs_matmul(
@@ -124,6 +128,92 @@ def im2col(x: torch.Tensor, *, kh: int = 3, kw: int = 3, stride: int = 1,
                        h_out=ho, w_out=wo)
 
 
+def tap_matrix_width(vs: VectorSparse, taps: int, c: int) -> int:
+    """vc of a depthwise (taps, C) tap matrix encoded vk = 1 whose strips
+    are the C / vc channel tiles; raises where the weight does not match."""
+    nb, _, vk, vc = vs.vals.shape
+    if vk != 1 or vs.shape != (taps, c) or nb * vc != c:
+        raise ValueError(f"tap matrix {vs.shape} (tiles {vk}x{vc}, {nb} "
+                         f"strips) does not match {taps} taps x {c} "
+                         f"channels")
+    return vc
+
+
+def _grouped_patch_matmul(flat: torch.Tensor, vs: VectorSparse, *,
+                          taps: int, groups: int) -> torch.Tensor:
+    """(M, taps*C) @ the (taps*C/groups, Cout) weight -> (M, Cout) f32:
+    one `vsmm_plain` per group over its channel slice."""
+    m = flat.shape[0]
+    c = flat.shape[1] // taps
+    cin_g = c // groups
+    nb = vs.n_strips
+    if c % groups or nb % groups or vs.shape[0] != taps * cin_g:
+        raise ValueError(f"weight {vs.shape} ({nb} strips) does not match "
+                         f"{taps} taps x {c} channels in {groups} groups")
+    spg = nb // groups
+    pg = flat.reshape(m, taps, groups, cin_g)
+    outs = []
+    for g in range(groups):
+        sub = VectorSparse(vals=vs.vals[g * spg:(g + 1) * spg],
+                           idx=vs.idx[g * spg:(g + 1) * spg],
+                           shape=(taps * cin_g, spg * vs.vn))
+        outs.append(vsmm_plain(
+            pg[:, :, g].reshape(m, taps * cin_g).float(), sub))
+    return torch.cat(outs, dim=-1)
+
+
+def _depthwise_tap_mac(flat: torch.Tensor, vs: VectorSparse, *,
+                       taps: int) -> torch.Tensor:
+    """(M, taps*C) through the (taps, C) tap matrix -> (M, C) f32, step by
+    step: step s multiplies each channel tile j's input at tap idx[j, s]
+    elementwise by its stored tap vector."""
+    m = flat.shape[0]
+    c = flat.shape[1] // taps
+    vc = tap_matrix_width(vs, taps, c)
+    nb, s_steps = vs.idx.shape
+    p4 = flat.float().reshape(m, taps, nb, vc)
+    idx = vs.idx.long()
+    strips = torch.arange(nb, device=flat.device)
+    vals = vs.vals.float()
+    acc = torch.zeros((m, nb, vc), dtype=torch.float32, device=flat.device)
+    for s in range(s_steps):
+        acc += p4[:, idx[:, s], strips] * vals[:, s, 0]
+    return acc.reshape(m, c)
+
+
+def patch_conv(patches: torch.Tensor, vs: VectorSparse, *, taps: int,
+               groups: int = 1, depthwise: bool = False,
+               bias: torch.Tensor | None = None,
+               residual: torch.Tensor | None = None,
+               scale: torch.Tensor | None = None,
+               fuse_relu: bool = False) -> torch.Tensor:
+    """(N, H, W, taps*C) patches in (tap, c) order through the sparse conv
+    weight, epilogue after -> (N, H, W, Cout) f32.  The structural product
+    every plain conv path shares; only the stored tiles are multiplied:
+
+    * ungrouped: `vsmm_plain` over the (taps*C, Cout) matrix;
+    * grouped: strips are group-major (strip j belongs to group
+      j // (NB/groups)) and their K-tiles index that group's channels, so
+      each group is one `vsmm_plain` over its channel slice;
+    * ``depthwise`` (groups == C, multiplier 1): the (taps, C) tap matrix
+      encoded vk = 1 over vc-channel strips, ``idx[j, s]`` the bare tap id;
+      step s scales each channel tile's input at its tap elementwise.
+    """
+    n, h, w, k = patches.shape
+    flat = patches.reshape(-1, k)
+    cout = vs.shape[1]
+    res2 = None if residual is None else residual.reshape(-1, cout)
+    if groups == 1:
+        y = vsmm_plain(flat, vs, bias=bias, residual=res2, scale=scale,
+                       fuse_relu=fuse_relu)
+    else:
+        y = (_depthwise_tap_mac(flat, vs, taps=taps) if depthwise
+             else _grouped_patch_matmul(flat, vs, taps=taps, groups=groups))
+        y = _epilogue(y, bias=bias, residual=res2, scale=scale,
+                      fuse_relu=fuse_relu)
+    return y.reshape(n, h, w, cout)
+
+
 def vs_conv2d(
     x: torch.Tensor,
     w_vs: VectorSparse,
@@ -143,24 +233,30 @@ def vs_conv2d(
 
     Weight matrix layout: (kh*kw*Cin, Cout) with K ordered (ky, kx, cin).
     A 1x1 conv is the sparse matmul over pixels (stride subsamples first).
-    ``bias``, ``residual`` (the output-shaped ResNet shortcut, added before
-    the ReLU) and ``fuse_relu`` form the epilogue.  Only ``groups == 1``
-    runs in this slice.
+    Grouped convs take the (kh*kw*Cin/groups, Cout) matrix with strips
+    group-major; depthwise (groups == Cin, multiplier 1) the (kh*kw, C) tap
+    matrix encoded vk = 1 over vn-channel tiles.  ``bias``, ``residual``
+    (the output-shaped ResNet shortcut, added before the ReLU) and
+    ``fuse_relu`` form the epilogue.  ``impl="pallas"``/``"pallas-halo"``
+    runs the kernels over the halo layout, ``"pallas-stack"`` over the
+    row-tap stack.
     """
-    _require_ungrouped(groups)
     if _use_kernel(impl, x):
         from repro_torch.kernels import ops as kops  # lazy: import cycle
 
         return kops.vsconv(
             x, w_vs, kh=kh, kw=kw, stride=stride, groups=groups,
             dilation=dilation, bias=bias, residual=residual, scale=scale,
-            fuse_relu=fuse_relu)
+            fuse_relu=fuse_relu, impl=_conv_impl(impl))
     if kh == 1 and kw == 1:
         patches = x[:, ::stride, ::stride] if stride != 1 else x
     else:
         patches = im2col(x, kh=kh, kw=kw, stride=stride, dilation=dilation)
-    return vs_matmul(patches, w_vs, bias=bias, residual=residual,
-                     scale=scale, fuse_relu=fuse_relu, impl="plain")
+    y = patch_conv(patches, w_vs, taps=kh * kw, groups=groups,
+                   depthwise=is_depthwise(groups, x.shape[-1], w_vs, kh, kw),
+                   bias=bias, residual=residual, scale=scale,
+                   fuse_relu=fuse_relu)
+    return y.to(x.dtype)
 
 
 def dense_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,

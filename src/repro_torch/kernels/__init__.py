@@ -2,9 +2,14 @@
 
 - `vsmm`    -- vector-sparse matmul: ``csrc/vsmm.cu``, its ctypes wrapper
                `vsmm_kernel`, the plain version `vsmm_plain`
-- `vsconv`  -- direct vector-sparse conv over the halo layout:
-               ``csrc/vsconv.cu``, `vsconv_halo_kernel`, `vsconv_plain`
-- `ops`     -- public wrappers (layout prep, 1x1 routing)
+- `vsconv`  -- direct vector-sparse (grouped) conv over the halo and the
+               row-tap stack layouts: ``csrc/vsconv.cu``,
+               `vsconv_halo_kernel` / `vsconv_plain`,
+               `vsconv_stack_kernel` / `vsconv_stack_plain`
+- `vsconv_dw` -- depthwise conv over both layouts: ``csrc/vsconv_dw.cu``,
+               `vsconv_dw_halo_kernel` / `vsconv_dw_plain`,
+               `vsconv_dw_stack_kernel` / `vsconv_dw_stack_plain`
+- `ops`     -- public wrappers (layout prep, 1x1 / depthwise routing)
 - `ref`     -- dense oracles
 - `_build`  -- nvcc at first use into the git-ignored ``build/``
 

@@ -10,7 +10,8 @@ The library name carries a hash of the sources and flags, so an edited
 kernel is rebuilt and a stale one is never loaded.  ``build/`` lies beside
 this file and is git-ignored.  `build` starts one nvcc per source, all
 together, and waits for them; each result is renamed into place, so two
-processes building at once cannot load a half-written library.
+processes building at once cannot load a half-written library.  `launch`
+calls a library's extern "C" launch entry on the current stream.
 """
 from __future__ import annotations
 
@@ -20,8 +21,12 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Sequence
 
-__all__ = ["CSRC", "BUILD", "NVCC_FLAGS", "build", "load", "library_path"]
+import torch
+
+__all__ = ["CSRC", "BUILD", "NVCC_FLAGS", "build", "load", "library_path",
+           "launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
@@ -89,3 +94,24 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+def launch(name: str, fn: str, tensors: Sequence[torch.Tensor | None],
+           ints: Sequence[int], device: torch.device) -> None:
+    """Call the extern "C" launch entry ``fn`` of ``csrc/<name>.cu`` (built
+    at first use) with the tensors' pointers (None -> null), the ints and
+    the current stream of ``device``; raise on a CUDA error.  The caller
+    has checked every shape, dtype, device and bound the kernel relies
+    on."""
+    entry = getattr(load(name), fn)
+    if entry.argtypes is None:
+        entry.argtypes = ([ctypes.c_void_p] * len(tensors)
+                          + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+        entry.restype = ctypes.c_int
+    ptrs = [ctypes.c_void_p(None if t is None else t.data_ptr())
+            for t in tensors]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = entry(*ptrs, *ints, ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"{fn}: kernel launch failed: CUDA error {err}")

@@ -1,35 +1,111 @@
-// vsconv_halo: direct vector-sparse SAME convolution, hand-written for
-// Hopper (sm_90a).
+// vsconv: direct vector-sparse SAME convolution over two input layouts,
+// hand-written for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel kernels/vsconv.py::vsconv_halo_pallas of
-// the JAX package, both of its bodies (`_halo_kernel`, streaming, and
-// `_halo_resident_kernel`, picked by `use_resident_halo`): the resident
-// body is a TPU DMA choice and needs no second kernel here.
+//   vsconv_halo_kernel  replaces kernels/vsconv.py::vsconv_halo_pallas of
+//                       the JAX package, both of its bodies (`_halo_kernel`,
+//                       streaming, and `_halo_resident_kernel`, picked by
+//                       `use_resident_halo`): the resident body is a TPU DMA
+//                       choice and needs no second kernel here.
+//   vsconv_stack_kernel replaces kernels/vsconv.py::vsconv_pallas (body
+//                       `_kernel`), the conv over the row-tap stack.
 //
-//   out (N, Hout, Wout, NB*vn) = conv of xh with a balanced block-CSR
-//   weight (kh*kw*CB*vk, Cout): stored tiles vals (NB, S, vk, vn), K-tile
-//   ids idx (NB, S); then x scale, + bias, + residual, ReLU.
+//   out (N, Hout, Wout, NB*vn) = conv of the input with a balanced
+//   block-CSR weight (kh*kw*CBg*vk, Cout): stored tiles vals (NB, S, vk,
+//   vn), K-tile ids idx (NB, S); then x scale, + bias, + residual, ReLU.
 //
-// xh is `build_halo_input`'s buffer: the SAME-padded NHWC input, shape
-// (N, rows, bW, CB, vk).  One block per (tile of kRows flattened output
-// pixels over N*Hout*Wout, output strip j).  Step s decodes
-// t = idx[j, s] into tap (ky, kx) = divmod(t / CB, kw) and cin tile
-// t % CB, and output pixel (i, jj) reads padded pixel
-// (ky*d + stride*i, kx*d + stride*jj): the tap is resolved in the kernel,
-// no tap-shifted copy of the input exists.  Each pixel's base offset is
-// computed once per block.  The ids are decoded as given, in stored
+// Grouped convs: CBg = CB / groups cin tiles per group, spg = NB / groups
+// strips per group (strips group-major).  A stored id t is relative to its
+// strip's group: tap = t / CBg, cin tile = (j / spg) * CBg + t % CBg, as in
+// the reference's `halo_in_index_map` / `stack_in_index_map`.  groups == 1
+// gives CBg = CB, spg = NB and a group base of 0.
+//
+// One block per (tile of kRows flattened output pixels over N*Hout*Wout,
+// output strip j).  Step s decodes t = idx[j, s] into tap (ky, kx) and cin
+// tile; the two layouts differ only in where that tap's activation sits:
+//
+//   halo  xh (N, rows, bW, CB, vk), `build_halo_input`'s SAME-padded NHWC
+//         input: output pixel (i, jj) reads padded pixel
+//         (ky*d + stride*i, kx*d + stride*jj) — the tap is resolved in the
+//         kernel, no tap-shifted copy of the input exists;
+//   stack xt (N, kh*stride, Hout, bW, C), `build_row_tap_stack`'s planes:
+//         output pixel (i, jj) reads plane ky*stride + (kx*d) % stride,
+//         row i, column jj + (kx*d) / stride.
+//
+// Each pixel's base offset is computed once per block, each step's tap
+// offset once per step.  The ids are decoded as given, in stored
 // (cin-major) order.  Zero-skip and epilogue are those of vsmm
 // (vs_tile.cuh), the residual being the output-shaped ResNet shortcut.
 //
 // What bounds it on an H100: fp32 FMAs on the CUDA cores (no tensor cores:
 // TF32 would break the 1e-5 agreement with the f32 reference) and the
-// bytes of the padded input, the stored tiles, the output and the
-// residual.  This first version reads each tap's activation tile from L2
-// per step; a shared-memory halo window reused across the taps of a cin
-// tile, TMA and wgmma are for later work.
+// bytes of the input, the stored tiles, the output and the residual.  The
+// stack layout adds kh*stride output-sized planes written before the
+// kernel (the reference keeps it as the oracle and fallback).  This first
+// version reads each tap's activation tile from L2 per step; a
+// shared-memory halo window reused across the taps of a cin tile, TMA and
+// wgmma are for later work.
 #include "vs_tile.cuh"
 
 namespace {
+
+// Decodes a stored id t into its tap (ky, kx) and cin tile ct.  `t` is
+// group-relative; `group_base` is the strip's first cin tile.
+struct TapDecode {
+  int cbg, kw;
+  __device__ __forceinline__ void operator()(int t, int group_base, int& ky,
+                                             int& kx, int& ct) const {
+    const int tap = t / cbg;
+    ct = group_base + (t - tap * cbg);
+    ky = tap / kw;
+    kx = tap - ky * kw;
+  }
+};
+
+// Writes pix[r] = base(img, i, jj) for the block's rows r < rows_valid.
+template <class Base>
+__device__ __forceinline__ void pixel_bases(long long* pix, long long p0,
+                                            int rows_valid, int h_out,
+                                            int w_out, Base base) {
+  if (threadIdx.x < vs::kRows) {
+    long long b = 0;
+    if (static_cast<int>(threadIdx.x) < rows_valid) {
+      const long long p = p0 + threadIdx.x;
+      const long long hw = static_cast<long long>(h_out) * w_out;
+      const long long img = p / hw;
+      const long long rem = p - img * hw;
+      const long long i = rem / w_out;
+      b = base(img, i, rem - i * w_out);
+    }
+    pix[threadIdx.x] = b;
+  }
+}
+
+// acc += the strip's S stored tiles against the activations they select:
+// `step_offset(t)` is the offset of id t's activation tile from a pixel's
+// base.
+template <class StepOffset>
+__device__ __forceinline__ void conv_steps(
+    float (&acc)[vs::kRowsPerThread][vs::kColsPerThread],
+    const float* __restrict__ x, const float* __restrict__ vals,
+    const int* __restrict__ idx, const long long* pix, int rows_valid, int j,
+    int s_steps, int vk, int vn, float* ws, float* xs,
+    StepOffset step_offset) {
+  for (int s = 0; s < s_steps; ++s) {
+    const long long tile = static_cast<long long>(j) * s_steps + s;
+    const long long off = step_offset(idx[tile]);
+    __syncthreads();  // pix is written; the previous MAC is done with smem
+    vs::load_weight_tile(ws, vals, tile, vk, vn);
+    int nonzero = 0;
+    for (int e = threadIdx.x; e < vs::kRows * vk; e += vs::kThreads) {
+      const int r = e / vk;
+      const int ch = e - r * vk;
+      const float v = r < rows_valid ? x[pix[r] + off + ch] : 0.f;
+      xs[e] = v;
+      nonzero |= v != 0.f;
+    }
+    if (__syncthreads_or(nonzero)) vs::mac_tile(acc, xs, ws, vk, vn);
+  }
+}
 
 __global__ void __launch_bounds__(vs::kThreads) vsconv_halo_kernel(
     const float* __restrict__ xh, const float* __restrict__ vals,
@@ -37,82 +113,114 @@ __global__ void __launch_bounds__(vs::kThreads) vsconv_halo_kernel(
     const float* __restrict__ bias, const float* __restrict__ residual,
     float* __restrict__ out, int n_img, int rows, int bw, int cb, int h_out,
     int w_out, int kw, int stride, int dilation, int nb, int s_steps, int vk,
-    int vn, int relu) {
+    int vn, int cbg, int spg, int relu) {
   extern __shared__ float smem[];
   __shared__ long long pix[vs::kRows];  // padded-input offset of each pixel
-  float* ws = smem;                     // vk * vn
-  float* xs = smem + vk * vn;           // kRows * vk
   const int j = blockIdx.y;
   const long long c = static_cast<long long>(cb) * vk;  // channels
   const long long p_total = static_cast<long long>(n_img) * h_out * w_out;
   const long long p0 = static_cast<long long>(blockIdx.x) * vs::kRows;
   const int rows_valid =
       static_cast<int>(min(static_cast<long long>(vs::kRows), p_total - p0));
-
-  if (threadIdx.x < vs::kRows) {
-    long long base = 0;
-    if (static_cast<int>(threadIdx.x) < rows_valid) {
-      const long long p = p0 + threadIdx.x;
-      const long long hw = static_cast<long long>(h_out) * w_out;
-      const long long img = p / hw;
-      const long long rem = p - img * hw;
-      const long long i = rem / w_out;
-      const long long jj = rem - i * w_out;
-      base = ((img * rows + stride * i) * bw + stride * jj) * c;
-    }
-    pix[threadIdx.x] = base;
-  }
-
+  pixel_bases(pix, p0, rows_valid, h_out, w_out,
+              [=](long long img, long long i, long long jj) {
+                return ((img * rows + stride * i) * bw + stride * jj) * c;
+              });
+  const TapDecode dec{cbg, kw};
+  const int group_base = (j / spg) * cbg;
   float acc[vs::kRowsPerThread][vs::kColsPerThread] = {};
-  for (int s = 0; s < s_steps; ++s) {
-    const long long tile = static_cast<long long>(j) * s_steps + s;
-    const int t = idx[tile];
-    const int tap = t / cb;
-    const int ct = t - tap * cb;
-    const int ky = tap / kw;
-    const int kx = tap - ky * kw;
-    const long long off =
-        (static_cast<long long>(ky) * dilation * bw +
-         static_cast<long long>(kx) * dilation) * c +
-        static_cast<long long>(ct) * vk;
-    __syncthreads();  // pix is written; the previous MAC is done with smem
-    vs::load_weight_tile(ws, vals, tile, vk, vn);
-    int nonzero = 0;
-    for (int e = threadIdx.x; e < vs::kRows * vk; e += vs::kThreads) {
-      const int r = e / vk;
-      const int ch = e - r * vk;
-      const float v = r < rows_valid ? xh[pix[r] + off + ch] : 0.f;
-      xs[e] = v;
-      nonzero |= v != 0.f;
-    }
-    if (__syncthreads_or(nonzero)) vs::mac_tile(acc, xs, ws, vk, vn);
-  }
+  conv_steps(acc, xh, vals, idx, pix, rows_valid, j, s_steps, vk, vn, smem,
+             smem + vk * vn, [=](int t) {
+               int ky, kx, ct;
+               dec(t, group_base, ky, kx, ct);
+               return (static_cast<long long>(ky) * dilation * bw +
+                       static_cast<long long>(kx) * dilation) * c +
+                      static_cast<long long>(ct) * vk;
+             });
   vs::epilogue(acc, out, p0, rows_valid, nb * vn, j * vn, vn, scale, bias,
                residual, relu);
 }
 
-}  // namespace
+__global__ void __launch_bounds__(vs::kThreads) vsconv_stack_kernel(
+    const float* __restrict__ xt, const float* __restrict__ vals,
+    const int* __restrict__ idx, const float* __restrict__ scale,
+    const float* __restrict__ bias, const float* __restrict__ residual,
+    float* __restrict__ out, int n_img, int planes, int bw, int cb,
+    int h_out, int w_out, int kw, int stride, int dilation, int nb,
+    int s_steps, int vk, int vn, int cbg, int spg, int relu) {
+  extern __shared__ float smem[];
+  __shared__ long long pix[vs::kRows];  // stack offset of each pixel
+  const int j = blockIdx.y;
+  const long long c = static_cast<long long>(cb) * vk;  // channels
+  const long long p_total = static_cast<long long>(n_img) * h_out * w_out;
+  const long long p0 = static_cast<long long>(blockIdx.x) * vs::kRows;
+  const int rows_valid =
+      static_cast<int>(min(static_cast<long long>(vs::kRows), p_total - p0));
+  pixel_bases(pix, p0, rows_valid, h_out, w_out,
+              [=](long long img, long long i, long long jj) {
+                return ((img * planes * h_out + i) * bw + jj) * c;
+              });
+  const TapDecode dec{cbg, kw};
+  const int group_base = (j / spg) * cbg;
+  float acc[vs::kRowsPerThread][vs::kColsPerThread] = {};
+  conv_steps(acc, xt, vals, idx, pix, rows_valid, j, s_steps, vk, vn, smem,
+             smem + vk * vn, [=](int t) {
+               int ky, kx, ct;
+               dec(t, group_base, ky, kx, ct);
+               const int plane = ky * stride + (kx * dilation) % stride;
+               const int col = (kx * dilation) / stride;
+               return (static_cast<long long>(plane) * h_out * bw + col) * c +
+                      static_cast<long long>(ct) * vk;
+             });
+  vs::epilogue(acc, out, p0, rows_valid, nb * vn, j * vn, vn, scale, bias,
+               residual, relu);
+}
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).  Any of
-// scale, bias and residual may be null.  The caller has checked shapes,
-// dtypes, contiguity, vn <= 128 and that every tap stays inside xh.
-extern "C" int vsconv_halo_launch(
-    const float* xh, const float* vals, const int* idx, const float* scale,
-    const float* bias, const float* residual, float* out, int n_img, int rows,
-    int bw, int cb, int h_out, int w_out, int kw, int stride, int dilation,
-    int nb, int s_steps, int vk, int vn, int relu, void* stream) {
+template <class Kernel>
+int launch(Kernel kernel, int n_img, int h_out, int w_out, int nb, int vk,
+           int vn, void* stream, const float* x, const float* vals,
+           const int* idx, const float* scale, const float* bias,
+           const float* residual, float* out, int d0, int bw, int cb, int kw,
+           int stride, int dilation, int s_steps, int cbg, int spg,
+           int relu) {
   const size_t smem = vs::tile_smem_bytes(vk, vn);
   if (smem > 48 * 1024 - vs::kRows * sizeof(long long)) {
-    cudaFuncSetAttribute(vsconv_halo_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
   }
   const long long p_total = static_cast<long long>(n_img) * h_out * w_out;
   const dim3 grid(static_cast<unsigned>((p_total + vs::kRows - 1) / vs::kRows),
                   nb);
-  vsconv_halo_kernel<<<grid, vs::kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      xh, vals, idx, scale, bias, residual, out, n_img, rows, bw, cb, h_out,
-      w_out, kw, stride, dilation, nb, s_steps, vk, vn, relu);
+  kernel<<<grid, vs::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, vals, idx, scale, bias, residual, out, n_img, d0, bw, cb, h_out,
+      w_out, kw, stride, dilation, nb, s_steps, vk, vn, cbg, spg, relu);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launch on `stream`; each returns cudaGetLastError() (0 on success).  Any
+// of scale, bias and residual may be null.  The caller has checked shapes,
+// dtypes, contiguity, vn <= 128, the group split and that every tap stays
+// inside the input buffer.
+extern "C" int vsconv_halo_launch(
+    const float* xh, const float* vals, const int* idx, const float* scale,
+    const float* bias, const float* residual, float* out, int n_img, int rows,
+    int bw, int cb, int h_out, int w_out, int kw, int stride, int dilation,
+    int nb, int s_steps, int vk, int vn, int cbg, int spg, int relu,
+    void* stream) {
+  return launch(vsconv_halo_kernel, n_img, h_out, w_out, nb, vk, vn, stream,
+                xh, vals, idx, scale, bias, residual, out, rows, bw, cb, kw,
+                stride, dilation, s_steps, cbg, spg, relu);
+}
+
+extern "C" int vsconv_stack_launch(
+    const float* xt, const float* vals, const int* idx, const float* scale,
+    const float* bias, const float* residual, float* out, int n_img,
+    int planes, int bw, int cb, int h_out, int w_out, int kw, int stride,
+    int dilation, int nb, int s_steps, int vk, int vn, int cbg, int spg,
+    int relu, void* stream) {
+  return launch(vsconv_stack_kernel, n_img, h_out, w_out, nb, vk, vn, stream,
+                xt, vals, idx, scale, bias, residual, out, planes, bw, cb, kw,
+                stride, dilation, s_steps, cbg, spg, relu);
 }

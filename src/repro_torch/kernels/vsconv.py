@@ -1,41 +1,57 @@
-"""vsconv — the direct vector-sparse convolution over the halo layout.
+"""vsconv — the direct vector-sparse convolution over two input layouts.
 
-The kernel (``csrc/vsconv.cu``) replaces the JAX package's Pallas kernel
-`repro/kernels/vsconv.py::vsconv_halo_pallas`, both of its bodies (streaming
-and resident).  It reads `build_halo_input`'s SAME-padded NHWC buffer
-directly and resolves each stored tile's tap (ky, kx) and cin tile from
-its id inside the kernel, so no tap-shifted copy of the input is ever
-made.  A conv weight (kh*kw*Cin, Cout) has K-tile ids
-``t = (ky*kw + kx) * cb + cin_tile`` with ``cb = Cin // vk``.
+The kernels (``csrc/vsconv.cu``) replace the JAX package's Pallas kernels
 
-`vsconv_halo_kernel` is the wrapper: it launches the kernel for CUDA
-tensors and runs `vsconv_plain` for CPU tensors; a CUDA tensor the kernel
-does not take raises.  ``vsconv_halo_kernel.launches`` counts launches.
+* `repro/kernels/vsconv.py::vsconv_halo_pallas`, both of its bodies
+  (streaming and resident), by ``vsconv_halo_kernel``: it reads
+  `build_halo_input`'s SAME-padded NHWC buffer directly and resolves each
+  stored tile's tap (ky, kx) and cin tile from its id inside the kernel,
+  so no tap-shifted copy of the input is ever made;
+* `repro/kernels/vsconv.py::vsconv_pallas` by ``vsconv_stack_kernel``: the
+  same conv over `build_row_tap_stack`'s materialized kh*stride planes
+  (the reference's oracle and fallback layout), where tap (ky, kx) reads
+  plane ``ky*stride + (kx*d) % stride`` at column offset
+  ``(kx*d) // stride``.
 
-The layout helpers (`halo_layout_dims`, `build_halo_input`) are kept
-byte-for-byte with the reference.  `halo_kernel_cost`, `use_resident_halo`
-and `RESIDENT_MAX_H` are the reference TPU kernel's cost model (its
-per-row-block halo DMAs and its resident layout), copied so that cost
-tooling can compare against it; they do not describe the CUDA kernel,
-which needs no row-block padding of Hout (a TPU block constraint) and no
+A conv weight (kh*kw*Cin/groups, Cout) has K-tile ids
+``t = (ky*kw + kx) * cbg + cin_tile`` with ``cbg = Cin // (groups*vk)``
+cin tiles per group; strips are group-major, so strip j reads the cin
+tiles of group ``j // (NB/groups)`` (the group base ``(j // spg) * cbg``
+is added in the kernel).
+
+`vsconv_halo_kernel` and `vsconv_stack_kernel` are the wrappers: each
+launches its kernel for CUDA tensors and runs its plain version
+(`vsconv_plain`, `vsconv_stack_plain`) for CPU tensors; a CUDA tensor the
+kernel does not take raises.  Their ``launches`` attributes count
+launches.
+
+The layout helpers (`halo_layout_dims`, `build_halo_input`,
+`stack_layout_dims`, `build_row_tap_stack`) are kept byte-for-byte with
+the reference.  `halo_kernel_cost`, `stack_kernel_cost`,
+`use_resident_halo` and `RESIDENT_MAX_H` are the reference TPU kernels'
+cost model (per-row-block DMAs, the resident layout), copied so that cost
+tooling can compare against it; they do not describe the CUDA kernels,
+which need no row-block padding of Hout (a TPU block constraint) and no
 second body for tiny feature maps (a TPU DMA choice).
 """
 from __future__ import annotations
 
-import ctypes
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.sparse_ops import same_pads, tap_patches
+from repro_torch.core.sparse_ops import patch_conv, same_pads, tap_patches
 from repro_torch.core.vector_sparse import VectorSparse
-from repro_torch.kernels import _build
-from repro_torch.kernels.vsmm import MAX_VN, _ptr, check_operands, vsmm_plain
+from repro_torch.kernels._build import launch
+from repro_torch.kernels.vsmm import MAX_VN, check_epilogue, check_operands
 
 __all__ = [
-    "vsconv_halo_kernel", "vsconv_plain", "build_halo_input",
-    "halo_layout_dims", "halo_kernel_cost", "use_resident_halo",
-    "RESIDENT_MAX_H",
+    "vsconv_halo_kernel", "vsconv_plain", "vsconv_stack_kernel",
+    "vsconv_stack_plain", "build_halo_input", "halo_layout_dims",
+    "build_row_tap_stack", "stack_layout_dims", "stack_patches",
+    "halo_kernel_cost", "stack_kernel_cost", "use_resident_halo",
+    "RESIDENT_MAX_H", "halo_h_out", "stack_h_out",
 ]
 
 # Below this output height the reference's halo kernel switches to its
@@ -47,6 +63,27 @@ def use_resident_halo(h_out: int, groups: int) -> bool:
     """True when the reference TPU kernel runs its tiny-feature-map
     resident layout (the CUDA kernel has one body for every Hout)."""
     return h_out < RESIDENT_MAX_H and groups == 1
+
+
+def stack_kernel_cost(
+    *, n: int, hop: int, w_out: int, bw: int, bh: int, nb: int, s_steps: int,
+    vk: int, vn: int, in_itemsize: int = 4, w_itemsize: int = 4,
+    out_itemsize: int = 4, residual_bytes: int = 0,
+) -> dict[str, int]:
+    """TPU cost model of the reference's stack kernel (not the CUDA
+    kernel's cost; the stack build is not counted): every sparse step
+    changes the (plane, cin-tile) block, so a (bh, bw, vk) input block is
+    fetched on each of the NB*S steps per row-block."""
+    hb = hop // bh
+    return {
+        "flops": 2 * n * hop * w_out * nb * s_steps * vk * vn,
+        "bytes_accessed": (
+            n * hb * nb * s_steps * bh * bw * vk * in_itemsize
+            + nb * s_steps * vk * vn * w_itemsize
+            + n * hop * w_out * nb * vn * out_itemsize
+            + residual_bytes
+        ),
+    }
 
 
 def halo_kernel_cost(
@@ -119,24 +156,113 @@ def build_halo_input(
     return xp.contiguous().reshape(n, rows, bw, c // vk, vk)
 
 
-def _halo_geometry(xh: torch.Tensor, vs: VectorSparse, *, w_out: int,
-                   kh: int, kw: int, stride: int, dilation: int
-                   ) -> tuple[int, int]:
-    """(h_out, cb) of a halo conv; raises where the shapes disagree or a
-    tap would read outside xh."""
-    n, rows, bw, cb, vk = xh.shape
+def stack_layout_dims(h: int, w: int, *, kh: int, kw: int, stride: int,
+                      dilation: int, h_out: int, sublane: int = 8
+                      ) -> tuple[int, int]:
+    """(planes, bW) of `build_row_tap_stack`'s buffer."""
+    wo, _, _ = same_pads(w, kw, stride, dilation)
+    bw = -(-(wo + ((kw - 1) * dilation) // stride) // sublane) * sublane
+    return kh * stride, bw
+
+
+def build_row_tap_stack(
+    x: torch.Tensor,
+    *,
+    kh: int = 3,
+    kw: int = 3,
+    stride: int = 1,
+    dilation: int = 1,
+    h_out: int | None = None,
+    sublane: int = 8,
+) -> torch.Tensor:
+    """NHWC -> (N, kh*stride, Hout, bW, C) row-tap/phase stack (SAME).
+
+    Plane ``ky*stride + phase`` holds padded rows ``ky*dilation +
+    stride*i`` and padded columns ``phase + stride*j'``: kh*stride
+    output-sized planes, materialized.  The padded input reaches
+    ``stride*bW`` columns so that every phase plane has bW of them (the
+    reference's layout, kept byte-for-byte).  ``h_out`` rounds Hout up
+    (extra rows read zero padding).
+    """
+    n, h, w, c = x.shape
+    ho, pt, _ = same_pads(h, kh, stride, dilation)
+    _, pl, _ = same_pads(w, kw, stride, dilation)
+    ho = h_out or ho
+    _, bw = stack_layout_dims(h, w, kh=kh, kw=kw, stride=stride,
+                              dilation=dilation, h_out=ho, sublane=sublane)
+    rows_needed = stride * (ho - 1) + (kh - 1) * dilation + 1
+    cols_needed = stride * bw
+    xp = F.pad(x, (0, 0, pl, max(cols_needed - w - pl, 0),
+                   pt, max(rows_needed - h - pt, 0)))
+    planes = [
+        xp[:, ky * dilation: ky * dilation + stride * (ho - 1) + 1: stride,
+           phase::stride][:, :, :bw]
+        for ky in range(kh)
+        for phase in range(stride)
+    ]
+    return torch.stack(planes, dim=1).contiguous()
+
+
+def halo_h_out(shape: Sequence[int], *, w_out: int, kh: int, kw: int,
+               stride: int, dilation: int) -> int:
+    """Hout of a conv over a halo buffer (N, rows, bW, CB, vk); raises
+    where a tap would read outside it."""
+    _, rows, bw, _, _ = shape
     ke_h = (kh - 1) * dilation + 1
     ke_w = (kw - 1) * dilation + 1
     if rows < ke_h or (rows - ke_h) % stride:
         raise ValueError(f"halo rows {rows} do not fit kh={kh} "
                          f"dilation={dilation} stride={stride}")
-    h_out = (rows - ke_h) // stride + 1
     if stride * (w_out - 1) + ke_w > bw:
         raise ValueError(f"w_out={w_out} reads past the halo width {bw}")
-    if vs.vk != vk or vs.shape[0] != kh * kw * cb * vk:
-        raise ValueError(f"weight {vs.shape} (vk={vs.vk}) does not match "
-                         f"xh {tuple(xh.shape)} with a {kh}x{kw} kernel")
-    return h_out, cb
+    return (rows - ke_h) // stride + 1
+
+
+def stack_h_out(shape: Sequence[int], *, w_out: int, kh: int, kw: int,
+                stride: int, dilation: int) -> int:
+    """Hout of a conv over a row-tap stack (N, kh*stride, Hout, bW, C);
+    raises where the planes do not match the taps or a tap's column offset
+    would read past bW."""
+    _, planes, h_out, bw, _ = shape
+    if planes != kh * stride:
+        raise ValueError(f"stack of {planes} planes, expected "
+                         f"kh*stride = {kh * stride}")
+    if ((kw - 1) * dilation) // stride + w_out > bw:
+        raise ValueError(f"w_out={w_out} with kw={kw} dilation={dilation} "
+                         f"reads past the stack width {bw}")
+    return h_out
+
+
+def stack_patches(xt: torch.Tensor, *, kh: int, kw: int, stride: int,
+                  dilation: int, w_out: int) -> torch.Tensor:
+    """Stack (N, kh*stride, H, bW, C) -> (N, H, w_out, kh*kw*C) patches in
+    (ky, kx, c) order: tap (ky, kx) is plane ``ky*stride + (kx*d) %
+    stride`` from column ``(kx*d) // stride``."""
+    cols = []
+    for ky in range(kh):
+        for kx in range(kw):
+            plane = ky * stride + (kx * dilation) % stride
+            off = (kx * dilation) // stride
+            cols.append(xt[:, plane, :, off:off + w_out])
+    return torch.cat(cols, dim=-1)
+
+
+def _group_split(c: int, vk: int, vs: VectorSparse, *, kh: int, kw: int,
+                 groups: int) -> tuple[int, int]:
+    """(cbg, spg): cin tiles of ``vk`` per group and strips per group of a
+    (grouped) conv over ``c`` input channels; raises where the channels or
+    the weight do not match."""
+    nb = vs.n_strips
+    cb = c // vk
+    if c % vk or groups < 1 or cb % groups or nb % groups:
+        raise ValueError(f"{c} channels in tiles of {vk} and {nb} strips "
+                         f"do not split into {groups} groups")
+    cbg = cb // groups
+    if vs.vk != vk or vs.shape[0] != kh * kw * cbg * vk:
+        raise ValueError(f"weight {vs.shape} (vk={vs.vk}) does not match a "
+                         f"{kh}x{kw} conv over {c} channels in tiles of "
+                         f"{vk} in {groups} groups")
+    return cbg, nb // groups
 
 
 def vsconv_plain(
@@ -148,35 +274,80 @@ def vsconv_plain(
     kw: int = 3,
     stride: int = 1,
     dilation: int = 1,
+    groups: int = 1,
     bias: torch.Tensor | None = None,
     residual: torch.Tensor | None = None,
     scale: torch.Tensor | None = None,
     fuse_relu: bool = False,
 ) -> torch.Tensor:
-    """The plain PyTorch version of the kernel on the same halo input:
-    the taps are cut out of the padded buffer (im2col) and the structural
-    `vsmm_plain` multiplies the stored tiles.  Runs on any device."""
-    h_out, _ = _halo_geometry(xh, vs, w_out=w_out, kh=kh, kw=kw,
-                              stride=stride, dilation=dilation)
+    """The plain PyTorch version of the halo kernel on the same halo
+    input: the taps are cut out of the padded buffer (im2col) and the
+    structural `vsmm_plain` multiplies the stored tiles, per group.  Runs
+    on any device."""
+    h_out = halo_h_out(xh.shape, w_out=w_out, kh=kh, kw=kw, stride=stride,
+                       dilation=dilation)
     n, rows, bw, cb, vk = xh.shape
+    _group_split(cb * vk, vk, vs, kh=kh, kw=kw, groups=groups)
     patches = tap_patches(xh.reshape(n, rows, bw, cb * vk), kh=kh, kw=kw,
                           stride=stride, dilation=dilation, h_out=h_out,
                           w_out=w_out)
-    cout = vs.shape[1]
-    res2 = None if residual is None else residual.reshape(-1, cout)
-    y = vsmm_plain(patches.reshape(-1, patches.shape[-1]), vs, bias=bias,
-                   residual=res2, scale=scale, fuse_relu=fuse_relu)
-    return y.reshape(n, h_out, w_out, cout)
+    return patch_conv(patches, vs, taps=kh * kw, groups=groups, bias=bias,
+                      residual=residual, scale=scale, fuse_relu=fuse_relu)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("vsconv")
-    fn = lib.vsconv_halo_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+def vsconv_stack_plain(
+    xt: torch.Tensor,
+    vs: VectorSparse,
+    *,
+    w_out: int,
+    kh: int = 3,
+    kw: int = 3,
+    stride: int = 1,
+    dilation: int = 1,
+    groups: int = 1,
+    bias: torch.Tensor | None = None,
+    residual: torch.Tensor | None = None,
+    scale: torch.Tensor | None = None,
+    fuse_relu: bool = False,
+) -> torch.Tensor:
+    """The plain PyTorch version of the stack kernel on the same stack:
+    each tap's plane and column window cut out (`stack_patches`), then the
+    structural product per group.  Runs on any device."""
+    stack_h_out(xt.shape, w_out=w_out, kh=kh, kw=kw, stride=stride,
+                dilation=dilation)
+    _group_split(xt.shape[-1], vs.vk, vs, kh=kh, kw=kw, groups=groups)
+    patches = stack_patches(xt, kh=kh, kw=kw, stride=stride,
+                            dilation=dilation, w_out=w_out)
+    return patch_conv(patches, vs, taps=kh * kw, groups=groups, bias=bias,
+                      residual=residual, scale=scale, fuse_relu=fuse_relu)
+
+
+def _conv_kernel(fn: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
+                 w_out: int, d0: int, bw: int, c: int, vk: int, kh: int,
+                 kw: int, stride: int, dilation: int, groups: int,
+                 bias: torch.Tensor | None, residual: torch.Tensor | None,
+                 scale: torch.Tensor | None, fuse_relu: bool
+                 ) -> torch.Tensor:
+    """Checks and launch shared by the halo and the stack kernel; ``d0``
+    is the buffer's second dimension (halo rows or stack planes)."""
+    cbg, spg = _group_split(c, vk, vs, kh=kh, kw=kw, groups=groups)
+    n = x.shape[0]
+    nb, s_steps, _, vn = vs.vals.shape
+    cout = nb * vn
+    if vn > MAX_VN:
+        raise ValueError(f"{fn} takes vn <= {MAX_VN}, got {vn}")
+    out_shape = (n, h_out, w_out, cout)
+    check_epilogue(bias=bias, scale=scale, residual=residual, cout=cout,
+                   out_shape=out_shape)
+    check_operands({"x": x, "vals": vs.vals, "idx": vs.idx, "bias": bias,
+                    "scale": scale, "residual": residual}, x.device)
+    out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
+    if out.numel():
+        launch("vsconv", fn,
+               (x, vs.vals, vs.idx, scale, bias, residual, out),
+               (n, d0, bw, c // vk, h_out, w_out, kw, stride, dilation, nb,
+                s_steps, vk, vn, cbg, spg, int(fuse_relu)), x.device)
+    return out
 
 
 def vsconv_halo_kernel(
@@ -188,54 +359,78 @@ def vsconv_halo_kernel(
     kw: int = 3,
     stride: int = 1,
     dilation: int = 1,
+    groups: int = 1,
     bias: torch.Tensor | None = None,
     residual: torch.Tensor | None = None,
     scale: torch.Tensor | None = None,
     fuse_relu: bool = False,
 ) -> torch.Tensor:
-    """Direct input xh (N, rows, bW, CB, vk) * sparse (kh*kw*CB*vk, Cout)
-    -> (N, Hout, w_out, Cout) f32 with Hout = (rows - ke_h) // stride + 1.
+    """Direct input xh (N, rows, bW, CB, vk) * sparse (kh*kw*CB*vk/groups,
+    Cout) -> (N, Hout, w_out, Cout) f32 with Hout = (rows - ke_h) // stride
+    + 1.
 
-    CUDA tensors launch ``csrc/vsconv.cu`` on the current stream (built at
-    first use); CPU tensors run `vsconv_plain`.  ``bias``/``scale`` are
-    (Cout,), ``residual`` (N, Hout, w_out, Cout).
+    CUDA tensors launch ``vsconv_halo_kernel`` of ``csrc/vsconv.cu`` on the
+    current stream (built at first use); CPU tensors run `vsconv_plain`.
+    ``bias``/``scale`` are (Cout,), ``residual`` (N, Hout, w_out, Cout).
     """
+    kw_ = dict(w_out=w_out, kh=kh, kw=kw, stride=stride, dilation=dilation,
+               groups=groups, bias=bias, residual=residual, scale=scale,
+               fuse_relu=fuse_relu)
     if xh.device.type == "cpu":
-        return vsconv_plain(xh, vs, w_out=w_out, kh=kh, kw=kw, stride=stride,
-                            dilation=dilation, bias=bias, residual=residual,
-                            scale=scale, fuse_relu=fuse_relu)
+        return vsconv_plain(xh, vs, **kw_)
     if xh.device.type != "cuda":
         raise ValueError(f"vsconv_halo_kernel runs on cuda or cpu, "
                          f"not {xh.device}")
-    h_out, cb = _halo_geometry(xh, vs, w_out=w_out, kh=kh, kw=kw,
-                               stride=stride, dilation=dilation)
-    n, rows, bw, _, vk = xh.shape
-    nb, s_steps, _, vn = vs.vals.shape
-    cout = nb * vn
-    if vn > MAX_VN:
-        raise ValueError(f"vsconv_halo_kernel takes vn <= {MAX_VN}, got {vn}")
-    for name, t, shape in (("bias", bias, (cout,)), ("scale", scale, (cout,)),
-                           ("residual", residual, (n, h_out, w_out, cout))):
-        if t is not None and tuple(t.shape) != shape:
-            raise ValueError(f"{name} {tuple(t.shape)}, expected {shape}")
-    check_operands({"xh": xh, "vals": vs.vals, "idx": vs.idx, "bias": bias,
-                    "scale": scale, "residual": residual}, xh.device)
-    out = torch.empty((n, h_out, w_out, cout), dtype=torch.float32,
-                      device=xh.device)
-    if out.numel() == 0:
-        return out
-    lib = _lib()
-    with torch.cuda.device(xh.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vsconv_halo_launch(
-            _ptr(xh), _ptr(vs.vals), _ptr(vs.idx), _ptr(scale), _ptr(bias),
-            _ptr(residual), _ptr(out), n, rows, bw, cb, h_out, w_out, kw,
-            stride, dilation, nb, s_steps, vk, vn, int(fuse_relu),
-            ctypes.c_void_p(stream))
-    if err:
-        raise RuntimeError(f"vsconv kernel launch failed: CUDA error {err}")
+    h_out = halo_h_out(xh.shape, w_out=w_out, kh=kh, kw=kw, stride=stride,
+                       dilation=dilation)
+    _, rows, bw, cb, vk = xh.shape
+    out = _conv_kernel("vsconv_halo_launch", xh, vs, h_out=h_out, d0=rows,
+                       bw=bw, c=cb * vk, vk=vk, **kw_)
     vsconv_halo_kernel.launches += 1
     return out
 
 
 vsconv_halo_kernel.launches = 0  # type: ignore[attr-defined]
+
+
+def vsconv_stack_kernel(
+    xt: torch.Tensor,
+    vs: VectorSparse,
+    *,
+    w_out: int,
+    kh: int = 3,
+    kw: int = 3,
+    stride: int = 1,
+    dilation: int = 1,
+    groups: int = 1,
+    bias: torch.Tensor | None = None,
+    residual: torch.Tensor | None = None,
+    scale: torch.Tensor | None = None,
+    fuse_relu: bool = False,
+) -> torch.Tensor:
+    """Row-tap stack xt (N, kh*stride, Hout, bW, C) * sparse
+    (kh*kw*C/groups, Cout) -> (N, Hout, w_out, Cout) f32.
+
+    CUDA tensors launch ``vsconv_stack_kernel`` of ``csrc/vsconv.cu`` on
+    the current stream (built at first use); CPU tensors run
+    `vsconv_stack_plain`.  ``bias``/``scale`` are (Cout,), ``residual``
+    (N, Hout, w_out, Cout).
+    """
+    kw_ = dict(w_out=w_out, kh=kh, kw=kw, stride=stride, dilation=dilation,
+               groups=groups, bias=bias, residual=residual, scale=scale,
+               fuse_relu=fuse_relu)
+    if xt.device.type == "cpu":
+        return vsconv_stack_plain(xt, vs, **kw_)
+    if xt.device.type != "cuda":
+        raise ValueError(f"vsconv_stack_kernel runs on cuda or cpu, "
+                         f"not {xt.device}")
+    h_out = stack_h_out(xt.shape, w_out=w_out, kh=kh, kw=kw, stride=stride,
+                        dilation=dilation)
+    _, planes, _, bw, c = xt.shape
+    out = _conv_kernel("vsconv_stack_launch", xt, vs, h_out=h_out, d0=planes,
+                       bw=bw, c=c, vk=vs.vk, **kw_)
+    vsconv_stack_kernel.launches += 1
+    return out
+
+
+vsconv_stack_kernel.launches = 0  # type: ignore[attr-defined]

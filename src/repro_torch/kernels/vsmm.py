@@ -13,15 +13,13 @@ the kernel does not take raises, it never falls back.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.core.vector_sparse import VectorSparse
-from repro_torch.kernels import _build
+from repro_torch.kernels._build import launch
 
 __all__ = ["vsmm_kernel", "vsmm_plain", "vsmm_kernel_cost", "MAX_VN",
-           "check_operands"]
+           "check_operands", "check_epilogue"]
 
 MAX_VN = 128  # the kernel's thread layout covers at most 128 columns
 
@@ -106,18 +104,16 @@ def check_operands(named: dict[str, torch.Tensor | None],
                 f"(contiguous={t.is_contiguous()})")
 
 
-def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("vsmm")
-    fn = lib.vsmm_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+def check_epilogue(*, bias: torch.Tensor | None,
+                   scale: torch.Tensor | None,
+                   residual: torch.Tensor | None, cout: int,
+                   out_shape: tuple[int, ...]) -> None:
+    """Raise unless ``bias``/``scale`` are (cout,) and ``residual`` has the
+    output's shape."""
+    for name, t, shape in (("bias", bias, (cout,)), ("scale", scale, (cout,)),
+                           ("residual", residual, out_shape)):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} {tuple(t.shape)}, expected {shape}")
 
 
 def vsmm_kernel(
@@ -148,24 +144,16 @@ def vsmm_kernel(
                          f"with tiles ({vk}, {vn})")
     if vn > MAX_VN:
         raise ValueError(f"vsmm_kernel takes vn <= {MAX_VN}, got {vn}")
-    for name, t, shape in (("bias", bias, (n,)), ("scale", scale, (n,)),
-                           ("residual", residual, (m, n))):
-        if t is not None and tuple(t.shape) != shape:
-            raise ValueError(f"{name} {tuple(t.shape)}, expected {shape}")
+    check_epilogue(bias=bias, scale=scale, residual=residual, cout=n,
+                   out_shape=(m, n))
     check_operands({"x": x, "vals": vs.vals, "idx": vs.idx, "bias": bias,
                     "scale": scale, "residual": residual}, x.device)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vsmm_launch(
-            _ptr(x), _ptr(vs.vals), _ptr(vs.idx), _ptr(scale), _ptr(bias),
-            _ptr(residual), _ptr(out), m, k, nb, s_steps, vk, vn,
-            int(fuse_relu), ctypes.c_void_p(stream))
-    if err:
-        raise RuntimeError(f"vsmm kernel launch failed: CUDA error {err}")
+    launch("vsmm", "vsmm_launch", (x, vs.vals, vs.idx, scale, bias,
+                                   residual, out),
+           (m, k, nb, s_steps, vk, vn, int(fuse_relu)), x.device)
     vsmm_kernel.launches += 1
     return out
 

@@ -3,7 +3,8 @@
 A network is data — a `SparseNet` holding a flat tuple of `LayerSpec`s —
 and one walker (`net_apply`) runs it dense or sparse; `sparsify` folds BN
 into the conv weights, vector-prunes every conv and FC layer and encodes
-them for the kernels.  The port of `repro/models/graph.py`, f32, ungrouped.
+them for the kernels.  The port of `repro/models/graph.py`, f32: ungrouped,
+grouped and depthwise convs.
 
 LayerSpec vocabulary
 --------------------
@@ -47,7 +48,8 @@ __all__ = [
     "conv_tile_geometry", "fc_tile_geometry", "strip_steps",
     "sparse_conv_from_dense", "apply_sparse_conv", "apply_sparse_fc",
     "net_schema", "net_apply", "sparsify", "input_refusal", "output_finite",
-    "build_resnet18", "RESNET18_STAGES", "BN_EPS",
+    "build_resnet18", "RESNET18_STAGES", "build_mobilenet_v1",
+    "MOBILENET_V1_PLAN", "BN_EPS",
 ]
 
 BN_EPS = 1e-5
@@ -317,18 +319,20 @@ def sparse_conv_from_dense(
 
     Non-tileable Cin is zero-padded to a multiple of min(vk, 8); non-tileable
     Cout shrinks the strip.  ``prune=False`` (or density >= 1) keeps every
-    tile.  Convs with kh*kw > 1 store their tiles cin-major.
+    tile.  Convs with kh*kw > 1 store their tiles cin-major.  Grouped convs
+    keep K inside the group (strips group-major, per-group pruning quotas
+    by construction).  Depthwise (groups == Cin, multiplier 1) encodes the
+    (kh*kw, Cout) tap matrix with vk == 1 over channel-tile strips, in
+    ascending tap order.
     """
     _require_f32(dtype)
     w = np.asarray(torch.as_tensor(w).detach().cpu(), np.float32)
     kh, kw, cin_g, cout = w.shape
     g = conv_tile_geometry(kh, kw, cin_g, cout, vk=vk, vn=vn, groups=groups,
                            allow_fallback=allow_fallback, path=path)
-    if g.depthwise:
-        raise NotImplementedError(
-            f"{path}: depthwise encoding is ported in a later slice "
-            f"(MobileNetV1)")
     vk_l, vn_l, cp = g.vk, g.vn, g.cin_pad
+    # depthwise: cin_g == 1 and vk_l == 1, so wm below is the (kh*kw, Cout)
+    # tap matrix, one row per tap, strips over channel tiles
     wpad = np.pad(w, ((0, 0), (0, 0), (0, cp), (0, 0))) if cp else w
     wm = wpad.reshape(kh * kw * (cin_g + cp), cout)
     if prune and density < 1.0:
@@ -337,7 +341,7 @@ def sparse_conv_from_dense(
         wp = wm
         mask = np.ones((wm.shape[0] // vk_l, cout // vn_l), bool)
     vs = from_mask(torch.as_tensor(wp, device=device), mask, vk_l, vn_l)
-    if kh * kw > 1:
+    if kh * kw > 1 and not g.depthwise:
         vs = conv_cin_major(vs, (cin_g + cp) // vk_l)
     spec = SparseConv(vs, kh=kh, kw=kw, stride=stride, groups=groups,
                       dilation=dilation, cin_pad=cp)
@@ -709,3 +713,29 @@ def build_resnet18(num_classes: int = 1000, *,
             cin = c
     layers += [Pool("gap"), Flatten(), Classifier("fc", 512, num_classes)]
     return SparseNet("resnet18", tuple(layers))
+
+
+# (pointwise output channels, depthwise stride) per separable block — the
+# standard MobileNetV1 plan after the 3x3/s2/32 stem.
+MOBILENET_V1_PLAN = ((64, 1), (128, 2), (128, 1), (256, 2), (256, 1),
+                     (512, 2), (512, 1), (512, 1), (512, 1), (512, 1),
+                     (512, 1), (1024, 2), (1024, 1))
+
+
+def build_mobilenet_v1(num_classes: int = 1000, *,
+                       image_size: int = 224) -> SparseNet:
+    """MobileNetV1: 3x3/s2 BN stem, then 13 depthwise-separable blocks
+    (3x3 depthwise BN-ReLU -> 1x1 pointwise BN-ReLU), GAP, 1024-d
+    classifier.  The stem runs the full conv kernel (cin padded 3 -> 8),
+    the 13 depthwise convs (``Conv(groups=cin)``) the per-channel tap
+    kernel, the 13 pointwise convs and the head vsmm."""
+    del image_size  # geometry is size-agnostic; kept for config symmetry
+    layers: list = [Conv("conv0", 3, 32, 3, 3, 2, bn=True)]
+    cin = 32
+    for i, (c, s) in enumerate(MOBILENET_V1_PLAN, 1):
+        layers.append(Conv(f"dw{i}", cin, cin, 3, 3, s, bn=True,
+                           groups=cin))
+        layers.append(Conv(f"pw{i}", cin, c, 1, 1, 1, bn=True))
+        cin = c
+    layers += [Pool("gap"), Flatten(), Classifier("fc", 1024, num_classes)]
+    return SparseNet("mobilenet_v1", tuple(layers))

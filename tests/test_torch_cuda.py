@@ -17,8 +17,14 @@ import torch
 from repro_torch.core.vector_sparse import VectorSparse, from_mask
 from repro_torch.core.pruning import prune_vectors_balanced
 from repro_torch.kernels import ops
-from repro_torch.kernels.vsconv import (build_halo_input, vsconv_halo_kernel,
-                                        vsconv_plain)
+from repro_torch.kernels.vsconv import (build_halo_input, build_row_tap_stack,
+                                        vsconv_halo_kernel, vsconv_plain,
+                                        vsconv_stack_kernel,
+                                        vsconv_stack_plain)
+from repro_torch.kernels.vsconv_dw import (vsconv_dw_halo_kernel,
+                                           vsconv_dw_plain,
+                                           vsconv_dw_stack_kernel,
+                                           vsconv_dw_stack_plain)
 from repro_torch.kernels.vsmm import vsmm_kernel, vsmm_plain
 from repro_torch.models import graph as TG
 from repro_torch.models.layers import init_params
@@ -139,3 +145,133 @@ def test_resnet18_kernels_match_plain(cuda):
     y_plain = TG.net_apply(net, params, x, sparse=sparse, impl="plain")
     assert y.shape == (2, 10)
     assert _rel(y, y_plain) <= RTOL
+
+
+def _conv_kwargs(cuda, n, ho, wo, cout, kh, stride, dilation, epilogue):
+    kw = dict(w_out=wo, kh=kh, kw=kh, stride=stride, dilation=dilation)
+    if epilogue:
+        kw.update(bias=torch.randn(cout, device=cuda), fuse_relu=True,
+                  residual=torch.randn(n, ho, wo, cout, device=cuda))
+    return kw
+
+
+@pytest.mark.parametrize("size,cin,cout,kh,stride,dil,groups,vk,vn", [
+    (32, 8, 64, 7, 2, 1, 1, 8, 64),     # the ResNet-18 stem, cin 3 -> 8
+    (16, 64, 64, 3, 1, 1, 1, 32, 64),
+    (16, 64, 128, 3, 2, 1, 1, 32, 128),
+    (15, 64, 64, 3, 2, 2, 4, 16, 16),   # grouped, dilated, odd size
+    (16, 64, 64, 3, 1, 1, 4, 16, 16),   # grouped 3x3, 4 groups
+])
+@pytest.mark.parametrize("layout", ["halo", "stack"])
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_conv_kernels_match_plain(cuda, size, cin, cout, kh, stride, dil,
+                                  groups, vk, vn, layout, epilogue):
+    """The halo kernel (now grouped too) and the stack kernel against their
+    plain versions on the card."""
+    rng = np.random.default_rng(size + cin + kh + groups)
+    vs = _sparse(rng, kh * kh * cin // groups, cout, vk, vn, 0.5, cuda)
+    x = _relu_input(rng, (2, size, size, cin), cuda)
+    ho = -(-size // stride)
+    kw = _conv_kwargs(cuda, 2, ho, ho, cout, kh, stride, dil, epilogue)
+    if layout == "halo":
+        buf = build_halo_input(x, kh=kh, kw=kh, stride=stride, dilation=dil,
+                               vk=vk)
+        kernel, plain = vsconv_halo_kernel, vsconv_plain
+    else:
+        buf = build_row_tap_stack(x, kh=kh, kw=kh, stride=stride,
+                                  dilation=dil)
+        kernel, plain = vsconv_stack_kernel, vsconv_stack_plain
+    before = kernel.launches
+    y = kernel(buf, vs, groups=groups, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert y.shape == (2, ho, ho, cout)
+    assert _rel(y, plain(buf, vs, groups=groups, **kw)) <= RTOL
+
+
+def _taps(rng, kh, c, vc, density, device):
+    """A (kh*kh, C) depthwise tap matrix, vk 1, vc-channel strips."""
+    return _sparse(rng, kh * kh, c, 1, vc, density, device)
+
+
+@pytest.mark.parametrize("size,c,stride,dil,vc", [
+    (16, 32, 1, 1, 32),     # dw1-like: vc 32
+    (16, 64, 2, 1, 64),     # dw2-like: stride 2, asymmetric SAME pads
+    (7, 512, 1, 1, 128),    # dw7-like: 4 strips of 128
+    (14, 512, 2, 1, 128),   # dw12-like: 14 -> 7
+    (9, 48, 1, 2, 48),      # dilated, vc 48 (not a divisor of 256)
+])
+@pytest.mark.parametrize("layout", ["halo", "stack"])
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_dw_kernels_match_plain(cuda, size, c, stride, dil, vc, layout,
+                                epilogue):
+    rng = np.random.default_rng(size + c + stride)
+    vs = _taps(rng, 3, c, vc, 0.5, cuda)
+    x = _relu_input(rng, (2, size, size, c), cuda)
+    ho = -(-size // stride)
+    kw = _conv_kwargs(cuda, 2, ho, ho, c, 3, stride, dil, epilogue)
+    if layout == "halo":
+        buf = build_halo_input(x, kh=3, kw=3, stride=stride, dilation=dil,
+                               vk=vc)
+        kernel, plain = vsconv_dw_halo_kernel, vsconv_dw_plain
+    else:
+        buf = build_row_tap_stack(x, kh=3, kw=3, stride=stride, dilation=dil)
+        kernel, plain = vsconv_dw_stack_kernel, vsconv_dw_stack_plain
+    before = kernel.launches
+    y = kernel(buf, vs, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert y.shape == (2, ho, ho, c)
+    assert _rel(y, plain(buf, vs, **kw)) <= RTOL
+
+
+@pytest.mark.parametrize("impl", ["halo", "stack"])
+def test_dw_kernel_decodes_taps_in_any_order(cuda, impl):
+    """idx[j, s] is the bare tap id, decoded as given: reversing every
+    strip's tap order changes nothing but the f32 summation order."""
+    rng = np.random.default_rng(7)
+    vs = _taps(rng, 3, 256, 128, 0.5, cuda)
+    rev = VectorSparse(vs.vals.flip(1).contiguous(),
+                       vs.idx.flip(1).contiguous(), vs.shape)
+    x = _relu_input(rng, (2, 10, 10, 256), cuda)
+    y = ops.vsconv(x, vs, groups=256, stride=2, impl=impl)
+    assert _rel(ops.vsconv(x, rev, groups=256, stride=2, impl=impl), y) \
+        <= RTOL
+
+
+@pytest.mark.parametrize("impl,per_forward", [
+    ("pallas", {"halo": 1, "dw_halo": 13, "vsmm": 14}),
+    ("pallas-stack", {"stack": 1, "dw_stack": 13, "vsmm": 14}),
+])
+def test_mobilenet_kernels_match_plain(cuda, impl, per_forward):
+    """MobileNetV1 at 32 px through each layout: the stem through the full
+    conv kernel, 13 depthwise convs through the tap kernel, 13 pointwise
+    convs and the head through vsmm; agrees with the plain path."""
+    counters = {"halo": vsconv_halo_kernel, "stack": vsconv_stack_kernel,
+                "dw_halo": vsconv_dw_halo_kernel,
+                "dw_stack": vsconv_dw_stack_kernel, "vsmm": vsmm_kernel}
+    net = TG.build_mobilenet_v1(10)
+    params = init_params(net.schema(), 0, device=cuda)
+    sparse, _ = TG.sparsify(net, params, 0.5)
+    x = torch.randn(2, 32, 32, 3, device=cuda)
+    for k in counters.values():
+        k.launches = 0
+    y = TG.net_apply(net, params, x, sparse=sparse, impl=impl)
+    launched = {name: k.launches for name, k in counters.items()
+                if k.launches}
+    assert launched == per_forward
+    y_plain = TG.net_apply(net, params, x, sparse=sparse, impl="plain")
+    assert y.shape == (2, 10)
+    assert _rel(y, y_plain) <= RTOL
+
+
+def test_resnet18_stack_kernels_match_plain(cuda):
+    net = TG.build_resnet18(10)
+    params = init_params(net.schema(), 0, device=cuda)
+    sparse, _ = TG.sparsify(net, params, 0.5)
+    x = torch.randn(2, 32, 32, 3, device=cuda)
+    vsmm_kernel.launches = vsconv_stack_kernel.launches = 0
+    y = TG.net_apply(net, params, x, sparse=sparse, impl="pallas-stack")
+    assert (vsconv_stack_kernel.launches, vsmm_kernel.launches) == (17, 4)
+    assert _rel(y, TG.net_apply(net, params, x, sparse=sparse,
+                                impl="plain")) <= RTOL

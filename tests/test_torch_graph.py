@@ -203,9 +203,13 @@ def test_unported_and_malformed_entries_raise(nets, weights):
     tparams = params_from_numpy(weights, "cpu")
     with pytest.raises(NotImplementedError, match="int8"):
         tg.sparsify(nets[1], tparams, 0.5, dtype="int8")
-    with pytest.raises(NotImplementedError, match="depthwise"):
-        tg.sparse_conv_from_dense(np.ones((3, 3, 1, 32), np.float32), 0.5,
-                                  groups=32)
+    # depthwise encoding, once unported, now encodes: the
+    # (9, 32) tap matrix with vk 1, one 32-channel strip of 4 stored taps
+    dw, wp = tg.sparse_conv_from_dense(
+        np.arange(9 * 32, dtype=np.float32).reshape(3, 3, 1, 32), 0.5,
+        groups=32)
+    assert dw.vs.shape == (9, 32) and tuple(dw.vs.vals.shape) == (1, 4, 1, 32)
+    assert dw.groups == 32 and wp.shape == (3, 3, 1, 32)
     tsparse, _ = tg.sparsify(nets[1], tparams, 0.5)
     bare = dict(tsparse, conv1=tsparse["conv1"].vs)  # BN conv, no folded bias
     with pytest.raises(ValueError, match="no folded bias"):

@@ -206,16 +206,21 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
 
 
 def test_dispatch_vocabulary_and_unported_paths():
+    """The paths once left unported now run: ``pallas-stack``
+    and grouped convs agree with the plain path and the dense oracle."""
     _, ts = _pair(9 * 64, 64, 32, 64, 0.5, 0)
-    x = torch.zeros(1, 4, 4, 64)
-    with pytest.raises(NotImplementedError, match="stack"):
-        tops.vs_conv2d(x, ts, impl="pallas-stack")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tops.vs_conv2d(x, ts, groups=2, impl="plain")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tk.vsconv(x, ts, groups=2)
+    x = torch.from_numpy(_act((1, 4, 4, 64), 2))
+    y = tops.vs_conv2d(x, ts, impl="plain")
+    _assert_close(tops.vs_conv2d(x, ts, impl="pallas-stack"), y)
+    _, tg2 = _pair(9 * 32, 64, 32, 32, 0.5, 1)  # groups=2: 2 strips of 32
+    y2 = tops.vs_conv2d(x, tg2, groups=2, impl="plain")
+    for impl in ("halo", "stack"):
+        _assert_close(tk.vsconv(x, tg2, groups=2, impl=impl), y2)
+    _assert_close(y2, tref.vsconv_ref(x, tg2, groups=2))
     with pytest.raises(ValueError, match="unknown impl"):
         tops.vs_conv2d(x, ts, impl="triton")
+    with pytest.raises(ValueError, match="impl must be"):
+        tk.vsconv(x, ts, impl="pallas")
     with pytest.raises(ValueError, match="does not match"):
         tvsconv.vsconv_halo_kernel(
             tvsconv.build_halo_input(x, vk=32), ts, w_out=4, kh=5, kw=5)

@@ -30,7 +30,7 @@ def _images(n, size=32, seed=0):
 
 
 def test_registry_holds_resnet18():
-    assert list_cnn_archs() == ["vscnn-resnet18"]
+    assert list_cnn_archs() == ["vscnn-mobilenet-v1", "vscnn-resnet18"]
     full = get_config("vscnn-resnet18")
     assert (full.image_size, full.num_classes, full.weight_density,
             full.vk, full.vn) == (224, 1000, 0.235, 32, 128)
