@@ -9,13 +9,15 @@ It imports nothing of JAX or of the JAX package, and it fails (exit code
 1, no result line) when there is no CUDA device, when it runs without the
 repository around it, or when any phase fails.  Phases:
 
-1. Build the three kernel sources from ``src/repro_torch/kernels/csrc``
-   (``vsmm.cu``, ``vsconv.cu``, ``vsconv_dw.cu``; one nvcc per source,
-   started together) and print their register use.
+1. Build the four kernel sources from ``src/repro_torch/kernels/csrc``
+   (``vsmm.cu``, ``vsconv.cu``, ``vsconv_dw.cu``, ``flash_fwd.cu``; one
+   nvcc per source, started together) and print their register use and
+   the flash kernel's dynamic shared memory per head dim.
 2. Kernel phase.  Each kernel against its plain version on the card,
-   within a relative error of 1e-5 of max|y|, each case without and with
-   the fused epilogue (bias + residual + ReLU), then timed (see below).
-   One JSON line per case.  Batch 8, 224 px geometries:
+   within a relative error of 1e-5 of max|y| (1e-2 for the flash kernel
+   on bf16 inputs), then timed (see below).  One JSON line per case.  The
+   CNN kernels at batch 8, 224 px geometries, each case without and with
+   the fused epilogue (bias + residual + ReLU):
    - halo conv: the ResNet-18 layers (stem 7x7/s2 vk 8; 3x3/s1 at 56;
      3x3/s2 64->128; 3x3 512->512 at Hout 7) and one Hout < 4 conv
      (layer4 at 32 px); vsmm: the 1x1/s2 projection and the FC head;
@@ -26,6 +28,11 @@ repository around it, or when any phase fails.  Phases:
    - one grouped 3x3 (64 -> 64, groups 4, 56 px) through the halo and the
      stack kernel;
    - depthwise stack: dw1 and dw12.
+   The flash kernel (`flash_phase`): Qwen1.5-4B's admission prefill (BH
+   160 = 8 x 20 heads, T 512, hd 128, causal) in bf16 and f32, a backfill
+   length (T 528), a window of 1024 at T 2048 and hd 240, a q_offset of
+   512 (Tq 64 against Tk 576), a non-causal hd 80 case and an odd length
+   (T 33, hd 32).
 3. Serve phases, one per path.  Before each, every launch count is set
    to 0; the port's ``CNNServer(cfg, batch=8, impl=...)`` serves seeded
    224x224x3 requests; the counts are read just after and must be exactly
@@ -57,6 +64,27 @@ repository around it, or when any phase fails.  Phases:
    ``bound_ms`` are per forward at batch 8 (the JSON file keeps the sums
    per path), ``launches`` the counts of the serve phases summed over the
    paths (per path in ``launches_by_path``).
+6. LM serve phase.  The port's ``Server(get_config("qwen1.5-4b"),
+   batch=8, capacity=552)`` with bf16 weights from seed 0 at full depth
+   and width (40 layers, d_model 2560, vocab 151936) serves 16 seeded
+   requests (12 prompts of 497-512 tokens with max_new 8-32, 4 of 241-256
+   tokens with max_new 16), counts zeroed before and read after: every
+   request delivered with max_new tokens in [0, padded_vocab), and the
+   flash kernel launched exactly 40 x (lockstep runs + backfills).  Then
+   the first run's admitted batch is re-run directly: its admission
+   prefill's logits through the kernel against the same prefill through
+   `flash_fwd_plain` (with f32 weights within 1e-4 of max|logit|; in bf16
+   within 2e-2, or within the spread of two other valid attention
+   implementations where that is larger), and a greedy ``prefill`` +
+   ``decode_step`` loop (no flash launch in its decode steps) must emit
+   exactly the tokens the server delivered.  The traffic is served again
+   warm (prefill seconds per run, decode tokens/s, ms per decode step),
+   once more under `torch.profiler` (idle share, device time by kind:
+   flash kernel, GEMMs, copies, other), and one batch-8, T-512 prefill is
+   broken down into the flash kernel's share (per layer x 40: device,
+   plain, library and bound ms) and the rest.  The ``kernels`` line's
+   flash entry is per such prefill (40 launches); ``launches`` is the
+   serve phase's count.
 
 ``kernel_ms``, ``plain_ms`` and ``library_ms`` are device time per call:
 a run of calls is captured in one CUDA graph and its replays are timed
@@ -66,13 +94,17 @@ is the CUDA event time of a host loop of kernel calls, launch overhead
 included.  A stack kernel's time does not include building its stack.
 Timings do not flush L2 between launches.
 
-``bound_ms`` is max(FLOPs / fp32 CUDA-core peak, bytes / HBM bandwidth),
-with the peaks of the SKU nvidia-smi names (NVIDIA's datasheet).  Both
-count the real function: FLOPs those of the stored tiles this run's
-weights hold (2 * pixels * vc * S per strip for a depthwise conv), bytes
-the unpadded NHWC input, the stored tiles, bias and residual read once and
-the output written once; the stems' zero-padded input channels (3 -> 8)
-and the FC heads' padding columns (1000 -> 1024) are left out of both.
+``bound_ms`` is max(FLOPs / peak, bytes / HBM bandwidth), with the peaks
+of the SKU nvidia-smi names (NVIDIA's datasheet): the fp32 CUDA-core peak,
+or for the flash kernel on bf16 inputs the dense bf16 tensor-core peak.
+Both count the real function: for the CNN kernels FLOPs those of the
+stored tiles this run's weights hold (2 * pixels * vc * S per strip for a
+depthwise conv), bytes the unpadded NHWC input, the stored tiles, bias and
+residual read once and the output written once; the stems' zero-padded
+input channels (3 -> 8) and the FC heads' padding columns (1000 -> 1024)
+are left out of both.  For the flash kernel, FLOPs are 4 * hd per
+unmasked (query, key) pair and bytes q, k, v read once and the output
+written once.
 """
 from __future__ import annotations
 
@@ -85,25 +117,27 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# fp32 CUDA-core FLOP/s (no tensor cores) and HBM bytes/s per SKU, from
-# NVIDIA's datasheets; matched against the name nvidia-smi gives.
+# fp32 CUDA-core FLOP/s (no tensor cores), HBM bytes/s and dense bf16
+# tensor-core FLOP/s per SKU, from NVIDIA's datasheets; matched against the
+# name nvidia-smi gives.
 PEAKS = (
-    ("H100 NVL", 60e12, 3.9e12),
-    ("H100 PCIe", 51e12, 2.0e12),
-    ("H100", 67e12, 3.35e12),   # H100 SXM5 80GB HBM3
-    ("H200", 67e12, 4.8e12),
+    ("H100 NVL", 60e12, 3.9e12, 835e12),
+    ("H100 PCIe", 51e12, 2.0e12, 756e12),
+    ("H100", 67e12, 3.35e12, 989e12),   # H100 SXM5 80GB HBM3
+    ("H200", 67e12, 4.8e12, 989e12),
 )
 RTOL = 1e-5
+BF16_RTOL = 1e-2         # the flash kernel on bf16 inputs (see flash_phase)
 BATCH = 8
 SIZE = 224
 DENSITY = 0.235          # ResNet-18's pruning point
 DW_DENSITY = 0.5         # MobileNetV1's
 
 
-def _peaks(name: str) -> tuple[float, float]:
-    for key, flops, bw in PEAKS:
+def _peaks(name: str) -> tuple[float, float, float]:
+    for key, flops, bw, bf16_flops in PEAKS:
         if key in name:
-            return flops, bw
+            return flops, bw, bf16_flops
     raise SystemExit(f"chip_smoke: no datasheet peaks for {name!r}")
 
 
@@ -150,11 +184,11 @@ def _rel_err(y, ref) -> tuple[float, float]:
     return d / max(float(ref.double().abs().max()), 1e-30), d
 
 
-def _check(label: str, y, ref) -> float:
+def _check(label: str, y, ref, rtol: float = RTOL) -> float:
     rel, abs_err = _rel_err(y, ref)
-    if not rel <= RTOL:
+    if not rel <= rtol:
         raise SystemExit(f"chip_smoke: {label}: kernel vs plain relative "
-                         f"error {rel:.3e} > {RTOL}")
+                         f"error {rel:.3e} > {rtol}")
     return abs_err
 
 
@@ -169,12 +203,16 @@ class Timer:
         self.max_abs_err: dict = {}
 
     def run(self, label: str, kernel: str, fk, fp, flib, flops: int,
-            nbytes: int, reps: int = 20, **extra) -> dict:
+            nbytes: int, reps: int = 20, rtol: float = RTOL,
+            peak_flops: float | None = None, **extra) -> dict:
+        """``peak_flops`` overrides the fp32 CUDA-core peak (the bf16
+        tensor-core peak for bf16 inputs)."""
         import torch
         y_k = fk()
         y_p = fp()
         torch.cuda.synchronize()
-        err = _check(label, y_k, y_p)
+        err = _check(label, y_k, y_p, rtol)
+        rel, _ = _rel_err(y_k, y_p)
         row = {
             "case": label, "kernel": kernel,
             "kernel_ms": _device_ms(fk, reps),
@@ -182,9 +220,9 @@ class Timer:
             "plain_ms": _device_ms(fp, max(2, reps // 4)),
             "library_ms": None if flib is None else _device_ms(flib, reps),
             "flops": flops, "bytes": nbytes,
-            "flops_bound_ms": flops / self.peak_flops * 1e3,
+            "flops_bound_ms": flops / (peak_flops or self.peak_flops) * 1e3,
             "bytes_bound_ms": nbytes / self.peak_bw * 1e3,
-            "max_abs_err": err, **extra,
+            "max_abs_err": err, "rel_err": rel, "rtol": rtol, **extra,
         }
         row["bound_ms"] = max(row["flops_bound_ms"], row["bytes_bound_ms"])
         self.max_abs_err[kernel] = max(self.max_abs_err.get(kernel, 0.0), err)
@@ -417,8 +455,89 @@ def kernel_phase(timer: Timer, dev) -> None:
             residual=torch.randn(m, n_out, generator=gen).to(dev), relu=True)
 
 
+# label, BH, Tq, Tk, hd, causal, window, q_offset, dtype
+FLASH_CASES = [
+    ("Qwen admission prefill BH 160 T 512 hd 128 causal bf16", 160, 512,
+     512, 128, True, None, 0, "bfloat16"),
+    ("Qwen admission prefill BH 160 T 512 hd 128 causal f32", 160, 512, 512,
+     128, True, None, 0, "float32"),
+    ("Qwen backfill prefill BH 160 T 528 hd 128 causal bf16", 160, 528, 528,
+     128, True, None, 0, "bfloat16"),
+    ("window 1024 BH 32 T 2048 hd 240 causal bf16", 32, 2048, 2048, 240,
+     True, 1024, 0, "bfloat16"),
+    ("q_offset 512 BH 160 Tq 64 Tk 576 hd 128 causal bf16", 160, 64, 576,
+     128, True, None, 512, "bfloat16"),
+    ("non-causal BH 128 T 512 hd 80 f32", 128, 512, 512, 80, False, None, 0,
+     "float32"),
+    ("odd length BH 8 T 33 hd 32 causal f32", 8, 33, 33, 32, True, None, 0,
+     "float32"),
+]
+QWEN_PREFILL_CASE = FLASH_CASES[0][0]
+
+
+def _attn_mask(tq: int, tk: int, causal: bool, window, q_offset: int, dev):
+    """(Tq, Tk) bool, True where query i (at q_offset + i) sees key j."""
+    import torch
+    qpos = q_offset + torch.arange(tq, device=dev)[:, None]
+    kpos = torch.arange(tk, device=dev)[None, :]
+    mask = torch.ones(tq, tk, dtype=torch.bool, device=dev)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    return mask
+
+
+def flash_phase(timer: Timer, dev, bf16_peak: float) -> dict:
+    """The flash kernel against its plain version at the LM paths' shapes:
+    relative error within 1e-5 of max|y| in f32 and 1e-2 in bf16 (the
+    kernel rounds p to bf16 at the running max of its own 32-key tiles,
+    the plain version at that of its blocks of up to 512 keys: a bf16 ulp
+    of an element here and there).  The
+    library call is `scaled_dot_product_attention` with the same mask
+    (``is_causal`` where the mask is plain causal, else an explicit mask)
+    in the inputs' dtype.  FLOPs count 4 * hd per unmasked (query, key)
+    pair; bytes are q, k, v read once and the output written once.  The
+    FLOP bound takes the bf16 dense tensor-core peak for bf16 inputs
+    (products of bf16 values are exact in a bf16 MMA with f32
+    accumulation) and the fp32 CUDA-core peak for f32."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash import flash_fwd_kernel, flash_fwd_plain
+
+    gen = torch.Generator().manual_seed(2)
+    rows = {}
+    for (label, bh, tq, tk, hd, causal, window, q_offset,
+         dtype) in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(bh, t, hd, generator=gen).to(dev, dt)
+                   for t in (tq, tk, tk))
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        mask = _attn_mask(tq, tk, causal, window, q_offset, dev)
+        pairs = int(mask.sum())
+        # (1, BH, T, hd) views: SDPA's fused backends take 4-D inputs
+        q4, k4, v4 = q[None], k[None], v[None]
+        if causal and window is None and q_offset == 0 and tq == tk:
+            lib = lambda q=q4, k=k4, v=v4: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True)
+        else:
+            lib = lambda q=q4, k=k4, v=v4, m=mask: \
+                F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+        bf16 = dt == torch.bfloat16
+        rows[label] = timer.run(
+            f"flash {label}", "flash_fwd",
+            lambda q=q, k=k, v=v, kw=kw: flash_fwd_kernel(q, k, v, **kw),
+            lambda q=q, k=k, v=v, kw=kw: flash_fwd_plain(q, k, v, **kw),
+            lib, flops=4 * bh * pairs * hd,
+            nbytes=_nbytes(q, k, v) + q.numel() * q.element_size(),
+            reps=10, rtol=BF16_RTOL if bf16 else RTOL,
+            peak_flops=bf16_peak if bf16 else None, pairs_per_head=pairs)
+    return rows
+
+
 def _counters() -> dict:
     """The launch counter of every kernel wrapper, by kernel name."""
+    from repro_torch.kernels.flash import flash_fwd_kernel
     from repro_torch.kernels.vsconv import (vsconv_halo_kernel,
                                             vsconv_stack_kernel)
     from repro_torch.kernels.vsconv_dw import (vsconv_dw_halo_kernel,
@@ -427,7 +546,8 @@ def _counters() -> dict:
     return {"vsconv_halo": vsconv_halo_kernel, "vsmm": vsmm_kernel,
             "vsconv_dw_halo": vsconv_dw_halo_kernel,
             "vsconv_stack": vsconv_stack_kernel,
-            "vsconv_dw_stack": vsconv_dw_stack_kernel}
+            "vsconv_dw_stack": vsconv_dw_stack_kernel,
+            "flash_fwd": flash_fwd_kernel}
 
 
 # path -> (config, impl, requests, launches per wave, warm re-serve)
@@ -527,33 +647,35 @@ def serve_phase(path: str, dev) -> dict:
 
 def _kind(name: str) -> str:
     for kind in ("vsconv_dw_halo", "vsconv_dw_stack", "vsconv_halo",
-                 "vsconv_stack", "vsmm"):
+                 "vsconv_stack", "vsmm", "flash_fwd"):
         if f"{kind}_kernel" in name:
             return kind
     if "Memcpy" in name or "Memset" in name:
         return "copy"
+    if any(key in name for key in ("gemm", "nvjet", "xmma", "cutlass",
+                                   "splitK")):
+        return "gemm"
     return "other"
 
 
-def profile_phase(path: str, srv, images, warm_s: float) -> dict:
-    """One more warm serve of the path's requests under `torch.profiler`:
-    the device's busy time (the union of its kernel and copy intervals)
-    against the wall clock of the same serve, and device time by kind.  The
-    profiler's own host overhead lengthens the wall clock, so that idle
-    share is an upper bound.  The busy time over ``warm_s``, the wall clock
-    of the earlier unprofiled serve of the same traffic, is printed as an
-    estimate built from two serves.  A trace without device events reports
-    nulls (not measured) instead of numbers."""
+def profile_phase(path: str, serve, warm_s: float) -> dict:
+    """One more warm serve of the path's traffic (``serve()``) under
+    `torch.profiler`: the device's busy time (the union of its kernel and
+    copy intervals) against the wall clock of the same serve, and device
+    time by kind.  The profiler's own host overhead lengthens the wall
+    clock, so that idle share is an upper bound.  The busy time over
+    ``warm_s``, the wall clock of the earlier unprofiled serve of the same
+    traffic, is printed as an estimate built from two serves.  A trace
+    without device events reports nulls (not measured) instead of
+    numbers."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.serve import ImageRequest
 
-    reqs = [ImageRequest(rid=i, image=im) for i, im in enumerate(images)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        srv.serve(reqs)
+        serve()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -574,6 +696,301 @@ def profile_phase(path: str, srv, images, warm_s: float) -> dict:
            "idle_share_est_two_serves": 1 - busy_us / 1e3 / (warm_s * 1e3)
            if spans else None,
            "device_ms_by_kind": by_kind}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+LM_CONFIG = "qwen1.5-4b"
+LM_BATCH = 8
+LM_CAPACITY = 512 + 32 + 8   # the reference main's round_up(512, 16) + 32 + 8
+LOGITS_RTOL = 2e-2           # bf16 prefill: kernel path vs plain path...
+# ...unless other valid attention implementations (f32 attention with p
+# unrounded, SDPA) already put the plain path's logits further apart: the
+# bound is then that noise floor (see lm_check_phase)
+F32_LOGITS_RTOL = 1e-4       # the same prefill with the weights in f32
+
+
+def _lm_traffic(vocab: int) -> list:
+    """Seeded traffic: 12 prompts of 497-512 tokens (one length bucket)
+    with max_new drawn from 8-32, then 4 prompts of 241-256 tokens with
+    max_new 16.  The first run admits 8 long prompts, retires the short
+    budgets early and backfills from the other 4."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    long = [(i, rng.integers(0, vocab, int(rng.integers(497, 513)),
+                             dtype=np.int32), int(rng.integers(8, 33)))
+            for i in range(12)]
+    short = [(i, rng.integers(0, vocab, int(rng.integers(241, 257)),
+                              dtype=np.int32), 16)
+             for i in range(12, 16)]
+    return long + short
+
+
+def _lm_requests(traffic: list) -> list:
+    from repro_torch.launch.serve import Request
+    return [Request(rid=r, prompt=p, max_new=m) for r, p, m in traffic]
+
+
+def _lm_stats(stats: list) -> dict:
+    """A serve's stats, per lockstep run and summed."""
+    return {
+        "runs": len(stats),
+        "prefill_s_per_run": [s["prefill_s"] for s in stats],
+        "decode_s_per_run": [s["decode_s"] for s in stats],
+        "decode_steps": sum(s["decode_steps"] for s in stats),
+        "backfills": sum(s["backfills"] for s in stats),
+        "tokens": sum(s["new_tokens"] for s in stats),
+        "decode_tok_s": sum(s["new_tokens"] for s in stats)
+        / sum(s["decode_s"] for s in stats),
+        "ms_per_step_in_runs": 1e3 * sum(s["decode_s"] for s in stats)
+        / max(sum(s["decode_steps"] for s in stats), 1),
+    }
+
+
+def lm_serve_phase(dev) -> dict:
+    """The port's LM `Server` serving Qwen1.5-4B (full depth and width,
+    bf16 weights from seed 0) at batch 8: every launch count set to 0 just
+    before the serve and read just after.  Every request must be delivered
+    with ``max_new`` tokens in [0, padded_vocab), and the flash kernel
+    launched exactly once per layer per prefill: 40 x (lockstep runs +
+    backfills), so none in decode steps."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Server
+
+    cfg = get_config(LM_CONFIG)
+    t0 = time.perf_counter()
+    srv = Server(cfg, batch=LM_BATCH, capacity=LM_CAPACITY, seed=0,
+                 device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    traffic = _lm_traffic(cfg.vocab)
+    reqs = _lm_requests(traffic)
+    counters = _counters()
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    stats = srv.serve(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in counters.items() if k.launches}
+
+    summary = _lm_stats(stats)
+    delivered = [r for r in reqs if r.outcome is not None
+                 and r.outcome.status == "delivered"]
+    if len(delivered) != len(reqs):
+        raise SystemExit(f"chip_smoke: {LM_CONFIG}: {len(delivered)}/"
+                         f"{len(reqs)} delivered")
+    for r in reqs:
+        if len(r.out) != r.max_new or not all(
+                isinstance(t, int) and 0 <= t < cfg.padded_vocab
+                for t in r.out):
+            raise SystemExit(f"chip_smoke: {LM_CONFIG}: request {r.rid} "
+                             f"emitted {r.out} for max_new {r.max_new}")
+    prefills = summary["runs"] + summary["backfills"]
+    expected = {"flash_fwd": cfg.total_layers * prefills}
+    if launches != expected:
+        raise SystemExit(f"chip_smoke: {LM_CONFIG}: launches {launches}, "
+                         f"expected {expected} ({summary['runs']} runs + "
+                         f"{summary['backfills']} backfills)")
+    out = {"phase": "serve", "path": LM_CONFIG, "config": cfg.name,
+           "layers": cfg.total_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "dtype": cfg.param_dtype, "batch": LM_BATCH,
+           "capacity": LM_CAPACITY, "requests": len(reqs),
+           "delivered": len(delivered), "launches": launches,
+           "setup_s": setup_s, "first_serve_s": serve_s, **summary}
+    print(json.dumps(out), flush=True)
+    return {"srv": srv, "traffic": traffic, "reqs": reqs,
+            "launches": launches, "summary": out}
+
+
+def _logits_spread(srv, batch: dict, logits, logits_plain) -> dict:
+    """How far apart other valid attention implementations put the same
+    bf16 prefill's logits (relative to max|logit|): the kernel run again
+    (determinism); attention in f32 with p unrounded and the output
+    rounded to bf16 (the reference's jnp flash); SDPA; and the whole
+    prefill with the weights in f32, kernel vs plain."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash import flash_fwd_plain
+    from repro_torch.models import attention, transformer as tfm
+
+    cfg, cap = srv.cfg, srv.capacity
+
+    def run(fn=None, params=None, c=cfg):
+        params = srv.params if params is None else params
+        if fn is None:
+            return tfm.prefill(params, batch, c, capacity=cap)[0]
+        with mock.patch.object(attention, "flash_fwd_kernel", fn):
+            return tfm.prefill(params, batch, c, capacity=cap)[0]
+
+    def f32_attention(q, k, v, **kw):
+        return flash_fwd_plain(q.float(), k.float(), v.float(),
+                               **kw).to(q.dtype)
+
+    def sdpa(q, k, v, *, causal, window, q_offset):
+        assert window is None and q_offset == 0
+        return F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=causal)[0]
+
+    out = {
+        "kernel_vs_kernel_again": _rel_err(logits, run())[0],
+        "plain_vs_f32_attention": _rel_err(logits_plain,
+                                           run(f32_attention))[0],
+        "plain_vs_sdpa": _rel_err(logits_plain, run(sdpa))[0],
+    }
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                cache_dtype_str="float32")
+    p32 = _tree_map(lambda t: t.float(), srv.params)
+    out["f32_weights_kernel_vs_plain"] = _rel_err(
+        run(params=p32, c=cfg32), run(flash_fwd_plain, p32, cfg32))[0]
+    del p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def lm_check_phase(srv, reqs: list, dev) -> dict:
+    """The first run's admitted batch (the first bucket, longest prompts
+    first, as the scheduler admits it), re-run directly on the card.
+
+    Its admission prefill through the kernel against the same prefill
+    through `flash_fwd_plain`, relative to max|logit|: with the weights in
+    f32 within 1e-4; as served (bf16) within 2e-2 or, where two other
+    valid attention implementations already differ from the plain path by
+    more (`_logits_spread`: on this random-weight 40-layer model any
+    bf16 rounding difference grows to about 2e-2), within that noise
+    floor.  A greedy `prefill` + `decode_step` loop over the batch must
+    emit exactly the tokens the server delivered (lanes are independent:
+    same shapes, same kernels).  The loop's decode steps must launch no
+    flash kernel; their time per step is taken here (batch 8, one token a
+    lane, CUDA-synchronized wall clock)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash import flash_fwd_kernel, flash_fwd_plain
+    from repro_torch.models import attention, transformer as tfm
+
+    be, cfg = srv.backend, srv.cfg
+    key = be.bucket_key(reqs[0])
+    first = sorted([r for r in reqs if be.bucket_key(r) == key],
+                   key=be.sort_key)[:LM_BATCH]
+    toks = np.zeros((LM_BATCH, key), np.int64)
+    for i, r in enumerate(first):
+        toks[i, key - len(r.prompt):] = r.prompt
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    logits, caches = tfm.prefill(srv.params, batch, cfg,
+                                 capacity=srv.capacity)
+    with mock.patch.object(attention, "flash_fwd_kernel", flash_fwd_plain):
+        n0 = flash_fwd_kernel.launches
+        logits_plain, _ = tfm.prefill(srv.params, batch, cfg,
+                                      capacity=srv.capacity)
+        if flash_fwd_kernel.launches != n0:
+            raise SystemExit("chip_smoke: the plain prefill launched the "
+                             "flash kernel")
+    rel, _ = _rel_err(logits, logits_plain)
+    spread = _logits_spread(srv, batch, logits, logits_plain)
+    floor = max(spread["plain_vs_f32_attention"], spread["plain_vs_sdpa"])
+    f32_rel = spread["f32_weights_kernel_vs_plain"]
+    print(json.dumps({"phase": "lm_logits_spread", "path": LM_CONFIG,
+                      "kernel_vs_plain": rel, **spread,
+                      "bf16_noise_floor": floor,
+                      "within_2e-2": rel <= 2e-2}), flush=True)
+    if not f32_rel <= F32_LOGITS_RTOL:
+        raise SystemExit(f"chip_smoke: {LM_CONFIG}: f32-weight prefill "
+                         f"logits, kernel vs plain, relative error "
+                         f"{f32_rel:.3e} > {F32_LOGITS_RTOL}")
+    if not rel <= max(LOGITS_RTOL, floor):
+        raise SystemExit(f"chip_smoke: {LM_CONFIG}: prefill logits, kernel "
+                         f"vs plain, relative error {rel:.3e} > "
+                         f"{LOGITS_RTOL} and > the bf16 noise floor "
+                         f"{floor:.3e}")
+    steps = max(r.max_new for r in first) - 1
+    nxt = torch.argmax(logits, dim=-1)
+    emitted = [nxt]
+    n0 = flash_fwd_kernel.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, caches = tfm.decode_step(srv.params, caches, nxt[:, None],
+                                         key + i, cfg)
+        nxt = torch.argmax(logits, dim=-1)
+        emitted.append(nxt)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if flash_fwd_kernel.launches != n0:
+        raise SystemExit("chip_smoke: a decode step launched the flash "
+                         "kernel")
+    direct = torch.stack(emitted, dim=1).cpu().numpy()
+    bad = [r.rid for j, r in enumerate(first)
+           if r.out != direct[j, :r.max_new].tolist()]
+    if bad:
+        raise SystemExit(f"chip_smoke: {LM_CONFIG}: requests {bad} of the "
+                         f"first run differ from the direct greedy loop")
+    out = {"phase": "lm_check", "path": LM_CONFIG,
+           "first_run_rids": [r.rid for r in first],
+           "prefill_logits_kernel_vs_plain_rel_err": rel,
+           "logits_spread": spread,
+           "greedy_loop_steps": steps, "greedy_loop_match": True,
+           "decode_step_ms": 1e3 * decode_s / steps,
+           "decode_tok_s_full_batch": LM_BATCH * steps / decode_s}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def lm_warm_phase(srv, traffic: list) -> dict:
+    """The same traffic again, warm: prefill seconds per run, decode
+    tokens/s and ms per decode step (backfill prefills inside the runs
+    included)."""
+    import torch
+    t0 = time.perf_counter()
+    stats = srv.serve(_lm_requests(traffic))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    out = {"phase": "warm_serve", "path": LM_CONFIG, "warm_serve_s": warm_s,
+           **_lm_stats(stats)}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def prefill_breakdown_phase(srv, flash_row: dict, dev) -> dict:
+    """One batch-8, T-512 prefill of the served model: its time (CUDA
+    events around a host loop of 3 prefills), the flash kernel's device
+    time per layer and per prefill (x layers, from the kernel phase's
+    Qwen bf16 case, the same shape), its plain, library and bound times
+    likewise, and the rest of the prefill."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tfm
+
+    cfg = srv.cfg
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (LM_BATCH, 512))
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    prefill_ms = _time_ms(lambda: tfm.prefill(srv.params, batch, cfg,
+                                              capacity=srv.capacity), 3)
+    n = cfg.total_layers
+    out = {"phase": "prefill_breakdown", "path": LM_CONFIG,
+           "batch": LM_BATCH, "T": 512, "layers": n,
+           "prefill_ms": prefill_ms,
+           "flash_ms_per_layer": flash_row["kernel_ms"],
+           "flash_ms_per_prefill": n * flash_row["kernel_ms"],
+           "flash_host_loop_ms_per_prefill":
+               n * flash_row["kernel_host_loop_ms"],
+           "plain_ms_per_prefill": n * flash_row["plain_ms"],
+           "library_ms_per_prefill": n * flash_row["library_ms"],
+           "bound_ms_per_prefill": n * flash_row["bound_ms"],
+           "rest_of_prefill_ms": prefill_ms - n * flash_row["kernel_ms"]}
     print(json.dumps(out), flush=True)
     return out
 
@@ -672,6 +1089,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
+    from repro_torch.launch.serve import ImageRequest
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -681,31 +1099,53 @@ def main() -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    peak_flops, peak_bw = _peaks(name)
+    peak_flops, peak_bw, bf16_peak = _peaks(name)
 
     t0 = time.perf_counter()
-    logs = _build.build("vsmm", "vsconv", "vsconv_dw")
+    logs = _build.build("vsmm", "vsconv", "vsconv_dw", "flash_fwd")
     build_s = time.perf_counter() - t0
     for kernel, log in logs.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln]
         print(f"built {kernel}: {'; '.join(regs)}")
+    smem = {hd: _build.load("flash_fwd").flash_fwd_smem_bytes(hd)
+            for hd in (32, 80, 128, 240)}
     print(json.dumps({"phase": "build", "seconds": build_s,
-                      "built": sorted(logs)}), flush=True)
+                      "built": sorted(logs),
+                      "flash_fwd_dynamic_smem_bytes_by_hd": smem}),
+          flush=True)
 
     timer = Timer(peak_flops, peak_bw)
     kernel_phase(timer, dev)
+    flash_rows = flash_phase(timer, dev, bf16_peak)
     served = {path: serve_phase(path, dev) for path in PATHS}
-    profiled = {path: profile_phase(path, s["srv"], s["images"], s["warm_s"])
-                for path, s in served.items() if s["warm_s"] is not None}
+    profiled = {
+        path: profile_phase(
+            path, lambda s=s: s["srv"].serve(
+                [ImageRequest(rid=i, image=im)
+                 for i, im in enumerate(s["images"])]), s["warm_s"])
+        for path, s in served.items() if s["warm_s"] is not None}
     for path, s in served.items():
         forward_phase(timer, path, s["srv"], s["images"], dev,
                       stack_layers_only=path.endswith("-stack"))
+    cnn_launches = {path: s["launches"] for path, s in served.items()}
+    cnn_summaries = {path: s["summary"] for path, s in served.items()}
+    served.clear()  # free the CNN servers before the 4 B-parameter model
+
+    lm = lm_serve_phase(dev)
+    lm_check = lm_check_phase(lm["srv"], lm["reqs"], dev)
+    lm_warm = lm_warm_phase(lm["srv"], lm["traffic"])
+    profiled[LM_CONFIG] = profile_phase(
+        LM_CONFIG, lambda: lm["srv"].serve(_lm_requests(lm["traffic"])),
+        lm_warm["warm_serve_s"])
+    qwen_row = flash_rows[QWEN_PREFILL_CASE]
+    breakdown = prefill_breakdown_phase(lm["srv"], qwen_row, dev)
 
     kernels = []
     for kname, (src, replaces) in SOURCES.items():
         s = timer.sums[kname]
-        by_path = {path: v["launches"][kname] for path, v in served.items()
-                   if kname in v["launches"]}
+        by_path = {path: v[kname] for path, v in cnn_launches.items()
+                   if kname in v}
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -717,13 +1157,36 @@ def main() -> int:
                          >= s["bytes_bound_ms"] else "bytes"),
             "library_ms": s["library_ms"],
         })
+    layers = lm["summary"]["layers"]
+    flash_bound = {k: layers * qwen_row[f"{k}_bound_ms"]
+                   for k in ("flops", "bytes")}
+    kernels.append({
+        "name": "flash_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
+        "replaces": "src/repro/kernels/flash.py:92",
+        "launches": lm["launches"]["flash_fwd"],
+        "launches_by_path": {LM_CONFIG: lm["launches"]["flash_fwd"]},
+        "max_abs_err": timer.max_abs_err["flash_fwd"],
+        "ms": layers * qwen_row["kernel_ms"],
+        "plain_ms": layers * qwen_row["plain_ms"],
+        "bound_ms": max(flash_bound.values()),
+        "bound_by": ("operations" if flash_bound["flops"]
+                     >= flash_bound["bytes"] else "bytes"),
+        "library_ms": layers * qwen_row["library_ms"],
+        "per": f"one Qwen1.5-4B prefill, batch {LM_BATCH}, T 512, bf16 "
+               f"({layers} launches)",
+        "ms_per_launch": qwen_row["kernel_ms"],
+    })
     result = {"kernels": kernels}
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(
             {"gpu": smi, "result": result, "per_forward": timer.sums,
              "per_forward_by_path": timer.by_path,
-             "serve": {p: s["summary"] for p, s in served.items()},
+             "serve": cnn_summaries,
+             "flash": flash_rows,
+             "lm": {"serve": lm["summary"], "check": lm_check,
+                    "warm": lm_warm, "prefill_breakdown": breakdown},
              "profile": profiled}, indent=1))
     print(smi)
     print(json.dumps(result))

@@ -1,0 +1,172 @@
+"""LM config dataclasses (the port of `repro/configs/base.py`).
+
+`ArchConfig`, `LayerSpec`, `Segment` and `SparsityConfig` keep the
+reference's fields and defaults, so a config reads the same on both sides;
+``dtype`` and ``cache_dtype`` give torch dtypes.  `reduce()` derives the
+same tiny CPU smoke-test config as the reference's.
+
+The port serves token-input attention + MLP stacks today.  A config that
+needs a module of a later slice (a MoE, a Mamba or RWKV mixer, the RWKV
+channel mix, the vector-sparse FFN, an embedding frontend, bf16-flow
+matmul outputs) is refused at construction with `NotImplementedError`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+__all__ = ["LayerSpec", "Segment", "SparsityConfig", "ArchConfig"]
+
+_LATER = "is ported with the LM arm's later slices (ROADMAP queue 1)"
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    mixer: str = "attn"          # 'attn' | 'mamba' | 'rwkv_tm' | 'none'
+    ffn: str = "mlp"             # 'mlp' | 'moe' | 'rwkv_cm' | 'none'
+    window: int | None = None    # sliding-window size for local attention
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    repeat: int
+    layers: tuple[LayerSpec, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class SparsityConfig:
+    """The paper's technique as a config knob (weights pruned at vector
+    granularity; activation vectors skipped at runtime)."""
+
+    density: float = 0.235   # paper's VGG-16 operating point
+    vk: int = 32             # vector (K-tile) length
+    vn: int = 128            # output strip width
+    targets: tuple[str, ...] = ("ffn", "attn_proj")  # which matmuls
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                       # dense|moe|hybrid|ssm|audio|vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    segments: tuple[Segment, ...]
+    modality: str = "lm"              # serving dispatch; CNN configs say "cnn"
+    moe: Any = None
+    activation: str = "swiglu"
+    head_dim_override: int | None = None
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    causal: bool = True
+    encoder_only: bool = False
+    attn_free: bool = False
+    subquadratic: bool = False        # eligible for long_500k
+    embed_inputs: bool = True         # False => stub frontend (embeds input)
+    tie_embeddings: bool = False
+    rope_theta: float = 1e4
+    attn_sharding: str = "heads"      # 'heads' | 'sp' (no mesh in the port)
+    attn_impl: str = "xla"            # 'xla' | 'pallas': one kernel path here
+    sparsity: SparsityConfig | None = SparsityConfig()
+    param_dtype: str = "bfloat16"
+    cache_dtype_str: str = "bfloat16"
+    vocab_pad_to: int = 2048
+    scan_chunk: int = 256
+    attn_block_q: int = 512
+    attn_block_kv: int = 1024
+    ce_chunk: int = 512
+    z_loss: float = 1e-4
+    remat: bool = True
+    tp_hint: int = 16                 # model-axis width configs pad against
+    optimizer: str = "adamw"          # 'adamw' | 'adafactor'
+    microbatches: int = 1             # gradient-accumulation splits per step
+    moe_dispatch: str = "gather_weights"  # | 'resident' (serve/decode)
+    bf16_flow: bool = False           # bf16 matmul outputs (perf knob)
+    grad_accum_dtype: str = "float32" # microbatch gradient accumulator
+    flash_remat: bool = False         # recompute flash scores in backward
+    use_sparse_ffn: bool = False      # vector-sparse FFN
+    seq_shard_residual: bool = False  # Megatron-SP residual stream
+    notes: str = ""
+
+    def __post_init__(self) -> None:
+        if self.moe is not None:
+            raise NotImplementedError(f"{self.name}: the MoE FFN {_LATER}")
+        if self.use_sparse_ffn:
+            raise NotImplementedError(
+                f"{self.name}: the vector-sparse FFN (sparse_lm) {_LATER}")
+        if not self.embed_inputs:
+            raise NotImplementedError(
+                f"{self.name}: the embedding frontends {_LATER}")
+        if self.bf16_flow:
+            raise NotImplementedError(
+                f"{self.name}: bf16-flow matmul outputs {_LATER}")
+        for seg in self.segments:
+            for sp in seg.layers:
+                if sp.mixer not in ("attn", "none"):
+                    raise NotImplementedError(
+                        f"{self.name}: the {sp.mixer!r} mixer {_LATER}")
+                if sp.ffn not in ("mlp", "none"):
+                    raise NotImplementedError(
+                        f"{self.name}: the {sp.ffn!r} FFN {_LATER}")
+
+    # -- derived -------------------------------------------------------------
+    @property
+    def head_dim(self) -> int:
+        return self.head_dim_override or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_to
+        return -(-self.vocab // m) * m
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    @property
+    def cache_dtype(self) -> torch.dtype:
+        return getattr(torch, self.cache_dtype_str)
+
+    @property
+    def total_layers(self) -> int:
+        return sum(s.repeat * len(s.layers) for s in self.segments)
+
+    def reduce(self) -> "ArchConfig":
+        """Tiny same-family config for CPU smoke tests (the reference's)."""
+        heads = max(2, min(4, self.n_heads))
+        kv = max(1, min(self.n_kv_heads, heads))
+        while heads % kv:
+            kv -= 1
+        segs = tuple(
+            Segment(repeat=min(s.repeat, 2),
+                    layers=tuple(
+                        dataclasses.replace(
+                            sp, window=min(sp.window, 16) if sp.window else None
+                        ) for sp in s.layers
+                    ))
+            for s in self.segments[:2]
+        )
+        return dataclasses.replace(
+            self,
+            d_model=64 * heads if self.attn_free else 32 * heads,
+            n_heads=heads,
+            n_kv_heads=kv,
+            d_ff=128,
+            vocab=512,
+            vocab_pad_to=64,
+            segments=segs,
+            head_dim_override=None,
+            scan_chunk=8,
+            attn_block_q=32,
+            attn_block_kv=32,
+            ce_chunk=64,
+            tp_hint=1,
+            microbatches=1,
+            param_dtype="float32",
+            cache_dtype_str="float32",
+        )

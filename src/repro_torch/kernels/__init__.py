@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels for the sparse conv/matmul hot path.
+"""Hand-written Hopper kernels: the sparse conv/matmul hot path and flash
+attention.
 
 - `vsmm`    -- vector-sparse matmul: ``csrc/vsmm.cu``, its ctypes wrapper
                `vsmm_kernel`, the plain version `vsmm_plain`
@@ -9,6 +10,8 @@
 - `vsconv_dw` -- depthwise conv over both layouts: ``csrc/vsconv_dw.cu``,
                `vsconv_dw_halo_kernel` / `vsconv_dw_plain`,
                `vsconv_dw_stack_kernel` / `vsconv_dw_stack_plain`
+- `flash`   -- attention forward (causal, window, q_offset):
+               ``csrc/flash_fwd.cu``, `flash_fwd_kernel` / `flash_fwd_plain`
 - `ops`     -- public wrappers (layout prep, 1x1 / depthwise routing)
 - `ref`     -- dense oracles
 - `_build`  -- nvcc at first use into the git-ignored ``build/``

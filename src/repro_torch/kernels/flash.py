@@ -1,0 +1,148 @@
+"""flash_fwd — attention forward: CUDA kernel, wrapper, plain version.
+
+The kernel (``csrc/flash_fwd.cu``) replaces the JAX package's Pallas kernel
+`repro/kernels/flash.py::flash_fwd_pallas`: q (BH, Tq, hd), k/v (BH, Tk,
+hd) -> softmax(mask(q k^T * hd^-0.5)) v in q's dtype, with causal and
+sliding-window masks and query positions offset by ``q_offset``.  Heads are
+flattened into BH; grouped-query callers repeat K/V first.
+
+`flash_fwd_kernel` is the wrapper: it launches the kernel for CUDA tensors
+and runs `flash_fwd_plain` for CPU tensors, and nothing else — a CUDA
+tensor that the kernel does not take raises, it never falls back.
+``flash_fwd_kernel.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels._build import launch
+
+__all__ = ["flash_fwd_kernel", "flash_fwd_plain", "chunk_size", "MAX_HD",
+           "NEG_INF"]
+
+NEG_INF = -1e30
+MAX_HD = 256  # accumulator slots a lane holds: ceil(hd / 32) <= 8
+
+
+def chunk_size(t: int, pref: int) -> int:
+    """The largest divisor of ``t`` that is at most ``pref`` (the
+    reference's `_chunk_sizes`)."""
+    b = min(pref, t)
+    while t % b:
+        b -= 1
+    return b
+
+
+def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """The plain PyTorch version of the kernel: the TPU kernel's chain.
+
+    Query blocks of ``chunk_size(Tq, 256)`` rows, kv blocks of
+    ``chunk_size(Tk, 512)`` keys (the blocks `_flash_pallas` picks); a kv
+    block that no query of the block can see is skipped (the TPU's
+    ``live`` test).  Masked scores are -1e30 and the running max starts at
+    -1e30; p is rounded to v's dtype before the PV product; the output is
+    acc / max(l, 1e-30) in q's dtype.  Runs on any device.
+    """
+    bh, tq, hd = q.shape
+    tk = k.shape[1]
+    scale = hd ** -0.5
+    bq, bk = chunk_size(tq, 256), chunk_size(tk, 512)
+    out = torch.empty_like(q)
+    for q0 in range(0, tq, bq):
+        qpos0 = q_offset + q0
+        qf = q[:, q0:q0 + bq].float()
+        qpos = qpos0 + torch.arange(bq, device=q.device)
+        m = torch.full((bh, bq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((bh, bq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((bh, bq, hd), dtype=torch.float32, device=q.device)
+        for k0 in range(0, tk, bk):
+            if causal and qpos0 + bq - 1 < k0:
+                continue
+            if window is not None and not qpos0 < k0 + bk + window - 1:
+                continue
+            s = torch.einsum("bqd,bkd->bqk", qf,
+                             k[:, k0:k0 + bk].float()) * scale
+            kpos = k0 + torch.arange(bk, device=q.device)
+            mask = torch.ones((bq, bk), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= qpos[:, None] >= kpos[None, :]
+            if window is not None:
+                mask &= qpos[:, None] - kpos[None, :] < window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            m = m_new
+            pv = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(),
+                              v[:, k0:k0 + bk].float())
+            acc = acc * corr[..., None] + pv
+        denom = torch.clamp_min(l, 1e-30)
+        out[:, q0:q0 + bq] = (acc / denom[..., None]).to(q.dtype)
+    return out
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: int | None, q_offset: int) -> None:
+    """Raise unless the kernel takes these operands."""
+    if q.ndim != 3 or k.shape != v.shape or k.ndim != 3 or \
+            k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}: expected (BH, Tq, hd) and "
+                         f"two (BH, Tk, hd)")
+    hd = q.shape[2]
+    if hd % 4 or not 4 <= hd <= MAX_HD:
+        raise ValueError(f"flash_fwd_kernel takes hd a multiple of 4 up to "
+                         f"{MAX_HD}, got {hd}")
+    if k.shape[1] < 1:
+        raise ValueError("flash_fwd_kernel needs at least one key")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype or \
+                t.dtype not in (torch.float32, torch.bfloat16) or \
+                not t.is_contiguous():
+            raise ValueError(
+                f"{name}: the kernel takes contiguous float32 or bfloat16 "
+                f"tensors of one dtype on {q.device}, got {t.dtype} on "
+                f"{t.device} (contiguous={t.is_contiguous()}, q is "
+                f"{q.dtype})")
+
+
+def flash_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool = True, window: int | None = None,
+                     q_offset: int = 0) -> torch.Tensor:
+    """q (BH, Tq, hd), k/v (BH, Tk, hd) -> (BH, Tq, hd) in q's dtype.
+
+    CUDA tensors launch ``csrc/flash_fwd.cu`` on the current stream (built
+    at first use); CPU tensors run `flash_fwd_plain`.  Any Tq and Tk;
+    ``window`` None or >= 1; ``q_offset`` >= 0.  The kernel steps its
+    online softmax over tiles of 32 keys, so in bf16 it rounds p at
+    another running max than the plain version (blocks of up to 512 keys):
+    the two agree within a bf16 ulp here and there.
+    """
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_fwd_kernel runs on cuda or cpu, not "
+                         f"{q.device}")
+    _check(q, k, v, window, q_offset)
+    bh, tq, hd = q.shape
+    out = torch.empty_like(q)
+    if bh == 0 or tq == 0:
+        return out
+    launch("flash_fwd", "flash_fwd_launch", (q, k, v, out),
+           (bh, tq, k.shape[1], hd, int(causal),
+            -1 if window is None else window, q_offset,
+            int(q.dtype == torch.bfloat16)), q.device)
+    flash_fwd_kernel.launches += 1
+    return out
+
+
+flash_fwd_kernel.launches = 0  # type: ignore[attr-defined]

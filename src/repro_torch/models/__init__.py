@@ -1,2 +1,2 @@
-"""Models: the param schema (`layers`) and the network IR + executor
-(`graph`)."""
+"""Models: the param schema and layers (`layers`), the CNN IR + executor
+(`graph`), and the LM stack (`attention`, `transformer`)."""

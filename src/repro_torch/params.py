@@ -21,18 +21,28 @@ __all__ = ["params_from_numpy", "sparse_from_numpy"]
 
 
 def _tensor(a: Any, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    arr = np.array(a, copy=True)
+    if arr.dtype.name == "bfloat16":
+        # numpy has no bfloat16 of its own (JAX hands out ml_dtypes'), and
+        # torch.from_numpy refuses it: carry the bits over as uint16
+        return torch.from_numpy(arr.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
-def params_from_numpy(tree: dict, device: str | torch.device | None = None
-                      ) -> dict:
-    """A nested dict of arrays (the reference's ``init_params`` tree) ->
-    the same nesting of tensors on ``device`` (CUDA by default)."""
+def params_from_numpy(tree: Any, device: str | torch.device | None = None
+                      ) -> Any:
+    """A nested dict / list of arrays (the reference's ``init_params``
+    tree; an LM tree's ``segments`` is a list) -> the same nesting of
+    tensors on ``device`` (CUDA by default).  f32 and bfloat16 arrays keep
+    their dtype and bits."""
     dev = resolve_device(device)
 
     def walk(node: Any) -> Any:
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
         return _tensor(node, dev)
 
     return walk(tree)

@@ -9,13 +9,20 @@ with an H100:
 
 Tolerance: relative 1e-5 of max|y|.  The kernels and the plain versions
 multiply the same f32 numbers; only the order of the f32 sums differs.
+The flash kernel in bf16: 1e-2, since it rounds p to bf16 at the running
+max of its own kv tiles (32 keys), the plain version at that of its blocks
+(up to 512): a bf16 ulp (2^-8 relative) of an element here and there.
 """
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.vector_sparse import VectorSparse, from_mask
 from repro_torch.core.pruning import prune_vectors_balanced
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash as TF
 from repro_torch.kernels import ops
 from repro_torch.kernels.vsconv import (build_halo_input, build_row_tap_stack,
                                         vsconv_halo_kernel, vsconv_plain,
@@ -26,6 +33,8 @@ from repro_torch.kernels.vsconv_dw import (vsconv_dw_halo_kernel,
                                            vsconv_dw_stack_kernel,
                                            vsconv_dw_stack_plain)
 from repro_torch.kernels.vsmm import vsmm_kernel, vsmm_plain
+from repro_torch.launch import serve as TS
+from repro_torch.models import attention as TA
 from repro_torch.models import graph as TG
 from repro_torch.models.layers import init_params
 
@@ -275,3 +284,100 @@ def test_resnet18_stack_kernels_match_plain(cuda):
     assert (vsconv_stack_kernel.launches, vsmm_kernel.launches) == (17, 4)
     assert _rel(y, TG.net_apply(net, params, x, sparse=sparse,
                                 impl="plain")) <= RTOL
+
+
+FLASH_CASES = [  # bh, tq, tk, hd, causal, window, q_offset
+    (4, 512, 512, 128, True, None, 0),     # Qwen's prefill shape, 4 heads
+    (2, 528, 528, 128, True, None, 0),     # a backfill length
+    (2, 300, 300, 240, True, 64, 0),       # Gemma-3's head dim, a window
+    (2, 64, 576, 128, True, None, 512),    # q_offset: 64 queries at the end
+    (3, 200, 200, 80, False, None, 0),     # non-causal, HuBERT's head dim
+    (2, 33, 33, 32, True, None, 0),        # odd length
+    (2, 65, 97, 32, False, 20, 0),         # window without causal
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    bh, tq, tk, hd, causal, window, q_offset = case
+    gen = torch.Generator().manual_seed(tq + hd)
+    q, k, v = (torch.randn(bh, t, hd, generator=gen).to(cuda, dtype)
+               for t in (tq, tk, tk))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = TF.flash_fwd_kernel.launches
+    y = TF.flash_fwd_kernel(q, k, v, **kw)
+    assert TF.flash_fwd_kernel.launches == before + 1
+    torch.cuda.synchronize()
+    y_plain = TF.flash_fwd_plain(q, k, v, **kw)
+    assert y.dtype == dtype and y.shape == (bh, tq, hd)
+    assert torch.isfinite(y.float()).all()
+    tol = RTOL if dtype == torch.float32 else 1e-2
+    assert _rel(y.float(), y_plain.float()) <= tol
+
+
+def test_flash_kernel_refuses_what_it_cannot_take(cuda):
+    q = torch.randn(2, 16, 64, device=cuda)
+    before = TF.flash_fwd_kernel.launches
+    for bad in (dict(q=q.half(), k=q.half(), v=q.half()),
+                dict(q=q.double(), k=q.double(), v=q.double()),
+                dict(q=q, k=q.to(torch.bfloat16), v=q),
+                dict(q=q, k=q.transpose(1, 2).contiguous().transpose(1, 2),
+                     v=q)):
+        with pytest.raises(ValueError):
+            TF.flash_fwd_kernel(**bad)
+    wide = torch.randn(1, 8, 260, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        TF.flash_fwd_kernel(wide, wide, wide)
+    assert TF.flash_fwd_kernel.launches == before
+
+
+def test_reduced_qwen_served_through_the_kernel_equals_plain(cuda):
+    """Reduced Qwen (f32) served on the card: every prefill runs the flash
+    kernel once per layer, decode steps run none, and the token streams
+    equal the same serve with the plain version in the kernel's place."""
+    cfg = get_config("qwen1.5-4b").reduce()
+    srv = TS.Server(cfg, batch=2, capacity=64, device=cuda)
+    rng = np.random.default_rng(0)
+    traffic = [(i, rng.integers(0, cfg.vocab, int(rng.integers(18, 31)),
+                                dtype=np.int32), int(rng.integers(3, 10)))
+               for i in range(4)]
+
+    def serve():
+        reqs = [TS.Request(rid=r, prompt=p, max_new=m)
+                for r, p, m in traffic]
+        return reqs, srv.serve(reqs)
+
+    TF.flash_fwd_kernel.launches = 0
+    got, stats = serve()
+    prefills = len(stats) + sum(s["backfills"] for s in stats)
+    assert sum(s["backfills"] for s in stats) >= 1
+    assert TF.flash_fwd_kernel.launches == cfg.total_layers * prefills
+    with mock.patch.object(TA, "flash_fwd_kernel", TF.flash_fwd_plain):
+        ref, _ = serve()
+    assert TF.flash_fwd_kernel.launches == cfg.total_layers * prefills
+    assert [r.out for r in got] == [r.out for r in ref]
+    assert [len(r.out) for r in got] == [m for _, _, m in traffic]
+
+
+def test_sampling_on_the_card_is_reproducible_and_keeps_greedy(cuda):
+    """The per-slot sampler on CUDA logits: a hot request re-served emits
+    the same tokens; its greedy neighbour emits what it emits alone."""
+    cfg = get_config("qwen1.5-4b").reduce()
+    srv = TS.Server(cfg, batch=2, capacity=64, device=cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, 6, dtype=np.int32)
+               for _ in range(2)]
+
+    def serve(temps):
+        reqs = [TS.Request(rid=100 + i, prompt=p, max_new=8, temperature=t)
+                for i, (p, t) in enumerate(zip(prompts, temps))]
+        srv.serve(reqs)
+        return [r.out for r in reqs]
+
+    greedy = serve([0.0, 0.0])
+    mixed = serve([0.0, 5.0])
+    again = serve([0.0, 5.0])
+    assert mixed == again
+    assert mixed[0] == greedy[0]
+    assert mixed[1] != greedy[1]
