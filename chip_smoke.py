@@ -11,8 +11,10 @@ repository around it, or when any phase fails.  Phases:
 
 1. Build the four kernel sources from ``src/repro_torch/kernels/csrc``
    (``vsmm.cu``, ``vsconv.cu``, ``vsconv_dw.cu``, ``flash_fwd.cu``; one
-   nvcc per source, started together) and print their register use and
-   the flash kernel's dynamic shared memory per head dim.
+   nvcc per source, started together) and print their register use, the
+   registers and spill bytes of each flash instantiation (the bf16 hd-128
+   one must not spill) and the flash kernel's dynamic shared memory per
+   head dim and body.
 2. Kernel phase.  Each kernel against its plain version on the card,
    within a relative error of 1e-5 of max|y| (1e-2 for the flash kernel
    on bf16 inputs), then timed (see below).  One JSON line per case.  The
@@ -31,8 +33,10 @@ repository around it, or when any phase fails.  Phases:
    The flash kernel (`flash_phase`): Qwen1.5-4B's admission prefill (BH
    160 = 8 x 20 heads, T 512, hd 128, causal) in bf16 and f32, a backfill
    length (T 528), a window of 1024 at T 2048 and hd 240, a q_offset of
-   512 (Tq 64 against Tk 576), a non-causal hd 80 case and an odd length
-   (T 33, hd 32).
+   512 (Tq 64 against Tk 576), a bf16 hd-64 case (BH 64, T 1024), a
+   non-causal hd 80 case and an odd length (T 33, hd 32).  bf16 runs the
+   tensor-core body, f32 the CUDA-core one; each row names its body, and
+   two launches of each case must give bit-equal outputs.
 3. Serve phases, one per path.  Before each, every launch count is set
    to 0; the port's ``CNNServer(cfg, batch=8, impl=...)`` serves seeded
    224x224x3 requests; the counts are read just after and must be exactly
@@ -110,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -127,7 +132,8 @@ PEAKS = (
     ("H200", 67e12, 4.8e12, 989e12),
 )
 RTOL = 1e-5
-BF16_RTOL = 1e-2         # the flash kernel on bf16 inputs (see flash_phase)
+BF16_RTOL = 1e-2         # the flash kernel on bf16 inputs: p rounded at
+                         # 64-key tiles, not 512-key blocks (flash_phase)
 BATCH = 8
 SIZE = 224
 DENSITY = 0.235          # ResNet-18's pruning point
@@ -467,6 +473,8 @@ FLASH_CASES = [
      True, 1024, 0, "bfloat16"),
     ("q_offset 512 BH 160 Tq 64 Tk 576 hd 128 causal bf16", 160, 64, 576,
      128, True, None, 512, "bfloat16"),
+    ("hd 64 BH 64 T 1024 causal bf16", 64, 1024, 1024, 64, True, None, 0,
+     "bfloat16"),
     ("non-causal BH 128 T 512 hd 80 f32", 128, 512, 512, 80, False, None, 0,
      "float32"),
     ("odd length BH 8 T 33 hd 32 causal f32", 8, 33, 33, 32, True, None, 0,
@@ -491,9 +499,10 @@ def _attn_mask(tq: int, tk: int, causal: bool, window, q_offset: int, dev):
 def flash_phase(timer: Timer, dev, bf16_peak: float) -> dict:
     """The flash kernel against its plain version at the LM paths' shapes:
     relative error within 1e-5 of max|y| in f32 and 1e-2 in bf16 (the
-    kernel rounds p to bf16 at the running max of its own 32-key tiles,
-    the plain version at that of its blocks of up to 512 keys: a bf16 ulp
-    of an element here and there).  The
+    tensor-core body rounds p to bf16 at the running max of its own 64-key
+    tiles, the plain version at that of its blocks of up to 512 keys: a
+    bf16 ulp of an element here and there), and two launches bit-equal.
+    Each row names the body that ran (`kernel_body`).  The
     library call is `scaled_dot_product_attention` with the same mask
     (``is_causal`` where the mask is plain causal, else an explicit mask)
     in the inputs' dtype.  FLOPs count 4 * hd per unmasked (query, key)
@@ -503,7 +512,8 @@ def flash_phase(timer: Timer, dev, bf16_peak: float) -> dict:
     accumulation) and the fp32 CUDA-core peak for f32."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash import flash_fwd_kernel, flash_fwd_plain
+    from repro_torch.kernels.flash import (flash_fwd_kernel,
+                                           flash_fwd_plain, kernel_body)
 
     gen = torch.Generator().manual_seed(2)
     rows = {}
@@ -524,15 +534,53 @@ def flash_phase(timer: Timer, dev, bf16_peak: float) -> dict:
             lib = lambda q=q4, k=k4, v=v4, m=mask: \
                 F.scaled_dot_product_attention(q, k, v, attn_mask=m)
         bf16 = dt == torch.bfloat16
+        fk = lambda q=q, k=k, v=v, kw=kw: flash_fwd_kernel(q, k, v, **kw)
+        if not torch.equal(fk(), fk()):
+            raise SystemExit(f"chip_smoke: flash {label}: two launches "
+                             f"differ")
         rows[label] = timer.run(
-            f"flash {label}", "flash_fwd",
-            lambda q=q, k=k, v=v, kw=kw: flash_fwd_kernel(q, k, v, **kw),
+            f"flash {label}", "flash_fwd", fk,
             lambda q=q, k=k, v=v, kw=kw: flash_fwd_plain(q, k, v, **kw),
             lib, flops=4 * bh * pairs * hd,
             nbytes=_nbytes(q, k, v) + q.numel() * q.element_size(),
             reps=10, rtol=BF16_RTOL if bf16 else RTOL,
-            peak_flops=bf16_peak if bf16 else None, pairs_per_head=pairs)
+            peak_flops=bf16_peak if bf16 else None, pairs_per_head=pairs,
+            body=kernel_body(dt))
     return rows
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers and spill bytes per entry function from ``nvcc -Xptxas
+    -v`` output: {mangled name: {"registers", "spill_stores",
+    "spill_loads"}}."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name = m.group(1)
+            usage[name] = {"registers": None, "spill_stores": None,
+                           "spill_loads": None}
+        elif name is None:
+            continue
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            usage[name]["spill_stores"] = int(m.group(1))
+            usage[name]["spill_loads"] = int(m.group(2))
+        elif m := re.search(r"Used (\d+) registers", line):
+            usage[name]["registers"] = int(m.group(1))
+    return usage
+
+
+def flash_instantiations(log: str) -> list:
+    """One row per instantiation of ``flash_fwd.cu``'s two bodies: the
+    tensor-core body per padded head dim (``hd``, a multiple of 16), the
+    CUDA-core body per ``hd`` range of 32 (its slot count x 32)."""
+    rows = []
+    for name, use in ptxas_usage(log).items():
+        if m := re.search(r"flash_mma_kernelILi(\d+)E", name):
+            rows.append({"body": "mma", "hd": int(m.group(1)), **use})
+        elif m := re.search(r"flash_simt_kernelIfLi(\d+)E", name):
+            rows.append({"body": "simt", "hd": 32 * int(m.group(1)), **use})
+    return sorted(rows, key=lambda r: (r["body"], r["hd"]))
 
 
 def _counters() -> dict:
@@ -650,6 +698,8 @@ def _kind(name: str) -> str:
                  "vsconv_stack", "vsmm", "flash_fwd"):
         if f"{kind}_kernel" in name:
             return kind
+    if "flash_mma_kernel" in name or "flash_simt_kernel" in name:
+        return "flash_fwd"   # the flash kernel's bf16 and f32 bodies
     if "Memcpy" in name or "Memset" in name:
         return "copy"
     if any(key in name for key in ("gemm", "nvjet", "xmma", "cutlass",
@@ -1108,10 +1158,20 @@ def main() -> int:
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"built {kernel}: {'; '.join(regs)}")
-    smem = {hd: _build.load("flash_fwd").flash_fwd_smem_bytes(hd)
-            for hd in (32, 80, 128, 240)}
+    flash = flash_instantiations(_build.build_log("flash_fwd"))
+    spills = [r for r in flash if r["body"] == "mma" and r["hd"] == 128]
+    if len(spills) != 1 or spills[0]["spill_stores"] != 0 or \
+            spills[0]["spill_loads"] != 0:
+        print(f"chip_smoke: the bf16 hd-128 flash instantiation spills or "
+              f"is missing: {spills}", file=sys.stderr)
+        return 1
+    lib = _build.load("flash_fwd")
+    smem = {body: {hd: lib.flash_fwd_smem_bytes(hd, int(body == "mma"))
+                   for hd in (32, 64, 80, 128, 240)}
+            for body in ("mma", "simt")}
     print(json.dumps({"phase": "build", "seconds": build_s,
                       "built": sorted(logs),
+                      "flash_fwd_instantiations": flash,
                       "flash_fwd_dynamic_smem_bytes_by_hd": smem}),
           flush=True)
 
@@ -1175,7 +1235,7 @@ def main() -> int:
         "library_ms": layers * qwen_row["library_ms"],
         "per": f"one Qwen1.5-4B prefill, batch {LM_BATCH}, T 512, bf16 "
                f"({layers} launches)",
-        "ms_per_launch": qwen_row["kernel_ms"],
+        "ms_per_launch": qwen_row["kernel_ms"], "body": qwen_row["body"],
     })
     result = {"kernels": kernels}
     if args.json is not None:

@@ -10,8 +10,10 @@ The library name carries a hash of the sources and flags, so an edited
 kernel is rebuilt and a stale one is never loaded.  ``build/`` lies beside
 this file and is git-ignored.  `build` starts one nvcc per source, all
 together, and waits for them; each result is renamed into place, so two
-processes building at once cannot load a half-written library.  `launch`
-calls a library's extern "C" launch entry on the current stream.
+processes building at once cannot load a half-written library.  nvcc's
+output (``-Xptxas -v``: registers, shared memory and spills per kernel) is
+kept beside the library (`build_log`).  `launch` calls a library's
+extern "C" launch entry on the current stream.
 """
 from __future__ import annotations
 
@@ -25,8 +27,8 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["CSRC", "BUILD", "NVCC_FLAGS", "build", "load", "library_path",
-           "launch"]
+__all__ = ["CSRC", "BUILD", "NVCC_FLAGS", "build", "build_log", "load",
+           "library_path", "launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
@@ -80,10 +82,19 @@ def build(*names: str) -> dict[str, str]:
             failed.append(f"nvcc failed for {name} (exit {proc.returncode}):"
                           f"\n{out}")
         else:
+            tmp.with_suffix(".log").write_text(out)
+            os.replace(tmp.with_suffix(".log"), target.with_suffix(".log"))
             os.replace(tmp, target)
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the built ``csrc/<name>.cu`` (built at first
+    use)."""
+    build(name)
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -4,7 +4,9 @@ The kernel (``csrc/flash_fwd.cu``) replaces the JAX package's Pallas kernel
 `repro/kernels/flash.py::flash_fwd_pallas`: q (BH, Tq, hd), k/v (BH, Tk,
 hd) -> softmax(mask(q k^T * hd^-0.5)) v in q's dtype, with causal and
 sliding-window masks and query positions offset by ``q_offset``.  Heads are
-flattened into BH; grouped-query callers repeat K/V first.
+flattened into BH; grouped-query callers repeat K/V first.  It has two
+bodies (`kernel_body`): bf16 inputs run on the tensor cores (``mma.sync``),
+f32 inputs on the CUDA cores (f32 FMAs keep the 1e-5 f32 parity).
 
 `flash_fwd_kernel` is the wrapper: it launches the kernel for CUDA tensors
 and runs `flash_fwd_plain` for CPU tensors, and nothing else — a CUDA
@@ -17,11 +19,18 @@ import torch
 
 from repro_torch.kernels._build import launch
 
-__all__ = ["flash_fwd_kernel", "flash_fwd_plain", "chunk_size", "MAX_HD",
-           "NEG_INF"]
+__all__ = ["flash_fwd_kernel", "flash_fwd_plain", "kernel_body",
+           "chunk_size", "MAX_HD", "NEG_INF"]
 
 NEG_INF = -1e30
-MAX_HD = 256  # accumulator slots a lane holds: ceil(hd / 32) <= 8
+MAX_HD = 256  # the f32 body's ceil(hd / 32) <= 8 slots; the bf16 body's
+              # hd rounded up to 16, one instantiation per multiple
+
+
+def kernel_body(dtype: torch.dtype) -> str:
+    """The body of ``csrc/flash_fwd.cu`` that a launch on ``dtype`` runs:
+    "mma" (bf16, tensor cores) or "simt" (f32, CUDA cores)."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
 
 
 def chunk_size(t: int, pref: int) -> int:
@@ -121,10 +130,11 @@ def flash_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CUDA tensors launch ``csrc/flash_fwd.cu`` on the current stream (built
     at first use); CPU tensors run `flash_fwd_plain`.  Any Tq and Tk;
-    ``window`` None or >= 1; ``q_offset`` >= 0.  The kernel steps its
-    online softmax over tiles of 32 keys, so in bf16 it rounds p at
-    another running max than the plain version (blocks of up to 512 keys):
-    the two agree within a bf16 ulp here and there.
+    ``window`` None or >= 1; ``q_offset`` >= 0; any alignment of the
+    inputs' storage.  In bf16 the kernel steps its online softmax over
+    tiles of 64 keys (32 in f32), so it rounds p at another running max
+    than the plain version (blocks of up to 512 keys): the two agree within
+    a bf16 ulp here and there.
     """
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, window=window,

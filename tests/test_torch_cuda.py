@@ -9,9 +9,10 @@ with an H100:
 
 Tolerance: relative 1e-5 of max|y|.  The kernels and the plain versions
 multiply the same f32 numbers; only the order of the f32 sums differs.
-The flash kernel in bf16: 1e-2, since it rounds p to bf16 at the running
-max of its own kv tiles (32 keys), the plain version at that of its blocks
-(up to 512): a bf16 ulp (2^-8 relative) of an element here and there.
+The flash kernel in bf16 (its tensor-core body): 1e-2, since it rounds p
+to bf16 at the running max of its own kv tiles (64 keys), the plain
+version at that of its blocks (up to 512): a bf16 ulp (2^-8 relative) of
+an element here and there.
 """
 from unittest import mock
 
@@ -294,6 +295,11 @@ FLASH_CASES = [  # bh, tq, tk, hd, causal, window, q_offset
     (3, 200, 200, 80, False, None, 0),     # non-causal, HuBERT's head dim
     (2, 33, 33, 32, True, None, 0),        # odd length
     (2, 65, 97, 32, False, 20, 0),         # window without causal
+    (2, 300, 300, 64, True, None, 0),      # hd 64
+    (2, 200, 200, 256, True, None, 0),     # the largest head dim
+    (3, 70, 70, 20, True, None, 0),        # hd 20: padded to 32 in bf16
+    (4, 1, 40, 128, True, None, 39),       # one query (Tq 1) at the end
+    (2, 50, 37, 64, False, None, 0),       # Tk < 64: one ragged kv tile
 ]
 
 
@@ -314,6 +320,41 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     assert torch.isfinite(y.float()).all()
     tol = RTOL if dtype == torch.float32 else 1e-2
     assert _rel(y.float(), y_plain.float()) <= tol
+
+
+def test_flash_kernel_bf16_is_bit_deterministic(cuda):
+    """No split over keys, no atomics: two launches give equal bits."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(8, 512, 128, generator=gen).to(cuda,
+                                                          torch.bfloat16)
+               for _ in range(3))
+    assert TF.kernel_body(q.dtype) == "mma"
+    y1 = TF.flash_fwd_kernel(q, k, v)
+    y2 = TF.flash_fwd_kernel(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.parametrize("hd", [128, 20])
+@pytest.mark.parametrize("offset", [4, 2, 1])  # bf16 elements: 8, 4, 2 B
+def test_flash_kernel_bf16_takes_unaligned_storage(cuda, hd, offset):
+    """A contiguous slice whose data_ptr is not 16-byte aligned takes a
+    narrower copy inside the kernel, never the plain version."""
+    bh, t = 3, 100
+    gen = torch.Generator().manual_seed(hd + offset)
+    qkv = []
+    for _ in range(3):
+        buf = torch.randn(offset + bh * t * hd, generator=gen).to(
+            cuda, torch.bfloat16)
+        qkv.append(buf[offset:].view(bh, t, hd))
+    q, k, v = qkv
+    assert q.is_contiguous() and q.data_ptr() % 16 == 2 * offset % 16
+    before = TF.flash_fwd_kernel.launches
+    y = TF.flash_fwd_kernel(q, k, v)
+    assert TF.flash_fwd_kernel.launches == before + 1
+    torch.cuda.synchronize()
+    y_plain = TF.flash_fwd_plain(q, k, v)
+    assert _rel(y.float(), y_plain.float()) <= 1e-2
 
 
 def test_flash_kernel_refuses_what_it_cannot_take(cuda):

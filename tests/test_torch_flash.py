@@ -44,6 +44,11 @@ CASES = [
     dict(bh=2, tq=128, tk=128, hd=64, bq=64, bk=32, causal=True, window=16),
     dict(bh=1, tq=32, tk=256, hd=64, bq=32, bk=64, causal=True, q_offset=224),
     dict(bh=2, tq=64, tk=64, hd=240, bq=32, bk=32, causal=True, window=24),
+    # shapes the GPU tests give the kernel's bf16 body: one query at the
+    # end, hd 20 (padded to 32 there), fewer keys than one kv tile
+    dict(bh=2, tq=1, tk=40, hd=128, bq=1, bk=40, causal=True, q_offset=39),
+    dict(bh=3, tq=70, tk=70, hd=20, bq=70, bk=70, causal=True),
+    dict(bh=2, tq=50, tk=37, hd=64, bq=50, bk=37, causal=False),
 ]
 
 
@@ -93,6 +98,11 @@ def test_plain_is_finite_at_large_logits():
                            bq=16, bk=16, interpret=True)
     assert torch.isfinite(got).all()
     assert _rel(got, ref) <= RTOL
+
+
+def test_kernel_body_names_the_body_each_dtype_runs():
+    assert TF.kernel_body(torch.bfloat16) == "mma"
+    assert TF.kernel_body(torch.float32) == "simt"
 
 
 def test_chunk_size_is_the_references():
