@@ -13,8 +13,9 @@ repository around it, or when any phase fails.  Phases:
    (``vsmm.cu``, ``vsconv.cu``, ``vsconv_dw.cu``, ``flash_fwd.cu``; one
    nvcc per source, started together) and print their register use, the
    registers and spill bytes of each flash instantiation (the bf16 hd-128
-   one must not spill) and the flash kernel's dynamic shared memory per
-   head dim and body.
+   one must not spill) and of each of the 18 stem-body and depthwise
+   instantiations (none may spill), and the flash kernel's dynamic shared
+   memory per head dim and body.
 2. Kernel phase.  Each kernel against its plain version on the card,
    within a relative error of 1e-5 of max|y| (1e-2 for the flash kernel
    on bf16 inputs), then timed (see below).  One JSON line per case.  The
@@ -26,10 +27,13 @@ repository around it, or when any phase fails.  Phases:
    - depthwise halo: MobileNetV1's dw1 (112, C 32), dw2 (112 -> 56, C 64),
      dw7 (14, C 512), dw12 (14 -> 7, C 512), dw13 (7, C 1024);
    - stack conv: the ResNet-18 stem 7x7/s2, a 3x3/s1 at 56, a 3x3/s2
-     64->128 and the MobileNetV1 stem 3x3/s2 cin 3 -> 8;
-   - one grouped 3x3 (64 -> 64, groups 4, 56 px) through the halo and the
-     stack kernel;
-   - depthwise stack: dw1 and dw12.
+     64->128;
+   - both layouts: the MobileNetV1 stem 3x3/s2 cin 3 -> 8 -> 32, a 7x7/s2
+     stem at 227 px (Hout 114, which cuts the stem body's 8 x 16 tiles),
+     one grouped 3x3 (64 -> 64, groups 4, 56 px);
+   - depthwise stack: dw1, dw2 and dw12.
+   Each conv row names its body (``"stem"`` where `use_stem_body` holds,
+   else ``"generic"``).
    The flash kernel (`flash_phase`): Qwen1.5-4B's admission prefill (BH
    160 = 8 x 20 heads, T 512, hd 128, causal) in bf16 and f32, a backfill
    length (T 528), a window of 1024 at T 2048 and hd 240, a q_offset of
@@ -47,6 +51,8 @@ repository around it, or when any phase fails.  Phases:
    - MobileNetV1, stack (8 requests, one wave): 1 vsconv_stack +
      13 vsconv_dw_stack + 14 vsmm;
    - ResNet-18, stack (8 requests, one wave): 17 vsconv_stack + 4 vsmm.
+   Each path must run the stem body exactly once a wave (the wrappers'
+   ``stem_launches``).
    Every request must be delivered, finite, and equal to a direct
    ``net_apply(impl="plain")`` on the card within 1e-5.  The two halo
    paths then serve their traffic again, warm: images/s and ms per wave.
@@ -67,7 +73,9 @@ repository around it, or when any phase fails.  Phases:
    halo path's, timed once): ``ms``, ``plain_ms``, ``library_ms`` and
    ``bound_ms`` are per forward at batch 8 (the JSON file keeps the sums
    per path), ``launches`` the counts of the serve phases summed over the
-   paths (per path in ``launches_by_path``).
+   paths (per path in ``launches_by_path``).  The ``vsconv_halo`` and
+   ``vsconv_stack`` entries carry ``stem_body``: the stem layers' share
+   (launches, ms, plain, bound and library ms).
 6. LM serve phase.  The port's ``Server(get_config("qwen1.5-4b"),
    batch=8, capacity=552)`` with bf16 weights from seed 0 at full depth
    and width (40 layers, d_model 2560, vocab 151936) serves 16 seeded
@@ -236,17 +244,27 @@ class Timer:
         return row
 
     def add(self, path: str, row: dict) -> None:
+        """Add a layer's row to its kernel's sums; a stem-body row also to
+        ``"<kernel>:stem"``'s."""
+        keys = [row["kernel"]]
+        if row.get("body") == "stem":
+            keys.append(row["kernel"] + ":stem")
         for table in (self.sums, self.by_path.setdefault(path, {})):
-            s = table.setdefault(row["kernel"], {
-                "ms": 0.0, "host_loop_ms": 0.0, "plain_ms": 0.0,
-                "library_ms": 0.0, "flops_bound_ms": 0.0,
-                "bytes_bound_ms": 0.0, "layers": 0})
-            s["host_loop_ms"] += row["kernel_host_loop_ms"]
-            for k in ("flops_bound_ms", "bytes_bound_ms", "plain_ms",
-                      "library_ms"):
-                s[k] += row[k]
-            s["ms"] += row["kernel_ms"]
-            s["layers"] += 1
+            for key in keys:
+                self._add(table, key, row)
+
+    @staticmethod
+    def _add(table: dict, key: str, row: dict) -> None:
+        s = table.setdefault(key, {
+            "ms": 0.0, "host_loop_ms": 0.0, "plain_ms": 0.0,
+            "library_ms": 0.0, "flops_bound_ms": 0.0,
+            "bytes_bound_ms": 0.0, "layers": 0})
+        s["host_loop_ms"] += row["kernel_host_loop_ms"]
+        for k in ("flops_bound_ms", "bytes_bound_ms", "plain_ms",
+                  "library_ms"):
+            s[k] += row[k]
+        s["ms"] += row["kernel_ms"]
+        s["layers"] += 1
 
 
 def _nbytes(*tensors) -> int:
@@ -306,6 +324,7 @@ def _conv_case(timer: Timer, label: str, x, vs, *, kh: int, stride: int,
         .contiguous(memory_format=torch.channels_last)
     out_numel = n * ho * wo * vs.shape[1]
     real = cin_real / c  # the padding channels' share of every stored tile
+    stem = K.use_stem_body(c, vs.vk, groups, kh, kh, vs.vn, stride=stride)
     return timer.run(
         label, name,
         lambda: kernel(buf, vs, **kw),
@@ -314,7 +333,8 @@ def _conv_case(timer: Timer, label: str, x, vs, *, kh: int, stride: int,
         flops=round(2 * n * ho * wo * vs.vals.numel() * real),
         nbytes=4 * n * h * w * cin_real + round(_nbytes(vs.vals) * real)
         + _nbytes(vs.idx, bias, residual) + 4 * out_numel,
-        reps=reps, buffer_bytes=_nbytes(buf))
+        reps=reps, buffer_bytes=_nbytes(buf),
+        body="stem" if stem else "generic")
 
 
 def _dw_case(timer: Timer, label: str, x, vs, *, stride: int,
@@ -413,7 +433,9 @@ def kernel_phase(timer: Timer, dev) -> None:
         ("3x3/s1 1px 512->512 (32px layer4, Hout<4)", 1, 512, 512, 3, 1, 32,
          128, DENSITY, 1, ("halo",)),
         ("MobileNetV1 stem 3x3/s2 224px cin 3->8 ->32", 224, 8, 32, 3, 2, 8,
-         32, 1.0, 1, ("stack",)),
+         32, 1.0, 1, ("halo", "stack")),
+        ("stem 7x7/s2 227px cin 3->8 (Hout 114: ragged 8x16 tiles)", 227, 8,
+         64, 7, 2, 8, 64, 1.0, 1, ("halo", "stack")),
         ("grouped 3x3/s1 56px 64->64 groups 4", 56, 64, 64, 3, 1, 16, 16,
          DW_DENSITY, 4, ("halo", "stack")),
     ]
@@ -432,7 +454,7 @@ def kernel_phase(timer: Timer, dev) -> None:
                        **kw, **epi)
     dw_cases = [  # label, H, C, stride, layouts (MobileNetV1 at 224 px)
         ("dw1 112px C32 s1", 112, 32, 1, ("halo", "stack")),
-        ("dw2 112->56px C64 s2", 112, 64, 2, ("halo",)),
+        ("dw2 112->56px C64 s2", 112, 64, 2, ("halo", "stack")),
         ("dw7 14px C512 s1", 14, 512, 1, ("halo",)),
         ("dw12 14->7px C512 s2", 14, 512, 2, ("halo", "stack")),
         ("dw13 7px C1024 s1", 7, 1024, 1, ("halo",)),
@@ -583,6 +605,27 @@ def flash_instantiations(log: str) -> list:
     return sorted(rows, key=lambda r: (r["body"], r["hd"]))
 
 
+def stencil_instantiations(conv_log: str, dw_log: str) -> list:
+    """One row per instantiation of the stem bodies (``vsconv.cu``: vn =
+    32 x NC, C input channels) and of the depthwise bodies
+    (``vsconv_dw.cu``: VC, 0 for any runtime vc, and VEC floats a copy),
+    with their registers and spill bytes."""
+    rows = []
+    for name, use in ptxas_usage(conv_log).items():
+        if m := re.search(r"vsconv_(halo|stack)_stem_kernelILi(\d+)ELi(\d+)E",
+                          name):
+            rows.append({"kernel": f"vsconv_{m.group(1)}_stem",
+                         "vn": 32 * int(m.group(2)), "c": int(m.group(3)),
+                         **use})
+    for name, use in ptxas_usage(dw_log).items():
+        if m := re.search(r"vsconv_dw_(halo|stack)_kernelILi(\d+)ELi(\d+)E",
+                          name):
+            rows.append({"kernel": f"vsconv_dw_{m.group(1)}",
+                         "vc": int(m.group(2)), "vec": int(m.group(3)),
+                         **use})
+    return sorted(rows, key=lambda r: tuple(str(v) for v in r.values()))
+
+
 def _counters() -> dict:
     """The launch counter of every kernel wrapper, by kernel name."""
     from repro_torch.kernels.flash import flash_fwd_kernel
@@ -637,13 +680,17 @@ def serve_phase(path: str, dev) -> dict:
 
     reqs = requests()
     counters = _counters()
+    stems = [k for k in counters.values() if hasattr(k, "stem_launches")]
     for k in counters.values():
         k.launches = 0
+    for k in stems:
+        k.stem_launches = 0
     t0 = time.perf_counter()
     stats = srv.serve(reqs)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = {n: k.launches for n, k in counters.items() if k.launches}
+    stem_launches = sum(k.stem_launches for k in stems)
 
     waves = sum(s["steps"] for s in stats)
     delivered = [r for r in reqs if r.outcome is not None
@@ -655,6 +702,10 @@ def serve_phase(path: str, dev) -> dict:
     if launches != expected:
         raise SystemExit(f"chip_smoke: {path}: launches {launches} over "
                          f"{waves} waves, expected {per_wave} per wave")
+    if stem_launches != waves:
+        raise SystemExit(f"chip_smoke: {path}: the stem body ran "
+                         f"{stem_launches} times over {waves} waves, "
+                         f"expected once a wave")
     served = np.stack([r.logits for r in reqs])
     if served.shape != (n_req, cfg.num_classes) or \
             not np.isfinite(served).all():
@@ -673,7 +724,8 @@ def serve_phase(path: str, dev) -> dict:
     out = {
         "phase": "serve", "path": path, "config": cfg.name, "impl": impl,
         "batch": BATCH, "requests": n_req, "delivered": len(delivered),
-        "waves": waves, "launches": launches, "setup_s": setup_s,
+        "waves": waves, "launches": launches,
+        "stem_launches": stem_launches, "setup_s": setup_s,
         "first_serve_s": serve_s, "first_images_per_s": n_req / serve_s,
         "served_vs_plain_rel_err": rel,
     }
@@ -690,14 +742,15 @@ def serve_phase(path: str, dev) -> dict:
             / sum(s["steps"] for s in stats2))
     print(json.dumps(out), flush=True)
     return {"srv": srv, "images": images, "launches": launches,
-            "warm_s": warm_s, "summary": out}
+            "stem_launches": stem_launches, "warm_s": warm_s,
+            "summary": out}
 
 
 def _kind(name: str) -> str:
     for kind in ("vsconv_dw_halo", "vsconv_dw_stack", "vsconv_halo",
                  "vsconv_stack", "vsmm", "flash_fwd"):
-        if f"{kind}_kernel" in name:
-            return kind
+        if f"{kind}_kernel" in name or f"{kind}_stem_kernel" in name:
+            return kind   # a stem body is filed under its kernel
     if "flash_mma_kernel" in name or "flash_simt_kernel" in name:
         return "flash_fwd"   # the flash kernel's bf16 and f32 bodies
     if "Memcpy" in name or "Memset" in name:
@@ -1165,6 +1218,17 @@ def main() -> int:
         print(f"chip_smoke: the bf16 hd-128 flash instantiation spills or "
               f"is missing: {spills}", file=sys.stderr)
         return 1
+    stencils = stencil_instantiations(_build.build_log("vsconv"),
+                                      _build.build_log("vsconv_dw"))
+    for r in stencils:
+        print(f"built {r}")
+    spilled = [r for r in stencils if r["spill_stores"] or r["spill_loads"]
+               or r["spill_stores"] is None]
+    if len(stencils) != 18 or spilled:
+        print(f"chip_smoke: {len(stencils)} stem and depthwise "
+              f"instantiations (expected 18), spilling or unread: "
+              f"{spilled}", file=sys.stderr)
+        return 1
     lib = _build.load("flash_fwd")
     smem = {body: {hd: lib.flash_fwd_smem_bytes(hd, int(body == "mma"))
                    for hd in (32, 64, 80, 128, 240)}
@@ -1172,6 +1236,7 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": build_s,
                       "built": sorted(logs),
                       "flash_fwd_instantiations": flash,
+                      "stencil_instantiations": stencils,
                       "flash_fwd_dynamic_smem_bytes_by_hd": smem}),
           flush=True)
 
@@ -1189,6 +1254,7 @@ def main() -> int:
         forward_phase(timer, path, s["srv"], s["images"], dev,
                       stack_layers_only=path.endswith("-stack"))
     cnn_launches = {path: s["launches"] for path, s in served.items()}
+    stem_launches = {path: s["stem_launches"] for path, s in served.items()}
     cnn_summaries = {path: s["summary"] for path, s in served.items()}
     served.clear()  # free the CNN servers before the 4 B-parameter model
 
@@ -1217,6 +1283,15 @@ def main() -> int:
                          >= s["bytes_bound_ms"] else "bytes"),
             "library_ms": s["library_ms"],
         })
+        stem = timer.sums.get(f"{kname}:stem")
+        if stem is not None:  # the stem body's share of the entry above
+            kernels[-1]["stem_body"] = {
+                "launches": sum(n for path, n in stem_launches.items()
+                                if kname in cnn_launches[path]),
+                "ms": stem["ms"], "plain_ms": stem["plain_ms"],
+                "bound_ms": max(stem["flops_bound_ms"],
+                                stem["bytes_bound_ms"]),
+                "library_ms": stem["library_ms"]}
     layers = lm["summary"]["layers"]
     flash_bound = {k: layers * qwen_row[f"{k}_bound_ms"]
                    for k in ("flops", "bytes")}

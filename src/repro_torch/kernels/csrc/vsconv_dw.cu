@@ -12,210 +12,361 @@
 //   BARE tap id t = ky*kw + kx of channel tile j, not tap*CB + tile as in
 //   the full conv; then x scale, + bias, + residual, ReLU.
 //
-// One block per (tile of kPix flattened output pixels over N*Hout*Wout,
-// channel tile j).  The block's kPix*vc elements are spread over its
-// threads channel-fastest, so a warp reads 32 consecutive channels of one
-// pixel (coalesced).  Each thread keeps its elements' input offsets and
-// f32 accumulators in registers.  Step s reads t = idx[j, s], (ky, kx) =
-// divmod(t, kw), loads each element's input at that tap and the tile's
-// stored tap vector, votes block-wide (`__syncthreads_or`) whether any
-// loaded input is nonzero — the input-side skip over a kPix-pixel tile,
-// where the TPU skips a (bh*w_out, vc) block; a skipped tile adds exact
-// zeros, so the result does not depend on the granularity — and does one
-// FMA per element.  The layouts differ only in where a tap's input sits:
+// One block per (2-D tile of th x tw output pixels of one image, channel
+// tile j).  th, tw and the block's threads are runtime values the wrapper
+// picks per layer (`vsconv_dw.py::dw_tile`: halo, square-ish tiles of
+// about 4096 output elements and 256 threads; stack, one output row of
+// about 1024 elements and 128 threads; a window of at most 64 KB, at least
+// two blocks per SM, a whole image dimension where it is less than two
+// tiles).  The block stages once, with cp.async (16-byte
+// copies along the channels where vc % 4 == 0 and the input is aligned),
+//   - its input window, every pixel its taps reach, vc channels each:
+//     halo  ((th-1)*s + (kh-1)*d + 1) x ((tw-1)*s + (kw-1)*d + 1) pixels
+//           of `build_halo_input(x, vk=vc)`'s SAME-padded buffer
+//           xh (N, rows, bW, CB, vc) (dw1 at 8 x 16: 23 KB);
+//     stack the kh*s planes' th rows x (tw + (kw-1)*d / s) columns of
+//           `build_row_tap_stack`'s xt (N, kh*stride, Hout, bW, C);
+//   - the strip's S stored tap vectors (S x vc floats) and each tap's
+//     window offset, decoded from idx as given.
+// The stack layout stages only the planes a stored tap reads, as the
+// reference fetches an input block per stored step (at stride 2 a strip
+// without a stored kx = 1 tap leaves the odd-phase planes unread).
+// Then one barrier-free loop: a thread takes (pixel, group of VEC = 4 or 1
+// channels) elements, channel groups fastest (a warp's loads are
+// consecutive 16-byte words), and adds each stored tap in stored order
+// with fmaf, as the previous kernel did, so the result is the same.  The
+// input-side skip is one vote per (block window, channel tile), taken
+// over the staged window: an all-zero window adds no FMAs (they would add
+// exact zeros).  The epilogue stores VEC channels at once, masked at the
+// image's right and bottom edges.  Window offsets are 32-bit (shared memory);
+// global offsets are 64-bit once per staged row or output element.
 //
-//   halo  xh (N, rows, bW, CB, vc), `build_halo_input(x, vk=vc)`: output
-//         pixel (i, jj) reads padded pixel (ky*d + stride*i,
-//         kx*d + stride*jj), channel j*vc + c;
-//   stack xt (N, kh*stride, Hout, bW, C): plane ky*stride + (kx*d) % stride,
-//         row i, column jj + (kx*d) / stride, channel j*vc + c.
-//
-// vc is a runtime value up to 128 (MobileNetV1 has 32, 64 and 128).
+// Instantiations: VC = 32, 64, 128 (MobileNetV1's channel tiles) with
+// VEC 4, and any other runtime vc <= 128 (VC = 0) with VEC 4 or 1.
 //
 // What bounds it on an H100: bytes.  Each output element costs S FMAs
-// against one input read per tap (S reads of L2 or HBM per element), so
-// the arithmetic intensity is below one FLOP per byte; the least traffic is
-// the input once, the taps, and the output once.  This first version reads
-// every tap's input from L2 (neighbouring taps of a pixel hit the same
-// lines); a shared-memory halo window holding a block's rows once is for
-// later work.
-#include <cuda_runtime.h>
+// against one input element, so the least traffic (the input once, the
+// taps, the output once) bounds it; each block reads its window's halo
+// beside its own pixels, from L2 where neighbouring blocks share it.  The
+// stack layout reads its planes: kh*stride output-sized copies of the
+// input (three times its bytes at stride 1), which the halo layout does
+// not move.
+#include "vs_async.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPix = 32;     // output pixels per block
-constexpr int kMaxVc = 128;  // channel tile width the register layout covers
-constexpr int kMaxPer = kPix * kMaxVc / kThreads;  // elements per thread
+constexpr int kMaxThreads = 256;
+constexpr size_t kMaxSmem = 227 * 1024;
 
-// Writes pix[r] = base(img, i, jj) for the block's pixels r < rows_valid.
-template <class Base>
-__device__ __forceinline__ void pixel_bases(long long* pix, long long p0,
-                                            int rows_valid, int h_out,
-                                            int w_out, Base base) {
-  if (threadIdx.x < kPix) {
-    long long b = 0;
-    if (static_cast<int>(threadIdx.x) < rows_valid) {
-      const long long p = p0 + threadIdx.x;
-      const long long hw = static_cast<long long>(h_out) * w_out;
-      const long long img = p / hw;
-      const long long rem = p - img * hw;
-      const long long i = rem / w_out;
-      b = base(img, i, rem - i * w_out);
-    }
-    pix[threadIdx.x] = b;
+// Window pixels (x rows, y columns) of a th x tw tile.
+__host__ __device__ inline int2 window_dims(bool stack, int th, int tw,
+                                            int kh, int kw, int stride,
+                                            int dilation) {
+  if (stack) {  // row = plane * th + i
+    return make_int2(kh * stride * th, tw + ((kw - 1) * dilation) / stride);
   }
-  __syncthreads();
+  return make_int2((th - 1) * stride + (kh - 1) * dilation + 1,
+                   (tw - 1) * stride + (kw - 1) * dilation + 1);
 }
 
-// The whole depthwise tile: S steps of elementwise FMAs, then the
-// epilogue.  `step_offset(t)` is the offset of tap t's input from a
-// pixel's base.
-template <class StepOffset>
-__device__ __forceinline__ void dw_tile(
+inline size_t smem_bytes(bool stack, int th, int tw, int kh, int kw,
+                         int stride, int dilation, int s_steps, int vc) {
+  const int2 win = window_dims(stack, th, tw, kh, kw, stride, dilation);
+  return sizeof(float) * (static_cast<size_t>(win.x) * win.y * vc +
+                          static_cast<size_t>(s_steps) * vc + s_steps);
+}
+
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = float4;
+  __device__ static void copy(float* dst, const float* src, bool ok) {
+    vs::cp_async16(dst, src, ok);
+  }
+};
+template <>
+struct Vec<1> {
+  using T = float;
+  __device__ static void copy(float* dst, const float* src, bool ok) {
+    vs::cp_async4(dst, src, ok);
+  }
+};
+
+__device__ __forceinline__ bool nonzero(float4 v) {
+  return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
+}
+__device__ __forceinline__ bool nonzero(float v) { return v != 0.f; }
+
+__device__ __forceinline__ void fma_vec(float4& acc, float4 x, float4 w) {
+  acc.x = fmaf(x.x, w.x, acc.x);
+  acc.y = fmaf(x.y, w.y, acc.y);
+  acc.z = fmaf(x.z, w.z, acc.z);
+  acc.w = fmaf(x.w, w.w, acc.w);
+}
+__device__ __forceinline__ void fma_vec(float& acc, float x, float w) {
+  acc = fmaf(x, w, acc);
+}
+
+// The epilogue of one channel: x scale, + bias, + residual, ReLU.
+__device__ __forceinline__ float finish(
+    float y, long long col, long long o, const float* __restrict__ scale,
+    const float* __restrict__ bias, const float* __restrict__ residual,
+    int relu) {
+  if (scale) y = y * scale[col];
+  if (bias) y = y + bias[col];
+  if (residual) y = y + residual[o];
+  if (relu && y < 0.f) y = 0.f;  // NaN passes through, as in max(v, 0)
+  return y;
+}
+
+__device__ __forceinline__ void finish_vec(
+    float4& a, long long col, long long o, const float* __restrict__ scale,
+    const float* __restrict__ bias, const float* __restrict__ residual,
+    int relu) {
+  a.x = finish(a.x, col, o, scale, bias, residual, relu);
+  a.y = finish(a.y, col + 1, o + 1, scale, bias, residual, relu);
+  a.z = finish(a.z, col + 2, o + 2, scale, bias, residual, relu);
+  a.w = finish(a.w, col + 3, o + 3, scale, bias, residual, relu);
+}
+__device__ __forceinline__ void finish_vec(
+    float& a, long long col, long long o, const float* __restrict__ scale,
+    const float* __restrict__ bias, const float* __restrict__ residual,
+    int relu) {
+  a = finish(a, col, o, scale, bias, residual, relu);
+}
+
+__device__ __forceinline__ void zero(float4& a) {
+  a = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ void zero(float& a) { a = 0.f; }
+
+// The whole block.  VC = vc when > 0 (else the runtime vc_rt), VEC floats
+// a copy and a thread's element; kStack picks the layout.
+template <int VC, int VEC, bool kStack>
+__device__ __forceinline__ void dw_body(
     const float* __restrict__ x, const float* __restrict__ vals,
     const int* __restrict__ idx, const float* __restrict__ scale,
     const float* __restrict__ bias, const float* __restrict__ residual,
-    float* __restrict__ out, const long long* pix, long long p0,
-    int rows_valid, long long c_total, int j, int s_steps, int vc, int relu,
-    StepOffset step_offset) {
-  long long xo[kMaxPer];  // input offset of each element (pixel base + ch)
-  int ch[kMaxPer];        // channel within the tile, -1 if not owned
-  int row[kMaxPer];       // pixel within the tile
-  float acc[kMaxPer];
-#pragma unroll
-  for (int k = 0; k < kMaxPer; ++k) {
-    const int e = threadIdx.x + k * kThreads;
-    const int r = e / vc;
-    const bool mine = r < rows_valid;  // also false past the tile's kPix*vc
-    ch[k] = mine ? e - r * vc : -1;
-    row[k] = r;
-    xo[k] = mine ? pix[r] + static_cast<long long>(j) * vc + (e - r * vc) : 0;
-    acc[k] = 0.f;
+    float* __restrict__ out, int n_img, int d0, int bw, int cb, int h_out,
+    int w_out, int kh, int kw, int stride, int dilation, int s_steps,
+    int vc_rt, int th, int tw, int relu) {
+  using V = typename Vec<VEC>::T;
+  extern __shared__ __align__(16) float dw_smem[];
+  const int vc = VC > 0 ? VC : vc_rt;
+  const int groups = vc / VEC;  // channel groups of a pixel
+  const int s = stride, d = dilation;
+  const int tiles_w = (w_out + tw - 1) / tw;
+  const int tiles_h = (h_out + th - 1) / th;
+  const int tw_i = blockIdx.x % tiles_w;
+  const int th_i = (blockIdx.x / tiles_w) % tiles_h;
+  const long long img = blockIdx.x / (tiles_w * tiles_h);
+  const int h0 = th_i * th, w0 = tw_i * tw;
+  const int j = blockIdx.y;
+  const long long c_total = static_cast<long long>(cb) * vc;
+  (void)n_img;  // the grid covers the images
+  const int2 win_dims = window_dims(kStack, th, tw, kh, kw, s, d);
+  const int rows = win_dims.x, cols = win_dims.y;
+  float* win = dw_smem;
+  float* wsm = win + rows * cols * vc;
+  int* toff = reinterpret_cast<int*>(wsm + s_steps * vc);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int threads = blockDim.x;
+  const long long ch0 = static_cast<long long>(j) * vc;
+
+  const float* taps = vals + ch0 * s_steps;
+  for (int e = threadIdx.x * VEC; e < s_steps * vc; e += threads * VEC) {
+    Vec<VEC>::copy(wsm + e, taps + e, true);
   }
-  for (int s = 0; s < s_steps; ++s) {
-    const long long tile = static_cast<long long>(j) * s_steps + s;
-    const long long off = step_offset(idx[tile]);
-    const float* w = vals + tile * vc;
-    float xv[kMaxPer];
-    int nonzero = 0;
-#pragma unroll
-    for (int k = 0; k < kMaxPer; ++k) {
-      xv[k] = ch[k] >= 0 ? x[xo[k] + off] : 0.f;
-      nonzero |= xv[k] != 0.f;
+  // Stack: the planes ky*s + (kx*d) % s the strip's stored taps read; only
+  // those are staged and voted on (the weight-side skip carried to the
+  // input, as the reference fetches an input block per stored step).  Each
+  // warp reads the ids a lane each and ORs them.
+  unsigned planes = ~0u;
+  if (kStack) {
+    planes = 0;
+    for (int t0 = 0; t0 < s_steps; t0 += 32) {
+      unsigned bit = 0;
+      if (t0 + lane < s_steps) {
+        const int tap = idx[static_cast<long long>(j) * s_steps + t0 + lane];
+        const int ky = tap / kw;
+        bit = 1u << (ky * s + ((tap - ky * kw) * d) % s);
+      }
+      planes |= __reduce_or_sync(0xffffffffu, bit);
     }
-    if (__syncthreads_or(nonzero)) {
-#pragma unroll
-      for (int k = 0; k < kMaxPer; ++k) {
-        if (ch[k] >= 0) acc[k] = fmaf(xv[k], w[ch[k]], acc[k]);
+  }
+  auto row_read = [&](int row) {
+    return !kStack || ((planes >> (row / th)) & 1u);
+  };
+
+  // Stage the window: warp-strided rows, lane-strided VEC-wide units along
+  // a row; pixels outside the buffer read zeros.
+  for (int row = warp; row < rows; row += threads / 32) {
+    if (!row_read(row)) continue;
+    long long rbase;
+    int gc0;
+    bool row_ok;
+    if (kStack) {  // row = plane * th + i
+      const int gr = h0 + row % th;
+      row_ok = gr < h_out;
+      rbase = ((img * d0 + row / th) * h_out + gr) * bw;
+      gc0 = w0;
+    } else {
+      const int gr = h0 * s + row;
+      row_ok = gr < d0;
+      rbase = (img * d0 + gr) * bw;
+      gc0 = w0 * s;
+    }
+    for (int u = lane; u < cols * groups; u += 32) {
+      const int q = u / groups;
+      const int g = u - q * groups;
+      const int gc = gc0 + q;
+      const bool ok = row_ok && gc < bw;
+      const float* src =
+          ok ? x + (rbase + gc) * c_total + ch0 + g * VEC : x;
+      Vec<VEC>::copy(win + (row * cols + q) * vc + g * VEC, src, ok);
+    }
+  }
+  vs::cp_async_commit();
+  // Window offset (pixels) of each stored tap from an output pixel's base.
+  for (int t = threadIdx.x; t < s_steps; t += threads) {
+    const int tap = idx[static_cast<long long>(j) * s_steps + t];
+    const int ky = tap / kw;
+    const int kx = tap - ky * kw;
+    toff[t] = kStack ? ((ky * s + (kx * d) % s) * th) * cols + (kx * d) / s
+                     : ky * d * cols + kx * d;
+  }
+
+  vs::cp_async_wait<0>();
+  __syncthreads();
+
+  // The input-side skip: one vote per (block window, channel tile), over
+  // what was staged.
+  int nz = 0;
+  for (int row = warp; row < rows; row += threads / 32) {
+    if (!row_read(row)) continue;
+    const V* wv = reinterpret_cast<const V*>(win + row * cols * vc);
+    for (int u = lane; u < cols * groups; u += 32) nz |= nonzero(wv[u]);
+  }
+  const bool alive = __syncthreads_or(nz);
+
+  const int elems = th * tw * groups;
+  for (int e = threadIdx.x; e < elems; e += threads) {
+    const int p = e / groups;
+    const int g = e - p * groups;
+    const int i = p / tw;
+    const int jj = p - i * tw;
+    if (h0 + i >= h_out || w0 + jj >= w_out) continue;
+    const int base = kStack ? i * cols + jj : (i * s) * cols + jj * s;
+    V acc;
+    zero(acc);
+    if (alive) {
+      const float* xg = win + g * VEC;
+      const float* wg = wsm + g * VEC;
+      for (int t = 0; t < s_steps; ++t) {
+        const V xv = *reinterpret_cast<const V*>(xg + (base + toff[t]) * vc);
+        const V w = *reinterpret_cast<const V*>(wg + t * vc);
+        fma_vec(acc, xv, w);
       }
     }
-  }
-#pragma unroll
-  for (int k = 0; k < kMaxPer; ++k) {
-    if (ch[k] < 0) continue;
-    const long long col = static_cast<long long>(j) * vc + ch[k];
-    const long long o = (p0 + row[k]) * c_total + col;
-    float v = acc[k];
-    if (scale) v = v * scale[col];
-    if (bias) v = v + bias[col];
-    if (residual) v = v + residual[o];
-    if (relu && v < 0.f) v = 0.f;  // NaN passes through, as in max(v, 0)
-    out[o] = v;
+    const long long o =
+        ((img * h_out + h0 + i) * w_out + w0 + jj) * c_total + ch0 + g * VEC;
+    finish_vec(acc, ch0 + g * VEC, o, scale, bias, residual, relu);
+    *reinterpret_cast<V*>(out + o) = acc;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) vsconv_dw_halo_kernel(
-    const float* __restrict__ xh, const float* __restrict__ vals,
-    const int* __restrict__ idx, const float* __restrict__ scale,
-    const float* __restrict__ bias, const float* __restrict__ residual,
-    float* __restrict__ out, int n_img, int rows, int bw, int cb, int h_out,
-    int w_out, int kw, int stride, int dilation, int s_steps, int vc,
-    int relu) {
-  __shared__ long long pix[kPix];  // padded-input offset of each pixel
-  const int j = blockIdx.y;
-  const long long c = static_cast<long long>(cb) * vc;  // channels
-  const long long p_total = static_cast<long long>(n_img) * h_out * w_out;
-  const long long p0 = static_cast<long long>(blockIdx.x) * kPix;
-  const int rows_valid =
-      static_cast<int>(min(static_cast<long long>(kPix), p_total - p0));
-  pixel_bases(pix, p0, rows_valid, h_out, w_out,
-              [=](long long img, long long i, long long jj) {
-                return ((img * rows + stride * i) * bw + stride * jj) * c;
-              });
-  dw_tile(xh, vals, idx, scale, bias, residual, out, pix, p0, rows_valid, c,
-          j, s_steps, vc, relu, [=](int t) {
-            const int ky = t / kw;
-            const int kx = t - ky * kw;
-            return (static_cast<long long>(ky) * dilation * bw +
-                    static_cast<long long>(kx) * dilation) * c;
-          });
+#define DW_PARAMS                                                           \
+  const float *__restrict__ x, const float *__restrict__ vals,              \
+      const int *__restrict__ idx, const float *__restrict__ scale,         \
+      const float *__restrict__ bias, const float *__restrict__ residual,   \
+      float *__restrict__ out, int n_img, int d0, int bw, int cb, int h_out, \
+      int w_out, int kh, int kw, int stride, int dilation, int s_steps,     \
+      int vc, int th, int tw, int relu
+#define DW_ARGS                                                             \
+  x, vals, idx, scale, bias, residual, out, n_img, d0, bw, cb, h_out,       \
+      w_out, kh, kw, stride, dilation, s_steps, vc, th, tw, relu
+
+template <int VC, int VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+    vsconv_dw_halo_kernel(DW_PARAMS) {
+  dw_body<VC, VEC, false>(DW_ARGS);
 }
 
-__global__ void __launch_bounds__(kThreads) vsconv_dw_stack_kernel(
-    const float* __restrict__ xt, const float* __restrict__ vals,
-    const int* __restrict__ idx, const float* __restrict__ scale,
-    const float* __restrict__ bias, const float* __restrict__ residual,
-    float* __restrict__ out, int n_img, int planes, int bw, int cb,
-    int h_out, int w_out, int kw, int stride, int dilation, int s_steps,
-    int vc, int relu) {
-  __shared__ long long pix[kPix];  // stack offset of each pixel
-  const int j = blockIdx.y;
-  const long long c = static_cast<long long>(cb) * vc;  // channels
-  const long long p_total = static_cast<long long>(n_img) * h_out * w_out;
-  const long long p0 = static_cast<long long>(blockIdx.x) * kPix;
-  const int rows_valid =
-      static_cast<int>(min(static_cast<long long>(kPix), p_total - p0));
-  pixel_bases(pix, p0, rows_valid, h_out, w_out,
-              [=](long long img, long long i, long long jj) {
-                return ((img * planes * h_out + i) * bw + jj) * c;
-              });
-  dw_tile(xt, vals, idx, scale, bias, residual, out, pix, p0, rows_valid, c,
-          j, s_steps, vc, relu, [=](int t) {
-            const int ky = t / kw;
-            const int kx = t - ky * kw;
-            const int plane = ky * stride + (kx * dilation) % stride;
-            const int col = (kx * dilation) / stride;
-            return (static_cast<long long>(plane) * h_out * bw + col) * c;
-          });
+template <int VC, int VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+    vsconv_dw_stack_kernel(DW_PARAMS) {
+  dw_body<VC, VEC, true>(DW_ARGS);
 }
 
-template <class Kernel>
-int launch(Kernel kernel, const float* x, const float* vals, const int* idx,
-           const float* scale, const float* bias, const float* residual,
-           float* out, int n_img, int d0, int bw, int cb, int h_out,
-           int w_out, int kw, int stride, int dilation, int s_steps, int vc,
-           int relu, void* stream) {
-  const long long p_total = static_cast<long long>(n_img) * h_out * w_out;
-  const dim3 grid(static_cast<unsigned>((p_total + kPix - 1) / kPix), cb);
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, vals, idx, scale, bias, residual, out, n_img, d0, bw, cb, h_out,
-      w_out, kw, stride, dilation, s_steps, vc, relu);
+template <int VC, int VEC>
+int launch_one(bool stack, int threads, void* stream, DW_PARAMS) {
+  auto kernel = stack ? vsconv_dw_stack_kernel<VC, VEC>
+                      : vsconv_dw_halo_kernel<VC, VEC>;
+  const size_t smem =
+      smem_bytes(stack, th, tw, kh, kw, stride, dilation, s_steps, vc);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  const long long tiles = static_cast<long long>(n_img) *
+                          ((h_out + th - 1) / th) * ((w_out + tw - 1) / tw);
+  const dim3 grid(static_cast<unsigned>(tiles), cb);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      DW_ARGS);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch(bool stack, int vec, int threads, void* stream, DW_PARAMS) {
+  if (th < 1 || tw < 1 || vc < 1 || vc > 128 || threads < 32 ||
+      threads > kMaxThreads || threads % 32 || kh * stride > 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (vec == 4 && vc % 4 == 0) {
+    switch (vc) {
+      case 32:
+        return launch_one<32, 4>(stack, threads, stream, DW_ARGS);
+      case 64:
+        return launch_one<64, 4>(stack, threads, stream, DW_ARGS);
+      case 128:
+        return launch_one<128, 4>(stack, threads, stream, DW_ARGS);
+      default:
+        return launch_one<0, 4>(stack, threads, stream, DW_ARGS);
+    }
+  }
+  return launch_one<0, 1>(stack, threads, stream, DW_ARGS);
 }
 
 }  // namespace
 
-// Launch on `stream`; each returns cudaGetLastError() (0 on success).  Any
-// of scale, bias and residual may be null.  The caller has checked shapes,
-// dtypes, contiguity, vc <= 128, that the strips are the cb channel tiles
-// and that every tap stays inside the input buffer.
+// Launch on `stream`; each returns cudaGetLastError() (0 on success, and
+// cudaErrorInvalidValue without launching for a tile whose shared memory
+// exceeds a block's, or kh*stride > 32).  Any of scale, bias and residual
+// may be null.  th x tw is the output tile a block takes, `threads` its
+// threads (a multiple of 32 up to 256); vec is 4 for 16-byte copies (vc %
+// 4 == 0, x and vals 16-byte aligned), else 1.  The caller has checked
+// shapes, dtypes, contiguity, vc <= 128, that the strips are the cb
+// channel tiles and that every tap stays inside the input buffer.
 extern "C" int vsconv_dw_halo_launch(
     const float* xh, const float* vals, const int* idx, const float* scale,
     const float* bias, const float* residual, float* out, int n_img, int rows,
     int bw, int cb, int h_out, int w_out, int kw, int stride, int dilation,
-    int s_steps, int vc, int relu, void* stream) {
-  return launch(vsconv_dw_halo_kernel, xh, vals, idx, scale, bias, residual,
-                out, n_img, rows, bw, cb, h_out, w_out, kw, stride, dilation,
-                s_steps, vc, relu, stream);
+    int s_steps, int vc, int relu, int kh, int th, int tw, int vec,
+    int threads, void* stream) {
+  return launch(false, vec, threads, stream, xh, vals, idx, scale, bias,
+                residual, out, n_img, rows, bw, cb, h_out, w_out, kh, kw,
+                stride, dilation, s_steps, vc, th, tw, relu);
 }
 
 extern "C" int vsconv_dw_stack_launch(
     const float* xt, const float* vals, const int* idx, const float* scale,
     const float* bias, const float* residual, float* out, int n_img,
     int planes, int bw, int cb, int h_out, int w_out, int kw, int stride,
-    int dilation, int s_steps, int vc, int relu, void* stream) {
-  return launch(vsconv_dw_stack_kernel, xt, vals, idx, scale, bias, residual,
-                out, n_img, planes, bw, cb, h_out, w_out, kw, stride,
-                dilation, s_steps, vc, relu, stream);
+    int dilation, int s_steps, int vc, int relu, int kh, int th, int tw,
+    int vec, int threads, void* stream) {
+  return launch(true, vec, threads, stream, xt, vals, idx, scale, bias,
+                residual, out, n_img, planes, bw, cb, h_out, w_out, kh, kw,
+                stride, dilation, s_steps, vc, th, tw, relu);
 }

@@ -23,7 +23,12 @@ is added in the kernel).
 launches its kernel for CUDA tensors and runs its plain version
 (`vsconv_plain`, `vsconv_stack_plain`) for CPU tensors; a CUDA tensor the
 kernel does not take raises.  Their ``launches`` attributes count
-launches.
+launches.  Both kernels have a second body for the CNN stems (narrow
+inputs, vk 8: a 2-D output tile over a shared-memory window, see
+``csrc/vsconv.cu``), picked by `use_stem_body`; its launches count on
+``launches`` too and, besides, on ``stem_launches``.  If that body fails
+to build or launch, the wrapper raises: it never carries on in the
+generic body.
 
 The layout helpers (`halo_layout_dims`, `build_halo_input`,
 `stack_layout_dims`, `build_row_tap_stack`) are kept byte-for-byte with
@@ -36,6 +41,7 @@ second body for tiny feature maps (a TPU DMA choice).
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -51,7 +57,8 @@ __all__ = [
     "vsconv_stack_plain", "build_halo_input", "halo_layout_dims",
     "build_row_tap_stack", "stack_layout_dims", "stack_patches",
     "halo_kernel_cost", "stack_kernel_cost", "use_resident_halo",
-    "RESIDENT_MAX_H", "halo_h_out", "stack_h_out",
+    "RESIDENT_MAX_H", "halo_h_out", "stack_h_out", "use_stem_body",
+    "stem_smem_bytes",
 ]
 
 # Below this output height the reference's halo kernel switches to its
@@ -63,6 +70,47 @@ def use_resident_halo(h_out: int, groups: int) -> bool:
     """True when the reference TPU kernel runs its tiny-feature-map
     resident layout (the CUDA kernel has one body for every Hout)."""
     return h_out < RESIDENT_MAX_H and groups == 1
+
+
+# The stem body's tile (csrc/vsconv.cu, namespace stem): 8 x 16 output
+# pixels a block, window rows padded by 4 floats, stored tiles staged 4 at
+# a time, double-buffered.
+STEM_TH, STEM_TW, STEM_CHUNK, STEM_VK, STEM_ROW_PAD = 8, 16, 4, 8, 4
+STEM_CHANNELS = (8, 16)   # input channels C = CB*vk the body takes
+STEM_VN = (32, 64)        # strip widths it takes (one or two columns a lane)
+STEM_MAX_SMEM = 227 * 1024  # an H100 block's shared memory
+
+
+def stem_smem_bytes(c: int, vn: int, *, kh: int, kw: int, stride: int,
+                    dilation: int, layout: str) -> int:
+    """Shared memory of one stem-body block at the most stored tiles a
+    strip can hold (S = kh*kw*CB): the input window (C floats a pixel,
+    columns split by phase, rows padded), two weight chunks and two ints
+    per stored tile."""
+    pw = STEM_TW + ((kw - 1) * dilation) // stride
+    if layout == "stack":
+        rows = kh * stride * STEM_TH
+    else:
+        rows = ((STEM_TH - 1) * stride + (kh - 1) * dilation + 1) * stride
+    s_max = kh * kw * (c // STEM_VK)
+    return 4 * (rows * (pw * c + STEM_ROW_PAD)
+                + 2 * STEM_CHUNK * STEM_VK * vn + 2 * s_max)
+
+
+@functools.lru_cache(maxsize=None)
+def use_stem_body(c: int, vk: int, groups: int, kh: int, kw: int, vn: int,
+                  *, stride: int = 1, dilation: int = 1) -> bool:
+    """True when the conv kernels run their stem body: an ungrouped conv
+    with kh*kw > 1 over a narrow input, C = CB*vk of 8 or 16 channels in
+    K-tiles of vk 8 (what `models/graph.py::conv_tile_geometry` gives any
+    cin that does not tile by 32), vn 32 or 64, and a window that fits an
+    H100 block's shared memory in both layouts.  Every other conv runs the
+    generic body."""
+    return (groups == 1 and kh * kw > 1 and vk == STEM_VK
+            and c in STEM_CHANNELS and vn in STEM_VN
+            and all(stem_smem_bytes(c, vn, kh=kh, kw=kw, stride=stride,
+                                    dilation=dilation, layout=layout)
+                    <= STEM_MAX_SMEM for layout in ("halo", "stack")))
 
 
 def stack_kernel_cost(
@@ -327,9 +375,10 @@ def _conv_kernel(fn: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
                  kw: int, stride: int, dilation: int, groups: int,
                  bias: torch.Tensor | None, residual: torch.Tensor | None,
                  scale: torch.Tensor | None, fuse_relu: bool
-                 ) -> torch.Tensor:
+                 ) -> tuple[torch.Tensor, bool]:
     """Checks and launch shared by the halo and the stack kernel; ``d0``
-    is the buffer's second dimension (halo rows or stack planes)."""
+    is the buffer's second dimension (halo rows or stack planes).  Returns
+    the output and whether the stem body ran."""
     cbg, spg = _group_split(c, vk, vs, kh=kh, kw=kw, groups=groups)
     n = x.shape[0]
     nb, s_steps, _, vn = vs.vals.shape
@@ -341,13 +390,22 @@ def _conv_kernel(fn: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
                    out_shape=out_shape)
     check_operands({"x": x, "vals": vs.vals, "idx": vs.idx, "bias": bias,
                     "scale": scale, "residual": residual}, x.device)
+    stem = use_stem_body(c, vk, groups, kh, kw, vn, stride=stride,
+                         dilation=dilation)
     out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
     if out.numel():
-        launch("vsconv", fn,
-               (x, vs.vals, vs.idx, scale, bias, residual, out),
-               (n, d0, bw, c // vk, h_out, w_out, kw, stride, dilation, nb,
-                s_steps, vk, vn, cbg, spg, int(fuse_relu)), x.device)
-    return out
+        ints = (n, d0, bw, c // vk, h_out, w_out, kw, stride, dilation, nb,
+                s_steps, vk, vn, cbg, spg, int(fuse_relu))
+        if stem:
+            aligned = x.data_ptr() % 16 == 0 and vs.vals.data_ptr() % 16 == 0
+            launch("vsconv", fn.replace("_launch", "_stem_launch"),
+                   (x, vs.vals, vs.idx, scale, bias, residual, out),
+                   ints + (kh, int(aligned)), x.device)
+        else:
+            launch("vsconv", fn,
+                   (x, vs.vals, vs.idx, scale, bias, residual, out), ints,
+                   x.device)
+    return out, stem
 
 
 def vsconv_halo_kernel(
@@ -384,13 +442,15 @@ def vsconv_halo_kernel(
     h_out = halo_h_out(xh.shape, w_out=w_out, kh=kh, kw=kw, stride=stride,
                        dilation=dilation)
     _, rows, bw, cb, vk = xh.shape
-    out = _conv_kernel("vsconv_halo_launch", xh, vs, h_out=h_out, d0=rows,
-                       bw=bw, c=cb * vk, vk=vk, **kw_)
+    out, stem = _conv_kernel("vsconv_halo_launch", xh, vs, h_out=h_out,
+                             d0=rows, bw=bw, c=cb * vk, vk=vk, **kw_)
     vsconv_halo_kernel.launches += 1
+    vsconv_halo_kernel.stem_launches += int(stem)
     return out
 
 
 vsconv_halo_kernel.launches = 0  # type: ignore[attr-defined]
+vsconv_halo_kernel.stem_launches = 0  # type: ignore[attr-defined]
 
 
 def vsconv_stack_kernel(
@@ -427,10 +487,12 @@ def vsconv_stack_kernel(
     h_out = stack_h_out(xt.shape, w_out=w_out, kh=kh, kw=kw, stride=stride,
                         dilation=dilation)
     _, planes, _, bw, c = xt.shape
-    out = _conv_kernel("vsconv_stack_launch", xt, vs, h_out=h_out, d0=planes,
-                       bw=bw, c=c, vk=vs.vk, **kw_)
+    out, stem = _conv_kernel("vsconv_stack_launch", xt, vs, h_out=h_out,
+                             d0=planes, bw=bw, c=c, vk=vs.vk, **kw_)
     vsconv_stack_kernel.launches += 1
+    vsconv_stack_kernel.stem_launches += int(stem)
     return out
 
 
 vsconv_stack_kernel.launches = 0  # type: ignore[attr-defined]
+vsconv_stack_kernel.stem_launches = 0  # type: ignore[attr-defined]

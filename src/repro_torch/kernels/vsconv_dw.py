@@ -19,11 +19,14 @@ kernels
 each launches its kernel for CUDA tensors and runs its plain version
 (`vsconv_dw_plain`, `vsconv_dw_stack_plain`) for CPU tensors; a CUDA
 tensor the kernel does not take raises.  Their ``launches`` attributes
-count launches.  `dw_halo_kernel_cost` and `dw_stack_kernel_cost` are the
+count launches.  `dw_tile` picks the 2-D output tile a block of either
+kernel takes.  `dw_halo_kernel_cost` and `dw_stack_kernel_cost` are the
 reference TPU kernels' cost model, copied for cost tooling; they do not
 describe the CUDA kernels.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -37,7 +40,67 @@ from repro_torch.kernels.vsmm import MAX_VN, check_epilogue, check_operands
 __all__ = [
     "vsconv_dw_halo_kernel", "vsconv_dw_plain", "vsconv_dw_stack_kernel",
     "vsconv_dw_stack_plain", "dw_halo_kernel_cost", "dw_stack_kernel_cost",
+    "dw_tile", "dw_window_bytes",
 ]
+
+# The kernels' tile rule, per layout: (output elements a block aims at,
+# tile shape, threads a block).  The halo takes square-ish tiles; the
+# stack stages kh*stride planes per output row, so its blocks take one
+# output row each, more and smaller blocks (the faster shapes in a sweep
+# of tiles and thread counts on an H100).  Then a staged window of at most
+# DW_WINDOW_BYTES, and at least DW_MIN_BLOCKS blocks (two per SM of an
+# H100) where the layer has them.
+DW_TILE = {"halo": (4096, "square", 256), "stack": (1024, "row", 128)}
+DW_WINDOW_BYTES = 64 * 1024
+DW_MIN_BLOCKS = 2 * 132
+
+
+def dw_window_bytes(th: int, tw: int, vc: int, *, kh: int, kw: int,
+                    stride: int, dilation: int, layout: str) -> int:
+    """Bytes of the input window a block of a th x tw output tile stages
+    (``csrc/vsconv_dw.cu``'s `window_dims`)."""
+    if layout == "stack":
+        pixels = kh * stride * th * (tw + ((kw - 1) * dilation) // stride)
+    else:
+        pixels = (((th - 1) * stride + (kh - 1) * dilation + 1)
+                  * ((tw - 1) * stride + (kw - 1) * dilation + 1))
+    return 4 * pixels * vc
+
+
+@functools.lru_cache(maxsize=None)
+def dw_tile(n: int, h_out: int, w_out: int, c: int, vc: int, *, kh: int,
+            kw: int, stride: int, dilation: int, layout: str
+            ) -> tuple[int, int, int]:
+    """(th, tw, threads): the output tile and threads of one block of the
+    depthwise kernels.
+
+    Start from ``elems / vc`` pixels (`DW_TILE`): halo, th a power of two
+    and tw = pixels / th (vc 32: 8 x 16, vc 64: 8 x 8, vc 128: 4 x 8);
+    stack, one row of them (vc 32: 1 x 32, vc 128: 1 x 8).  Take a whole
+    image dimension where it is less than two tiles; then halve the
+    larger side (th on a tie) while the window exceeds DW_WINDOW_BYTES,
+    and while the grid has fewer than DW_MIN_BLOCKS blocks."""
+    elems, shape, threads = DW_TILE[layout]
+    px = max(1, elems // vc)
+    th = 1 << ((px.bit_length() - 1) // 2) if shape == "square" else 1
+    tw = max(1, px // th)
+    th, tw = min(th, h_out), min(tw, w_out)
+    if h_out < 2 * th:
+        th = h_out
+    if w_out < 2 * tw:
+        tw = w_out
+
+    def halve(th: int, tw: int) -> tuple[int, int]:
+        return ((th + 1) // 2, tw) if th >= tw else (th, (tw + 1) // 2)
+
+    geo = dict(kh=kh, kw=kw, stride=stride, dilation=dilation, layout=layout)
+    while th * tw > 1 and dw_window_bytes(th, tw, vc, **geo) > \
+            DW_WINDOW_BYTES:
+        th, tw = halve(th, tw)
+    while th * tw > 1 and (n * -(-h_out // th) * -(-w_out // tw) * (c // vc)
+                           < DW_MIN_BLOCKS):
+        th, tw = halve(th, tw)
+    return th, tw, threads
 
 
 def dw_halo_kernel_cost(
@@ -138,16 +201,20 @@ def vsconv_dw_stack_plain(
                       scale=scale, fuse_relu=fuse_relu)
 
 
-def _dw_kernel(fn: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
+def _dw_kernel(layout: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
                w_out: int, d0: int, bw: int, c: int, kh: int, kw: int,
                stride: int, dilation: int, bias: torch.Tensor | None,
                residual: torch.Tensor | None, scale: torch.Tensor | None,
                fuse_relu: bool) -> torch.Tensor:
-    """Checks and launch shared by the two depthwise kernels; ``d0`` is
-    the buffer's second dimension (halo rows or stack planes)."""
+    """Checks and launch shared by the two depthwise kernels (``layout``
+    "halo" or "stack"); ``d0`` is the buffer's second dimension (halo rows
+    or stack planes)."""
+    fn = f"vsconv_dw_{layout}_launch"
     vc = tap_matrix_width(vs, kh * kw, c)
     if vc > MAX_VN:
         raise ValueError(f"{fn} takes vc <= {MAX_VN}, got {vc}")
+    if kh * stride > 32:
+        raise ValueError(f"{fn} takes kh*stride <= 32, got {kh * stride}")
     n = x.shape[0]
     out_shape = (n, h_out, w_out, c)
     check_epilogue(bias=bias, scale=scale, residual=residual, cout=c,
@@ -156,10 +223,17 @@ def _dw_kernel(fn: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
                     "scale": scale, "residual": residual}, x.device)
     out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
     if out.numel():
+        th, tw, threads = dw_tile(n, h_out, w_out, c, vc, kh=kh, kw=kw,
+                                  stride=stride, dilation=dilation,
+                                  layout=layout)
+        vec = 4 if (vc % 4 == 0 and x.data_ptr() % 16 == 0
+                    and vs.vals.data_ptr() % 16 == 0) else 1
         launch("vsconv_dw", fn,
                (x, vs.vals, vs.idx, scale, bias, residual, out),
                (n, d0, bw, c // vc, h_out, w_out, kw, stride, dilation,
-                vs.nnz_per_strip, vc, int(fuse_relu)), x.device)
+                vs.nnz_per_strip, vc, int(fuse_relu), kh, th, tw, vec,
+                threads),
+               x.device)
     return out
 
 
@@ -198,7 +272,7 @@ def vsconv_dw_halo_kernel(
     if vc != vs.vn:
         raise ValueError(f"halo channel tile {vc} is not the strip width "
                          f"{vs.vn}")
-    out = _dw_kernel("vsconv_dw_halo_launch", xh, vs, h_out=h_out, d0=rows,
+    out = _dw_kernel("halo", xh, vs, h_out=h_out, d0=rows,
                      bw=bw, c=cb * vc, **kw_)
     vsconv_dw_halo_kernel.launches += 1
     return out
@@ -238,7 +312,7 @@ def vsconv_dw_stack_kernel(
     h_out = stack_h_out(xt.shape, w_out=w_out, kh=kh, kw=kw, stride=stride,
                         dilation=dilation)
     _, planes, _, bw, c = xt.shape
-    out = _dw_kernel("vsconv_dw_stack_launch", xt, vs, h_out=h_out,
+    out = _dw_kernel("stack", xt, vs, h_out=h_out,
                      d0=planes, bw=bw, c=c, **kw_)
     vsconv_dw_stack_kernel.launches += 1
     return out

@@ -19,6 +19,8 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 _NS = "_ZN45_GLOBAL__N__b3b144b4_12_flash_fwd_cu_bb92b78a"
+_VS = "_ZN42_GLOBAL__N__0c1d2e3f_9_vsconv_cu_4a5b6c7d"
+_DW = "_ZN45_GLOBAL__N__1a2b3c4d_12_vsconv_dw_cu_5e6f7a8b"
 PTXAS = f"""\
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '{_NS}16flash_mma_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PS1_iiiiiifi' for 'sm_90a'
@@ -66,9 +68,52 @@ def test_profile_kinds_name_every_kernel():
     assert chip_smoke._kind("void vsconv_dw_halo_kernel<4>(...)") == \
         "vsconv_dw_halo"
     assert chip_smoke._kind("void vsconv_halo_kernel(...)") == "vsconv_halo"
+    # the stem bodies are filed under their kernels, demangled or not
+    for name, kind in (
+            ("void (anonymous namespace)::vsconv_halo_stem_kernel<2, 8>("
+             "const float *, ...)", "vsconv_halo"),
+            ("void (anonymous namespace)::vsconv_stack_stem_kernel<1, 8>("
+             "const float *, ...)", "vsconv_stack"),
+            (f"{_VS}23vsconv_halo_stem_kernelILi2ELi8EEEvPKfS1_",
+             "vsconv_halo"),
+            (f"{_VS}24vsconv_stack_stem_kernelILi1ELi16EEEvPKfS1_",
+             "vsconv_stack"),
+            ("void (anonymous namespace)::vsconv_dw_stack_kernel<0, 1>("
+             "const float *, ...)", "vsconv_dw_stack"),
+            (f"{_DW}21vsconv_dw_halo_kernelILi128ELi4EEEvPKfS1_",
+             "vsconv_dw_halo")):
+        assert chip_smoke._kind(name) == kind, name
     assert chip_smoke._kind("Memcpy HtoD (Pageable -> Device)") == "copy"
     assert chip_smoke._kind("nvjet_tst_128x64_64x4") == "gemm"
     assert chip_smoke._kind("elementwise_kernel") == "other"
+
+
+def _entry(name: str, regs: int, spill: int = 0) -> str:
+    return (f"ptxas info    : Compiling entry function '{name}' for "
+            f"'sm_90a'\n    0 bytes stack frame, {spill} bytes spill stores, "
+            f"{spill} bytes spill loads\nptxas info    : Used {regs} "
+            f"registers, used 1 barriers\n")
+
+
+def test_stencil_instantiations_name_body_and_template():
+    conv = (_entry(f"{_VS}23vsconv_halo_stem_kernelILi2ELi8EEEvPKf", 90)
+            + _entry(f"{_VS}24vsconv_stack_stem_kernelILi1ELi16EEEvPKf", 70,
+                     spill=8)
+            + _entry("_Z18vsconv_halo_kernelPKf", 64))   # the generic body
+    dw = _entry(f"{_DW}21vsconv_dw_halo_kernelILi0ELi1EEEvPKf", 40)
+    rows = chip_smoke.stencil_instantiations(conv, dw)
+    assert {r["kernel"] for r in rows} == {
+        "vsconv_halo_stem", "vsconv_stack_stem", "vsconv_dw_halo"}
+    by = {r["kernel"]: r for r in rows}
+    assert by["vsconv_halo_stem"] == {
+        "kernel": "vsconv_halo_stem", "vn": 64, "c": 8, "registers": 90,
+        "spill_stores": 0, "spill_loads": 0}
+    assert by["vsconv_stack_stem"]["vn"] == 32
+    assert by["vsconv_stack_stem"]["c"] == 16
+    assert by["vsconv_stack_stem"]["spill_stores"] == 8
+    assert by["vsconv_dw_halo"] == {
+        "kernel": "vsconv_dw_halo", "vc": 0, "vec": 1, "registers": 40,
+        "spill_stores": 0, "spill_loads": 0}
 
 
 @pytest.fixture

@@ -25,9 +25,10 @@ from repro_torch.core.pruning import prune_vectors_balanced
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash as TF
 from repro_torch.kernels import ops
+from repro_torch.kernels import vsconv_dw as TD
 from repro_torch.kernels.vsconv import (build_halo_input, build_row_tap_stack,
-                                        vsconv_halo_kernel, vsconv_plain,
-                                        vsconv_stack_kernel,
+                                        use_stem_body, vsconv_halo_kernel,
+                                        vsconv_plain, vsconv_stack_kernel,
                                         vsconv_stack_plain)
 from repro_torch.kernels.vsconv_dw import (vsconv_dw_halo_kernel,
                                            vsconv_dw_plain,
@@ -64,11 +65,13 @@ def _sparse(rng, k, n, vk, vn, density, device):
     return from_mask(torch.as_tensor(wp, device=device), mask, vk, vn)
 
 
-def _relu_input(rng, shape, device):
+def _relu_input(rng, shape, device, zero=False):
     """Post-ReLU-like activations, with whole zero runs so the input-side
-    skip fires."""
+    skip fires (all zeros with ``zero``: every tile is skipped)."""
     x = np.maximum(rng.standard_normal(shape), 0).astype(np.float32)
     x[..., : shape[-1] // 4] = 0
+    if zero:
+        x[:] = 0
     return torch.as_tensor(x, device=device)
 
 
@@ -120,16 +123,28 @@ def test_vsconv_kernel_matches_plain(cuda, size, cin, cout, kh, stride, vk,
     assert _rel(y, vsconv_plain(xh, vs, **kw)) <= RTOL
 
 
-def test_kernel_decodes_tiles_in_any_order(cuda):
+@pytest.mark.parametrize("size,kh,stride,cin,vk,vn", [
+    (12, 3, 1, 64, 32, 64),   # the generic body
+    (19, 7, 2, 8, 8, 64),     # the stem body, a pruned stem weight
+])
+@pytest.mark.parametrize("impl", ["halo", "stack"])
+def test_kernel_decodes_tiles_in_any_order(cuda, size, kh, stride, cin, vk,
+                                           vn, impl):
     """The conv kernel decodes each stored id as given: reversing every
     strip's tile order changes nothing but the f32 summation order."""
     rng = np.random.default_rng(5)
-    vs = _sparse(rng, 9 * 64, 64, 32, 64, 0.5, cuda)
+    vs = _sparse(rng, kh * kh * cin, 64, vk, vn, 0.5, cuda)
     rev = VectorSparse(vs.vals.flip(1).contiguous(),
                        vs.idx.flip(1).contiguous(), vs.shape)
-    x = _relu_input(rng, (1, 12, 12, 64), cuda)
-    y = ops.vsconv(x, vs)
-    assert _rel(ops.vsconv(x, rev), y) <= RTOL
+    x = _relu_input(rng, (1, size, size, cin), cuda)
+    kw = dict(kh=kh, kw=kh, stride=stride, impl=impl)
+    kernel = vsconv_halo_kernel if impl == "halo" else vsconv_stack_kernel
+    stem = use_stem_body(cin, vk, 1, kh, kh, vn, stride=stride)
+    assert stem == (cin == 8)
+    before = kernel.stem_launches
+    y = ops.vsconv(x, vs, **kw)
+    assert _rel(ops.vsconv(x, rev, **kw), y) <= RTOL
+    assert kernel.stem_launches == before + 2 * stem
 
 
 def test_cuda_tensor_the_kernel_cannot_take_raises(cuda):
@@ -150,8 +165,10 @@ def test_resnet18_kernels_match_plain(cuda):
     sparse, _ = TG.sparsify(net, params, 0.5)
     x = torch.randn(2, 32, 32, 3, device=cuda)
     vsmm_kernel.launches = vsconv_halo_kernel.launches = 0
+    vsconv_halo_kernel.stem_launches = 0
     y = TG.net_apply(net, params, x, sparse=sparse, impl="auto")
     assert (vsconv_halo_kernel.launches, vsmm_kernel.launches) == (17, 4)
+    assert vsconv_halo_kernel.stem_launches == 1
     y_plain = TG.net_apply(net, params, x, sparse=sparse, impl="plain")
     assert y.shape == (2, 10)
     assert _rel(y, y_plain) <= RTOL
@@ -165,22 +182,28 @@ def _conv_kwargs(cuda, n, ho, wo, cout, kh, stride, dilation, epilogue):
     return kw
 
 
-@pytest.mark.parametrize("size,cin,cout,kh,stride,dil,groups,vk,vn", [
-    (32, 8, 64, 7, 2, 1, 1, 8, 64),     # the ResNet-18 stem, cin 3 -> 8
-    (16, 64, 64, 3, 1, 1, 1, 32, 64),
-    (16, 64, 128, 3, 2, 1, 1, 32, 128),
-    (15, 64, 64, 3, 2, 2, 4, 16, 16),   # grouped, dilated, odd size
-    (16, 64, 64, 3, 1, 1, 4, 16, 16),   # grouped 3x3, 4 groups
+@pytest.mark.parametrize("size,cin,cout,kh,stride,dil,groups,vk,vn,zero", [
+    (32, 8, 64, 7, 2, 1, 1, 8, 64, False),   # the ResNet-18 stem, cin 3 -> 8
+    (16, 64, 64, 3, 1, 1, 1, 32, 64, False),
+    (16, 64, 128, 3, 2, 1, 1, 32, 128, False),
+    (15, 64, 64, 3, 2, 2, 4, 16, 16, False),  # grouped, dilated, odd size
+    (16, 64, 64, 3, 1, 1, 4, 16, 16, False),  # grouped 3x3, 4 groups
+    (32, 8, 32, 3, 2, 1, 1, 8, 32, False),   # the MobileNetV1 stem
+    (15, 8, 32, 3, 2, 1, 1, 8, 32, False),   # stems at odd sizes: Hout 8
+    (33, 8, 64, 7, 2, 1, 1, 8, 64, False),   # and 17 cut the 8 x 16 tile
+    (20, 16, 64, 5, 1, 2, 1, 8, 32, False),  # stem body: 2 cin tiles, dil 2
+    (16, 8, 32, 3, 2, 1, 1, 8, 32, True),    # all zeros: the stem's skip
 ])
 @pytest.mark.parametrize("layout", ["halo", "stack"])
 @pytest.mark.parametrize("epilogue", [False, True])
 def test_conv_kernels_match_plain(cuda, size, cin, cout, kh, stride, dil,
-                                  groups, vk, vn, layout, epilogue):
+                                  groups, vk, vn, zero, layout, epilogue):
     """The halo kernel (now grouped too) and the stack kernel against their
-    plain versions on the card."""
+    plain versions on the card; the stem-shaped cases run the stem body
+    (``stem_launches`` moves), the others the generic one."""
     rng = np.random.default_rng(size + cin + kh + groups)
     vs = _sparse(rng, kh * kh * cin // groups, cout, vk, vn, 0.5, cuda)
-    x = _relu_input(rng, (2, size, size, cin), cuda)
+    x = _relu_input(rng, (2, size, size, cin), cuda, zero)
     ho = -(-size // stride)
     kw = _conv_kwargs(cuda, 2, ho, ho, cout, kh, stride, dil, epilogue)
     if layout == "halo":
@@ -191,10 +214,14 @@ def test_conv_kernels_match_plain(cuda, size, cin, cout, kh, stride, dil,
         buf = build_row_tap_stack(x, kh=kh, kw=kh, stride=stride,
                                   dilation=dil)
         kernel, plain = vsconv_stack_kernel, vsconv_stack_plain
-    before = kernel.launches
+    stem = use_stem_body(cin, vk, groups, kh, kh, vn, stride=stride,
+                         dilation=dil)
+    assert stem == (cin in (8, 16))
+    before, before_stem = kernel.launches, kernel.stem_launches
     y = kernel(buf, vs, groups=groups, **kw)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
+    assert kernel.stem_launches == before_stem + stem
     assert y.shape == (2, ho, ho, cout)
     assert _rel(y, plain(buf, vs, groups=groups, **kw)) <= RTOL
 
@@ -204,20 +231,32 @@ def _taps(rng, kh, c, vc, density, device):
     return _sparse(rng, kh * kh, c, 1, vc, density, device)
 
 
-@pytest.mark.parametrize("size,c,stride,dil,vc", [
-    (16, 32, 1, 1, 32),     # dw1-like: vc 32
-    (16, 64, 2, 1, 64),     # dw2-like: stride 2, asymmetric SAME pads
-    (7, 512, 1, 1, 128),    # dw7-like: 4 strips of 128
-    (14, 512, 2, 1, 128),   # dw12-like: 14 -> 7
-    (9, 48, 1, 2, 48),      # dilated, vc 48 (not a divisor of 256)
+@pytest.mark.parametrize("size,c,stride,dil,vc,zero", [
+    (16, 32, 1, 1, 32, False),     # dw1-like: vc 32
+    (16, 64, 2, 1, 64, False),     # dw2-like: stride 2, asymmetric pads
+    (7, 512, 1, 1, 128, False),    # dw7-like: 4 strips of 128
+    (14, 512, 2, 1, 128, False),   # dw12-like: 14 -> 7
+    (9, 48, 1, 2, 48, False),      # dilated, vc 48 (not a divisor of 256)
+    (7, 1024, 1, 1, 128, False),   # dw13: 7 px, 8 strips of 128
+    (10, 30, 1, 1, 30, False),     # vc 30: 4-byte copies
+    (12, 64, 1, 1, 64, True),      # all zeros: the skip
 ])
 @pytest.mark.parametrize("layout", ["halo", "stack"])
 @pytest.mark.parametrize("epilogue", [False, True])
-def test_dw_kernels_match_plain(cuda, size, c, stride, dil, vc, layout,
-                                epilogue):
+@pytest.mark.parametrize("tiles", ["rule", "large"])
+def test_dw_kernels_match_plain(cuda, monkeypatch, size, c, stride, dil, vc,
+                                zero, layout, epilogue, tiles):
+    """``tiles="large"`` lifts the tile rule's minimum block count, so
+    these small images run the tiles the rule gives the 224 px layers
+    (8 x 16 at vc 32, a whole 7 px image) rather than tiles cut down to
+    fill the card."""
+    if tiles == "large":
+        monkeypatch.setattr(TD, "DW_MIN_BLOCKS", 1)
+        # the rule is cached per shape: run it uncached, with the new bound
+        monkeypatch.setattr(TD, "dw_tile", TD.dw_tile.__wrapped__)
     rng = np.random.default_rng(size + c + stride)
     vs = _taps(rng, 3, c, vc, 0.5, cuda)
-    x = _relu_input(rng, (2, size, size, c), cuda)
+    x = _relu_input(rng, (2, size, size, c), cuda, zero)
     ho = -(-size // stride)
     kw = _conv_kwargs(cuda, 2, ho, ho, c, 3, stride, dil, epilogue)
     if layout == "halo":
@@ -266,10 +305,13 @@ def test_mobilenet_kernels_match_plain(cuda, impl, per_forward):
     x = torch.randn(2, 32, 32, 3, device=cuda)
     for k in counters.values():
         k.launches = 0
+    vsconv_halo_kernel.stem_launches = vsconv_stack_kernel.stem_launches = 0
     y = TG.net_apply(net, params, x, sparse=sparse, impl=impl)
     launched = {name: k.launches for name, k in counters.items()
                 if k.launches}
     assert launched == per_forward
+    assert vsconv_halo_kernel.stem_launches + \
+        vsconv_stack_kernel.stem_launches == 1
     y_plain = TG.net_apply(net, params, x, sparse=sparse, impl="plain")
     assert y.shape == (2, 10)
     assert _rel(y, y_plain) <= RTOL
@@ -281,8 +323,10 @@ def test_resnet18_stack_kernels_match_plain(cuda):
     sparse, _ = TG.sparsify(net, params, 0.5)
     x = torch.randn(2, 32, 32, 3, device=cuda)
     vsmm_kernel.launches = vsconv_stack_kernel.launches = 0
+    vsconv_stack_kernel.stem_launches = 0
     y = TG.net_apply(net, params, x, sparse=sparse, impl="pallas-stack")
     assert (vsconv_stack_kernel.launches, vsmm_kernel.launches) == (17, 4)
+    assert vsconv_stack_kernel.stem_launches == 1
     assert _rel(y, TG.net_apply(net, params, x, sparse=sparse,
                                 impl="plain")) <= RTOL
 

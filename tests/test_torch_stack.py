@@ -177,3 +177,68 @@ def test_stack_geometry_refusals():
         tvsconv.vsconv_stack_plain(xt, t.vs, w_out=15, kh=3, kw=3)
     with pytest.raises(ValueError, match="groups"):
         tvsconv.vsconv_stack_plain(xt, t.vs, w_out=8, groups=3)
+
+
+@pytest.mark.parametrize("build,stem", [
+    (tg.build_resnet18, "conv1"),        # 7x7/s2, cin 3 -> 8, vn 64
+    (tg.build_mobilenet_v1, "conv0"),    # 3x3/s2, cin 3 -> 8, vn 32
+])
+def test_stem_rule_picks_exactly_the_stem(build, stem):
+    """Over every conv that `sparsify` encodes, `use_stem_body` holds for
+    the stem alone: every other layer keeps the generic body (or is
+    depthwise or 1x1, which never reach the conv kernels' bodies)."""
+    from repro_torch.models.layers import init_params
+    net = build(10)
+    sparse, _ = tg.sparsify(net, init_params(net.schema(), 0, device="cpu"),
+                            0.5)
+    picked = []
+    for l in net.layers:
+        if not isinstance(l, tg.Conv):
+            continue
+        spec = sparse[l.name]
+        c = l.cin + spec.cin_pad
+        if tvsconv.use_stem_body(c, spec.vs.vk, spec.groups, spec.kh,
+                                 spec.kw, spec.vs.vn, stride=spec.stride,
+                                 dilation=spec.dilation):
+            picked.append(l.name)
+    assert picked == [stem]
+
+
+@pytest.mark.parametrize("c,vk,groups,kh,kw,vn,stride,want", [
+    (8, 8, 1, 7, 7, 64, 2, True),     # the ResNet-18 stem
+    (8, 8, 1, 3, 3, 32, 2, True),     # the MobileNetV1 stem
+    (16, 8, 1, 3, 3, 64, 1, True),    # two cin tiles
+    (32, 32, 1, 3, 3, 64, 1, False),  # tiles by 32: the generic body
+    (24, 8, 1, 3, 3, 64, 1, False),   # wider than the window allows
+    (8, 8, 1, 1, 1, 64, 1, False),    # 1x1: vsmm
+    (8, 8, 2, 3, 3, 64, 1, False),    # grouped
+    (8, 8, 1, 3, 3, 16, 1, False),    # vn 16: not 32 or 64
+    (16, 8, 1, 11, 11, 64, 4, False),  # a window over the shared memory
+])
+def test_stem_rule(c, vk, groups, kh, kw, vn, stride, want):
+    assert tvsconv.use_stem_body(c, vk, groups, kh, kw, vn,
+                                 stride=stride) is want
+    if want:
+        assert tvsconv.stem_smem_bytes(
+            c, vn, kh=kh, kw=kw, stride=stride, dilation=1,
+            layout="stack") <= tvsconv.STEM_MAX_SMEM
+
+
+@pytest.mark.parametrize("n,h_out,c,vc,stride,layout,want", [
+    (8, 112, 32, 32, 1, "halo", (8, 16, 256)),   # dw1: 784 blocks
+    (8, 56, 64, 64, 2, "halo", (4, 8, 256)),     # dw2: 8 x 8 halved, window
+    (8, 28, 128, 128, 2, "halo", (4, 4, 256)),   # dw4
+    (8, 7, 1024, 128, 1, "halo", (2, 4, 256)),   # dw13: halved to 512 blocks
+    (1, 7, 128, 128, 1, "halo", (1, 1, 256)),    # one image: a pixel a block
+    (8, 112, 32, 32, 1, "stack", (1, 32, 128)),  # dw1: one row of 32
+    (8, 56, 128, 128, 1, "stack", (1, 8, 128)),  # dw3
+    (8, 14, 512, 128, 1, "stack", (1, 14, 128)),  # dw7: the whole row
+])
+def test_dw_tile(n, h_out, c, vc, stride, layout, want):
+    """The depthwise kernels' tile: near the layout's element count, a
+    window within DW_WINDOW_BYTES, at least DW_MIN_BLOCKS blocks where
+    there are that many pixels."""
+    geo = dict(kh=3, kw=3, stride=stride, dilation=1, layout=layout)
+    th, tw, threads = tdw.dw_tile(n, h_out, h_out, c, vc, **geo)
+    assert (th, tw, threads) == want
+    assert tdw.dw_window_bytes(th, tw, vc, **geo) <= tdw.DW_WINDOW_BYTES
