@@ -13,9 +13,10 @@ repository around it, or when any phase fails.  Phases:
    (``vsmm.cu``, ``vsconv.cu``, ``vsconv_dw.cu``, ``flash_fwd.cu``; one
    nvcc per source, started together) and print their register use, the
    registers and spill bytes of each flash instantiation (the bf16 hd-128
-   one must not spill) and of each of the 18 stem-body and depthwise
-   instantiations (none may spill), and the flash kernel's dynamic shared
-   memory per head dim and body.
+   one must not spill), of each of the 18 stem-body and depthwise
+   instantiations and of the 7 int8 instantiations (vsmm, the halo conv's
+   generic body, 5 dw halo; none of these 25 may spill), and the flash
+   kernel's dynamic shared memory per head dim and body.
 2. Kernel phase.  Each kernel against its plain version on the card,
    within a relative error of 1e-5 of max|y| (1e-2 for the flash kernel
    on bf16 inputs), then timed (see below).  One JSON line per case.  The
@@ -34,6 +35,12 @@ repository around it, or when any phase fails.  Phases:
    - depthwise stack: dw1, dw2 and dw12.
    Each conv row names its body (``"stem"`` where `use_stem_body` holds,
    else ``"generic"``).
+   The int8 branches (`int8_kernel_cases`), each bit-equal to its plain
+   version (max|Δ| 0), without and with the epilogue, on int8 tiles and
+   activations quantized on the card: the halo conv at the ResNet-18 stem
+   (the generic body: int8 never takes the stem body), 3x3/s1 at 56,
+   3x3/s2 64->128, 3x3 512->512 at Hout 7 and the Hout < 4 case; vsmm at
+   the 1x1/s2 projection and the FC head; the dw halo at dw1, dw2, dw12.
    The flash kernel (`flash_phase`): Qwen1.5-4B's admission prefill (BH
    160 = 8 x 20 heads, T 512, hd 128, causal) in bf16 and f32, a backfill
    length (T 528), a window of 1024 at T 2048 and hd 240, a q_offset of
@@ -50,12 +57,19 @@ repository around it, or when any phase fails.  Phases:
      1 vsconv_halo + 13 vsconv_dw_halo + 14 vsmm per wave;
    - MobileNetV1, stack (8 requests, one wave): 1 vsconv_stack +
      13 vsconv_dw_stack + 14 vsmm;
-   - ResNet-18, stack (8 requests, one wave): 17 vsconv_stack + 4 vsmm.
-   Each path must run the stem body exactly once a wave (the wrappers'
-   ``stem_launches``).
+   - ResNet-18, stack (8 requests, one wave): 17 vsconv_stack + 4 vsmm;
+   - ResNet-18, int8 halo (``CNNServer(..., dtype="int8")``, 16
+     requests): 17 vsconv_halo + 4 vsmm per wave, all int8 launches;
+   - MobileNetV1, int8 halo (16 requests): 1 vsconv_halo + 13
+     vsconv_dw_halo + 14 vsmm per wave, all int8 launches.
+   Each f32 path must run the stem body exactly once a wave (the
+   wrappers' ``stem_launches``), each int8 path never (its stems take the
+   generic body), and every launch of an int8 path must be of an int8
+   branch (``int8_launches``), none of an f32 path.
    Every request must be delivered, finite, and equal to a direct
-   ``net_apply(impl="plain")`` on the card within 1e-5.  The two halo
-   paths then serve their traffic again, warm: images/s and ms per wave.
+   ``net_apply(impl="plain")`` on the card within 1e-5 (f32) or bit for
+   bit (int8).  The halo paths then serve their traffic again, warm:
+   images/s and ms per wave.
 4. Profile.  One more warm serve of each halo path under
    `torch.profiler`: the device's busy time and idle share over that
    serve, and device time by kind.  The busy time over the unprofiled warm
@@ -108,7 +122,9 @@ Timings do not flush L2 between launches.
 
 ``bound_ms`` is max(FLOPs / peak, bytes / HBM bandwidth), with the peaks
 of the SKU nvidia-smi names (NVIDIA's datasheet): the fp32 CUDA-core peak,
-or for the flash kernel on bf16 inputs the dense bf16 tensor-core peak.
+for the flash kernel on bf16 inputs the dense bf16 tensor-core peak, and
+for the int8 branches the dense int8 tensor-core peak (1,979 TOP/s on
+the H100 SXM), int8 operands counted at one byte.
 Both count the real function: for the CNN kernels FLOPs those of the
 stored tiles this run's weights hold (2 * pixels * vc * S per strip for a
 depthwise conv), bytes the unpadded NHWC input, the stored tiles, bias and
@@ -130,14 +146,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# fp32 CUDA-core FLOP/s (no tensor cores), HBM bytes/s and dense bf16
-# tensor-core FLOP/s per SKU, from NVIDIA's datasheets; matched against the
-# name nvidia-smi gives.
+# fp32 CUDA-core FLOP/s (no tensor cores), HBM bytes/s, dense bf16
+# tensor-core FLOP/s and dense int8 tensor-core OP/s per SKU, from NVIDIA's
+# datasheets (their sparsity figures halved); matched against the name
+# nvidia-smi gives.
 PEAKS = (
-    ("H100 NVL", 60e12, 3.9e12, 835e12),
-    ("H100 PCIe", 51e12, 2.0e12, 756e12),
-    ("H100", 67e12, 3.35e12, 989e12),   # H100 SXM5 80GB HBM3
-    ("H200", 67e12, 4.8e12, 989e12),
+    ("H100 NVL", 60e12, 3.9e12, 835e12, 1670e12),
+    ("H100 PCIe", 51e12, 2.0e12, 756e12, 1513e12),
+    ("H100", 67e12, 3.35e12, 989e12, 1979e12),   # H100 SXM5 80GB HBM3
+    ("H200", 67e12, 4.8e12, 989e12, 1979e12),
 )
 RTOL = 1e-5
 BF16_RTOL = 1e-2         # the flash kernel on bf16 inputs: p rounded at
@@ -148,10 +165,10 @@ DENSITY = 0.235          # ResNet-18's pruning point
 DW_DENSITY = 0.5         # MobileNetV1's
 
 
-def _peaks(name: str) -> tuple[float, float, float]:
-    for key, flops, bw, bf16_flops in PEAKS:
+def _peaks(name: str) -> tuple[float, float, float, float]:
+    for key, *peaks in PEAKS:
         if key in name:
-            return flops, bw, bf16_flops
+            return tuple(peaks)
     raise SystemExit(f"chip_smoke: no datasheet peaks for {name!r}")
 
 
@@ -210,8 +227,9 @@ class Timer:
     """Times one layer's kernel, plain version and library call, and
     accumulates sums per kernel and per (path, kernel)."""
 
-    def __init__(self, peak_flops: float, peak_bw: float):
+    def __init__(self, peak_flops: float, peak_bw: float, int8_peak: float):
         self.peak_flops, self.peak_bw = peak_flops, peak_bw
+        self.int8_peak = int8_peak
         self.sums: dict = {}
         self.by_path: dict = {}
         self.max_abs_err: dict = {}
@@ -220,7 +238,8 @@ class Timer:
             nbytes: int, reps: int = 20, rtol: float = RTOL,
             peak_flops: float | None = None, **extra) -> dict:
         """``peak_flops`` overrides the fp32 CUDA-core peak (the bf16
-        tensor-core peak for bf16 inputs)."""
+        tensor-core peak for bf16 inputs, the int8 one for int8 inputs).
+        ``rtol`` 0 asks for bit equality (the int8 kernels)."""
         import torch
         y_k = fk()
         y_p = fp()
@@ -265,41 +284,90 @@ class Timer:
             s[k] += row[k]
         s["ms"] += row["kernel_ms"]
         s["layers"] += 1
+        if "int_mm_ms" in row:  # torch._int_mm, where it took the shape
+            s.setdefault("int_mm_ms", 0.0)
+            s.setdefault("int_mm_refused_layers", 0)
+            if row["int_mm_ms"] is None:
+                s["int_mm_refused_layers"] += 1
+            else:
+                s["int_mm_ms"] += row["int_mm_ms"]
 
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def _sparse_weight(gen, kh: int, cin: int, cout: int, vk: int, vn: int,
-                   density: float, device):
-    """A seeded (kh*kh*cin, cout) weight, balanced-pruned and encoded as the
-    port's sparsify does (cin-major for kh > 1).  ``cin`` is the channels
-    per group of a grouped conv; a depthwise tap matrix is ``cin=1, vk=1``
-    (taps stay in ascending order)."""
+def _pruned(gen, kh: int, cin: int, cout: int, vk: int, vn: int,
+            density: float):
+    """A seeded (kh*kh*cin, cout) f32 weight, balanced-pruned, and its
+    tile mask."""
+    import numpy as np
     import torch
     from repro_torch.core.pruning import prune_vectors_balanced
-    from repro_torch.core.vector_sparse import conv_cin_major, from_mask
 
     w = (torch.randn(kh * kh * cin, cout, generator=gen)
          * (kh * kh * cin) ** -0.5).numpy()
     if density < 1.0:
-        w, mask = prune_vectors_balanced(w, density, vk, vn)
-    else:
-        mask = torch.ones(w.shape[0] // vk, cout // vn, dtype=torch.bool
-                          ).numpy()
+        return prune_vectors_balanced(w, density, vk, vn)
+    return w, np.ones((w.shape[0] // vk, cout // vn), bool)
+
+
+def _encode(w, mask, kh: int, cin: int, vk: int, vn: int, device):
+    """Encode as the port's sparsify does (cin-major for kh > 1)."""
+    import torch
+    from repro_torch.core.vector_sparse import conv_cin_major, from_mask
+
     vs = from_mask(torch.as_tensor(w, device=device), mask, vk, vn)
     return conv_cin_major(vs, cin // vk) if kh > 1 and vk > 1 else vs
+
+
+def _sparse_weight(gen, kh: int, cin: int, cout: int, vk: int, vn: int,
+                   density: float, device):
+    """A seeded weight encoded as the port's sparsify does.  ``cin`` is the
+    channels per group of a grouped conv; a depthwise tap matrix is
+    ``cin=1, vk=1`` (taps stay in ascending order)."""
+    w, mask = _pruned(gen, kh, cin, cout, vk, vn, density)
+    return _encode(w, mask, kh, cin, vk, vn, device)
+
+
+def _int8_weight(gen, kh: int, cin: int, cout: int, vk: int, vn: int,
+                 density: float, device):
+    """As `_sparse_weight`, quantized to int8 as ``sparsify(dtype="int8")``
+    does (per-column power-of-two scales of the pruned weight): (the int8
+    encoding, the scales on ``device``)."""
+    import torch
+    from repro_torch.models.graph import quantize_weights_int8, weight_scales
+
+    w, mask = _pruned(gen, kh, cin, cout, vk, vn, density)
+    s_w = weight_scales(w)
+    return (_encode(quantize_weights_int8(w, s_w), mask, kh, cin, vk, vn,
+                    device), torch.as_tensor(s_w, device=device))
+
+
+def _quant_args(timer: Timer, x, quant):
+    """The int8 side of a case: with ``quant = (sx, s_w)`` (x and the tiles
+    int8) the kernel's kwargs gain the combined scale, the library call
+    takes the dequantized input and weight, the bound counts int8
+    operations at the int8 peak, the kernel's name gains ``_int8`` and the
+    kernel must equal its plain version bit for bit.  Returns (kernel
+    kwargs, x for the library, the weight's per-column factor, the peak
+    override, the name suffix, the rtol)."""
+    if quant is None:
+        return {}, x, 1.0, None, "", RTOL
+    sx, s_w = quant
+    return ({"scale": sx * s_w}, x.float() * sx, s_w, timer.int8_peak,
+            "_int8", 0.0)
 
 
 def _conv_case(timer: Timer, label: str, x, vs, *, kh: int, stride: int,
                cin_real: int, groups: int = 1, layout: str = "halo",
                bias=None, residual=None, relu: bool = False,
-               reps: int = 20) -> dict:
+               quant=None, reps: int = 20) -> dict:
     """Time a full conv kernel (``layout`` "halo" or "stack") on NHWC ``x``
-    against its plain version and cuDNN on the densified weight.  ``x`` may
-    carry zero padding channels beyond ``cin_real``; the bound counts only
-    the real ones."""
+    against its plain version and cuDNN on the densified (dequantized)
+    weight.  ``x`` may carry zero padding channels beyond ``cin_real``;
+    the bound counts only the real ones.  ``quant = (sx, s_w)``: x and the
+    tiles are int8, the kernel's int8 branch runs, bit-equal to plain."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.sparse_ops import same_pads
@@ -309,6 +377,7 @@ def _conv_case(timer: Timer, label: str, x, vs, *, kh: int, stride: int,
     n, h, w, c = x.shape
     ho, pt, pb = same_pads(h, kh, stride)
     wo, pl, pr = same_pads(w, kh, stride)
+    qkw, x_deq, w_scale, peak, suffix, rtol = _quant_args(timer, x, quant)
     if layout == "halo":
         buf = K.build_halo_input(x, kh=kh, kw=kh, stride=stride, vk=vs.vk)
         kernel, plain, name = (K.vsconv_halo_kernel, K.vsconv_plain,
@@ -318,31 +387,34 @@ def _conv_case(timer: Timer, label: str, x, vs, *, kh: int, stride: int,
         kernel, plain, name = (K.vsconv_stack_kernel, K.vsconv_stack_plain,
                                "vsconv_stack")
     kw = dict(w_out=wo, kh=kh, kw=kh, stride=stride, groups=groups,
-              bias=bias, residual=residual, fuse_relu=relu)
-    x_lib = F.pad(x, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
-    w_lib = decode(vs).reshape(kh, kh, c // groups, -1).permute(3, 2, 0, 1) \
-        .contiguous(memory_format=torch.channels_last)
+              bias=bias, residual=residual, fuse_relu=relu, **qkw)
+    x_lib = F.pad(x_deq, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
+    w_lib = (decode(vs).float() * w_scale).reshape(kh, kh, c // groups, -1) \
+        .permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     out_numel = n * ho * wo * vs.shape[1]
     real = cin_real / c  # the padding channels' share of every stored tile
-    stem = K.use_stem_body(c, vs.vk, groups, kh, kh, vs.vn, stride=stride)
+    stem = K.use_stem_body(c, vs.vk, groups, kh, kh, vs.vn, stride=stride,
+                           int8=quant is not None)
     return timer.run(
-        label, name,
+        label, name + suffix,
         lambda: kernel(buf, vs, **kw),
         lambda: plain(buf, vs, **kw),
         lambda: F.conv2d(x_lib, w_lib, bias, stride, groups=groups),
         flops=round(2 * n * ho * wo * vs.vals.numel() * real),
-        nbytes=4 * n * h * w * cin_real + round(_nbytes(vs.vals) * real)
-        + _nbytes(vs.idx, bias, residual) + 4 * out_numel,
-        reps=reps, buffer_bytes=_nbytes(buf),
-        body="stem" if stem else "generic")
+        nbytes=x.element_size() * n * h * w * cin_real
+        + round(_nbytes(vs.vals) * real)
+        + _nbytes(vs.idx, bias, residual, qkw.get("scale")) + 4 * out_numel,
+        reps=reps, rtol=rtol, peak_flops=peak,
+        buffer_bytes=_nbytes(buf), body="stem" if stem else "generic")
 
 
 def _dw_case(timer: Timer, label: str, x, vs, *, stride: int,
              layout: str = "halo", bias=None, residual=None,
-             relu: bool = False, reps: int = 20) -> dict:
+             relu: bool = False, quant=None, reps: int = 20) -> dict:
     """Time a 3x3 depthwise kernel (``layout`` "halo" or "stack") on NHWC
     ``x`` against its plain version and cuDNN's depthwise conv
-    (``groups=C``) on the densified tap matrix."""
+    (``groups=C``) on the densified (dequantized) tap matrix; ``quant`` as
+    `_conv_case`'s."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.sparse_ops import same_pads
@@ -353,6 +425,7 @@ def _dw_case(timer: Timer, label: str, x, vs, *, stride: int,
     n, h, w, c = x.shape
     ho, pt, pb = same_pads(h, 3, stride)
     wo, pl, pr = same_pads(w, 3, stride)
+    qkw, x_deq, w_scale, peak, suffix, rtol = _quant_args(timer, x, quant)
     if layout == "halo":
         buf = K.build_halo_input(x, kh=3, kw=3, stride=stride, vk=vs.vn)
         kernel, plain, name = (D.vsconv_dw_halo_kernel, D.vsconv_dw_plain,
@@ -362,45 +435,69 @@ def _dw_case(timer: Timer, label: str, x, vs, *, stride: int,
         kernel, plain, name = (D.vsconv_dw_stack_kernel,
                                D.vsconv_dw_stack_plain, "vsconv_dw_stack")
     kw = dict(w_out=wo, kh=3, kw=3, stride=stride, bias=bias,
-              residual=residual, fuse_relu=relu)
-    x_lib = F.pad(x, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
-    w_lib = decode(vs).reshape(3, 3, 1, c).permute(3, 2, 0, 1) \
-        .contiguous(memory_format=torch.channels_last)
+              residual=residual, fuse_relu=relu, **qkw)
+    x_lib = F.pad(x_deq, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
+    w_lib = (decode(vs).float() * w_scale).reshape(3, 3, 1, c) \
+        .permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     return timer.run(
-        label, name,
+        label, name + suffix,
         lambda: kernel(buf, vs, **kw),
         lambda: plain(buf, vs, **kw),
         lambda: F.conv2d(x_lib, w_lib, bias, stride, groups=c),
         flops=2 * n * ho * wo * vs.vals.numel(),
-        nbytes=_nbytes(x, vs.vals, vs.idx, bias, residual)
+        nbytes=_nbytes(x, vs.vals, vs.idx, bias, residual, qkw.get("scale"))
         + 4 * n * ho * wo * c,
-        reps=reps, buffer_bytes=_nbytes(buf))
+        reps=reps, rtol=rtol, peak_flops=peak,
+        buffer_bytes=_nbytes(buf))
+
+
+def _int_mm(x, w):
+    """torch._int_mm(x, w) (int8 x int8 -> int32, cuBLASLt) as a yardstick:
+    (callable, None), or (None, the reason) where it refuses the shape."""
+    import torch
+    try:
+        torch._int_mm(x, w)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, str(e).strip().splitlines()[0]
+    return (lambda: torch._int_mm(x, w)), None
 
 
 def _mm_case(timer: Timer, label: str, x, vs, *, n_real: int, bias=None,
-             residual=None, relu: bool = False, reps: int = 20) -> dict:
+             residual=None, relu: bool = False, quant=None,
+             reps: int = 20) -> dict:
     """Time vsmm on (M, K) ``x`` against its plain version and cuBLAS on the
-    densified weight.  Output columns past ``n_real`` are the zero padding
-    of a remainder strip; the bound counts only the real ones."""
+    densified (dequantized) weight.  Output columns past ``n_real`` are the
+    zero padding of a remainder strip; the bound counts only the real
+    ones.  ``quant`` as `_conv_case`'s; int8 rows also time
+    ``torch._int_mm`` on the densified int8 weight where it takes the
+    shape (``int_mm_ms``; else null and ``int_mm_refused``)."""
     import torch
     from repro_torch.core.vector_sparse import decode
     from repro_torch.kernels.vsmm import vsmm_kernel, vsmm_plain
 
-    kw = dict(bias=bias, residual=residual, fuse_relu=relu)
-    w_lib = decode(vs)
-    lib = ((lambda: torch.addmm(bias, x, w_lib)) if bias is not None
-           else (lambda: torch.mm(x, w_lib)))
+    qkw, x_deq, w_scale, peak, suffix, rtol = _quant_args(timer, x, quant)
+    kw = dict(bias=bias, residual=residual, fuse_relu=relu, **qkw)
+    w_lib = decode(vs).float() * w_scale
+    lib = ((lambda: torch.addmm(bias, x_deq, w_lib)) if bias is not None
+           else (lambda: torch.mm(x_deq, w_lib)))
+    extra = {}
+    if quant is not None:
+        fn, refused = _int_mm(x, decode(vs))
+        extra = {"int_mm_ms": None if fn is None else _device_ms(fn, reps),
+                 "int_mm_refused": refused}
     m, n_enc = x.shape[0], vs.shape[1]
     real = n_real / n_enc  # balanced pruning: every strip holds S tiles
     return timer.run(
-        label, "vsmm",
+        label, "vsmm" + suffix,
         lambda: vsmm_kernel(x, vs, **kw),
         lambda: vsmm_plain(x, vs, **kw),
         lib,
         flops=round(2 * m * vs.vals.numel() * real),
         nbytes=_nbytes(x, vs.idx) + round(_nbytes(vs.vals) * real)
-        + round(_nbytes(bias, residual) * real) + 4 * m * n_real,
-        reps=reps)
+        + round(_nbytes(bias, residual, qkw.get("scale")) * real)
+        + 4 * m * n_real,
+        reps=reps, rtol=rtol, peak_flops=peak, **extra)
 
 
 def kernel_phase(timer: Timer, dev) -> None:
@@ -481,6 +578,58 @@ def kernel_phase(timer: Timer, dev) -> None:
             timer, label + " +bias+residual+relu", x, vs, n_real=n_real,
             bias=torch.randn(n_out, generator=gen).to(dev),
             residual=torch.randn(m, n_out, generator=gen).to(dev), relu=True)
+    int8_kernel_cases(timer, dev, gen, act, epilogue)
+
+
+def int8_kernel_cases(timer: Timer, dev, gen, act, epilogue) -> None:
+    """The int8 branch of each kernel on the main int8 paths, at the f32
+    cases' 224 px geometries, without and with the epilogue: int8 tiles
+    and activations quantized on the card as the int8 path does, each
+    kernel bit-equal to its plain version.  The stems run the generic
+    body in int8."""
+    import torch
+    from repro_torch.models.graph import quantize_activations_int8
+
+    conv_cases = [  # label, H, cin, cout, kh, stride, vk, vn, density
+        ("stem 7x7/s2 224px cin 3->8", 224, 8, 64, 7, 2, 8, 64, 1.0),
+        ("3x3/s1 56px 64->64", 56, 64, 64, 3, 1, 32, 64, DENSITY),
+        ("3x3/s2 56px 64->128", 56, 64, 128, 3, 2, 32, 128, DENSITY),
+        ("3x3/s1 7px 512->512", 7, 512, 512, 3, 1, 32, 128, DENSITY),
+        ("3x3/s1 1px 512->512 (32px layer4, Hout<4)", 1, 512, 512, 3, 1,
+         32, 128, DENSITY),
+    ]
+    for label, h, cin, cout, kh, s, vk, vn, d in conv_cases:
+        vs, s_w = _int8_weight(gen, kh, cin, cout, vk, vn, d, dev)
+        zc = 5 if cin == 8 else 0
+        xq, sx = quantize_activations_int8(
+            act(BATCH, h, h, cin, zero_channels=zc))
+        epi = epilogue(BATCH, -(-h // s), cout)
+        kw = dict(kh=kh, stride=s, cin_real=cin - zc, quant=(sx, s_w))
+        _conv_case(timer, f"int8 halo {label}", xq, vs, **kw)
+        _conv_case(timer, f"int8 halo {label} +bias+residual+relu", xq, vs,
+                   **kw, **epi)
+    for label, h, c, s in [("dw1 112px C32 s1", 112, 32, 1),
+                           ("dw2 112->56px C64 s2", 112, 64, 2),
+                           ("dw12 14->7px C512 s2", 14, 512, 2)]:
+        vs, s_w = _int8_weight(gen, 3, 1, c, 1, min(c, 128), DW_DENSITY, dev)
+        xq, sx = quantize_activations_int8(act(BATCH, h, h, c))
+        epi = epilogue(BATCH, -(-h // s), c)
+        _dw_case(timer, f"int8 halo {label}", xq, vs, stride=s,
+                 quant=(sx, s_w))
+        _dw_case(timer, f"int8 halo {label} +bias+residual+relu", xq, vs,
+                 stride=s, quant=(sx, s_w), **epi)
+    for label, m, k, n_out, n_real in [
+            ("1x1/s2 projection 56px 64->128", BATCH * 28 * 28, 64, 128, 128),
+            ("FC 512->1000 (1024, NB 8)", BATCH, 512, 1024, 1000)]:
+        vs, s_w = _int8_weight(gen, 1, k, n_out, 32, 128, DENSITY, dev)
+        xq, sx = quantize_activations_int8(act(m, k))
+        _mm_case(timer, f"int8 {label}", xq, vs, n_real=n_real,
+                 quant=(sx, s_w))
+        _mm_case(timer, f"int8 {label} +bias+residual+relu", xq, vs,
+                 n_real=n_real, quant=(sx, s_w),
+                 bias=torch.randn(n_out, generator=gen).to(dev),
+                 residual=torch.randn(m, n_out, generator=gen).to(dev),
+                 relu=True)
 
 
 # label, BH, Tq, Tk, hd, causal, window, q_offset, dtype
@@ -641,18 +790,28 @@ def _counters() -> dict:
             "flash_fwd": flash_fwd_kernel}
 
 
-# path -> (config, impl, requests, launches per wave, warm re-serve)
+# path -> (config, impl, dtype, requests, launches per wave, stem-body
+# launches per wave, warm re-serve).  The int8 paths launch the int8
+# branches only (their launches are filed under "<kernel>_int8"), and their
+# stems take the generic body.
 PATHS = {
-    "resnet18-halo": ("vscnn-resnet18", "auto", 16,
-                      {"vsconv_halo": 17, "vsmm": 4}, True),
-    "mobilenet_v1-halo": ("vscnn-mobilenet-v1", "auto", 16,
+    "resnet18-halo": ("vscnn-resnet18", "auto", None, 16,
+                      {"vsconv_halo": 17, "vsmm": 4}, 1, True),
+    "mobilenet_v1-halo": ("vscnn-mobilenet-v1", "auto", None, 16,
                           {"vsconv_halo": 1, "vsconv_dw_halo": 13,
-                           "vsmm": 14}, True),
-    "mobilenet_v1-stack": ("vscnn-mobilenet-v1", "pallas-stack", BATCH,
+                           "vsmm": 14}, 1, True),
+    "resnet18-int8-halo": ("vscnn-resnet18", "auto", "int8", 16,
+                           {"vsconv_halo_int8": 17, "vsmm_int8": 4}, 0,
+                           True),
+    "mobilenet_v1-int8-halo": ("vscnn-mobilenet-v1", "auto", "int8", 16,
+                               {"vsconv_halo_int8": 1,
+                                "vsconv_dw_halo_int8": 13,
+                                "vsmm_int8": 14}, 0, True),
+    "mobilenet_v1-stack": ("vscnn-mobilenet-v1", "pallas-stack", None, BATCH,
                            {"vsconv_stack": 1, "vsconv_dw_stack": 13,
-                            "vsmm": 14}, False),
-    "resnet18-stack": ("vscnn-resnet18", "pallas-stack", BATCH,
-                       {"vsconv_stack": 17, "vsmm": 4}, False),
+                            "vsmm": 14}, 1, False),
+    "resnet18-stack": ("vscnn-resnet18", "pallas-stack", None, BATCH,
+                       {"vsconv_stack": 17, "vsmm": 4}, 1, False),
 }
 
 
@@ -666,10 +825,12 @@ def serve_phase(path: str, dev) -> dict:
     from repro_torch.launch.serve import CNNServer, ImageRequest
     from repro_torch.models.graph import net_apply
 
-    name, impl, n_req, per_wave, warm = PATHS[path]
+    name, impl, dtype, n_req, per_wave, stem_per_wave, warm = PATHS[path]
+    int8 = dtype == "int8"
     cfg = get_config(name)
     t0 = time.perf_counter()
-    srv = CNNServer(cfg, batch=BATCH, impl=impl, seed=0, device=dev)
+    srv = CNNServer(cfg, batch=BATCH, impl=impl, dtype=dtype, seed=0,
+                    device=dev)
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     images = [rng.standard_normal((SIZE, SIZE, 3)).astype(np.float32)
@@ -681,16 +842,23 @@ def serve_phase(path: str, dev) -> dict:
     reqs = requests()
     counters = _counters()
     stems = [k for k in counters.values() if hasattr(k, "stem_launches")]
+    int8s = [k for k in counters.values() if hasattr(k, "int8_launches")]
     for k in counters.values():
         k.launches = 0
     for k in stems:
         k.stem_launches = 0
+    for k in int8s:
+        k.int8_launches = 0
     t0 = time.perf_counter()
     stats = srv.serve(reqs)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = {n: k.launches for n, k in counters.items() if k.launches}
+    suffix = "_int8" if int8 else ""
+    launches = {n + suffix: k.launches for n, k in counters.items()
+                if k.launches}
     stem_launches = sum(k.stem_launches for k in stems)
+    int8_launches = {n: k.int8_launches for n, k in counters.items()
+                     if getattr(k, "int8_launches", 0)}
 
     waves = sum(s["steps"] for s in stats)
     delivered = [r for r in reqs if r.outcome is not None
@@ -702,10 +870,14 @@ def serve_phase(path: str, dev) -> dict:
     if launches != expected:
         raise SystemExit(f"chip_smoke: {path}: launches {launches} over "
                          f"{waves} waves, expected {per_wave} per wave")
-    if stem_launches != waves:
+    if stem_launches != stem_per_wave * waves:
         raise SystemExit(f"chip_smoke: {path}: the stem body ran "
                          f"{stem_launches} times over {waves} waves, "
-                         f"expected once a wave")
+                         f"expected {stem_per_wave} a wave")
+    if int8_launches != ({n: k.launches for n, k in counters.items()
+                          if k.launches} if int8 else {}):
+        raise SystemExit(f"chip_smoke: {path}: int8 branch launches "
+                         f"{int8_launches} of launches {launches}")
     served = np.stack([r.logits for r in reqs])
     if served.shape != (n_req, cfg.num_classes) or \
             not np.isfinite(served).all():
@@ -717,17 +889,23 @@ def serve_phase(path: str, dev) -> dict:
                       torch.from_numpy(np.stack(images[i:i + BATCH])).to(dev),
                       sparse=srv.sparse, impl="plain")
             for i in range(0, n_req, BATCH)]).cpu()
-    rel, _ = _rel_err(torch.from_numpy(served), ref)
+    rel, abs_err = _rel_err(torch.from_numpy(served), ref)
+    if int8 and not np.array_equal(served, ref.numpy()):
+        raise SystemExit(f"chip_smoke: {path}: served int8 logits differ "
+                         f"from plain net_apply (max abs {abs_err:.3e})")
     if not rel <= RTOL:
         raise SystemExit(f"chip_smoke: {path}: served vs plain net_apply "
                          f"relative error {rel:.3e} > {RTOL}")
     out = {
         "phase": "serve", "path": path, "config": cfg.name, "impl": impl,
+        "dtype": dtype or "float32",
         "batch": BATCH, "requests": n_req, "delivered": len(delivered),
         "waves": waves, "launches": launches,
         "stem_launches": stem_launches, "setup_s": setup_s,
         "first_serve_s": serve_s, "first_images_per_s": n_req / serve_s,
         "served_vs_plain_rel_err": rel,
+        "served_vs_plain_bit_equal": bool(np.array_equal(served,
+                                                         ref.numpy())),
     }
     warm_s = None
     if warm:
@@ -749,6 +927,8 @@ def serve_phase(path: str, dev) -> dict:
 def _kind(name: str) -> str:
     for kind in ("vsconv_dw_halo", "vsconv_dw_stack", "vsconv_halo",
                  "vsconv_stack", "vsmm", "flash_fwd"):
+        if f"{kind}_int8_kernel" in name:
+            return f"{kind}_int8"
         if f"{kind}_kernel" in name or f"{kind}_stem_kernel" in name:
             return kind   # a stem body is filed under its kernel
     if "flash_mma_kernel" in name or "flash_simt_kernel" in name:
@@ -1102,11 +1282,14 @@ def forward_phase(timer: Timer, path: str, srv, images, dev, *,
                   stack_layers_only: bool = False) -> None:
     """Every sparse layer of one batch-8 forward of the path at its real
     input (``stack_layers_only``: only the layers that run a stack
-    kernel; the rest are the halo path's)."""
+    kernel; the rest are the halo path's).  On an int8 path each layer's
+    input is quantized as the path does it (its scale times the layer's
+    weight scales is the kernel's combined scale)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch.models.graph import Conv, FC, net_apply
+    from repro_torch.models.graph import (Conv, FC, net_apply,
+                                          quantize_activations_int8)
 
     gen = torch.Generator().manual_seed(1)
     layout = "stack" if srv.backend.apply.impl == "pallas-stack" else "halo"
@@ -1116,6 +1299,14 @@ def forward_phase(timer: Timer, path: str, srv, images, dev, *,
         net_apply(srv.net, srv.params, x, sparse=srv.sparse,
                   impl=srv.backend.apply.impl, collect=rec)
     inputs = {name: xin for name, xin, *_ in rec}
+
+    def quantized(xin, spec):
+        """(layer input, quant) as the path's kernel sees it."""
+        if spec.scale is None:
+            return xin, None
+        xq, sx = quantize_activations_int8(xin)
+        return xq, (sx, spec.scale)
+
     for l in srv.net.layers:
         if not isinstance(l, (Conv, FC)):
             continue
@@ -1125,7 +1316,7 @@ def forward_phase(timer: Timer, path: str, srv, images, dev, *,
         label = f"forward {path} {l.name}"
         if isinstance(l, Conv):
             spec = srv.sparse[l.name]
-            xin = inputs[l.name]
+            xin, quant = quantized(inputs[l.name], spec)
             cin_real = xin.shape[3]
             if spec.cin_pad:
                 xin = F.pad(xin, (0, spec.cin_pad))
@@ -1139,28 +1330,32 @@ def forward_phase(timer: Timer, path: str, srv, images, dev, *,
                 row = _mm_case(timer, label, xs.contiguous(), spec.vs,
                                n_real=l.cout, bias=spec.bias, relu=l.relu,
                                residual=None if res is None
-                               else res.reshape(-1, l.cout))
+                               else res.reshape(-1, l.cout), quant=quant)
             elif l.groups == l.cin and l.groups > 1:
                 row = _dw_case(timer, label, xin, spec.vs, stride=l.stride,
                                layout=layout, bias=spec.bias, residual=res,
-                               relu=l.relu)
+                               relu=l.relu, quant=quant)
             else:
                 row = _conv_case(timer, label, xin, spec.vs, kh=l.kh,
                                  stride=l.stride, cin_real=cin_real,
                                  groups=l.groups, layout=layout,
-                                 bias=spec.bias, residual=res, relu=l.relu)
+                                 bias=spec.bias, residual=res, relu=l.relu,
+                                 quant=quant)
         else:
             spec = srv.sparse[l.name]
             n_enc = spec.vs.shape[1]
             bias = F.pad(spec.bias, (0, n_enc - spec.bias.shape[0]))
             # the GAP output: dense, non-negative, one row per image
-            xin = torch.rand(BATCH, l.din, generator=gen).to(dev)
+            xin, quant = quantized(
+                torch.rand(BATCH, l.din, generator=gen).to(dev), spec)
             row = _mm_case(timer, label, xin, spec.vs,
-                           n_real=spec.bias.shape[0], bias=bias, relu=l.relu)
+                           n_real=spec.bias.shape[0], bias=bias, relu=l.relu,
+                           quant=quant)
         timer.add(path, row)
 
 
-# kernel -> (CUDA source, the Pallas function it replaces)
+# kernel -> (CUDA source, the Pallas function it replaces); a "_int8"
+# kernel is the int8 branch of the same CUDA kernel and Pallas function
 SOURCES = {
     "vsconv_halo": ("src/repro_torch/kernels/csrc/vsconv.cu",
                     "src/repro/kernels/vsconv.py:623"),
@@ -1173,6 +1368,25 @@ SOURCES = {
     "vsconv_dw_stack": ("src/repro_torch/kernels/csrc/vsconv_dw.cu",
                         "src/repro/kernels/vsconv.py:1162"),
 }
+SOURCES.update({f"{k}_int8": SOURCES[k]
+                for k in ("vsconv_halo", "vsmm", "vsconv_dw_halo")})
+
+
+def int8_instantiations(logs: dict) -> list:
+    """One row per int8 kernel instantiation (``vsmm_int8_kernel``,
+    ``vsconv_halo_int8_kernel``, ``vsconv_dw_halo_int8_kernel`` per VC and
+    VEC) with its registers and spill bytes."""
+    rows = []
+    for source in ("vsmm", "vsconv", "vsconv_dw"):
+        for name, use in ptxas_usage(logs[source]).items():
+            m = re.search(r"(vsmm|vsconv_halo|vsconv_dw_halo)_int8_kernel"
+                          r"(?:ILi(\d+)ELi(\d+)E)?", name)
+            if m:
+                row = {"kernel": f"{m.group(1)}_int8"}
+                if m.group(2):
+                    row.update(vc=int(m.group(2)), vec=int(m.group(3)))
+                rows.append({**row, **use})
+    return sorted(rows, key=lambda r: tuple(str(v) for v in r.values()))
 
 
 def main() -> int:
@@ -1202,7 +1416,7 @@ def main() -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    peak_flops, peak_bw, bf16_peak = _peaks(name)
+    peak_flops, peak_bw, bf16_peak, int8_peak = _peaks(name)
 
     t0 = time.perf_counter()
     logs = _build.build("vsmm", "vsconv", "vsconv_dw", "flash_fwd")
@@ -1229,6 +1443,17 @@ def main() -> int:
               f"instantiations (expected 18), spilling or unread: "
               f"{spilled}", file=sys.stderr)
         return 1
+    int8_rows = int8_instantiations(
+        {k: _build.build_log(k) for k in ("vsmm", "vsconv", "vsconv_dw")})
+    for r in int8_rows:
+        print(f"built {r}")
+    spilled = [r for r in int8_rows if r["spill_stores"]
+               or r["spill_loads"] or r["spill_stores"] is None]
+    if len(int8_rows) != 7 or spilled:
+        print(f"chip_smoke: {len(int8_rows)} int8 instantiations (expected "
+              f"7: vsmm, the halo conv, 5 dw halo), spilling or unread: "
+              f"{spilled}", file=sys.stderr)
+        return 1
     lib = _build.load("flash_fwd")
     smem = {body: {hd: lib.flash_fwd_smem_bytes(hd, int(body == "mma"))
                    for hd in (32, 64, 80, 128, 240)}
@@ -1237,10 +1462,11 @@ def main() -> int:
                       "built": sorted(logs),
                       "flash_fwd_instantiations": flash,
                       "stencil_instantiations": stencils,
+                      "int8_instantiations": int8_rows,
                       "flash_fwd_dynamic_smem_bytes_by_hd": smem}),
           flush=True)
 
-    timer = Timer(peak_flops, peak_bw)
+    timer = Timer(peak_flops, peak_bw, int8_peak)
     kernel_phase(timer, dev)
     flash_rows = flash_phase(timer, dev, bf16_peak)
     served = {path: serve_phase(path, dev) for path in PATHS}
@@ -1281,8 +1507,14 @@ def main() -> int:
             "bound_ms": max(s["flops_bound_ms"], s["bytes_bound_ms"]),
             "bound_by": ("operations" if s["flops_bound_ms"]
                          >= s["bytes_bound_ms"] else "bytes"),
-            "library_ms": s["library_ms"],
+            "library_ms": s["library_ms"], "host_loop_ms": s["host_loop_ms"],
         })
+        if kname.endswith("_int8"):
+            kernels[-1]["library"] = ("f32 cuDNN conv / cuBLAS matmul on "
+                                      "the dequantized input and weight")
+            for key in ("int_mm_ms", "int_mm_refused_layers"):
+                if key in s:
+                    kernels[-1][key] = s[key]
         stem = timer.sums.get(f"{kname}:stem")
         if stem is not None:  # the stem body's share of the entry above
             kernels[-1]["stem_body"] = {

@@ -85,6 +85,11 @@ def vs_matmul(
     ``residual`` (..., N) and ``fuse_relu`` run the epilogue in f32 after
     the accumulation (residual before the ReLU — the ResNet shortcut); the
     kernel path fuses it and also skips all-zero activation tiles.
+
+    INT8 (int8 ``x`` and ``vs.vals``, ``scale`` (N,)): each stored step's
+    partial is an exact integer, added into the f32 accumulator in stored
+    order; the epilogue dequantizes first (x scale -> + bias -> + residual
+    -> ReLU) and the output is f32.
     """
     *batch, k = x.shape
     if k != vs.shape[0]:
@@ -256,7 +261,7 @@ def vs_conv2d(
                    depthwise=is_depthwise(groups, x.shape[-1], w_vs, kh, kw),
                    bias=bias, residual=residual, scale=scale,
                    fuse_relu=fuse_relu)
-    return y.to(x.dtype)
+    return y if x.dtype == torch.int8 else y.to(x.dtype)  # int8 -> f32
 
 
 def dense_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,

@@ -62,6 +62,10 @@ class VectorSparse:
     def dtype(self) -> torch.dtype:
         return self.vals.dtype
 
+    def astype(self, dtype: torch.dtype) -> VectorSparse:
+        """The same matrix with its stored tiles cast to ``dtype``."""
+        return VectorSparse(self.vals.to(dtype), self.idx, self.shape)
+
 
 def tile_mask(w: torch.Tensor, vk: int, vn: int) -> torch.Tensor:
     """(KB, NB) bool mask: True where the (vk, vn) tile of w has any nonzero."""

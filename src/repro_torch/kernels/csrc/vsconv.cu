@@ -39,6 +39,12 @@
 // offset once per step.  The ids are decoded as given, in stored
 // (cin-major) order.  Zero-skip and epilogue are those of vsmm
 // (vs_tile.cuh), the residual being the output-shaped ResNet shortcut.
+// The halo kernel's generic body has an int8 branch as vsmm's
+// (vsconv_halo_int8_kernel; vs_tile.cuh, Step<int8_t>): int8 halo buffer
+// and tiles, each step's partial exact in int32, added into the f32
+// accumulator in stored order.  Int8 convs never take the stem body (it
+// stages f32 windows; the wrapper's `use_stem_body` says so), and the
+// stack kernel has no int8 branch yet.
 //
 // Stem body (ungrouped, vk 8, C = CB*vk of 8 or 16 input channels, vn 32
 // or 64, kh*kw > 1: the CNN stems after cin padding 3 -> 8).  The generic
@@ -113,40 +119,42 @@ __device__ __forceinline__ void pixel_bases(long long* pix, long long p0,
 
 // acc += the strip's S stored tiles against the activations they select:
 // `step_offset(t)` is the offset of id t's activation tile from a pixel's
-// base.
-template <class StepOffset>
+// base.  T is the element type (vs_tile.cuh's Step<T>); `words`: int8
+// activation rows load as 32-bit words (vs::word_rows).
+template <class T, class StepOffset>
 __device__ __forceinline__ void conv_steps(
     float (&acc)[vs::kRowsPerThread][vs::kColsPerThread],
-    const float* __restrict__ x, const float* __restrict__ vals,
+    const T* __restrict__ x, const T* __restrict__ vals,
     const int* __restrict__ idx, const long long* pix, int rows_valid, int j,
-    int s_steps, int vk, int vn, float* ws, float* xs,
-    StepOffset step_offset) {
+    int s_steps, int vk, int vn, typename vs::Step<T>::Word* ws,
+    typename vs::Step<T>::Word* xs, bool words, StepOffset step_offset) {
+  using Step = vs::Step<T>;
   for (int s = 0; s < s_steps; ++s) {
     const long long tile = static_cast<long long>(j) * s_steps + s;
     const long long off = step_offset(idx[tile]);
     __syncthreads();  // pix is written; the previous MAC is done with smem
-    vs::load_weight_tile(ws, vals, tile, vk, vn);
-    int nonzero = 0;
-    for (int e = threadIdx.x; e < vs::kRows * vk; e += vs::kThreads) {
-      const int r = e / vk;
-      const int ch = e - r * vk;
-      const float v = r < rows_valid ? x[pix[r] + off + ch] : 0.f;
-      xs[e] = v;
-      nonzero |= v != 0.f;
-    }
-    if (__syncthreads_or(nonzero)) vs::mac_tile(acc, xs, ws, vk, vn);
+    Step::load_weights(ws, vals, tile, vk, vn);
+    const int nonzero = Step::load_acts(
+        xs, vk, rows_valid, words, [&](int r) { return x + pix[r] + off; });
+    if (__syncthreads_or(nonzero)) Step::mac(acc, xs, ws, vk, vn);
   }
 }
 
-__global__ void __launch_bounds__(vs::kThreads) vsconv_halo_kernel(
-    const float* __restrict__ xh, const float* __restrict__ vals,
+// The halo kernel's generic body for element type T (float, or int8_t:
+// the int8 branch).
+template <class T>
+__device__ __forceinline__ void halo_body(
+    const T* __restrict__ xh, const T* __restrict__ vals,
     const int* __restrict__ idx, const float* __restrict__ scale,
     const float* __restrict__ bias, const float* __restrict__ residual,
     float* __restrict__ out, int n_img, int rows, int bw, int cb, int h_out,
     int w_out, int kw, int stride, int dilation, int nb, int s_steps, int vk,
-    int vn, int cbg, int spg, int relu) {
-  extern __shared__ float smem[];
+    int vn, int cbg, int spg, int relu, bool words) {
+  using Word = typename vs::Step<T>::Word;
+  extern __shared__ __align__(16) unsigned char halo_smem[];
   __shared__ long long pix[vs::kRows];  // padded-input offset of each pixel
+  Word* ws = reinterpret_cast<Word*>(halo_smem);
+  Word* xs = ws + vs::Step<T>::weight_words(vk, vn);
   const int j = blockIdx.y;
   const long long c = static_cast<long long>(cb) * vk;  // channels
   const long long p_total = static_cast<long long>(n_img) * h_out * w_out;
@@ -160,16 +168,37 @@ __global__ void __launch_bounds__(vs::kThreads) vsconv_halo_kernel(
   const TapDecode dec{cbg, kw};
   const int group_base = (j / spg) * cbg;
   float acc[vs::kRowsPerThread][vs::kColsPerThread] = {};
-  conv_steps(acc, xh, vals, idx, pix, rows_valid, j, s_steps, vk, vn, smem,
-             smem + vk * vn, [=](int t) {
-               int ky, kx, ct;
-               dec(t, group_base, ky, kx, ct);
-               return (static_cast<long long>(ky) * dilation * bw +
-                       static_cast<long long>(kx) * dilation) * c +
-                      static_cast<long long>(ct) * vk;
-             });
+  conv_steps<T>(acc, xh, vals, idx, pix, rows_valid, j, s_steps, vk, vn, ws,
+                xs, words, [=](int t) {
+                  int ky, kx, ct;
+                  dec(t, group_base, ky, kx, ct);
+                  return (static_cast<long long>(ky) * dilation * bw +
+                          static_cast<long long>(kx) * dilation) * c +
+                         static_cast<long long>(ct) * vk;
+                });
   vs::epilogue(acc, out, p0, rows_valid, nb * vn, j * vn, vn, scale, bias,
                residual, relu);
+}
+
+#define VSCONV_PARAMS(T)                                                     \
+  const T *__restrict__ x, const T *__restrict__ vals,                       \
+      const int *__restrict__ idx, const float *__restrict__ scale,          \
+      const float *__restrict__ bias, const float *__restrict__ residual,    \
+      float *__restrict__ out, int n_img, int d0, int bw, int cb, int h_out, \
+      int w_out, int kw, int stride, int dilation, int nb, int s_steps,      \
+      int vk, int vn, int cbg, int spg, int relu
+#define VSCONV_ARGS                                                          \
+  x, vals, idx, scale, bias, residual, out, n_img, d0, bw, cb, h_out, w_out, \
+      kw, stride, dilation, nb, s_steps, vk, vn, cbg, spg, relu
+
+__global__ void __launch_bounds__(vs::kThreads)
+    vsconv_halo_kernel(VSCONV_PARAMS(float)) {
+  halo_body<float>(VSCONV_ARGS, false);
+}
+
+__global__ void __launch_bounds__(vs::kThreads)
+    vsconv_halo_int8_kernel(VSCONV_PARAMS(int8_t), int words) {
+  halo_body<int8_t>(VSCONV_ARGS, words != 0);
 }
 
 __global__ void __launch_bounds__(vs::kThreads) vsconv_stack_kernel(
@@ -179,8 +208,9 @@ __global__ void __launch_bounds__(vs::kThreads) vsconv_stack_kernel(
     float* __restrict__ out, int n_img, int planes, int bw, int cb,
     int h_out, int w_out, int kw, int stride, int dilation, int nb,
     int s_steps, int vk, int vn, int cbg, int spg, int relu) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char stack_smem[];
   __shared__ long long pix[vs::kRows];  // stack offset of each pixel
+  float* ws = reinterpret_cast<float*>(stack_smem);
   const int j = blockIdx.y;
   const long long c = static_cast<long long>(cb) * vk;  // channels
   const long long p_total = static_cast<long long>(n_img) * h_out * w_out;
@@ -194,27 +224,24 @@ __global__ void __launch_bounds__(vs::kThreads) vsconv_stack_kernel(
   const TapDecode dec{cbg, kw};
   const int group_base = (j / spg) * cbg;
   float acc[vs::kRowsPerThread][vs::kColsPerThread] = {};
-  conv_steps(acc, xt, vals, idx, pix, rows_valid, j, s_steps, vk, vn, smem,
-             smem + vk * vn, [=](int t) {
-               int ky, kx, ct;
-               dec(t, group_base, ky, kx, ct);
-               const int plane = ky * stride + (kx * dilation) % stride;
-               const int col = (kx * dilation) / stride;
-               return (static_cast<long long>(plane) * h_out * bw + col) * c +
-                      static_cast<long long>(ct) * vk;
-             });
+  conv_steps<float>(acc, xt, vals, idx, pix, rows_valid, j, s_steps, vk, vn,
+                    ws, ws + vk * vn, false, [=](int t) {
+                      int ky, kx, ct;
+                      dec(t, group_base, ky, kx, ct);
+                      const int plane =
+                          ky * stride + (kx * dilation) % stride;
+                      const int col = (kx * dilation) / stride;
+                      return (static_cast<long long>(plane) * h_out * bw +
+                              col) * c +
+                             static_cast<long long>(ct) * vk;
+                    });
   vs::epilogue(acc, out, p0, rows_valid, nb * vn, j * vn, vn, scale, bias,
                residual, relu);
 }
 
-template <class Kernel>
-int launch(Kernel kernel, int n_img, int h_out, int w_out, int nb, int vk,
-           int vn, void* stream, const float* x, const float* vals,
-           const int* idx, const float* scale, const float* bias,
-           const float* residual, float* out, int d0, int bw, int cb, int kw,
-           int stride, int dilation, int s_steps, int cbg, int spg,
-           int relu) {
-  const size_t smem = vs::tile_smem_bytes(vk, vn);
+template <class T, class Kernel, class... Extra>
+int launch(Kernel kernel, void* stream, VSCONV_PARAMS(T), Extra... extra) {
+  const size_t smem = vs::Step<T>::smem_bytes(vk, vn);
   if (smem > 48 * 1024 - vs::kRows * sizeof(long long)) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
@@ -223,8 +250,7 @@ int launch(Kernel kernel, int n_img, int h_out, int w_out, int nb, int vk,
   const dim3 grid(static_cast<unsigned>((p_total + vs::kRows - 1) / vs::kRows),
                   nb);
   kernel<<<grid, vs::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, vals, idx, scale, bias, residual, out, n_img, d0, bw, cb, h_out,
-      w_out, kw, stride, dilation, nb, s_steps, vk, vn, cbg, spg, relu);
+      VSCONV_ARGS, extra...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -534,26 +560,19 @@ int stem_launch(bool stack, int n_img, int cb, int vk, int vn,
 // of scale, bias and residual may be null.  The caller has checked shapes,
 // dtypes, contiguity, vn <= 128, the group split and that every tap stays
 // inside the input buffer.
-extern "C" int vsconv_halo_launch(
-    const float* xh, const float* vals, const int* idx, const float* scale,
-    const float* bias, const float* residual, float* out, int n_img, int rows,
-    int bw, int cb, int h_out, int w_out, int kw, int stride, int dilation,
-    int nb, int s_steps, int vk, int vn, int cbg, int spg, int relu,
-    void* stream) {
-  return launch(vsconv_halo_kernel, n_img, h_out, w_out, nb, vk, vn, stream,
-                xh, vals, idx, scale, bias, residual, out, rows, bw, cb, kw,
-                stride, dilation, s_steps, cbg, spg, relu);
+extern "C" int vsconv_halo_launch(VSCONV_PARAMS(float), void* stream) {
+  return launch<float>(vsconv_halo_kernel, stream, VSCONV_ARGS);
 }
 
-extern "C" int vsconv_stack_launch(
-    const float* xt, const float* vals, const int* idx, const float* scale,
-    const float* bias, const float* residual, float* out, int n_img,
-    int planes, int bw, int cb, int h_out, int w_out, int kw, int stride,
-    int dilation, int nb, int s_steps, int vk, int vn, int cbg, int spg,
-    int relu, void* stream) {
-  return launch(vsconv_stack_kernel, n_img, h_out, w_out, nb, vk, vn, stream,
-                xt, vals, idx, scale, bias, residual, out, planes, bw, cb, kw,
-                stride, dilation, s_steps, cbg, spg, relu);
+// The int8 branch of the halo kernel's generic body: xh and vals int8,
+// scale (the combined dequant scale, a power of two per column) given.
+extern "C" int vsconv_halo_int8_launch(VSCONV_PARAMS(int8_t), void* stream) {
+  return launch<int8_t>(vsconv_halo_int8_kernel, stream, VSCONV_ARGS,
+                        static_cast<int>(vs::word_rows(x, vk)));
+}
+
+extern "C" int vsconv_stack_launch(VSCONV_PARAMS(float), void* stream) {
+  return launch<float>(vsconv_stack_kernel, stream, VSCONV_ARGS);
 }
 
 // The stem body of the two kernels (see the header).  Same arguments as

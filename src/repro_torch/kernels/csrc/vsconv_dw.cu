@@ -44,6 +44,13 @@
 // Instantiations: VC = 32, 64, 128 (MobileNetV1's channel tiles) with
 // VEC 4, and any other runtime vc <= 128 (VC = 0) with VEC 4 or 1.
 //
+// The halo kernel has an int8 branch (vsconv_dw_halo_int8_kernel, the
+// same instantiations): int8 window and taps, a quarter of the bytes,
+// four channels a 4-byte cp.async (one byte a plain load at VEC 1),
+// converted to f32 for the fmaf MAC, exact for int8 values (every product
+// and sum is an integer below 2^24), so bit-equal to the reference's
+// `_dw_flush`.  The stack kernel's int8 branch is not ported yet.
+//
 // What bounds it on an H100: bytes.  Each output element costs S FMAs
 // against one input element, so the least traffic (the input once, the
 // taps, the output once) bounds it; each block reads its window's halo
@@ -69,34 +76,77 @@ __host__ __device__ inline int2 window_dims(bool stack, int th, int tw,
                    (tw - 1) * stride + (kw - 1) * dilation + 1);
 }
 
-inline size_t smem_bytes(bool stack, int th, int tw, int kh, int kw,
-                         int stride, int dilation, int s_steps, int vc) {
-  const int2 win = window_dims(stack, th, tw, kh, kw, stride, dilation);
-  return sizeof(float) * (static_cast<size_t>(win.x) * win.y * vc +
-                          static_cast<size_t>(s_steps) * vc + s_steps);
+__host__ __device__ inline size_t align16(size_t bytes) {
+  return (bytes + 15) & ~static_cast<size_t>(15);
 }
 
-template <int VEC>
+// Shared memory of one block: the window and the stored taps (T each,
+// every region 16-byte aligned), then each tap's window offset.
+template <class T>
+size_t smem_bytes(bool stack, int th, int tw, int kh, int kw, int stride,
+                  int dilation, int s_steps, int vc) {
+  const int2 win = window_dims(stack, th, tw, kh, kw, stride, dilation);
+  return align16(sizeof(T) * static_cast<size_t>(win.x) * win.y * vc) +
+         align16(sizeof(T) * static_cast<size_t>(s_steps) * vc) +
+         sizeof(int) * static_cast<size_t>(s_steps);
+}
+
+// VEC channels of element type T: the staged vector V, its copy into
+// shared memory, and its f32 value F (the accumulator's type).
+template <class T, int VEC>
 struct Vec;
 template <>
-struct Vec<4> {
-  using T = float4;
+struct Vec<float, 4> {
+  using V = float4;
+  using F = float4;
   __device__ static void copy(float* dst, const float* src, bool ok) {
     vs::cp_async16(dst, src, ok);
   }
+  __device__ static F to_f32(V v) { return v; }
 };
 template <>
-struct Vec<1> {
-  using T = float;
+struct Vec<float, 1> {
+  using V = float;
+  using F = float;
   __device__ static void copy(float* dst, const float* src, bool ok) {
     vs::cp_async4(dst, src, ok);
   }
+  __device__ static F to_f32(V v) { return v; }
+};
+// int8: four channels a 4-byte cp.async, or one byte a plain load and
+// store (cp.async copies 4, 8 or 16 bytes).  Converted to f32 for the MAC:
+// every product (<= 127^2) and every sum (<= kh*kw*127^2) is an exact
+// integer in f32, so the result is the reference's f32 MAC bit for bit.
+template <>
+struct Vec<int8_t, 4> {
+  using V = char4;
+  using F = float4;
+  __device__ static void copy(int8_t* dst, const int8_t* src, bool ok) {
+    vs::cp_async4(dst, src, ok);
+  }
+  __device__ static F to_f32(V v) {
+    return make_float4(static_cast<float>(v.x), static_cast<float>(v.y),
+                       static_cast<float>(v.z), static_cast<float>(v.w));
+  }
+};
+template <>
+struct Vec<int8_t, 1> {
+  using V = int8_t;
+  using F = float;
+  __device__ static void copy(int8_t* dst, const int8_t* src, bool ok) {
+    *dst = ok ? *src : static_cast<int8_t>(0);
+  }
+  __device__ static F to_f32(V v) { return static_cast<float>(v); }
 };
 
 __device__ __forceinline__ bool nonzero(float4 v) {
   return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
 }
 __device__ __forceinline__ bool nonzero(float v) { return v != 0.f; }
+__device__ __forceinline__ bool nonzero(char4 v) {
+  return (v.x | v.y | v.z | v.w) != 0;
+}
+__device__ __forceinline__ bool nonzero(int8_t v) { return v != 0; }
 
 __device__ __forceinline__ void fma_vec(float4& acc, float4 x, float4 w) {
   acc.x = fmaf(x.x, w.x, acc.x);
@@ -141,18 +191,21 @@ __device__ __forceinline__ void zero(float4& a) {
 }
 __device__ __forceinline__ void zero(float& a) { a = 0.f; }
 
-// The whole block.  VC = vc when > 0 (else the runtime vc_rt), VEC floats
-// a copy and a thread's element; kStack picks the layout.
-template <int VC, int VEC, bool kStack>
+// The whole block.  T is the element type of x and vals (float, or
+// int8_t: the int8 branch); VC = vc when > 0 (else the runtime vc_rt), VEC
+// channels a copy and a thread's element; kStack picks the layout.
+template <class T, int VC, int VEC, bool kStack>
 __device__ __forceinline__ void dw_body(
-    const float* __restrict__ x, const float* __restrict__ vals,
+    const T* __restrict__ x, const T* __restrict__ vals,
     const int* __restrict__ idx, const float* __restrict__ scale,
     const float* __restrict__ bias, const float* __restrict__ residual,
     float* __restrict__ out, int n_img, int d0, int bw, int cb, int h_out,
     int w_out, int kh, int kw, int stride, int dilation, int s_steps,
     int vc_rt, int th, int tw, int relu) {
-  using V = typename Vec<VEC>::T;
-  extern __shared__ __align__(16) float dw_smem[];
+  using Vt = Vec<T, VEC>;
+  using V = typename Vt::V;
+  using F = typename Vt::F;
+  extern __shared__ __align__(16) unsigned char dw_smem[];
   const int vc = VC > 0 ? VC : vc_rt;
   const int groups = vc / VEC;  // channel groups of a pixel
   const int s = stride, d = dilation;
@@ -167,17 +220,20 @@ __device__ __forceinline__ void dw_body(
   (void)n_img;  // the grid covers the images
   const int2 win_dims = window_dims(kStack, th, tw, kh, kw, s, d);
   const int rows = win_dims.x, cols = win_dims.y;
-  float* win = dw_smem;
-  float* wsm = win + rows * cols * vc;
-  int* toff = reinterpret_cast<int*>(wsm + s_steps * vc);
+  T* win = reinterpret_cast<T*>(dw_smem);
+  T* wsm = reinterpret_cast<T*>(
+      dw_smem + align16(sizeof(T) * static_cast<size_t>(rows) * cols * vc));
+  int* toff = reinterpret_cast<int*>(
+      reinterpret_cast<unsigned char*>(wsm) +
+      align16(sizeof(T) * static_cast<size_t>(s_steps) * vc));
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int threads = blockDim.x;
   const long long ch0 = static_cast<long long>(j) * vc;
 
-  const float* taps = vals + ch0 * s_steps;
+  const T* taps = vals + ch0 * s_steps;
   for (int e = threadIdx.x * VEC; e < s_steps * vc; e += threads * VEC) {
-    Vec<VEC>::copy(wsm + e, taps + e, true);
+    Vt::copy(wsm + e, taps + e, true);
   }
   // Stack: the planes ky*s + (kx*d) % s the strip's stored taps read; only
   // those are staged and voted on (the weight-side skip carried to the
@@ -223,9 +279,8 @@ __device__ __forceinline__ void dw_body(
       const int g = u - q * groups;
       const int gc = gc0 + q;
       const bool ok = row_ok && gc < bw;
-      const float* src =
-          ok ? x + (rbase + gc) * c_total + ch0 + g * VEC : x;
-      Vec<VEC>::copy(win + (row * cols + q) * vc + g * VEC, src, ok);
+      const T* src = ok ? x + (rbase + gc) * c_total + ch0 + g * VEC : x;
+      Vt::copy(win + (row * cols + q) * vc + g * VEC, src, ok);
     }
   }
   vs::cp_async_commit();
@@ -259,26 +314,26 @@ __device__ __forceinline__ void dw_body(
     const int jj = p - i * tw;
     if (h0 + i >= h_out || w0 + jj >= w_out) continue;
     const int base = kStack ? i * cols + jj : (i * s) * cols + jj * s;
-    V acc;
+    F acc;
     zero(acc);
     if (alive) {
-      const float* xg = win + g * VEC;
-      const float* wg = wsm + g * VEC;
+      const T* xg = win + g * VEC;
+      const T* wg = wsm + g * VEC;
       for (int t = 0; t < s_steps; ++t) {
         const V xv = *reinterpret_cast<const V*>(xg + (base + toff[t]) * vc);
         const V w = *reinterpret_cast<const V*>(wg + t * vc);
-        fma_vec(acc, xv, w);
+        fma_vec(acc, Vt::to_f32(xv), Vt::to_f32(w));
       }
     }
     const long long o =
         ((img * h_out + h0 + i) * w_out + w0 + jj) * c_total + ch0 + g * VEC;
     finish_vec(acc, ch0 + g * VEC, o, scale, bias, residual, relu);
-    *reinterpret_cast<V*>(out + o) = acc;
+    *reinterpret_cast<F*>(out + o) = acc;
   }
 }
 
-#define DW_PARAMS                                                           \
-  const float *__restrict__ x, const float *__restrict__ vals,              \
+#define DW_PARAMS(T)                                                        \
+  const T *__restrict__ x, const T *__restrict__ vals,                      \
       const int *__restrict__ idx, const float *__restrict__ scale,         \
       const float *__restrict__ bias, const float *__restrict__ residual,   \
       float *__restrict__ out, int n_img, int d0, int bw, int cb, int h_out, \
@@ -290,22 +345,43 @@ __device__ __forceinline__ void dw_body(
 
 template <int VC, int VEC>
 __global__ void __launch_bounds__(kMaxThreads)
-    vsconv_dw_halo_kernel(DW_PARAMS) {
-  dw_body<VC, VEC, false>(DW_ARGS);
+    vsconv_dw_halo_kernel(DW_PARAMS(float)) {
+  dw_body<float, VC, VEC, false>(DW_ARGS);
 }
 
 template <int VC, int VEC>
 __global__ void __launch_bounds__(kMaxThreads)
-    vsconv_dw_stack_kernel(DW_PARAMS) {
-  dw_body<VC, VEC, true>(DW_ARGS);
+    vsconv_dw_stack_kernel(DW_PARAMS(float)) {
+  dw_body<float, VC, VEC, true>(DW_ARGS);
 }
 
+// The int8 branch of the halo kernel (the stack kernel has none yet).
 template <int VC, int VEC>
-int launch_one(bool stack, int threads, void* stream, DW_PARAMS) {
-  auto kernel = stack ? vsconv_dw_stack_kernel<VC, VEC>
-                      : vsconv_dw_halo_kernel<VC, VEC>;
+__global__ void __launch_bounds__(kMaxThreads)
+    vsconv_dw_halo_int8_kernel(DW_PARAMS(int8_t)) {
+  dw_body<int8_t, VC, VEC, false>(DW_ARGS);
+}
+
+// The kernel of element type T and layout.
+template <class T, int VC, int VEC>
+struct Entry;
+template <int VC, int VEC>
+struct Entry<float, VC, VEC> {
+  static auto get(bool stack) {
+    return stack ? vsconv_dw_stack_kernel<VC, VEC>
+                 : vsconv_dw_halo_kernel<VC, VEC>;
+  }
+};
+template <int VC, int VEC>
+struct Entry<int8_t, VC, VEC> {
+  static auto get(bool) { return vsconv_dw_halo_int8_kernel<VC, VEC>; }
+};
+
+template <class T, int VC, int VEC>
+int launch_one(bool stack, int threads, void* stream, DW_PARAMS(T)) {
+  auto kernel = Entry<T, VC, VEC>::get(stack);
   const size_t smem =
-      smem_bytes(stack, th, tw, kh, kw, stride, dilation, s_steps, vc);
+      smem_bytes<T>(stack, th, tw, kh, kw, stride, dilation, s_steps, vc);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -319,7 +395,8 @@ int launch_one(bool stack, int threads, void* stream, DW_PARAMS) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(bool stack, int vec, int threads, void* stream, DW_PARAMS) {
+template <class T>
+int launch(bool stack, int vec, int threads, void* stream, DW_PARAMS(T)) {
   if (th < 1 || tw < 1 || vc < 1 || vc > 128 || threads < 32 ||
       threads > kMaxThreads || threads % 32 || kh * stride > 32) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -327,16 +404,16 @@ int launch(bool stack, int vec, int threads, void* stream, DW_PARAMS) {
   if (vec == 4 && vc % 4 == 0) {
     switch (vc) {
       case 32:
-        return launch_one<32, 4>(stack, threads, stream, DW_ARGS);
+        return launch_one<T, 32, 4>(stack, threads, stream, DW_ARGS);
       case 64:
-        return launch_one<64, 4>(stack, threads, stream, DW_ARGS);
+        return launch_one<T, 64, 4>(stack, threads, stream, DW_ARGS);
       case 128:
-        return launch_one<128, 4>(stack, threads, stream, DW_ARGS);
+        return launch_one<T, 128, 4>(stack, threads, stream, DW_ARGS);
       default:
-        return launch_one<0, 4>(stack, threads, stream, DW_ARGS);
+        return launch_one<T, 0, 4>(stack, threads, stream, DW_ARGS);
     }
   }
-  return launch_one<0, 1>(stack, threads, stream, DW_ARGS);
+  return launch_one<T, 0, 1>(stack, threads, stream, DW_ARGS);
 }
 
 }  // namespace
@@ -355,9 +432,9 @@ extern "C" int vsconv_dw_halo_launch(
     int bw, int cb, int h_out, int w_out, int kw, int stride, int dilation,
     int s_steps, int vc, int relu, int kh, int th, int tw, int vec,
     int threads, void* stream) {
-  return launch(false, vec, threads, stream, xh, vals, idx, scale, bias,
-                residual, out, n_img, rows, bw, cb, h_out, w_out, kh, kw,
-                stride, dilation, s_steps, vc, th, tw, relu);
+  return launch<float>(false, vec, threads, stream, xh, vals, idx, scale,
+                       bias, residual, out, n_img, rows, bw, cb, h_out, w_out,
+                       kh, kw, stride, dilation, s_steps, vc, th, tw, relu);
 }
 
 extern "C" int vsconv_dw_stack_launch(
@@ -366,7 +443,23 @@ extern "C" int vsconv_dw_stack_launch(
     int planes, int bw, int cb, int h_out, int w_out, int kw, int stride,
     int dilation, int s_steps, int vc, int relu, int kh, int th, int tw,
     int vec, int threads, void* stream) {
-  return launch(true, vec, threads, stream, xt, vals, idx, scale, bias,
-                residual, out, n_img, planes, bw, cb, h_out, w_out, kh, kw,
-                stride, dilation, s_steps, vc, th, tw, relu);
+  return launch<float>(true, vec, threads, stream, xt, vals, idx, scale,
+                       bias, residual, out, n_img, planes, bw, cb, h_out,
+                       w_out, kh, kw, stride, dilation, s_steps, vc, th, tw,
+                       relu);
+}
+
+// The int8 branch of the halo kernel: xh and vals int8 (vec 4 needs x and
+// vals 4-byte aligned), scale (the combined dequant scale, a power of two
+// per channel) given by the caller.  Same arguments as the f32 entry.
+extern "C" int vsconv_dw_halo_int8_launch(
+    const int8_t* xh, const int8_t* vals, const int* idx, const float* scale,
+    const float* bias, const float* residual, float* out, int n_img, int rows,
+    int bw, int cb, int h_out, int w_out, int kw, int stride, int dilation,
+    int s_steps, int vc, int relu, int kh, int th, int tw, int vec,
+    int threads, void* stream) {
+  return launch<int8_t>(false, vec, threads, stream, xh, vals, idx, scale,
+                        bias, residual, out, n_img, rows, bw, cb, h_out,
+                        w_out, kh, kw, stride, dilation, s_steps, vc, th, tw,
+                        relu);
 }

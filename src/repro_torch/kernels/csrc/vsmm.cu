@@ -15,25 +15,40 @@
 // activation tile; the load is not skipped.  Shapes: vk and vn are runtime
 // values (vn <= 128), M may be ragged (the tail rows are masked).
 //
+// Two branches, as the reference's `_mac_dot` has: f32 (vsmm_kernel) and
+// int8 (vsmm_int8_kernel: int8 x and tiles, a per-column power-of-two
+// dequant scale).  The int8 branch stages a quarter of the bytes and
+// computes each step's partial exactly in int32 with __dp4a, then adds it
+// into the f32 accumulator in stored order (vs_tile.cuh, Step<int8_t>):
+// bit-equal to the reference and to the plain version.
+//
 // What bounds it on an H100: fp32 FMAs on the CUDA cores (no tensor cores:
 // TF32 would break the 1e-5 agreement with the f32 reference) and the
 // bytes of x, the stored tiles, the output and the residual.  This first
 // version re-reads each activation tile once per strip through L2 and
 // keeps every operand in shared memory for one step only; wgmma, TMA and
-// multi-stage pipelining are for later work.
+// multi-stage pipelining are for later work.  The int8 branch is bound the
+// same way (dp4a on the CUDA cores, not the int8 tensor cores' mma; the
+// bytes are a quarter of f32's for x and the tiles).
 #include "vs_tile.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(vs::kThreads)
-    vsmm_kernel(const float* __restrict__ x, const float* __restrict__ vals,
-                const int* __restrict__ idx, const float* __restrict__ scale,
-                const float* __restrict__ bias,
-                const float* __restrict__ residual, float* __restrict__ out,
-                int m, int k, int nb, int s_steps, int vk, int vn, int relu) {
-  extern __shared__ float smem[];
-  float* ws = smem;            // vk * vn
-  float* xs = smem + vk * vn;  // kRows * vk
+// The whole block for element type T (float, or int8_t: the int8 branch,
+// see vs_tile.cuh's Step<int8_t>).  `words`: int8 activation rows load as
+// 32-bit words (vs::word_rows).
+template <class T>
+__device__ __forceinline__ void vsmm_body(
+    const T* __restrict__ x, const T* __restrict__ vals,
+    const int* __restrict__ idx, const float* __restrict__ scale,
+    const float* __restrict__ bias, const float* __restrict__ residual,
+    float* __restrict__ out, int m, int k, int nb, int s_steps, int vk,
+    int vn, int relu, bool words) {
+  using Step = vs::Step<T>;
+  using Word = typename Step::Word;
+  extern __shared__ __align__(16) unsigned char vsmm_smem[];
+  Word* ws = reinterpret_cast<Word*>(vsmm_smem);
+  Word* xs = ws + Step::weight_words(vk, vn);
   const int j = blockIdx.y;
   const long long row0 = static_cast<long long>(blockIdx.x) * vs::kRows;
   const int rows_valid =
@@ -44,19 +59,47 @@ __global__ void __launch_bounds__(vs::kThreads)
     const long long tile = static_cast<long long>(j) * s_steps + s;
     const long long col_base = static_cast<long long>(idx[tile]) * vk;
     __syncthreads();  // the previous step's MAC is done with ws and xs
-    vs::load_weight_tile(ws, vals, tile, vk, vn);
-    int nonzero = 0;
-    for (int e = threadIdx.x; e < vs::kRows * vk; e += vs::kThreads) {
-      const int r = e / vk;
-      const int c = e - r * vk;
-      const float v = r < rows_valid ? x[(row0 + r) * k + col_base + c] : 0.f;
-      xs[e] = v;
-      nonzero |= v != 0.f;
-    }
-    if (__syncthreads_or(nonzero)) vs::mac_tile(acc, xs, ws, vk, vn);
+    Step::load_weights(ws, vals, tile, vk, vn);
+    const int nonzero =
+        Step::load_acts(xs, vk, rows_valid, words, [&](int r) {
+          return x + (row0 + r) * k + col_base;
+        });
+    if (__syncthreads_or(nonzero)) Step::mac(acc, xs, ws, vk, vn);
   }
   vs::epilogue(acc, out, row0, rows_valid, nb * vn, j * vn, vn, scale, bias,
                residual, relu);
+}
+
+#define VSMM_PARAMS(T)                                                      \
+  const T *__restrict__ x, const T *__restrict__ vals,                      \
+      const int *__restrict__ idx, const float *__restrict__ scale,         \
+      const float *__restrict__ bias, const float *__restrict__ residual,   \
+      float *__restrict__ out, int m, int k, int nb, int s_steps, int vk,   \
+      int vn, int relu
+#define VSMM_ARGS \
+  x, vals, idx, scale, bias, residual, out, m, k, nb, s_steps, vk, vn, relu
+
+__global__ void __launch_bounds__(vs::kThreads)
+    vsmm_kernel(VSMM_PARAMS(float)) {
+  vsmm_body<float>(VSMM_ARGS, false);
+}
+
+__global__ void __launch_bounds__(vs::kThreads)
+    vsmm_int8_kernel(VSMM_PARAMS(int8_t), int words) {
+  vsmm_body<int8_t>(VSMM_ARGS, words != 0);
+}
+
+template <class T, class Kernel, class... Extra>
+int launch_vsmm(Kernel kernel, void* stream, VSMM_PARAMS(T), Extra... extra) {
+  const size_t smem = vs::Step<T>::smem_bytes(vk, vn);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  const dim3 grid((m + vs::kRows - 1) / vs::kRows, nb);
+  kernel<<<grid, vs::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      VSMM_ARGS, extra...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -64,21 +107,13 @@ __global__ void __launch_bounds__(vs::kThreads)
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  Any of
 // scale, bias and residual may be null.  The caller has checked shapes,
 // dtypes, contiguity and vn <= 128.
-extern "C" int vsmm_launch(const float* x, const float* vals, const int* idx,
-                           const float* scale, const float* bias,
-                           const float* residual, float* out, int m, int k,
-                           int nb, int s_steps, int vk, int vn, int relu,
-                           void* stream) {
-  const size_t smem = vs::tile_smem_bytes(vk, vn);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(vsmm_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  }
-  const dim3 grid((m + vs::kRows - 1) / vs::kRows, nb);
-  vsmm_kernel<<<grid, vs::kThreads, smem,
-                static_cast<cudaStream_t>(stream)>>>(
-      x, vals, idx, scale, bias, residual, out, m, k, nb, s_steps, vk, vn,
-      relu);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int vsmm_launch(VSMM_PARAMS(float), void* stream) {
+  return launch_vsmm<float>(vsmm_kernel, stream, VSMM_ARGS);
+}
+
+// The int8 branch: x and vals int8, scale (the combined dequant scale,
+// a power of two per column) given by the caller.
+extern "C" int vsmm_int8_launch(VSMM_PARAMS(int8_t), void* stream) {
+  return launch_vsmm<int8_t>(vsmm_int8_kernel, stream, VSMM_ARGS,
+                             static_cast<int>(vs::word_rows(x, vk)));
 }

@@ -30,6 +30,14 @@ inputs, vk 8: a 2-D output tile over a shared-memory window, see
 to build or launch, the wrapper raises: it never carries on in the
 generic body.
 
+The halo kernel's generic body has an int8 branch (int8 halo buffer and
+tiles, a per-column dequant scale): each stored step's partial is an
+exact integer, added into the f32 accumulator in stored order, bit-equal
+to `vsconv_plain` and the reference.  Its launches count on
+``int8_launches`` too; int8 convs never take the stem body (it stages
+f32 windows), and the stack kernel's int8 branch is not ported (int8
+CUDA tensors raise NotImplementedError).
+
 The layout helpers (`halo_layout_dims`, `build_halo_input`,
 `stack_layout_dims`, `build_row_tap_stack`) are kept byte-for-byte with
 the reference.  `halo_kernel_cost`, `stack_kernel_cost`,
@@ -50,7 +58,8 @@ import torch.nn.functional as F
 from repro_torch.core.sparse_ops import patch_conv, same_pads, tap_patches
 from repro_torch.core.vector_sparse import VectorSparse
 from repro_torch.kernels._build import launch
-from repro_torch.kernels.vsmm import MAX_VN, check_epilogue, check_operands
+from repro_torch.kernels.vsmm import (MAX_VN, check_epilogue, check_operands,
+                                      entry_name)
 
 __all__ = [
     "vsconv_halo_kernel", "vsconv_plain", "vsconv_stack_kernel",
@@ -58,8 +67,14 @@ __all__ = [
     "build_row_tap_stack", "stack_layout_dims", "stack_patches",
     "halo_kernel_cost", "stack_kernel_cost", "use_resident_halo",
     "RESIDENT_MAX_H", "halo_h_out", "stack_h_out", "use_stem_body",
-    "stem_smem_bytes",
+    "stem_smem_bytes", "INT8_STACK_UNPORTED",
 ]
+
+# The stack kernels' int8 branch is left to a later slice of the port.
+INT8_STACK_UNPORTED = (
+    "the int8 branch of the stack-layout kernels (vsconv_pallas, "
+    "vsconv_dw_stack_pallas) is not ported yet: a later slice of the port "
+    "brings it; serve int8 through the halo layout (impl='auto')")
 
 # Below this output height the reference's halo kernel switches to its
 # resident whole-input layout (a TPU DMA choice, kept for its cost model).
@@ -99,14 +114,16 @@ def stem_smem_bytes(c: int, vn: int, *, kh: int, kw: int, stride: int,
 
 @functools.lru_cache(maxsize=None)
 def use_stem_body(c: int, vk: int, groups: int, kh: int, kw: int, vn: int,
-                  *, stride: int = 1, dilation: int = 1) -> bool:
-    """True when the conv kernels run their stem body: an ungrouped conv
-    with kh*kw > 1 over a narrow input, C = CB*vk of 8 or 16 channels in
-    K-tiles of vk 8 (what `models/graph.py::conv_tile_geometry` gives any
-    cin that does not tile by 32), vn 32 or 64, and a window that fits an
-    H100 block's shared memory in both layouts.  Every other conv runs the
-    generic body."""
-    return (groups == 1 and kh * kw > 1 and vk == STEM_VK
+                  *, stride: int = 1, dilation: int = 1,
+                  int8: bool = False) -> bool:
+    """True when the conv kernels run their stem body: an f32 ungrouped
+    conv with kh*kw > 1 over a narrow input, C = CB*vk of 8 or 16 channels
+    in K-tiles of vk 8 (what `models/graph.py::conv_tile_geometry` gives
+    any cin that does not tile by 32), vn 32 or 64, and a window that fits
+    an H100 block's shared memory in both layouts.  Every other conv, and
+    every int8 conv (the stem body stages f32 only), runs the generic
+    body."""
+    return (not int8 and groups == 1 and kh * kw > 1 and vk == STEM_VK
             and c in STEM_CHANNELS and vn in STEM_VN
             and all(stem_smem_bytes(c, vn, kh=kh, kw=kw, stride=stride,
                                     dilation=dilation, layout=layout)
@@ -375,10 +392,11 @@ def _conv_kernel(fn: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
                  kw: int, stride: int, dilation: int, groups: int,
                  bias: torch.Tensor | None, residual: torch.Tensor | None,
                  scale: torch.Tensor | None, fuse_relu: bool
-                 ) -> tuple[torch.Tensor, bool]:
+                 ) -> tuple[torch.Tensor, bool, bool]:
     """Checks and launch shared by the halo and the stack kernel; ``d0``
     is the buffer's second dimension (halo rows or stack planes).  Returns
-    the output and whether the stem body ran."""
+    the output, whether the stem body ran and whether the int8 branch
+    did."""
     cbg, spg = _group_split(c, vk, vs, kh=kh, kw=kw, groups=groups)
     n = x.shape[0]
     nb, s_steps, _, vn = vs.vals.shape
@@ -388,10 +406,11 @@ def _conv_kernel(fn: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
     out_shape = (n, h_out, w_out, cout)
     check_epilogue(bias=bias, scale=scale, residual=residual, cout=cout,
                    out_shape=out_shape)
-    check_operands({"x": x, "vals": vs.vals, "idx": vs.idx, "bias": bias,
-                    "scale": scale, "residual": residual}, x.device)
+    int8 = check_operands({"x": x, "vals": vs.vals, "idx": vs.idx,
+                           "bias": bias, "scale": scale,
+                           "residual": residual}, x.device)
     stem = use_stem_body(c, vk, groups, kh, kw, vn, stride=stride,
-                         dilation=dilation)
+                         dilation=dilation, int8=int8)
     out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
     if out.numel():
         ints = (n, d0, bw, c // vk, h_out, w_out, kw, stride, dilation, nb,
@@ -402,10 +421,10 @@ def _conv_kernel(fn: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
                    (x, vs.vals, vs.idx, scale, bias, residual, out),
                    ints + (kh, int(aligned)), x.device)
         else:
-            launch("vsconv", fn,
+            launch("vsconv", entry_name(fn, int8),
                    (x, vs.vals, vs.idx, scale, bias, residual, out), ints,
                    x.device)
-    return out, stem
+    return out, stem, int8
 
 
 def vsconv_halo_kernel(
@@ -430,6 +449,8 @@ def vsconv_halo_kernel(
     CUDA tensors launch ``vsconv_halo_kernel`` of ``csrc/vsconv.cu`` on the
     current stream (built at first use); CPU tensors run `vsconv_plain`.
     ``bias``/``scale`` are (Cout,), ``residual`` (N, Hout, w_out, Cout).
+    int8 ``xh`` and ``vs.vals`` with a ``scale`` launch the int8 branch of
+    the generic body (counted on ``int8_launches`` too).
     """
     kw_ = dict(w_out=w_out, kh=kh, kw=kw, stride=stride, dilation=dilation,
                groups=groups, bias=bias, residual=residual, scale=scale,
@@ -442,15 +463,18 @@ def vsconv_halo_kernel(
     h_out = halo_h_out(xh.shape, w_out=w_out, kh=kh, kw=kw, stride=stride,
                        dilation=dilation)
     _, rows, bw, cb, vk = xh.shape
-    out, stem = _conv_kernel("vsconv_halo_launch", xh, vs, h_out=h_out,
-                             d0=rows, bw=bw, c=cb * vk, vk=vk, **kw_)
+    out, stem, int8 = _conv_kernel("vsconv_halo_launch", xh, vs,
+                                   h_out=h_out, d0=rows, bw=bw, c=cb * vk,
+                                   vk=vk, **kw_)
     vsconv_halo_kernel.launches += 1
     vsconv_halo_kernel.stem_launches += int(stem)
+    vsconv_halo_kernel.int8_launches += int(int8)
     return out
 
 
 vsconv_halo_kernel.launches = 0  # type: ignore[attr-defined]
 vsconv_halo_kernel.stem_launches = 0  # type: ignore[attr-defined]
+vsconv_halo_kernel.int8_launches = 0  # type: ignore[attr-defined]
 
 
 def vsconv_stack_kernel(
@@ -474,7 +498,8 @@ def vsconv_stack_kernel(
     CUDA tensors launch ``vsconv_stack_kernel`` of ``csrc/vsconv.cu`` on
     the current stream (built at first use); CPU tensors run
     `vsconv_stack_plain`.  ``bias``/``scale`` are (Cout,), ``residual``
-    (N, Hout, w_out, Cout).
+    (N, Hout, w_out, Cout).  The kernel's int8 branch is not ported: int8
+    CUDA tensors raise NotImplementedError.
     """
     kw_ = dict(w_out=w_out, kh=kh, kw=kw, stride=stride, dilation=dilation,
                groups=groups, bias=bias, residual=residual, scale=scale,
@@ -484,10 +509,12 @@ def vsconv_stack_kernel(
     if xt.device.type != "cuda":
         raise ValueError(f"vsconv_stack_kernel runs on cuda or cpu, "
                          f"not {xt.device}")
+    if xt.dtype == torch.int8:
+        raise NotImplementedError(INT8_STACK_UNPORTED)
     h_out = stack_h_out(xt.shape, w_out=w_out, kh=kh, kw=kw, stride=stride,
                         dilation=dilation)
     _, planes, _, bw, c = xt.shape
-    out, stem = _conv_kernel("vsconv_stack_launch", xt, vs, h_out=h_out,
+    out, stem, _ = _conv_kernel("vsconv_stack_launch", xt, vs, h_out=h_out,
                              d0=planes, bw=bw, c=c, vk=vs.vk, **kw_)
     vsconv_stack_kernel.launches += 1
     vsconv_stack_kernel.stem_launches += int(stem)

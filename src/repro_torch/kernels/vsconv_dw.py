@@ -19,10 +19,14 @@ kernels
 each launches its kernel for CUDA tensors and runs its plain version
 (`vsconv_dw_plain`, `vsconv_dw_stack_plain`) for CPU tensors; a CUDA
 tensor the kernel does not take raises.  Their ``launches`` attributes
-count launches.  `dw_tile` picks the 2-D output tile a block of either
-kernel takes.  `dw_halo_kernel_cost` and `dw_stack_kernel_cost` are the
-reference TPU kernels' cost model, copied for cost tooling; they do not
-describe the CUDA kernels.
+count launches.  The halo kernel has an int8 branch (int8 window and
+taps, converted to f32 for the MAC: every product and sum is an exact
+integer, bit-equal to the reference's f32 MAC on int8 values), counted on
+``int8_launches`` too; the stack kernel's int8 branch is not ported.
+`dw_tile` picks the 2-D output tile a block of either kernel takes.
+`dw_halo_kernel_cost` and `dw_stack_kernel_cost` are the reference TPU
+kernels' cost model, copied for cost tooling; they do not describe the
+CUDA kernels.
 """
 from __future__ import annotations
 
@@ -34,8 +38,10 @@ from repro_torch.core.sparse_ops import (patch_conv, tap_matrix_width,
                                          tap_patches)
 from repro_torch.core.vector_sparse import VectorSparse
 from repro_torch.kernels._build import launch
-from repro_torch.kernels.vsconv import halo_h_out, stack_h_out, stack_patches
-from repro_torch.kernels.vsmm import MAX_VN, check_epilogue, check_operands
+from repro_torch.kernels.vsconv import (INT8_STACK_UNPORTED, halo_h_out,
+                                        stack_h_out, stack_patches)
+from repro_torch.kernels.vsmm import (MAX_VN, check_epilogue, check_operands,
+                                      entry_name)
 
 __all__ = [
     "vsconv_dw_halo_kernel", "vsconv_dw_plain", "vsconv_dw_stack_kernel",
@@ -205,10 +211,11 @@ def _dw_kernel(layout: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
                w_out: int, d0: int, bw: int, c: int, kh: int, kw: int,
                stride: int, dilation: int, bias: torch.Tensor | None,
                residual: torch.Tensor | None, scale: torch.Tensor | None,
-               fuse_relu: bool) -> torch.Tensor:
+               fuse_relu: bool) -> tuple[torch.Tensor, bool]:
     """Checks and launch shared by the two depthwise kernels (``layout``
     "halo" or "stack"); ``d0`` is the buffer's second dimension (halo rows
-    or stack planes)."""
+    or stack planes).  Returns the output and whether the int8 branch
+    ran."""
     fn = f"vsconv_dw_{layout}_launch"
     vc = tap_matrix_width(vs, kh * kw, c)
     if vc > MAX_VN:
@@ -219,22 +226,25 @@ def _dw_kernel(layout: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
     out_shape = (n, h_out, w_out, c)
     check_epilogue(bias=bias, scale=scale, residual=residual, cout=c,
                    out_shape=out_shape)
-    check_operands({"x": x, "vals": vs.vals, "idx": vs.idx, "bias": bias,
-                    "scale": scale, "residual": residual}, x.device)
+    int8 = check_operands({"x": x, "vals": vs.vals, "idx": vs.idx,
+                           "bias": bias, "scale": scale,
+                           "residual": residual}, x.device)
     out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
     if out.numel():
         th, tw, threads = dw_tile(n, h_out, w_out, c, vc, kh=kh, kw=kw,
                                   stride=stride, dilation=dilation,
                                   layout=layout)
-        vec = 4 if (vc % 4 == 0 and x.data_ptr() % 16 == 0
-                    and vs.vals.data_ptr() % 16 == 0) else 1
-        launch("vsconv_dw", fn,
+        # 4 channels a copy: 16 bytes in f32, 4 in int8
+        align = 4 if int8 else 16
+        vec = 4 if (vc % 4 == 0 and x.data_ptr() % align == 0
+                    and vs.vals.data_ptr() % align == 0) else 1
+        launch("vsconv_dw", entry_name(fn, int8),
                (x, vs.vals, vs.idx, scale, bias, residual, out),
                (n, d0, bw, c // vc, h_out, w_out, kw, stride, dilation,
                 vs.nnz_per_strip, vc, int(fuse_relu), kh, th, tw, vec,
                 threads),
                x.device)
-    return out
+    return out, int8
 
 
 def vsconv_dw_halo_kernel(
@@ -257,7 +267,8 @@ def vsconv_dw_halo_kernel(
     CUDA tensors launch ``vsconv_dw_halo_kernel`` of ``csrc/vsconv_dw.cu``
     on the current stream (built at first use); CPU tensors run
     `vsconv_dw_plain`.  ``bias``/``scale`` are (C,), ``residual`` output
-    shaped.
+    shaped.  int8 ``xh`` and ``vs.vals`` with a ``scale`` launch the int8
+    branch (counted on ``int8_launches`` too).
     """
     kw_ = dict(w_out=w_out, kh=kh, kw=kw, stride=stride, dilation=dilation,
                bias=bias, residual=residual, scale=scale, fuse_relu=fuse_relu)
@@ -272,13 +283,15 @@ def vsconv_dw_halo_kernel(
     if vc != vs.vn:
         raise ValueError(f"halo channel tile {vc} is not the strip width "
                          f"{vs.vn}")
-    out = _dw_kernel("halo", xh, vs, h_out=h_out, d0=rows,
-                     bw=bw, c=cb * vc, **kw_)
+    out, int8 = _dw_kernel("halo", xh, vs, h_out=h_out, d0=rows,
+                           bw=bw, c=cb * vc, **kw_)
     vsconv_dw_halo_kernel.launches += 1
+    vsconv_dw_halo_kernel.int8_launches += int(int8)
     return out
 
 
 vsconv_dw_halo_kernel.launches = 0  # type: ignore[attr-defined]
+vsconv_dw_halo_kernel.int8_launches = 0  # type: ignore[attr-defined]
 
 
 def vsconv_dw_stack_kernel(
@@ -300,7 +313,8 @@ def vsconv_dw_stack_kernel(
 
     CUDA tensors launch ``vsconv_dw_stack_kernel`` of
     ``csrc/vsconv_dw.cu`` on the current stream (built at first use); CPU
-    tensors run `vsconv_dw_stack_plain`.
+    tensors run `vsconv_dw_stack_plain`.  The int8 branch is not ported:
+    int8 CUDA tensors raise NotImplementedError.
     """
     kw_ = dict(w_out=w_out, kh=kh, kw=kw, stride=stride, dilation=dilation,
                bias=bias, residual=residual, scale=scale, fuse_relu=fuse_relu)
@@ -309,11 +323,13 @@ def vsconv_dw_stack_kernel(
     if xt.device.type != "cuda":
         raise ValueError(f"vsconv_dw_stack_kernel runs on cuda or cpu, "
                          f"not {xt.device}")
+    if xt.dtype == torch.int8:
+        raise NotImplementedError(INT8_STACK_UNPORTED)
     h_out = stack_h_out(xt.shape, w_out=w_out, kh=kh, kw=kw, stride=stride,
                         dilation=dilation)
     _, planes, _, bw, c = xt.shape
-    out = _dw_kernel("stack", xt, vs, h_out=h_out,
-                     d0=planes, bw=bw, c=c, **kw_)
+    out, _ = _dw_kernel("stack", xt, vs, h_out=h_out,
+                        d0=planes, bw=bw, c=c, **kw_)
     vsconv_dw_stack_kernel.launches += 1
     return out
 

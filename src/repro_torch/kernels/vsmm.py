@@ -6,10 +6,17 @@ the stored (vk, vn) tiles multiplied (the weight-side skip), all-zero
 activation tiles skipped at run time (the input-side skip), and the
 epilogue x scale -> + bias -> + residual -> ReLU fused at the end.
 
+The kernel has an f32 branch and an int8 one (int8 x and tiles, a
+per-column dequant scale; the reference's `_mac_dot` on int8): each
+stored step's int8 x int8 partial is an exact integer, added into the f32
+accumulator in stored order, so the result is bit-equal to the
+reference's and to `vsmm_plain`.
+
 `vsmm_kernel` is the wrapper: it launches the kernel for CUDA tensors and
 runs `vsmm_plain` for CPU tensors, and nothing else — a CUDA tensor that
 the kernel does not take raises, it never falls back.
-``vsmm_kernel.launches`` counts kernel launches.
+``vsmm_kernel.launches`` counts kernel launches, ``int8_launches`` those
+of the int8 branch among them.
 """
 from __future__ import annotations
 
@@ -19,7 +26,7 @@ from repro_torch.core.vector_sparse import VectorSparse
 from repro_torch.kernels._build import launch
 
 __all__ = ["vsmm_kernel", "vsmm_plain", "vsmm_kernel_cost", "MAX_VN",
-           "check_operands", "check_epilogue"]
+           "check_operands", "check_epilogue", "entry_name"]
 
 MAX_VN = 128  # the kernel's thread layout covers at most 128 columns
 
@@ -73,7 +80,13 @@ def vsmm_plain(
     The structural gather + batched product of the reference's
     `vs_matmul(impl="jnp")`: step s gathers every strip's activation K-tile
     idx[:, s] and multiplies it by that strip's stored tile, into an f32
-    accumulator.  Runs on any device.
+    accumulator, step after step in stored order.  Runs on any device.
+
+    int8 ``x`` and ``vs.vals`` (with a ``scale``): each step's partial is
+    an f32 product of int8 values, exact (every partial sum is an integer
+    below 127² * vk < 2^24 for vk <= 1040, whatever order the product
+    sums in), so it equals the reference's int32 partial; the output is
+    f32.
     """
     m, k = x.shape
     nb, s_steps, vk, vn = vs.vals.shape
@@ -86,22 +99,36 @@ def vsmm_plain(
         acc += torch.einsum("mjk,jkn->mjn", xg, vals[:, s])
     y = _epilogue(acc.reshape(m, nb * vn), bias=bias, residual=residual,
                   scale=scale, fuse_relu=fuse_relu)
-    return y.to(x.dtype)
+    return y if x.dtype == torch.int8 else y.to(x.dtype)
 
 
 def check_operands(named: dict[str, torch.Tensor | None],
-                   device: torch.device) -> None:
-    """Raise unless every given tensor is a contiguous float32 (int32 for
-    ``idx``) tensor on ``device`` — what the CUDA kernels take."""
+                   device: torch.device) -> bool:
+    """Raise unless every given tensor is a contiguous tensor on ``device``
+    of the dtype the CUDA kernels take: int32 ``idx``, float32 for the
+    rest, except int8 ``x`` and ``vals`` together with a ``scale`` (the
+    int8 entries).  Returns True for the int8 entries."""
+    int8 = named["x"].dtype == torch.int8
+    if int8 and named.get("scale") is None:
+        raise ValueError("int8 operands need a dequant scale")
     for name, t in named.items():
         if t is None:
             continue
-        want = torch.int32 if name == "idx" else torch.float32
+        want = (torch.int32 if name == "idx"
+                else torch.int8 if int8 and name in ("x", "vals")
+                else torch.float32)
         if t.device != device or t.dtype != want or not t.is_contiguous():
             raise ValueError(
                 f"{name}: the kernel takes a contiguous {want} tensor on "
                 f"{device}, got {t.dtype} on {t.device} "
                 f"(contiguous={t.is_contiguous()})")
+    return int8
+
+
+def entry_name(fn: str, int8: bool) -> str:
+    """The extern "C" launch entry of a kernel's int8 branch
+    (``<kernel>_int8_launch``) or its f32 one (``fn``)."""
+    return fn.replace("_launch", "_int8_launch") if int8 else fn
 
 
 def check_epilogue(*, bias: torch.Tensor | None,
@@ -130,6 +157,8 @@ def vsmm_kernel(
     CUDA tensors launch ``csrc/vsmm.cu`` on the current stream (built at
     first use); CPU tensors run `vsmm_plain`.  ``bias``/``scale`` are (N,),
     ``residual`` (M, N).  Any M works: the kernel masks the ragged tail.
+    int8 ``x`` and ``vs.vals`` with a ``scale`` launch the int8 branch
+    (counted on ``int8_launches`` too).
     """
     if x.device.type == "cpu":
         return vsmm_plain(x, vs, bias=bias, residual=residual, scale=scale,
@@ -146,16 +175,19 @@ def vsmm_kernel(
         raise ValueError(f"vsmm_kernel takes vn <= {MAX_VN}, got {vn}")
     check_epilogue(bias=bias, scale=scale, residual=residual, cout=n,
                    out_shape=(m, n))
-    check_operands({"x": x, "vals": vs.vals, "idx": vs.idx, "bias": bias,
-                    "scale": scale, "residual": residual}, x.device)
+    int8 = check_operands({"x": x, "vals": vs.vals, "idx": vs.idx,
+                           "bias": bias, "scale": scale,
+                           "residual": residual}, x.device)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
-    launch("vsmm", "vsmm_launch", (x, vs.vals, vs.idx, scale, bias,
-                                   residual, out),
+    launch("vsmm", entry_name("vsmm_launch", int8),
+           (x, vs.vals, vs.idx, scale, bias, residual, out),
            (m, k, nb, s_steps, vk, vn, int(fuse_relu)), x.device)
     vsmm_kernel.launches += 1
+    vsmm_kernel.int8_launches += int(int8)
     return out
 
 
 vsmm_kernel.launches = 0  # type: ignore[attr-defined]
+vsmm_kernel.int8_launches = 0  # type: ignore[attr-defined]

@@ -451,12 +451,15 @@ class CNNServer:
 
     ``cfg`` is a config from `repro_torch.configs`: ``cfg.build()`` gives the
     `SparseNet`, ``cfg.weight_density`` the default pruning point.  Params
-    are initialized from ``seed`` and sparsified at f32; ``sparse=False``
-    serves the dense path.
+    are initialized from ``seed`` and sparsified; ``sparse=False`` serves
+    the dense path.  ``dtype="int8"`` serves the compound sparsity x
+    precision path: per-cout power-of-two weight scales fixed at sparsify
+    time, activations quantized per tensor as each layer runs.
     """
 
     def __init__(self, cfg: Any, *, batch: int, impl: str = "auto",
                  density: float | None = None, sparse: bool = True,
+                 dtype: str | None = None,
                  seed: int = 0, pad_multiple: int = 8,
                  max_queue: int | None = None,
                  device: str | torch.device | None = None):
@@ -469,7 +472,7 @@ class CNNServer:
         self.sparse = None
         if sparse:
             self.sparse, _ = self.net.sparsify(
-                self.params, self.density, vk=cfg.vk, vn=cfg.vn)
+                self.params, self.density, vk=cfg.vk, vn=cfg.vn, dtype=dtype)
         self.backend = CNNBackend(
             self.net, self.params, sparse=self.sparse, impl=impl,
             density=self.density if sparse else None,

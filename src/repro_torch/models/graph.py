@@ -3,8 +3,8 @@
 A network is data — a `SparseNet` holding a flat tuple of `LayerSpec`s —
 and one walker (`net_apply`) runs it dense or sparse; `sparsify` folds BN
 into the conv weights, vector-prunes every conv and FC layer and encodes
-them for the kernels.  The port of `repro/models/graph.py`, f32: ungrouped,
-grouped and depthwise convs.
+them for the kernels.  The port of `repro/models/graph.py`, f32 and int8:
+ungrouped, grouped and depthwise convs.
 
 LayerSpec vocabulary
 --------------------
@@ -47,6 +47,7 @@ __all__ = [
     "ConvTileGeometry", "FCTileGeometry", "TileGeometryError",
     "conv_tile_geometry", "fc_tile_geometry", "strip_steps",
     "sparse_conv_from_dense", "apply_sparse_conv", "apply_sparse_fc",
+    "weight_scales", "quantize_weights_int8", "quantize_activations_int8",
     "net_schema", "net_apply", "sparsify", "input_refusal", "output_finite",
     "build_resnet18", "RESNET18_STAGES", "build_mobilenet_v1",
     "MOBILENET_V1_PLAN", "BN_EPS",
@@ -158,7 +159,7 @@ class SparseConv:
     (how the 3-channel stem becomes a multiple of the K-tile length; the
     padded weight rows are zero).  ``bias`` (when set) overrides the
     param-tree bias — the BN-folded bias lives here.  ``scale`` is the int8
-    dequant scale (a later slice; None in f32).
+    per-cout dequant scale (None in f32).
     """
 
     vs: VectorSparse
@@ -292,11 +293,82 @@ def strip_steps(kb: int, density: float, *, prune: bool = True) -> int:
     return max(1, int(round(kb * density)))
 
 
-def _require_f32(dtype: Any) -> None:
-    if dtype not in (None, torch.float32, "float32"):
-        raise NotImplementedError(
-            f"dtype={dtype!r}: this slice encodes f32 only; int8 is ported "
-            f"in a later slice")
+# --------------------------------------------------------------------------
+# INT8 quantization (compound sparsity x precision)
+# --------------------------------------------------------------------------
+
+def _np_dtype(dtype: Any) -> np.dtype | None:
+    """``dtype`` (a string, numpy or torch dtype) as a numpy dtype; None
+    where numpy has no such dtype."""
+    if isinstance(dtype, torch.dtype):
+        dtype = str(dtype).removeprefix("torch.")
+    try:
+        return np.dtype(dtype)
+    except TypeError:
+        return None
+
+
+def _wants_int8(dtype: Any) -> bool:
+    """True iff ``dtype`` names int8 (a string, a numpy or a torch dtype)."""
+    return dtype is not None and _np_dtype(dtype) == np.dtype(np.int8)
+
+
+def _encode_int8(dtype: Any) -> bool:
+    """True for an int8 encoding, False for f32 (None or float32); raises
+    for any other dtype, which the port does not encode."""
+    if dtype is None or _np_dtype(dtype) == np.dtype(np.float32):
+        return False
+    if _wants_int8(dtype):
+        return True
+    raise NotImplementedError(
+        f"dtype={dtype!r}: the port encodes float32 or int8 weights only")
+
+
+def _pow2_up(s: np.ndarray) -> np.ndarray:
+    """Round positive scales UP to the next power of two (exact in f32), so
+    every dequant multiply only shifts an exponent and the fused epilogue
+    ``acc*s + bias`` gives the same bits with or without FMA contraction."""
+    s64 = np.asarray(s, np.float64)
+    p = np.exp2(np.ceil(np.log2(s64)))
+    p = np.where(p < s64, p * 2.0, p)  # guard log2 rounding at po2 inputs
+    return p.astype(np.float32)
+
+
+def weight_scales(wm: np.ndarray) -> np.ndarray:
+    """Per-cout symmetric int8 scales of a (K, Cout) weight matrix:
+    ``max|wm[:, c]| / 127`` rounded up to a power of two; an all-zero
+    column (a remainder-strip pad column) gets 1.0."""
+    s = np.abs(np.asarray(wm, np.float32)).max(axis=0) / 127.0
+    return _pow2_up(np.where(s > 0, s, 1.0))
+
+
+def quantize_weights_int8(wm: np.ndarray, s: np.ndarray) -> np.ndarray:
+    """Symmetric round-half-to-even int8 encode of ``wm`` at per-cout
+    scales ``s`` (decode is ``wq.astype(f32) * s``)."""
+    q = np.rint(np.asarray(wm, np.float32) / s)
+    return np.clip(q, -127, 127).astype(np.int8)
+
+
+def quantize_activations_int8(x: torch.Tensor
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8 activation quantization, on x's device
+    and without a host sync.
+
+    Returns ``(xq, sx)``: ``sx`` (a 0-d f32 tensor) is ``max|x| / 127``
+    rounded up to a power of two (1.0 for an all-zero tensor), ``xq =
+    clip(round_half_even(x / sx), -127, 127)`` as int8.  Every division
+    is between two tensors: PyTorch's CUDA kernel divides by a CPU scalar
+    as a multiply by its reciprocal, which is not the reference's
+    quotient.
+    """
+    xf = x.float()
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    sx = xf.abs().amax() / torch.full_like(one, 127.0)
+    sx = torch.where(sx > 0, sx, one)
+    p = torch.exp2(torch.ceil(torch.log2(sx)))
+    sx = torch.where(p < sx, p * 2, p)
+    xq = torch.clamp(torch.round(xf / sx), -127, 127)
+    return xq.to(torch.int8), sx
 
 
 def sparse_conv_from_dense(
@@ -324,8 +396,12 @@ def sparse_conv_from_dense(
     by construction).  Depthwise (groups == Cin, multiplier 1) encodes the
     (kh*kw, Cout) tap matrix with vk == 1 over channel-tile strips, in
     ascending tap order.
+
+    ``dtype="int8"`` quantizes the pruned weights per cout (`weight_scales`,
+    `quantize_weights_int8`): the tiles are int8, the scales go on the
+    entry, and the returned dense weight is the dequantized one.
     """
-    _require_f32(dtype)
+    int8 = _encode_int8(dtype)
     w = np.asarray(torch.as_tensor(w).detach().cpu(), np.float32)
     kh, kw, cin_g, cout = w.shape
     g = conv_tile_geometry(kh, kw, cin_g, cout, vk=vk, vn=vn, groups=groups,
@@ -340,11 +416,19 @@ def sparse_conv_from_dense(
     else:
         wp = wm
         mask = np.ones((wm.shape[0] // vk_l, cout // vn_l), bool)
-    vs = from_mask(torch.as_tensor(wp, device=device), mask, vk_l, vn_l)
+    scale, enc = None, wp
+    if int8:
+        # quantize the PRUNED weights: the scales see only surviving tiles
+        scale = weight_scales(wp)
+        enc = quantize_weights_int8(wp, scale)
+        wp = enc.astype(np.float32) * scale  # the dequantized dense oracle
+    vs = from_mask(torch.as_tensor(enc, device=device), mask, vk_l, vn_l)
     if kh * kw > 1 and not g.depthwise:
         vs = conv_cin_major(vs, (cin_g + cp) // vk_l)
     spec = SparseConv(vs, kh=kh, kw=kw, stride=stride, groups=groups,
-                      dilation=dilation, cin_pad=cp)
+                      dilation=dilation, cin_pad=cp,
+                      scale=None if scale is None
+                      else torch.as_tensor(scale, device=device))
     return spec, wp.reshape(kh, kw, cin_g + cp, cout)[:, :, :cin_g]
 
 
@@ -354,16 +438,23 @@ def apply_sparse_conv(x: torch.Tensor, entry: SparseConv | VectorSparse, *,
                       residual: torch.Tensor | None = None,
                       impl: str = "auto") -> torch.Tensor:
     """Run one conv through the vector-sparse path (input channels padded
-    by ``cin_pad`` first; ``residual`` added before the ReLU)."""
+    by ``cin_pad`` first; ``residual`` added before the ReLU).
+
+    An int8 entry (``spec.scale`` set) quantizes the layer input per
+    tensor first, then pads cin with int8 zeros; the kernel multiplies
+    int8 by int8 exactly and the combined scale ``sx * s_w`` (a power of
+    two) dequantizes in the fused epilogue, before the bias."""
     spec = entry if isinstance(entry, SparseConv) else SparseConv(entry)
-    if spec.scale is not None:
-        raise NotImplementedError("int8 entries are ported in a later slice")
+    scale = spec.scale
+    if scale is not None:
+        x, sx = quantize_activations_int8(x)
+        scale = sx * scale
     if spec.cin_pad:
         x = F.pad(x, (0, spec.cin_pad))
     return vs_conv2d(
         x, spec.vs, kh=spec.kh, kw=spec.kw, stride=spec.stride,
         groups=spec.groups, dilation=spec.dilation, bias=bias,
-        residual=residual, fuse_relu=fuse_relu, impl=impl)
+        residual=residual, scale=scale, fuse_relu=fuse_relu, impl=impl)
 
 
 def apply_sparse_fc(x: torch.Tensor, entry: SparseFC | VectorSparse, *,
@@ -372,17 +463,20 @@ def apply_sparse_fc(x: torch.Tensor, entry: SparseFC | VectorSparse, *,
                     impl: str = "auto") -> torch.Tensor:
     """Run one FC layer through the vector-sparse path.  Bias and residual
     are padded to the encoded width (the remainder strip) and the pad
-    columns sliced off after the kernel."""
+    columns sliced off after the kernel.  An int8 entry quantizes the
+    input per tensor first, as `apply_sparse_conv` does."""
     spec = entry if isinstance(entry, SparseFC) else SparseFC(entry)
-    if spec.scale is not None:
-        raise NotImplementedError("int8 entries are ported in a later slice")
     n_enc = spec.vs.shape[1]
     dout = spec.dout or n_enc
     if bias is not None and bias.shape[-1] != n_enc:
         bias = F.pad(bias, (0, n_enc - bias.shape[-1]))
     if residual is not None and residual.shape[-1] != n_enc:
         residual = F.pad(residual, (0, n_enc - residual.shape[-1]))
-    y = vs_matmul(x, spec.vs, bias=bias, residual=residual,
+    scale = spec.scale
+    if scale is not None:
+        x, sx = quantize_activations_int8(x)
+        scale = sx * scale
+    y = vs_matmul(x, spec.vs, bias=bias, residual=residual, scale=scale,
                   fuse_relu=fuse_relu, impl=impl)
     return y[..., :dout] if dout != n_enc else y
 
@@ -621,9 +715,14 @@ def sparsify(net: SparseNet, params: dict, density: float, *,
     channels; non-tileable FC heads given a remainder strip), ``pruned`` is
     a dense param tree computing the same function (the oracle).  Pruning
     and index building run host-side in numpy; the encoded tiles land on
-    the params' device.  f32 only in this slice.
+    the params' device.
+
+    ``dtype="int8"`` quantizes every encoded weight per cout from the
+    pruned, BN-folded weights and stores the dequant scales on the entries;
+    ``pruned`` then holds the dequantized f32 weights.  Any dtype other
+    than f32 or int8 raises.
     """
-    _require_f32(dtype)
+    int8 = _encode_int8(dtype)
     sparse: dict = {}
     pruned = {name: dict(entry) for name, entry in params.items()}
     for l in net.layers:
@@ -645,6 +744,7 @@ def sparsify(net: SparseNet, params: dict, density: float, *,
             spec, wp = sparse_conv_from_dense(
                 w, density, vk=vk, vn=vn, stride=l.stride, groups=l.groups,
                 dilation=l.dilation, prune=prune,
+                dtype="int8" if int8 else None,
                 allow_fallback=l.allow_fallback, path=f"{net.name}/{l.name}",
                 device=dev)
             spec.bias = torch.as_tensor(b, dtype=wdt, device=dev)
@@ -661,9 +761,15 @@ def sparsify(net: SparseNet, params: dict, density: float, *,
                 continue  # non-tileable K: stays dense
             wpad = np.pad(w, ((0, 0), (0, fg.pad))) if fg.pad else w
             wp, mask = prune_vectors_balanced(wpad, density, fg.vk, fg.vn)
-            vs = from_mask(torch.as_tensor(wp, dtype=wdt, device=dev), mask,
-                           fg.vk, fg.vn)
-            sparse[l.name] = SparseFC(vs, dout=dout, bias=p["b"])
+            s_w, enc = None, torch.as_tensor(wp, dtype=wdt, device=dev)
+            if int8:
+                s_w = weight_scales(wp)  # pad columns (all-zero) -> 1.0
+                wq = quantize_weights_int8(wp, s_w)
+                wp = wq.astype(np.float32) * s_w
+                enc, s_w = (torch.as_tensor(wq, device=dev),
+                            torch.as_tensor(s_w, device=dev))
+            sparse[l.name] = SparseFC(from_mask(enc, mask, fg.vk, fg.vn),
+                                      dout=dout, bias=p["b"], scale=s_w)
             pruned[l.name] = {"w": torch.as_tensor(wp[:, :dout], dtype=wdt,
                                                    device=dev),
                               "b": p["b"]}

@@ -12,7 +12,8 @@ multiply the same f32 numbers; only the order of the f32 sums differs.
 The flash kernel in bf16 (its tensor-core body): 1e-2, since it rounds p
 to bf16 at the running max of its own kv tiles (64 keys), the plain
 version at that of its blocks (up to 512): a bf16 ulp (2^-8 relative) of
-an element here and there.
+an element here and there.  The int8 branches: bit for bit (every stored
+step's partial is an exact integer, added in stored order on both sides).
 """
 from unittest import mock
 
@@ -20,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.vector_sparse import VectorSparse, from_mask
+from repro_torch.core.vector_sparse import (VectorSparse, conv_cin_major,
+                                            from_mask)
 from repro_torch.core.pruning import prune_vectors_balanced
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash as TF
@@ -466,3 +468,220 @@ def test_sampling_on_the_card_is_reproducible_and_keeps_greedy(cuda):
     assert mixed == again
     assert mixed[0] == greedy[0]
     assert mixed[1] != greedy[1]
+
+
+# --------------------------------------------------------------------------
+# The int8 branches: bit for bit against the plain versions on the card
+# --------------------------------------------------------------------------
+
+def _int8_sparse(rng, k, n, vk, vn, density, device, cb=None):
+    """An int8-encoded weight as `sparsify` makes it (cin-major with ``cb``
+    cin tiles) and its per-column scales, on ``device``."""
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    if density < 1:
+        w, mask = prune_vectors_balanced(w, density, vk, vn)
+    else:
+        mask = np.ones((k // vk, n // vn), bool)
+    s = TG.weight_scales(w)
+    vs = from_mask(torch.as_tensor(TG.quantize_weights_int8(w, s),
+                                   device=device), mask, vk, vn)
+    if cb is not None:
+        vs = conv_cin_major(vs, cb)
+    return vs, torch.as_tensor(s, device=device)
+
+
+def _int8_input(rng, shape, device, zero=False):
+    """Quantized post-ReLU-like activations (zero runs for the input-side
+    skip) and their scale, quantized on the card."""
+    return TG.quantize_activations_int8(
+        _relu_input(rng, shape, device, zero=zero))
+
+
+def _int8_kwargs(cuda, scale, cout, out_shape, epilogue):
+    kw = dict(scale=scale)
+    if epilogue:
+        kw.update(bias=torch.randn(cout, device=cuda), fuse_relu=True,
+                  residual=torch.randn(*out_shape, device=cuda))
+    return kw
+
+
+def _assert_bit_equal(y, ref):
+    assert y.dtype == torch.float32 and torch.isfinite(y).all()
+    assert torch.equal(y, ref), float((y - ref).abs().max())
+
+
+@pytest.mark.parametrize("m,k,n,vk,vn,density,zero", [
+    (37, 64, 20, 8, 10, 0.5, False),     # ragged M, a 10-wide strip
+    (300, 256, 256, 32, 128, 0.25, False),
+    (8, 512, 1024, 32, 128, 0.235, False),  # the 224 px FC head at batch 8
+    (33, 36, 12, 6, 12, 0.5, False),     # vk 6: byte loads, no word reads
+    (40, 64, 64, 32, 64, 0.5, True),     # every tile skipped
+])
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_vsmm_int8_kernel_bit_equal_to_plain(cuda, m, k, n, vk, vn, density,
+                                             zero, epilogue):
+    rng = np.random.default_rng(m + k)
+    vs, s_w = _int8_sparse(rng, k, n, vk, vn, density, cuda)
+    xq, sx = _int8_input(rng, (m, k), cuda, zero=zero)
+    kw = _int8_kwargs(cuda, sx * s_w, n, (m, n), epilogue)
+    before = (vsmm_kernel.launches, vsmm_kernel.int8_launches)
+    y = vsmm_kernel(xq, vs, **kw)
+    torch.cuda.synchronize()
+    assert (vsmm_kernel.launches, vsmm_kernel.int8_launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_bit_equal(y, vsmm_plain(xq, vs, **kw))
+
+
+def test_vsmm_int8_kernel_reads_no_word_past_a_row(cuda):
+    """x starting at an odd byte (vk 32): the kernel takes byte loads,
+    and a row's last tile ends at the buffer's last byte."""
+    rng = np.random.default_rng(9)
+    vs, s_w = _int8_sparse(rng, 64, 64, 32, 64, 0.5, cuda)
+    xq, sx = _int8_input(rng, (17, 64), cuda)
+    buf = torch.empty(17 * 64 + 1, dtype=torch.int8, device=cuda)
+    x_odd = buf[1:].view(17, 64)
+    x_odd.copy_(xq)
+    y = vsmm_kernel(x_odd, vs, scale=sx * s_w)
+    torch.cuda.synchronize()
+    _assert_bit_equal(y, vsmm_plain(xq, vs, scale=sx * s_w))
+
+
+def test_vsmm_int8_kernel_keeps_stored_step_order(cuda):
+    """±127 weights over 64 stored steps: the f32 sum passes 2^24, so
+    only the stored order of the f32 adds gives the plain version's
+    bits."""
+    rng = np.random.default_rng(3)
+    m, k, n, vk, vn = 16, 2048, 128, 32, 128
+    wq = np.where(rng.random((k, n)) < 0.9, 127, -127).astype(np.int8)
+    xq = np.where(rng.random((m, k)) < 0.5, 127, 126).astype(np.int8)
+    vs = from_mask(torch.as_tensor(wq, device=cuda),
+                   np.ones((k // vk, n // vn), bool), vk, vn)
+    x = torch.as_tensor(xq, device=cuda)
+    scale = torch.ones(n, device=cuda)
+    y = vsmm_kernel(x, vs, scale=scale)
+    torch.cuda.synchronize()
+    _assert_bit_equal(y, vsmm_plain(x, vs, scale=scale))
+    assert float(y.abs().max()) > 2 ** 24
+
+
+@pytest.mark.parametrize("size,cin,cout,kh,stride,groups,vk,vn,density", [
+    (32, 8, 64, 7, 2, 1, 8, 64, 1.0),     # the stem: the generic body
+    (16, 64, 64, 3, 1, 1, 32, 64, 0.5),
+    (16, 64, 128, 3, 2, 1, 32, 128, 0.25),
+    (3, 128, 128, 3, 1, 1, 32, 128, 0.5),  # Hout < 4
+    (12, 64, 64, 3, 1, 4, 16, 16, 0.5),    # grouped
+    (11, 12, 12, 3, 2, 1, 6, 6, 0.5),      # vk 6: byte loads
+])
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_vsconv_halo_int8_kernel_bit_equal_to_plain(
+        cuda, size, cin, cout, kh, stride, groups, vk, vn, density,
+        epilogue):
+    rng = np.random.default_rng(size + cin + kh)
+    cin_g = cin // groups
+    vs, s_w = _int8_sparse(rng, kh * kh * cin_g, cout, vk, vn, density,
+                           cuda, cb=cin_g // vk)
+    xq, sx = _int8_input(rng, (2, size, size, cin), cuda)
+    xh = build_halo_input(xq, kh=kh, kw=kh, stride=stride, vk=vk)
+    ho = -(-size // stride)
+    kw = dict(w_out=ho, kh=kh, kw=kh, stride=stride, groups=groups,
+              **_int8_kwargs(cuda, sx * s_w, cout, (2, ho, ho, cout),
+                             epilogue))
+    before = (vsconv_halo_kernel.launches, vsconv_halo_kernel.int8_launches,
+              vsconv_halo_kernel.stem_launches)
+    y = vsconv_halo_kernel(xh, vs, **kw)
+    torch.cuda.synchronize()
+    assert (vsconv_halo_kernel.launches, vsconv_halo_kernel.int8_launches,
+            vsconv_halo_kernel.stem_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    _assert_bit_equal(y, vsconv_plain(xh, vs, **kw))
+
+
+@pytest.mark.parametrize("size,c,stride,vc", [
+    (112, 32, 1, 32),   # MobileNetV1's dw1 at 224 px
+    (40, 64, 2, 64),
+    (14, 512, 2, 128),  # dw12
+    (9, 12, 1, 12),     # vc 12: 4-byte copies through the runtime-vc body
+    (9, 6, 2, 6),       # vc 6: one-byte loads
+])
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_dw_halo_int8_kernel_bit_equal_to_plain(cuda, size, c, stride, vc,
+                                                epilogue):
+    rng = np.random.default_rng(size + c)
+    vs, s_w = _int8_sparse(rng, 9, c, 1, vc, 0.5, cuda)
+    xq, sx = _int8_input(rng, (2, size, size, c), cuda)
+    xh = build_halo_input(xq, kh=3, kw=3, stride=stride, vk=vc)
+    ho = -(-size // stride)
+    kw = dict(w_out=ho, kh=3, kw=3, stride=stride,
+              **_int8_kwargs(cuda, sx * s_w, c, (2, ho, ho, c), epilogue))
+    before = vsconv_dw_halo_kernel.int8_launches
+    y = vsconv_dw_halo_kernel(xh, vs, **kw)
+    torch.cuda.synchronize()
+    assert vsconv_dw_halo_kernel.int8_launches == before + 1
+    _assert_bit_equal(y, vsconv_dw_plain(xh, vs, **kw))
+
+
+def test_int8_quantizer_on_the_card_equals_the_cpu(cuda):
+    """`quantize_activations_int8` on the card gives the CPU's codes and
+    scale (exact powers of two, .5 ties, an all-zero tensor)."""
+    rng = np.random.default_rng(4)
+    xs = [rng.standard_normal((4, 9, 9, 16)).astype(np.float32),
+          np.zeros((2, 3), np.float32)]
+    x = np.clip(rng.standard_normal((2, 8, 8)), -1, 1).astype(np.float32)
+    x[0, 0, 0] = 127.0 * 2.0 ** -4
+    x[1] = (rng.integers(-126, 126, (8, 8)) + 0.5) * 2.0 ** -4
+    xs.append(x)
+    for a in xs:
+        qc, sc = TG.quantize_activations_int8(torch.from_numpy(a))
+        qg, sg = TG.quantize_activations_int8(torch.from_numpy(a).to(cuda))
+        assert torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
+
+
+def test_int8_stack_kernels_raise_not_implemented(cuda):
+    rng = np.random.default_rng(8)
+    vs, s_w = _int8_sparse(rng, 9 * 64, 64, 32, 64, 0.5, cuda, cb=2)
+    xq, sx = _int8_input(rng, (1, 8, 8, 64), cuda)
+    xt = build_row_tap_stack(xq, kh=3, kw=3)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        vsconv_stack_kernel(xt, vs, w_out=8, scale=sx * s_w)
+    dvs, ds = _int8_sparse(rng, 9, 64, 1, 64, 0.5, cuda)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        vsconv_dw_stack_kernel(xt, dvs, w_out=8, scale=sx * ds)
+    with pytest.raises(ValueError, match="scale"):
+        vsmm_kernel(xq.reshape(64, 64), _int8_sparse(
+            rng, 64, 64, 32, 64, 0.5, cuda)[0])
+
+
+@pytest.mark.parametrize("arch,per_wave", [
+    ("vscnn-resnet18", {"halo": 17, "vsmm": 4}),
+    ("vscnn-mobilenet-v1", {"halo": 1, "dw_halo": 13, "vsmm": 14}),
+])
+def test_int8_served_wave_bit_equal_to_plain(cuda, arch, per_wave):
+    """One int8 wave of 4 images at 32 px through `CNNServer(dtype=
+    "int8")`: every conv and FC through an int8 kernel branch, no stem
+    body, logits bit-equal to `net_apply(impl="plain")` on the card."""
+    counters = {"halo": vsconv_halo_kernel, "dw_halo": vsconv_dw_halo_kernel,
+                "vsmm": vsmm_kernel}
+    srv = TS.CNNServer(get_config(arch).reduce(), batch=4, density=0.5,
+                       seed=0, dtype="int8", device=cuda)
+    rng = np.random.default_rng(2)
+    imgs = [rng.standard_normal((32, 32, 3)).astype(np.float32)
+            for _ in range(4)]
+    reqs = [TS.ImageRequest(rid=i, image=im) for i, im in enumerate(imgs)]
+    for k in counters.values():
+        k.launches = k.int8_launches = 0
+    vsconv_halo_kernel.stem_launches = 0
+    srv.serve(reqs)
+    torch.cuda.synchronize()
+    assert {n: k.launches for n, k in counters.items()
+            if k.launches} == per_wave
+    assert {n: k.int8_launches for n, k in counters.items()
+            if k.int8_launches} == per_wave
+    assert vsconv_halo_kernel.stem_launches == 0
+    with torch.inference_mode():
+        ref = TG.net_apply(srv.net, srv.params,
+                           torch.from_numpy(np.stack(imgs)).to(cuda),
+                           sparse=srv.sparse, impl="plain").cpu().numpy()
+    for i, r in enumerate(reqs):
+        assert r.outcome.status == "delivered"
+        assert np.isfinite(r.logits).all()
+        np.testing.assert_array_equal(r.logits, ref[i])

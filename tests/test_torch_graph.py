@@ -201,8 +201,14 @@ def test_init_params_laws_and_determinism(nets):
 
 def test_unported_and_malformed_entries_raise(nets, weights):
     tparams = params_from_numpy(weights, "cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        tg.sparsify(nets[1], tparams, 0.5, dtype="int8")
+    # int8, once unported, now encodes: int8 tiles and a scale per entry
+    # (tests/test_torch_int8_net.py holds them against the reference)
+    q, _ = tg.sparsify(nets[1], tparams, 0.5, dtype="int8")
+    assert q["conv1"].vs.vals.dtype == torch.int8
+    assert q["fc"].scale.shape == (10,)
+    # a dtype the port does not encode still raises
+    with pytest.raises(NotImplementedError, match="float32 or int8"):
+        tg.sparsify(nets[1], tparams, 0.5, dtype=torch.bfloat16)
     # depthwise encoding, once unported, now encodes: the
     # (9, 32) tap matrix with vk 1, one 32-channel strip of 4 stored taps
     dw, wp = tg.sparse_conv_from_dense(
