@@ -14,9 +14,10 @@ repository around it, or when any phase fails.  Phases:
    nvcc per source, started together) and print their register use, the
    registers and spill bytes of each flash instantiation (the bf16 hd-128
    one must not spill), of each of the 18 stem-body and depthwise
-   instantiations and of the 7 int8 instantiations (vsmm, the halo conv's
-   generic body, 5 dw halo; none of these 25 may spill), and the flash
-   kernel's dynamic shared memory per head dim and body.
+   instantiations and of the 13 int8 instantiations (vsmm, the halo and
+   stack convs' generic body, 5 dw halo, 5 dw stack; none of these 31 may
+   spill), and the flash kernel's dynamic shared memory per head dim and
+   body.
 2. Kernel phase.  Each kernel against its plain version on the card,
    within a relative error of 1e-5 of max|y| (1e-2 for the flash kernel
    on bf16 inputs), then timed (see below).  One JSON line per case.  The
@@ -37,10 +38,17 @@ repository around it, or when any phase fails.  Phases:
    else ``"generic"``).
    The int8 branches (`int8_kernel_cases`), each bit-equal to its plain
    version (max|Δ| 0), without and with the epilogue, on int8 tiles and
-   activations quantized on the card: the halo conv at the ResNet-18 stem
-   (the generic body: int8 never takes the stem body), 3x3/s1 at 56,
-   3x3/s2 64->128, 3x3 512->512 at Hout 7 and the Hout < 4 case; vsmm at
-   the 1x1/s2 projection and the FC head; the dw halo at dw1, dw2, dw12.
+   activations quantized on the card: the halo and the stack conv at the
+   ResNet-18 stem (the generic body: int8 never takes the stem body),
+   3x3/s1 at 56, 3x3/s2 64->128, 3x3 512->512 at Hout 7 and the Hout < 4
+   case; vsmm at the 1x1/s2 projection and the FC head; the dw halo and
+   dw stack at dw1, dw2, dw12.
+   The dense-input mode (`skip_cases`): every kernel and branch (f32 and
+   int8 generic bodies and the f32 stem body in both layouts, at 3x3/s1
+   56 px and VGG-16's conv1; both dw kernels at dw2; vsmm at the 1x1/s2
+   projection) with ``skip_zero_inputs=False`` on a post-ReLU input whose
+   first image is all zero: bit-equal to the skip on, equal to plain,
+   both timed (``kernel_ms`` skip off, ``skip_on_ms``).
    The flash kernel (`flash_phase`): Qwen1.5-4B's admission prefill (BH
    160 = 8 x 20 heads, T 512, hd 128, causal) in bf16 and f32, a backfill
    length (T 528), a window of 1024 at T 2048 and hd 240, a q_offset of
@@ -61,7 +69,16 @@ repository around it, or when any phase fails.  Phases:
    - ResNet-18, int8 halo (``CNNServer(..., dtype="int8")``, 16
      requests): 17 vsconv_halo + 4 vsmm per wave, all int8 launches;
    - MobileNetV1, int8 halo (16 requests): 1 vsconv_halo + 13
-     vsconv_dw_halo + 14 vsmm per wave, all int8 launches.
+     vsconv_dw_halo + 14 vsmm per wave, all int8 launches;
+   - ResNet-18, int8 stack (``CNNServer(..., dtype="int8",
+     impl="pallas-stack")``, 8 requests): 17 vsconv_stack + 4 vsmm, all
+     int8 launches;
+   - MobileNetV1, int8 stack (8 requests): 1 vsconv_stack + 13
+     vsconv_dw_stack + 14 vsmm, all int8 launches;
+   - VGG-16, halo (``vscnn-vgg16``, 16 requests): 13 vsconv_halo + 3
+     vsmm per wave (conv1 on the stem body);
+   - VGG-16, int8 stack (8 requests): 13 vsconv_stack + 3 vsmm, all int8
+     launches.
    Each f32 path must run the stem body exactly once a wave (the
    wrappers' ``stem_launches``), each int8 path never (its stems take the
    generic body), and every launch of an int8 path must be of an int8
@@ -77,19 +94,26 @@ repository around it, or when any phase fails.  Phases:
    serves that it is.
 5. Per-forward breakdown.  Every sparse layer of one batch-8 forward of
    each halo path, and every layer that runs a stack kernel in each stack
-   path, is re-run at its real input (collected from the forward; the
+   path (every layer of a stack path without a halo twin), is re-run at
+   its real input (collected from the forward, FC inputs too; the
    residual is a seeded tensor of the right shape): kernel, plain version
    and the PyTorch library call (cuDNN conv — ``groups=C`` on the
    densified depthwise weight for the depthwise layers — or cuBLAS matmul
    on the densified weight, TF32 off, bias included, residual and ReLU
    not) are timed and checked.  The ``kernels`` line sums these per
    kernel over the layers timed above (a stack path's vsmm layers are its
-   halo path's, timed once): ``ms``, ``plain_ms``, ``library_ms`` and
-   ``bound_ms`` are per forward at batch 8 (the JSON file keeps the sums
-   per path), ``launches`` the counts of the serve phases summed over the
-   paths (per path in ``launches_by_path``).  The ``vsconv_halo`` and
-   ``vsconv_stack`` entries carry ``stem_body``: the stem layers' share
-   (launches, ms, plain, bound and library ms).
+   halo twin's, where it has one, timed once): ``ms``, ``plain_ms``,
+   ``library_ms`` and ``bound_ms`` are per forward at batch 8 (the JSON
+   file keeps the sums per path), ``launches`` the counts of the serve
+   phases summed over the paths (per path in ``launches_by_path``).  The
+   ``vsconv_halo`` and ``vsconv_stack`` entries carry ``stem_body``: the
+   stem layers' share (launches, ms, plain, bound and library ms).
+   Then the paper's dense-versus-sparse comparison on VGG-16
+   (`dense_vs_sparse_phase`): device ms of a batch-8 forward summed over
+   its layers at their real inputs, (a) as served (density 0.235, skip
+   on), (b) skip off, (c) density 1.0 on the same kernels, skip off, (d)
+   the dense net on cuDNN/cuBLAS f32; printed on one line before the
+   card's line.
 6. LM serve phase.  The port's ``Server(get_config("qwen1.5-4b"),
    batch=8, capacity=552)`` with bf16 weights from seed 0 at full depth
    and width (40 layers, d_model 2560, vocab 151936) serves 16 seeded
@@ -359,15 +383,33 @@ def _quant_args(timer: Timer, x, quant):
             "_int8", 0.0)
 
 
+def _skip_extra(label: str, kernel, reps: int) -> dict:
+    """For a case run with the input-side skip off (``kernel(skip)`` calls
+    the kernel with ``skip_zero_inputs=skip``): the skip-on output must
+    have the skip-off output's bits; both are timed (device ms)."""
+    import torch
+    y_on, y_off = kernel(True), kernel(False)
+    torch.cuda.synchronize()
+    if not torch.equal(y_on, y_off):
+        raise SystemExit(f"chip_smoke: {label}: skip off differs from skip "
+                         f"on (max abs "
+                         f"{float((y_on - y_off).abs().max()):.3e})")
+    return {"skip_zero_inputs": False, "skip_off_bit_equal_to_on": True,
+            "skip_on_ms": _device_ms(lambda: kernel(True), reps)}
+
+
 def _conv_case(timer: Timer, label: str, x, vs, *, kh: int, stride: int,
                cin_real: int, groups: int = 1, layout: str = "halo",
                bias=None, residual=None, relu: bool = False,
-               quant=None, reps: int = 20) -> dict:
+               quant=None, skip: bool = True, reps: int = 20) -> dict:
     """Time a full conv kernel (``layout`` "halo" or "stack") on NHWC ``x``
     against its plain version and cuDNN on the densified (dequantized)
     weight.  ``x`` may carry zero padding channels beyond ``cin_real``;
     the bound counts only the real ones.  ``quant = (sx, s_w)``: x and the
-    tiles are int8, the kernel's int8 branch runs, bit-equal to plain."""
+    tiles are int8, the kernel's int8 branch runs, bit-equal to plain.
+    ``skip=False``: the kernel runs with the input-side skip off (the row's
+    ``kernel_ms``), checked bit-equal to and timed against the skip on
+    (`_skip_extra`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.sparse_ops import same_pads
@@ -395,9 +437,11 @@ def _conv_case(timer: Timer, label: str, x, vs, *, kh: int, stride: int,
     real = cin_real / c  # the padding channels' share of every stored tile
     stem = K.use_stem_body(c, vs.vk, groups, kh, kh, vs.vn, stride=stride,
                            int8=quant is not None)
+    extra = {} if skip else _skip_extra(
+        label, lambda on: kernel(buf, vs, skip_zero_inputs=on, **kw), reps)
     return timer.run(
         label, name + suffix,
-        lambda: kernel(buf, vs, **kw),
+        lambda: kernel(buf, vs, skip_zero_inputs=skip, **kw),
         lambda: plain(buf, vs, **kw),
         lambda: F.conv2d(x_lib, w_lib, bias, stride, groups=groups),
         flops=round(2 * n * ho * wo * vs.vals.numel() * real),
@@ -405,16 +449,18 @@ def _conv_case(timer: Timer, label: str, x, vs, *, kh: int, stride: int,
         + round(_nbytes(vs.vals) * real)
         + _nbytes(vs.idx, bias, residual, qkw.get("scale")) + 4 * out_numel,
         reps=reps, rtol=rtol, peak_flops=peak,
-        buffer_bytes=_nbytes(buf), body="stem" if stem else "generic")
+        buffer_bytes=_nbytes(buf), body="stem" if stem else "generic",
+        **extra)
 
 
 def _dw_case(timer: Timer, label: str, x, vs, *, stride: int,
              layout: str = "halo", bias=None, residual=None,
-             relu: bool = False, quant=None, reps: int = 20) -> dict:
+             relu: bool = False, quant=None, skip: bool = True,
+             reps: int = 20) -> dict:
     """Time a 3x3 depthwise kernel (``layout`` "halo" or "stack") on NHWC
     ``x`` against its plain version and cuDNN's depthwise conv
-    (``groups=C``) on the densified (dequantized) tap matrix; ``quant`` as
-    `_conv_case`'s."""
+    (``groups=C``) on the densified (dequantized) tap matrix; ``quant`` and
+    ``skip`` as `_conv_case`'s."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.sparse_ops import same_pads
@@ -439,16 +485,18 @@ def _dw_case(timer: Timer, label: str, x, vs, *, stride: int,
     x_lib = F.pad(x_deq, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
     w_lib = (decode(vs).float() * w_scale).reshape(3, 3, 1, c) \
         .permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    extra = {} if skip else _skip_extra(
+        label, lambda on: kernel(buf, vs, skip_zero_inputs=on, **kw), reps)
     return timer.run(
         label, name + suffix,
-        lambda: kernel(buf, vs, **kw),
+        lambda: kernel(buf, vs, skip_zero_inputs=skip, **kw),
         lambda: plain(buf, vs, **kw),
         lambda: F.conv2d(x_lib, w_lib, bias, stride, groups=c),
         flops=2 * n * ho * wo * vs.vals.numel(),
         nbytes=_nbytes(x, vs.vals, vs.idx, bias, residual, qkw.get("scale"))
         + 4 * n * ho * wo * c,
         reps=reps, rtol=rtol, peak_flops=peak,
-        buffer_bytes=_nbytes(buf))
+        buffer_bytes=_nbytes(buf), **extra)
 
 
 def _int_mm(x, w):
@@ -465,11 +513,11 @@ def _int_mm(x, w):
 
 def _mm_case(timer: Timer, label: str, x, vs, *, n_real: int, bias=None,
              residual=None, relu: bool = False, quant=None,
-             reps: int = 20) -> dict:
+             skip: bool = True, reps: int = 20) -> dict:
     """Time vsmm on (M, K) ``x`` against its plain version and cuBLAS on the
     densified (dequantized) weight.  Output columns past ``n_real`` are the
     zero padding of a remainder strip; the bound counts only the real
-    ones.  ``quant`` as `_conv_case`'s; int8 rows also time
+    ones.  ``quant`` and ``skip`` as `_conv_case`'s; int8 rows also time
     ``torch._int_mm`` on the densified int8 weight where it takes the
     shape (``int_mm_ms``; else null and ``int_mm_refused``)."""
     import torch
@@ -481,16 +529,18 @@ def _mm_case(timer: Timer, label: str, x, vs, *, n_real: int, bias=None,
     w_lib = decode(vs).float() * w_scale
     lib = ((lambda: torch.addmm(bias, x_deq, w_lib)) if bias is not None
            else (lambda: torch.mm(x_deq, w_lib)))
-    extra = {}
+    extra = {} if skip else _skip_extra(
+        label, lambda on: vsmm_kernel(x, vs, skip_zero_inputs=on, **kw),
+        reps)
     if quant is not None:
         fn, refused = _int_mm(x, decode(vs))
-        extra = {"int_mm_ms": None if fn is None else _device_ms(fn, reps),
-                 "int_mm_refused": refused}
+        extra.update(int_mm_ms=None if fn is None else _device_ms(fn, reps),
+                     int_mm_refused=refused)
     m, n_enc = x.shape[0], vs.shape[1]
     real = n_real / n_enc  # balanced pruning: every strip holds S tiles
     return timer.run(
         label, "vsmm" + suffix,
-        lambda: vsmm_kernel(x, vs, **kw),
+        lambda: vsmm_kernel(x, vs, skip_zero_inputs=skip, **kw),
         lambda: vsmm_plain(x, vs, **kw),
         lib,
         flops=round(2 * m * vs.vals.numel() * real),
@@ -579,14 +629,15 @@ def kernel_phase(timer: Timer, dev) -> None:
             bias=torch.randn(n_out, generator=gen).to(dev),
             residual=torch.randn(m, n_out, generator=gen).to(dev), relu=True)
     int8_kernel_cases(timer, dev, gen, act, epilogue)
+    skip_cases(timer, dev, gen, act)
 
 
 def int8_kernel_cases(timer: Timer, dev, gen, act, epilogue) -> None:
     """The int8 branch of each kernel on the main int8 paths, at the f32
-    cases' 224 px geometries, without and with the epilogue: int8 tiles
-    and activations quantized on the card as the int8 path does, each
-    kernel bit-equal to its plain version.  The stems run the generic
-    body in int8."""
+    cases' 224 px geometries, in both layouts, without and with the
+    epilogue: int8 tiles and activations quantized on the card as the int8
+    path does, each kernel bit-equal to its plain version.  The stems run
+    the generic body in int8."""
     import torch
     from repro_torch.models.graph import quantize_activations_int8
 
@@ -605,19 +656,22 @@ def int8_kernel_cases(timer: Timer, dev, gen, act, epilogue) -> None:
             act(BATCH, h, h, cin, zero_channels=zc))
         epi = epilogue(BATCH, -(-h // s), cout)
         kw = dict(kh=kh, stride=s, cin_real=cin - zc, quant=(sx, s_w))
-        _conv_case(timer, f"int8 halo {label}", xq, vs, **kw)
-        _conv_case(timer, f"int8 halo {label} +bias+residual+relu", xq, vs,
-                   **kw, **epi)
+        for layout in ("halo", "stack"):
+            _conv_case(timer, f"int8 {layout} {label}", xq, vs, **kw,
+                       layout=layout)
+            _conv_case(timer, f"int8 {layout} {label} +bias+residual+relu",
+                       xq, vs, **kw, layout=layout, **epi)
     for label, h, c, s in [("dw1 112px C32 s1", 112, 32, 1),
                            ("dw2 112->56px C64 s2", 112, 64, 2),
                            ("dw12 14->7px C512 s2", 14, 512, 2)]:
         vs, s_w = _int8_weight(gen, 3, 1, c, 1, min(c, 128), DW_DENSITY, dev)
         xq, sx = quantize_activations_int8(act(BATCH, h, h, c))
         epi = epilogue(BATCH, -(-h // s), c)
-        _dw_case(timer, f"int8 halo {label}", xq, vs, stride=s,
-                 quant=(sx, s_w))
-        _dw_case(timer, f"int8 halo {label} +bias+residual+relu", xq, vs,
-                 stride=s, quant=(sx, s_w), **epi)
+        for layout in ("halo", "stack"):
+            _dw_case(timer, f"int8 {layout} {label}", xq, vs, stride=s,
+                     quant=(sx, s_w), layout=layout)
+            _dw_case(timer, f"int8 {layout} {label} +bias+residual+relu", xq,
+                     vs, stride=s, quant=(sx, s_w), layout=layout, **epi)
     for label, m, k, n_out, n_real in [
             ("1x1/s2 projection 56px 64->128", BATCH * 28 * 28, 64, 128, 128),
             ("FC 512->1000 (1024, NB 8)", BATCH, 512, 1024, 1000)]:
@@ -630,6 +684,70 @@ def int8_kernel_cases(timer: Timer, dev, gen, act, epilogue) -> None:
                  bias=torch.randn(n_out, generator=gen).to(dev),
                  residual=torch.randn(m, n_out, generator=gen).to(dev),
                  relu=True)
+
+
+def skip_cases(timer: Timer, dev, gen, act) -> None:
+    """``skip_zero_inputs=False`` in every CNN kernel and branch (f32 and
+    int8 generic bodies, the f32 stem body, both layouts, the depthwise
+    kernels, vsmm), at main-path geometries with the fused epilogue: the
+    input is post-ReLU and its first image (vsmm: its first 32 rows) is
+    all zero, so the skip-on kernel skips whole tiles.  The skip-off
+    output must have the skip-on bits (`_skip_extra`) and equal the plain
+    version (bit for bit in int8); both are timed."""
+    import torch
+    from repro_torch.models.graph import quantize_activations_int8
+
+    def relu_input(*shape, zero_channels: int = 0):
+        x = act(*shape, zero_channels=zero_channels)
+        x[0 if len(shape) > 2 else slice(0, 32)] = 0
+        return x
+
+    def epi(shape, cout):
+        return dict(bias=torch.randn(cout, generator=gen).to(dev),
+                    residual=torch.randn(*shape, generator=gen).to(dev),
+                    relu=True)
+
+    for int8 in (False, True):
+        tag = "int8 " if int8 else ""
+
+        def prep(x, vs_f32, args):
+            """(x, weight, quant) for the branch."""
+            if not int8:
+                return x, vs_f32, None
+            vs, s_w = _int8_weight(gen, *args, dev)
+            xq, sx = quantize_activations_int8(x)
+            return xq, vs, (sx, s_w)
+
+        conv_cases = [  # label, H, cin, cout, kh, stride, vk, vn, density
+            ("3x3/s1 56px 64->64", 56, 64, 64, 3, 1, 32, 64, DENSITY),
+            ("VGG-16 conv1 3x3/s1 224px cin 3->8 ->64", 224, 8, 64, 3, 1, 8,
+             64, 1.0),
+        ]
+        for label, h, cin, cout, kh, s, vk, vn, d in conv_cases:
+            args = (kh, cin, cout, vk, vn, d)
+            zc = 5 if cin == 8 else 0
+            x, vs, quant = prep(relu_input(BATCH, h, h, cin, zero_channels=zc),
+                                _sparse_weight(gen, *args, dev), args)
+            ho = -(-h // s)
+            for layout in ("halo", "stack"):
+                _conv_case(timer, f"skip off {tag}{layout} {label} "
+                           f"+bias+residual+relu", x, vs, kh=kh, stride=s,
+                           cin_real=cin - zc, layout=layout, quant=quant,
+                           skip=False, **epi((BATCH, ho, ho, cout), cout))
+        args = (3, 1, 64, 1, 64, DW_DENSITY)
+        x, vs, quant = prep(relu_input(BATCH, 112, 112, 64),
+                            _sparse_weight(gen, *args, dev), args)
+        for layout in ("halo", "stack"):
+            _dw_case(timer, f"skip off {tag}{layout} dw2 112->56px C64 s2 "
+                     f"+bias+residual+relu", x, vs, stride=2, layout=layout,
+                     quant=quant, skip=False, **epi((BATCH, 56, 56, 64), 64))
+        m = BATCH * 28 * 28
+        args = (1, 64, 128, 32, 128, DENSITY)
+        x, vs, quant = prep(relu_input(m, 64),
+                            _sparse_weight(gen, *args, dev), args)
+        _mm_case(timer, f"skip off {tag}1x1/s2 projection 56px 64->128 "
+                 f"+bias+residual+relu", x, vs, n_real=128, quant=quant,
+                 skip=False, **epi((m, 128), 128))
 
 
 # label, BH, Tq, Tk, hd, causal, window, q_offset, dtype
@@ -812,6 +930,18 @@ PATHS = {
                             "vsmm": 14}, 1, False),
     "resnet18-stack": ("vscnn-resnet18", "pallas-stack", None, BATCH,
                        {"vsconv_stack": 17, "vsmm": 4}, 1, False),
+    "resnet18-int8-stack": ("vscnn-resnet18", "pallas-stack", "int8", BATCH,
+                            {"vsconv_stack_int8": 17, "vsmm_int8": 4}, 0,
+                            False),
+    "mobilenet_v1-int8-stack": ("vscnn-mobilenet-v1", "pallas-stack", "int8",
+                                BATCH, {"vsconv_stack_int8": 1,
+                                        "vsconv_dw_stack_int8": 13,
+                                        "vsmm_int8": 14}, 0, False),
+    "vgg16-halo": ("vscnn-vgg16", "auto", None, 16,
+                   {"vsconv_halo": 13, "vsmm": 3}, 1, True),
+    "vgg16-int8-stack": ("vscnn-vgg16", "pallas-stack", "int8", BATCH,
+                         {"vsconv_stack_int8": 13, "vsmm_int8": 3}, 0,
+                         False),
 }
 
 
@@ -1278,27 +1408,52 @@ def prefill_breakdown_phase(srv, flash_row: dict, dev) -> dict:
     return out
 
 
+def _layer_inputs(net, params, sparse, x, impl: str) -> dict:
+    """{layer name: its input} over one forward of ``x``: each conv's
+    NHWC input (``net_apply``'s ``collect``) and each FC's (N, din) input
+    (recorded around `apply_sparse_fc`)."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.models import graph as G
+
+    rec: list = []
+    fc_in: list = []
+    fc_apply = G.apply_sparse_fc
+
+    def record(x, *args, **kw):
+        fc_in.append(x)
+        return fc_apply(x, *args, **kw)
+
+    with torch.inference_mode(), \
+            mock.patch.object(G, "apply_sparse_fc", record):
+        G.net_apply(net, params, x, sparse=sparse, impl=impl, collect=rec)
+    fcs = [l.name for l in net.layers if isinstance(l, G.FC)]
+    if len(fc_in) != len(fcs):
+        raise SystemExit(f"chip_smoke: recorded {len(fc_in)} FC inputs for "
+                         f"{fcs}")
+    return {**{name: xin for name, xin, *_ in rec}, **dict(zip(fcs, fc_in))}
+
+
 def forward_phase(timer: Timer, path: str, srv, images, dev, *,
                   stack_layers_only: bool = False) -> None:
     """Every sparse layer of one batch-8 forward of the path at its real
     input (``stack_layers_only``: only the layers that run a stack
-    kernel; the rest are the halo path's).  On an int8 path each layer's
-    input is quantized as the path does it (its scale times the layer's
-    weight scales is the kernel's combined scale)."""
+    kernel, where the path's halo twin times the rest).  On an int8 path
+    each layer's input is quantized as the path does it (its scale times
+    the layer's weight scales is the kernel's combined scale).  A conv's
+    residual is a seeded tensor of the output's shape."""
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch.models.graph import (Conv, FC, net_apply,
+    from repro_torch.models.graph import (Conv, FC,
                                           quantize_activations_int8)
 
     gen = torch.Generator().manual_seed(1)
     layout = "stack" if srv.backend.apply.impl == "pallas-stack" else "halo"
     x = torch.from_numpy(np.stack(images[:BATCH])).to(dev)
-    rec: list = []
-    with torch.inference_mode():
-        net_apply(srv.net, srv.params, x, sparse=srv.sparse,
-                  impl=srv.backend.apply.impl, collect=rec)
-    inputs = {name: xin for name, xin, *_ in rec}
+    inputs = _layer_inputs(srv.net, srv.params, srv.sparse, x,
+                           srv.backend.apply.impl)
 
     def quantized(xin, spec):
         """(layer input, quant) as the path's kernel sees it."""
@@ -1345,13 +1500,112 @@ def forward_phase(timer: Timer, path: str, srv, images, dev, *,
             spec = srv.sparse[l.name]
             n_enc = spec.vs.shape[1]
             bias = F.pad(spec.bias, (0, n_enc - spec.bias.shape[0]))
-            # the GAP output: dense, non-negative, one row per image
-            xin, quant = quantized(
-                torch.rand(BATCH, l.din, generator=gen).to(dev), spec)
+            xin, quant = quantized(inputs[l.name], spec)
             row = _mm_case(timer, label, xin, spec.vs,
                            n_real=spec.bias.shape[0], bias=bias, relu=l.relu,
                            quant=quant)
         timer.add(path, row)
+
+
+def dense_vs_sparse_phase(srv, images, dev) -> dict:
+    """The paper's comparison on this card: VGG-16's device ms for one
+    batch-8, 224 px forward, summed over its 13 convs and 3 FCs, each at
+    its real input, each call timed alone (`_device_ms`):
+
+    (a) density 0.235 (the served weights) with the input-side skip on:
+        the served forward;
+    (b) the same with ``skip_zero_inputs=False``: the same bits per layer;
+    (c) density 1.0 with the skip off: the dense network on the same
+        kernels, at its own activations;
+    (d) the dense network through cuDNN convs and cuBLAS matmuls, f32,
+        TF32 off, bias included (the ReLUs, fused into the kernels, and
+        the pools are in none of the four).
+
+    Each sparse call is the dispatch (`kernels.ops`: the halo buffer's
+    pad, then the kernel); each cuDNN call pads SAME itself.  Per layer,
+    (c) must equal relu?(d) within 1e-5 relative."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.sparse_ops import same_pads
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.graph import FC, Conv
+
+    cfg, net, params = srv.cfg, srv.net, srv.params
+    x = torch.from_numpy(np.stack(images[:BATCH])).to(dev)
+    dense_sparse, _ = net.sparsify(params, 1.0, vk=cfg.vk, vn=cfg.vn)
+    layers = [l for l in net.layers if isinstance(l, (Conv, FC))]
+
+    def sparse_calls(sparse, inputs, skip: bool) -> dict:
+        calls = {}
+        for l in layers:
+            spec, xin = sparse[l.name], inputs[l.name]
+            if isinstance(l, Conv):
+                xin = F.pad(xin, (0, spec.cin_pad)) if spec.cin_pad else xin
+                calls[l.name] = lambda xin=xin, spec=spec, l=l: kops.vsconv(
+                    xin, spec.vs, kh=l.kh, kw=l.kw, stride=l.stride,
+                    bias=spec.bias, fuse_relu=l.relu, impl="halo",
+                    skip_zero_inputs=skip)
+            else:
+                n_enc = spec.vs.shape[1]
+                bias = F.pad(spec.bias, (0, n_enc - spec.bias.shape[0]))
+                calls[l.name] = lambda xin=xin, spec=spec, l=l, b=bias: \
+                    kops.vsmm(xin, spec.vs, bias=b, fuse_relu=l.relu,
+                              skip_zero_inputs=skip)
+        return calls
+
+    def library_calls(inputs) -> dict:
+        calls = {}
+        for l in layers:
+            p, xin = params[l.name], inputs[l.name]
+            if isinstance(l, Conv):
+                _, pt, pb = same_pads(xin.shape[1], l.kh, l.stride)
+                _, pl, pr = same_pads(xin.shape[2], l.kw, l.stride)
+                xl = F.pad(xin, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
+                wl = p["w"].permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                calls[l.name] = lambda xl=xl, wl=wl, b=p["b"], s=l.stride: \
+                    F.conv2d(xl, wl, b, s)
+            else:
+                calls[l.name] = lambda xin=xin, w=p["w"], b=p["b"]: \
+                    torch.addmm(b, xin, w)
+        return calls
+
+    sparse_in = _layer_inputs(net, params, srv.sparse, x, "auto")
+    dense_in = _layer_inputs(net, params, dense_sparse, x, "auto")
+    variants = {"a": sparse_calls(srv.sparse, sparse_in, True),
+                "b": sparse_calls(srv.sparse, sparse_in, False),
+                "c": sparse_calls(dense_sparse, dense_in, False),
+                "d": library_calls(dense_in)}
+    per_layer = {}
+    for l in layers:
+        ys = {k: v[l.name]() for k, v in variants.items()}
+        torch.cuda.synchronize()
+        if not torch.equal(ys["a"], ys["b"]):
+            raise SystemExit(f"chip_smoke: VGG-16 {l.name}: skip off "
+                             f"differs from skip on")
+        ref = ys["d"].permute(0, 2, 3, 1) if ys["d"].dim() == 4 else ys["d"]
+        ref = torch.relu(ref) if l.relu else ref
+        _check(f"VGG-16 {l.name} density 1.0 kernel vs cuDNN/cuBLAS",
+               ys["c"][..., :ref.shape[-1]], ref)
+        per_layer[l.name] = {k: _device_ms(v[l.name], 5)
+                             for k, v in variants.items()}
+    sums = {k: sum(t[k] for t in per_layer.values()) for k in variants}
+    out = {"phase": "dense_vs_sparse", "config": cfg.name, "batch": BATCH,
+           "image_size": SIZE, "density": srv.density,
+           "a_sparse_skip_on_ms": sums["a"],
+           "b_sparse_skip_off_ms": sums["b"],
+           "c_dense_weights_same_kernels_skip_off_ms": sums["c"],
+           "d_dense_cudnn_cublas_f32_ms": sums["d"],
+           "c_over_a": sums["c"] / sums["a"],
+           "b_over_a": sums["b"] / sums["a"],
+           "d_over_a": sums["d"] / sums["a"],
+           "paper_vgg16_speedup_over_dense": 1.93,
+           "paper_note": "the paper's 1.93x is its own 168-PE array's "
+                         "cycle count (density 0.235 vs dense), not this "
+                         "card",
+           "per_layer_ms": per_layer}
+    return out
 
 
 # kernel -> (CUDA source, the Pallas function it replaces); a "_int8"
@@ -1368,18 +1622,18 @@ SOURCES = {
     "vsconv_dw_stack": ("src/repro_torch/kernels/csrc/vsconv_dw.cu",
                         "src/repro/kernels/vsconv.py:1162"),
 }
-SOURCES.update({f"{k}_int8": SOURCES[k]
-                for k in ("vsconv_halo", "vsmm", "vsconv_dw_halo")})
+SOURCES.update({f"{k}_int8": SOURCES[k] for k in list(SOURCES)})
 
 
 def int8_instantiations(logs: dict) -> list:
     """One row per int8 kernel instantiation (``vsmm_int8_kernel``,
-    ``vsconv_halo_int8_kernel``, ``vsconv_dw_halo_int8_kernel`` per VC and
-    VEC) with its registers and spill bytes."""
+    ``vsconv_{halo,stack}_int8_kernel``, ``vsconv_dw_{halo,stack}_int8_
+    kernel`` per VC and VEC) with its registers and spill bytes."""
     rows = []
     for source in ("vsmm", "vsconv", "vsconv_dw"):
         for name, use in ptxas_usage(logs[source]).items():
-            m = re.search(r"(vsmm|vsconv_halo|vsconv_dw_halo)_int8_kernel"
+            m = re.search(r"(vsmm|vsconv_halo|vsconv_stack|vsconv_dw_halo|"
+                          r"vsconv_dw_stack)_int8_kernel"
                           r"(?:ILi(\d+)ELi(\d+)E)?", name)
             if m:
                 row = {"kernel": f"{m.group(1)}_int8"}
@@ -1449,10 +1703,10 @@ def main() -> int:
         print(f"built {r}")
     spilled = [r for r in int8_rows if r["spill_stores"]
                or r["spill_loads"] or r["spill_stores"] is None]
-    if len(int8_rows) != 7 or spilled:
+    if len(int8_rows) != 13 or spilled:
         print(f"chip_smoke: {len(int8_rows)} int8 instantiations (expected "
-              f"7: vsmm, the halo conv, 5 dw halo), spilling or unread: "
-              f"{spilled}", file=sys.stderr)
+              f"13: vsmm, the halo and stack convs, 5 dw halo, 5 dw stack), "
+              f"spilling or unread: {spilled}", file=sys.stderr)
         return 1
     lib = _build.load("flash_fwd")
     smem = {body: {hd: lib.flash_fwd_smem_bytes(hd, int(body == "mma"))
@@ -1478,7 +1732,10 @@ def main() -> int:
         for path, s in served.items() if s["warm_s"] is not None}
     for path, s in served.items():
         forward_phase(timer, path, s["srv"], s["images"], dev,
-                      stack_layers_only=path.endswith("-stack"))
+                      stack_layers_only=path.replace("-stack", "-halo")
+                      in PATHS and path.endswith("-stack"))
+    vgg = served["vgg16-halo"]
+    dense_vs_sparse = dense_vs_sparse_phase(vgg["srv"], vgg["images"], dev)
     cnn_launches = {path: s["launches"] for path, s in served.items()}
     stem_launches = {path: s["stem_launches"] for path, s in served.items()}
     cnn_summaries = {path: s["summary"] for path, s in served.items()}
@@ -1554,7 +1811,10 @@ def main() -> int:
              "flash": flash_rows,
              "lm": {"serve": lm["summary"], "check": lm_check,
                     "warm": lm_warm, "prefill_breakdown": breakdown},
-             "profile": profiled}, indent=1))
+             "profile": profiled, "dense_vs_sparse": dense_vs_sparse},
+            indent=1))
+    print(json.dumps({k: v for k, v in dense_vs_sparse.items()
+                      if k != "per_layer_ms"}))
     print(smi)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

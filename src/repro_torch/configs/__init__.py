@@ -2,21 +2,22 @@
 
 Two registries share one `get_config` namespace, as the reference's do:
 the LM `ArchConfig`s (`REGISTRY`, `list_archs`: Qwen1.5-4B so far) and the
-CNN configs (`CNN_REGISTRY`, `list_cnn_archs`: ResNet-18, MobileNetV1).
-VGG-16, ResNet-34/50 and the other LM families join as their slices land.
+CNN configs (`CNN_REGISTRY`, `list_cnn_archs`: VGG-16, ResNet-18,
+MobileNetV1).  ResNet-34/50 and the other LM families join as their slices
+land.
 """
 from __future__ import annotations
 
 from typing import Any
 
-from . import qwen15_4b, vscnn_mobilenet_v1, vscnn_resnet18
+from . import qwen15_4b, vscnn_mobilenet_v1, vscnn_resnet18, vscnn_vgg16
 
 __all__ = ["REGISTRY", "CNN_REGISTRY", "get_config", "list_archs",
            "list_cnn_archs"]
 
 REGISTRY = {m.CONFIG.name: m.CONFIG for m in [qwen15_4b]}
 
-CNN_REGISTRY = {m.CONFIG.name: m.CONFIG for m in [vscnn_resnet18,
+CNN_REGISTRY = {m.CONFIG.name: m.CONFIG for m in [vscnn_vgg16, vscnn_resnet18,
                                                  vscnn_mobilenet_v1]}
 
 

@@ -78,13 +78,16 @@ def vs_matmul(
     scale: torch.Tensor | None = None,
     fuse_relu: bool = False,
     impl: str = "plain",
+    skip_zero_inputs: bool = True,
 ) -> torch.Tensor:
     """x (..., K) @ sparse W (K, N) -> (..., N).
 
     FLOPs = density * dense FLOPs (the weight-side skip).  ``bias`` (N,),
     ``residual`` (..., N) and ``fuse_relu`` run the epilogue in f32 after
     the accumulation (residual before the ReLU — the ResNet shortcut); the
-    kernel path fuses it and also skips all-zero activation tiles.
+    kernel path fuses it and also skips all-zero activation tiles unless
+    ``skip_zero_inputs`` is False (the paper's dense-input mode: the same
+    output).  The plain path never skips.
 
     INT8 (int8 ``x`` and ``vs.vals``, ``scale`` (N,)): each stored step's
     partial is an exact integer, added into the f32 accumulator in stored
@@ -100,7 +103,7 @@ def vs_matmul(
         from repro_torch.kernels import ops as kops  # lazy: import cycle
 
         y = kops.vsmm(x2, vs, bias=bias, residual=res2, scale=scale,
-                      fuse_relu=fuse_relu)
+                      fuse_relu=fuse_relu, skip_zero_inputs=skip_zero_inputs)
     else:
         y = vsmm_plain(x2, vs, bias=bias, residual=res2, scale=scale,
                        fuse_relu=fuse_relu)

@@ -6,9 +6,10 @@
 // stored order.  Step s stages the stored (vk x vn) weight tile and the
 // (kRows x vk) activation tile that idx[j, s] selects in shared memory,
 // votes block-wide whether the activation tile has a nonzero (the paper's
-// input-side skip: an all-zero tile issues no FMAs), and accumulates in
-// f32 registers.  The epilogue is the reference's: x scale, + bias,
-// + residual, ReLU, masked at the ragged row tail.
+// input-side skip: an all-zero tile issues no FMAs; the kernels' `skip`
+// argument 0 turns it off), and accumulates in f32 registers.  The
+// epilogue is the reference's: x scale, + bias, + residual, ReLU, masked
+// at the ragged row tail.
 //
 // Thread layout: 256 threads = 8 warps.  Thread (ty = warp, tx = lane)
 // owns rows ty + 8*i (i < 4) and columns tx + 32*c (c < 4) of the tile, so

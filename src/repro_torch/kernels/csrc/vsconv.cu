@@ -39,12 +39,19 @@
 // offset once per step.  The ids are decoded as given, in stored
 // (cin-major) order.  Zero-skip and epilogue are those of vsmm
 // (vs_tile.cuh), the residual being the output-shaped ResNet shortcut.
-// The halo kernel's generic body has an int8 branch as vsmm's
-// (vsconv_halo_int8_kernel; vs_tile.cuh, Step<int8_t>): int8 halo buffer
-// and tiles, each step's partial exact in int32, added into the f32
-// accumulator in stored order.  Int8 convs never take the stem body (it
-// stages f32 windows; the wrapper's `use_stem_body` says so), and the
-// stack kernel has no int8 branch yet.
+// Both kernels' generic body has an int8 branch as vsmm's
+// (vsconv_halo_int8_kernel, vsconv_stack_int8_kernel; vs_tile.cuh,
+// Step<int8_t>): int8 buffer and tiles, each step's partial exact in
+// int32, added into the f32 accumulator in stored order.  Pixel bases and
+// tap offsets stay in elements (bytes, for int8); every row offset is a
+// multiple of vk, so int8 rows load as 32-bit words where vk % 4 == 0 and
+// the buffer is 4-byte aligned.  Int8 convs never take the stem body (it
+// stages f32 windows; the wrapper's `use_stem_body` says so).
+//
+// Every entry takes `skip`: 0 is the reference's skip_zero_inputs=False
+// (the paper's dense-input mode): no vote, every stored tile's MAC runs.
+// A skipped tile would add exact zeros, so the output has the same bits
+// with the skip on or off.
 //
 // Stem body (ungrouped, vk 8, C = CB*vk of 8 or 16 input channels, vn 32
 // or 64, kh*kw > 1: the CNN stems after cin padding 3 -> 8).  The generic
@@ -68,7 +75,7 @@
 // between stored tiles (two per chunk).  The input-side skip is one vote
 // per (block window, cin tile), taken after staging: a stored tile whose
 // cin tile is zero over the whole window is skipped (it would add exact
-// zeros).  The ids are decoded as given, in
+// zeros); with `skip` 0 no vote is taken.  The ids are decoded as given, in
 // stored order.  The epilogue is vs::epilogue's, masked at the tile's
 // right and bottom edges.
 //
@@ -127,7 +134,8 @@ __device__ __forceinline__ void conv_steps(
     const T* __restrict__ x, const T* __restrict__ vals,
     const int* __restrict__ idx, const long long* pix, int rows_valid, int j,
     int s_steps, int vk, int vn, typename vs::Step<T>::Word* ws,
-    typename vs::Step<T>::Word* xs, bool words, StepOffset step_offset) {
+    typename vs::Step<T>::Word* xs, int skip, bool words,
+    StepOffset step_offset) {
   using Step = vs::Step<T>;
   for (int s = 0; s < s_steps; ++s) {
     const long long tile = static_cast<long long>(j) * s_steps + s;
@@ -136,7 +144,7 @@ __device__ __forceinline__ void conv_steps(
     Step::load_weights(ws, vals, tile, vk, vn);
     const int nonzero = Step::load_acts(
         xs, vk, rows_valid, words, [&](int r) { return x + pix[r] + off; });
-    if (__syncthreads_or(nonzero)) Step::mac(acc, xs, ws, vk, vn);
+    if (__syncthreads_or(nonzero || !skip)) Step::mac(acc, xs, ws, vk, vn);
   }
 }
 
@@ -149,7 +157,7 @@ __device__ __forceinline__ void halo_body(
     const float* __restrict__ bias, const float* __restrict__ residual,
     float* __restrict__ out, int n_img, int rows, int bw, int cb, int h_out,
     int w_out, int kw, int stride, int dilation, int nb, int s_steps, int vk,
-    int vn, int cbg, int spg, int relu, bool words) {
+    int vn, int cbg, int spg, int relu, int skip, bool words) {
   using Word = typename vs::Step<T>::Word;
   extern __shared__ __align__(16) unsigned char halo_smem[];
   __shared__ long long pix[vs::kRows];  // padded-input offset of each pixel
@@ -169,7 +177,7 @@ __device__ __forceinline__ void halo_body(
   const int group_base = (j / spg) * cbg;
   float acc[vs::kRowsPerThread][vs::kColsPerThread] = {};
   conv_steps<T>(acc, xh, vals, idx, pix, rows_valid, j, s_steps, vk, vn, ws,
-                xs, words, [=](int t) {
+                xs, skip, words, [=](int t) {
                   int ky, kx, ct;
                   dec(t, group_base, ky, kx, ct);
                   return (static_cast<long long>(ky) * dilation * bw +
@@ -186,10 +194,10 @@ __device__ __forceinline__ void halo_body(
       const float *__restrict__ bias, const float *__restrict__ residual,    \
       float *__restrict__ out, int n_img, int d0, int bw, int cb, int h_out, \
       int w_out, int kw, int stride, int dilation, int nb, int s_steps,      \
-      int vk, int vn, int cbg, int spg, int relu
+      int vk, int vn, int cbg, int spg, int relu, int skip
 #define VSCONV_ARGS                                                          \
   x, vals, idx, scale, bias, residual, out, n_img, d0, bw, cb, h_out, w_out, \
-      kw, stride, dilation, nb, s_steps, vk, vn, cbg, spg, relu
+      kw, stride, dilation, nb, s_steps, vk, vn, cbg, spg, relu, skip
 
 __global__ void __launch_bounds__(vs::kThreads)
     vsconv_halo_kernel(VSCONV_PARAMS(float)) {
@@ -201,16 +209,22 @@ __global__ void __launch_bounds__(vs::kThreads)
   halo_body<int8_t>(VSCONV_ARGS, words != 0);
 }
 
-__global__ void __launch_bounds__(vs::kThreads) vsconv_stack_kernel(
-    const float* __restrict__ xt, const float* __restrict__ vals,
+// The stack kernel's generic body for element type T (float, or int8_t:
+// the int8 branch).
+template <class T>
+__device__ __forceinline__ void stack_body(
+    const T* __restrict__ xt, const T* __restrict__ vals,
     const int* __restrict__ idx, const float* __restrict__ scale,
     const float* __restrict__ bias, const float* __restrict__ residual,
     float* __restrict__ out, int n_img, int planes, int bw, int cb,
     int h_out, int w_out, int kw, int stride, int dilation, int nb,
-    int s_steps, int vk, int vn, int cbg, int spg, int relu) {
+    int s_steps, int vk, int vn, int cbg, int spg, int relu, int skip,
+    bool words) {
+  using Word = typename vs::Step<T>::Word;
   extern __shared__ __align__(16) unsigned char stack_smem[];
   __shared__ long long pix[vs::kRows];  // stack offset of each pixel
-  float* ws = reinterpret_cast<float*>(stack_smem);
+  Word* ws = reinterpret_cast<Word*>(stack_smem);
+  Word* xs = ws + vs::Step<T>::weight_words(vk, vn);
   const int j = blockIdx.y;
   const long long c = static_cast<long long>(cb) * vk;  // channels
   const long long p_total = static_cast<long long>(n_img) * h_out * w_out;
@@ -224,19 +238,28 @@ __global__ void __launch_bounds__(vs::kThreads) vsconv_stack_kernel(
   const TapDecode dec{cbg, kw};
   const int group_base = (j / spg) * cbg;
   float acc[vs::kRowsPerThread][vs::kColsPerThread] = {};
-  conv_steps<float>(acc, xt, vals, idx, pix, rows_valid, j, s_steps, vk, vn,
-                    ws, ws + vk * vn, false, [=](int t) {
-                      int ky, kx, ct;
-                      dec(t, group_base, ky, kx, ct);
-                      const int plane =
-                          ky * stride + (kx * dilation) % stride;
-                      const int col = (kx * dilation) / stride;
-                      return (static_cast<long long>(plane) * h_out * bw +
-                              col) * c +
-                             static_cast<long long>(ct) * vk;
-                    });
+  conv_steps<T>(acc, xt, vals, idx, pix, rows_valid, j, s_steps, vk, vn, ws,
+                xs, skip, words, [=](int t) {
+                  int ky, kx, ct;
+                  dec(t, group_base, ky, kx, ct);
+                  const int plane = ky * stride + (kx * dilation) % stride;
+                  const int col = (kx * dilation) / stride;
+                  return (static_cast<long long>(plane) * h_out * bw + col) *
+                             c +
+                         static_cast<long long>(ct) * vk;
+                });
   vs::epilogue(acc, out, p0, rows_valid, nb * vn, j * vn, vn, scale, bias,
                residual, relu);
+}
+
+__global__ void __launch_bounds__(vs::kThreads)
+    vsconv_stack_kernel(VSCONV_PARAMS(float)) {
+  stack_body<float>(VSCONV_ARGS, false);
+}
+
+__global__ void __launch_bounds__(vs::kThreads)
+    vsconv_stack_int8_kernel(VSCONV_PARAMS(int8_t), int words) {
+  stack_body<int8_t>(VSCONV_ARGS, words != 0);
 }
 
 template <class T, class Kernel, class... Extra>
@@ -333,7 +356,7 @@ __device__ __forceinline__ void body(
     const float* __restrict__ bias, const float* __restrict__ residual,
     float* __restrict__ out, int d0, int bw, int h_out, int w_out, int kh,
     int kw, int stride, int dilation, int nb, int s_steps, int cbg,
-    int aligned, int relu) {
+    int aligned, int relu, int skip) {
   constexpr int VN = 32 * NC;
   constexpr int CPL = VN / 8;  // output channels a lane
   constexpr int P = kTW / 2;   // output pixels a lane
@@ -443,7 +466,9 @@ __device__ __forceinline__ void body(
       vs::cp_async_wait<0>();
     }
     __syncthreads();  // the window, this chunk and toff/tct are in place
-    if (chunk == 0) alive = window_votes<C>(win, rows, row_floats, pw);
+    if (chunk == 0) {
+      alive = skip ? window_votes<C>(win, rows, row_floats, pw) : ~0;
+    }
     const float* wt = wbuf + (chunk & 1) * kChunkFloats + li;
     const int t_end = min(s_steps, (chunk + 1) * kChunk);
     for (int t = chunk * kChunk; t < t_end; ++t, wt += kVK * VN) {
@@ -497,10 +522,10 @@ __device__ __forceinline__ void body(
       const float *__restrict__ bias, const float *__restrict__ residual,   \
       float *__restrict__ out, int d0, int bw, int h_out, int w_out, int kh, \
       int kw, int stride, int dilation, int nb, int s_steps, int cbg,       \
-      int aligned, int relu
+      int aligned, int relu, int skip
 #define VSCONV_STEM_ARGS                                                    \
   x, vals, idx, scale, bias, residual, out, d0, bw, h_out, w_out, kh, kw,   \
-      stride, dilation, nb, s_steps, cbg, aligned, relu
+      stride, dilation, nb, s_steps, cbg, aligned, relu, skip
 
 template <int NC, int C>
 __global__ void __launch_bounds__(stem::kThreads, 4)
@@ -575,6 +600,14 @@ extern "C" int vsconv_stack_launch(VSCONV_PARAMS(float), void* stream) {
   return launch<float>(vsconv_stack_kernel, stream, VSCONV_ARGS);
 }
 
+// The int8 branch of the stack kernel: xt and vals int8, scale given, as
+// the halo kernel's.
+extern "C" int vsconv_stack_int8_launch(VSCONV_PARAMS(int8_t),
+                                        void* stream) {
+  return launch<int8_t>(vsconv_stack_int8_kernel, stream, VSCONV_ARGS,
+                        static_cast<int>(vs::word_rows(x, vk)));
+}
+
 // The stem body of the two kernels (see the header).  Same arguments as
 // above, plus kh and `aligned` (1 when x and vals are 16-byte aligned:
 // 16-byte copies, else 4-byte ones).  The caller has checked the stem rule
@@ -585,12 +618,13 @@ extern "C" int vsconv_halo_stem_launch(
     const float* xh, const float* vals, const int* idx, const float* scale,
     const float* bias, const float* residual, float* out, int n_img, int rows,
     int bw, int cb, int h_out, int w_out, int kw, int stride, int dilation,
-    int nb, int s_steps, int vk, int vn, int cbg, int spg, int relu, int kh,
-    int aligned, void* stream) {
+    int nb, int s_steps, int vk, int vn, int cbg, int spg, int relu,
+    int skip, int kh, int aligned, void* stream) {
   (void)spg;  // one group: every strip reads cin tiles 0..cb-1
   return stem_launch(false, n_img, cb, vk, vn, stream, xh, vals, idx, scale,
                      bias, residual, out, rows, bw, h_out, w_out, kh, kw,
-                     stride, dilation, nb, s_steps, cbg, aligned, relu);
+                     stride, dilation, nb, s_steps, cbg, aligned, relu,
+                     skip);
 }
 
 extern "C" int vsconv_stack_stem_launch(
@@ -598,9 +632,10 @@ extern "C" int vsconv_stack_stem_launch(
     const float* bias, const float* residual, float* out, int n_img,
     int planes, int bw, int cb, int h_out, int w_out, int kw, int stride,
     int dilation, int nb, int s_steps, int vk, int vn, int cbg, int spg,
-    int relu, int kh, int aligned, void* stream) {
+    int relu, int skip, int kh, int aligned, void* stream) {
   (void)spg;
   return stem_launch(true, n_img, cb, vk, vn, stream, xt, vals, idx, scale,
                      bias, residual, out, planes, bw, h_out, w_out, kh, kw,
-                     stride, dilation, nb, s_steps, cbg, aligned, relu);
+                     stride, dilation, nb, s_steps, cbg, aligned, relu,
+                     skip);
 }

@@ -37,19 +37,21 @@
 // with fmaf, as the previous kernel did, so the result is the same.  The
 // input-side skip is one vote per (block window, channel tile), taken
 // over the staged window: an all-zero window adds no FMAs (they would add
-// exact zeros).  The epilogue stores VEC channels at once, masked at the
+// exact zeros).  `skip` 0 (the reference's skip_zero_inputs=False, the
+// paper's dense-input mode) takes no vote and runs every FMA: the same
+// bits.  The epilogue stores VEC channels at once, masked at the
 // image's right and bottom edges.  Window offsets are 32-bit (shared memory);
 // global offsets are 64-bit once per staged row or output element.
 //
 // Instantiations: VC = 32, 64, 128 (MobileNetV1's channel tiles) with
 // VEC 4, and any other runtime vc <= 128 (VC = 0) with VEC 4 or 1.
 //
-// The halo kernel has an int8 branch (vsconv_dw_halo_int8_kernel, the
-// same instantiations): int8 window and taps, a quarter of the bytes,
-// four channels a 4-byte cp.async (one byte a plain load at VEC 1),
-// converted to f32 for the fmaf MAC, exact for int8 values (every product
-// and sum is an integer below 2^24), so bit-equal to the reference's
-// `_dw_flush`.  The stack kernel's int8 branch is not ported yet.
+// Both kernels have an int8 branch (vsconv_dw_halo_int8_kernel,
+// vsconv_dw_stack_int8_kernel, the same instantiations): int8 window and
+// taps, a quarter of the bytes, four channels a 4-byte cp.async (one byte
+// a plain load at VEC 1), converted to f32 for the fmaf MAC in stored tap
+// order, exact for int8 values (every product and sum is an integer below
+// 2^24), so bit-equal to the reference's `_dw_flush`.
 //
 // What bounds it on an H100: bytes.  Each output element costs S FMAs
 // against one input element, so the least traffic (the input once, the
@@ -201,7 +203,7 @@ __device__ __forceinline__ void dw_body(
     const float* __restrict__ bias, const float* __restrict__ residual,
     float* __restrict__ out, int n_img, int d0, int bw, int cb, int h_out,
     int w_out, int kh, int kw, int stride, int dilation, int s_steps,
-    int vc_rt, int th, int tw, int relu) {
+    int vc_rt, int th, int tw, int relu, int skip) {
   using Vt = Vec<T, VEC>;
   using V = typename Vt::V;
   using F = typename Vt::F;
@@ -297,14 +299,17 @@ __device__ __forceinline__ void dw_body(
   __syncthreads();
 
   // The input-side skip: one vote per (block window, channel tile), over
-  // what was staged.
-  int nz = 0;
-  for (int row = warp; row < rows; row += threads / 32) {
-    if (!row_read(row)) continue;
-    const V* wv = reinterpret_cast<const V*>(win + row * cols * vc);
-    for (int u = lane; u < cols * groups; u += 32) nz |= nonzero(wv[u]);
+  // what was staged (none with `skip` 0: every tap's FMA runs).
+  bool alive = true;
+  if (skip) {
+    int nz = 0;
+    for (int row = warp; row < rows; row += threads / 32) {
+      if (!row_read(row)) continue;
+      const V* wv = reinterpret_cast<const V*>(win + row * cols * vc);
+      for (int u = lane; u < cols * groups; u += 32) nz |= nonzero(wv[u]);
+    }
+    alive = __syncthreads_or(nz);
   }
-  const bool alive = __syncthreads_or(nz);
 
   const int elems = th * tw * groups;
   for (int e = threadIdx.x; e < elems; e += threads) {
@@ -338,10 +343,10 @@ __device__ __forceinline__ void dw_body(
       const float *__restrict__ bias, const float *__restrict__ residual,   \
       float *__restrict__ out, int n_img, int d0, int bw, int cb, int h_out, \
       int w_out, int kh, int kw, int stride, int dilation, int s_steps,     \
-      int vc, int th, int tw, int relu
+      int vc, int th, int tw, int relu, int skip
 #define DW_ARGS                                                             \
   x, vals, idx, scale, bias, residual, out, n_img, d0, bw, cb, h_out,       \
-      w_out, kh, kw, stride, dilation, s_steps, vc, th, tw, relu
+      w_out, kh, kw, stride, dilation, s_steps, vc, th, tw, relu, skip
 
 template <int VC, int VEC>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -355,11 +360,17 @@ __global__ void __launch_bounds__(kMaxThreads)
   dw_body<float, VC, VEC, true>(DW_ARGS);
 }
 
-// The int8 branch of the halo kernel (the stack kernel has none yet).
+// The int8 branches of the two kernels.
 template <int VC, int VEC>
 __global__ void __launch_bounds__(kMaxThreads)
     vsconv_dw_halo_int8_kernel(DW_PARAMS(int8_t)) {
   dw_body<int8_t, VC, VEC, false>(DW_ARGS);
+}
+
+template <int VC, int VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+    vsconv_dw_stack_int8_kernel(DW_PARAMS(int8_t)) {
+  dw_body<int8_t, VC, VEC, true>(DW_ARGS);
 }
 
 // The kernel of element type T and layout.
@@ -374,7 +385,10 @@ struct Entry<float, VC, VEC> {
 };
 template <int VC, int VEC>
 struct Entry<int8_t, VC, VEC> {
-  static auto get(bool) { return vsconv_dw_halo_int8_kernel<VC, VEC>; }
+  static auto get(bool stack) {
+    return stack ? vsconv_dw_stack_int8_kernel<VC, VEC>
+                 : vsconv_dw_halo_int8_kernel<VC, VEC>;
+  }
 };
 
 template <class T, int VC, int VEC>
@@ -421,9 +435,10 @@ int launch(bool stack, int vec, int threads, void* stream, DW_PARAMS(T)) {
 // Launch on `stream`; each returns cudaGetLastError() (0 on success, and
 // cudaErrorInvalidValue without launching for a tile whose shared memory
 // exceeds a block's, or kh*stride > 32).  Any of scale, bias and residual
-// may be null.  th x tw is the output tile a block takes, `threads` its
-// threads (a multiple of 32 up to 256); vec is 4 for 16-byte copies (vc %
-// 4 == 0, x and vals 16-byte aligned), else 1.  The caller has checked
+// may be null; `skip` 0 turns the input-side skip off.  th x tw is the
+// output tile a block takes, `threads` its threads (a multiple of 32 up to
+// 256); vec is 4 for 16-byte copies (vc % 4 == 0, x and vals 16-byte
+// aligned), else 1.  The caller has checked
 // shapes, dtypes, contiguity, vc <= 128, that the strips are the cb
 // channel tiles and that every tap stays inside the input buffer.
 extern "C" int vsconv_dw_halo_launch(
@@ -431,10 +446,11 @@ extern "C" int vsconv_dw_halo_launch(
     const float* bias, const float* residual, float* out, int n_img, int rows,
     int bw, int cb, int h_out, int w_out, int kw, int stride, int dilation,
     int s_steps, int vc, int relu, int kh, int th, int tw, int vec,
-    int threads, void* stream) {
+    int threads, int skip, void* stream) {
   return launch<float>(false, vec, threads, stream, xh, vals, idx, scale,
                        bias, residual, out, n_img, rows, bw, cb, h_out, w_out,
-                       kh, kw, stride, dilation, s_steps, vc, th, tw, relu);
+                       kh, kw, stride, dilation, s_steps, vc, th, tw, relu,
+                       skip);
 }
 
 extern "C" int vsconv_dw_stack_launch(
@@ -442,11 +458,11 @@ extern "C" int vsconv_dw_stack_launch(
     const float* bias, const float* residual, float* out, int n_img,
     int planes, int bw, int cb, int h_out, int w_out, int kw, int stride,
     int dilation, int s_steps, int vc, int relu, int kh, int th, int tw,
-    int vec, int threads, void* stream) {
+    int vec, int threads, int skip, void* stream) {
   return launch<float>(true, vec, threads, stream, xt, vals, idx, scale,
                        bias, residual, out, n_img, planes, bw, cb, h_out,
                        w_out, kh, kw, stride, dilation, s_steps, vc, th, tw,
-                       relu);
+                       relu, skip);
 }
 
 // The int8 branch of the halo kernel: xh and vals int8 (vec 4 needs x and
@@ -457,9 +473,23 @@ extern "C" int vsconv_dw_halo_int8_launch(
     const float* bias, const float* residual, float* out, int n_img, int rows,
     int bw, int cb, int h_out, int w_out, int kw, int stride, int dilation,
     int s_steps, int vc, int relu, int kh, int th, int tw, int vec,
-    int threads, void* stream) {
+    int threads, int skip, void* stream) {
   return launch<int8_t>(false, vec, threads, stream, xh, vals, idx, scale,
                         bias, residual, out, n_img, rows, bw, cb, h_out,
                         w_out, kh, kw, stride, dilation, s_steps, vc, th, tw,
-                        relu);
+                        relu, skip);
+}
+
+// The int8 branch of the stack kernel: xt and vals int8, as the halo
+// kernel's int8 entry.
+extern "C" int vsconv_dw_stack_int8_launch(
+    const int8_t* xt, const int8_t* vals, const int* idx, const float* scale,
+    const float* bias, const float* residual, float* out, int n_img,
+    int planes, int bw, int cb, int h_out, int w_out, int kw, int stride,
+    int dilation, int s_steps, int vc, int relu, int kh, int th, int tw,
+    int vec, int threads, int skip, void* stream) {
+  return launch<int8_t>(true, vec, threads, stream, xt, vals, idx, scale,
+                        bias, residual, out, n_img, planes, bw, cb, h_out,
+                        w_out, kh, kw, stride, dilation, s_steps, vc, th, tw,
+                        relu, skip);
 }

@@ -12,7 +12,10 @@
 // Step s reads idx[j, s] itself, stages the stored tile in shared memory
 // and gathers the (kRows x vk) activation tile at columns idx[j, s]*vk.
 // A block-wide vote (__syncthreads_or) skips the FMAs of an all-zero
-// activation tile; the load is not skipped.  Shapes: vk and vn are runtime
+// activation tile (the load is not skipped) unless `skip` is 0: the
+// reference's skip_zero_inputs=False, the paper's dense-input mode, which
+// runs every stored step's MAC (a skipped step adds exact zeros, so the
+// output is the same bits either way).  Shapes: vk and vn are runtime
 // values (vn <= 128), M may be ragged (the tail rows are masked).
 //
 // Two branches, as the reference's `_mac_dot` has: f32 (vsmm_kernel) and
@@ -43,7 +46,7 @@ __device__ __forceinline__ void vsmm_body(
     const int* __restrict__ idx, const float* __restrict__ scale,
     const float* __restrict__ bias, const float* __restrict__ residual,
     float* __restrict__ out, int m, int k, int nb, int s_steps, int vk,
-    int vn, int relu, bool words) {
+    int vn, int relu, int skip, bool words) {
   using Step = vs::Step<T>;
   using Word = typename Step::Word;
   extern __shared__ __align__(16) unsigned char vsmm_smem[];
@@ -64,7 +67,7 @@ __device__ __forceinline__ void vsmm_body(
         Step::load_acts(xs, vk, rows_valid, words, [&](int r) {
           return x + (row0 + r) * k + col_base;
         });
-    if (__syncthreads_or(nonzero)) Step::mac(acc, xs, ws, vk, vn);
+    if (__syncthreads_or(nonzero || !skip)) Step::mac(acc, xs, ws, vk, vn);
   }
   vs::epilogue(acc, out, row0, rows_valid, nb * vn, j * vn, vn, scale, bias,
                residual, relu);
@@ -75,9 +78,10 @@ __device__ __forceinline__ void vsmm_body(
       const int *__restrict__ idx, const float *__restrict__ scale,         \
       const float *__restrict__ bias, const float *__restrict__ residual,   \
       float *__restrict__ out, int m, int k, int nb, int s_steps, int vk,   \
-      int vn, int relu
-#define VSMM_ARGS \
-  x, vals, idx, scale, bias, residual, out, m, k, nb, s_steps, vk, vn, relu
+      int vn, int relu, int skip
+#define VSMM_ARGS                                                        \
+  x, vals, idx, scale, bias, residual, out, m, k, nb, s_steps, vk, vn, relu, \
+      skip
 
 __global__ void __launch_bounds__(vs::kThreads)
     vsmm_kernel(VSMM_PARAMS(float)) {
@@ -105,7 +109,8 @@ int launch_vsmm(Kernel kernel, void* stream, VSMM_PARAMS(T), Extra... extra) {
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  Any of
-// scale, bias and residual may be null.  The caller has checked shapes,
+// scale, bias and residual may be null; `skip` 0 turns the input-side skip
+// off.  The caller has checked shapes,
 // dtypes, contiguity and vn <= 128.
 extern "C" int vsmm_launch(VSMM_PARAMS(float), void* stream) {
   return launch_vsmm<float>(vsmm_kernel, stream, VSMM_ARGS);

@@ -12,6 +12,10 @@ Mirrors `repro/kernels/ops.py`:
     input layout: ``"halo"`` pads once into the halo buffer, ``"stack"``
     materializes the row-tap stack (the oracle/fallback).  The wrapper
     does not round Hout up to a row block (a TPU block constraint).
+
+Both take the reference's ``skip_zero_inputs`` (default True): False
+turns the kernels' input-side skip off (the paper's dense-input mode),
+with the same output bits.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ def vsmm(
     bias: torch.Tensor | None = None,
     residual: torch.Tensor | None = None,
     scale: torch.Tensor | None = None,
+    skip_zero_inputs: bool = True,
     fuse_relu: bool = False,
 ) -> torch.Tensor:
     """x (M, K) @ vector-sparse W (K, N) -> (M, N), epilogue fused:
@@ -44,7 +49,8 @@ def vsmm(
     return vsmm_kernel(x.contiguous(), vs, bias=bias,
                        residual=None if residual is None
                        else residual.contiguous(),
-                       scale=scale, fuse_relu=fuse_relu)
+                       scale=scale, fuse_relu=fuse_relu,
+                       skip_zero_inputs=skip_zero_inputs)
 
 
 def vsconv(
@@ -59,6 +65,7 @@ def vsconv(
     bias: torch.Tensor | None = None,
     residual: torch.Tensor | None = None,
     scale: torch.Tensor | None = None,
+    skip_zero_inputs: bool = True,
     fuse_relu: bool = False,
     impl: str = "halo",
 ) -> torch.Tensor:
@@ -77,11 +84,13 @@ def vsconv(
         res2 = (None if residual is None
                 else residual.reshape(n * ho * wo, -1))
         out = vsmm(x.reshape(-1, c), vs, bias=bias, residual=res2,
-                   scale=scale, fuse_relu=fuse_relu)
+                   scale=scale, skip_zero_inputs=skip_zero_inputs,
+                   fuse_relu=fuse_relu)
         return out.reshape(n, ho, wo, -1)
     wo, _, _ = same_pads(w, kw, stride, dilation)
     common = dict(w_out=wo, kh=kh, kw=kw, stride=stride, dilation=dilation,
                   bias=bias, scale=scale, fuse_relu=fuse_relu,
+                  skip_zero_inputs=skip_zero_inputs,
                   residual=None if residual is None
                   else residual.contiguous())
     depthwise = is_depthwise(groups, c, vs, kh, kw)

@@ -30,13 +30,17 @@ inputs, vk 8: a 2-D output tile over a shared-memory window, see
 to build or launch, the wrapper raises: it never carries on in the
 generic body.
 
-The halo kernel's generic body has an int8 branch (int8 halo buffer and
-tiles, a per-column dequant scale): each stored step's partial is an
-exact integer, added into the f32 accumulator in stored order, bit-equal
-to `vsconv_plain` and the reference.  Its launches count on
+Both kernels' generic body has an int8 branch (int8 buffer and tiles, a
+per-column dequant scale): each stored step's partial is an exact
+integer, added into the f32 accumulator in stored order, bit-equal to the
+plain versions and the reference.  Its launches count on
 ``int8_launches`` too; int8 convs never take the stem body (it stages
-f32 windows), and the stack kernel's int8 branch is not ported (int8
-CUDA tensors raise NotImplementedError).
+f32 windows).
+
+``skip_zero_inputs`` (default True) is the reference's flag: False turns
+the kernels' input-side skip off (the paper's dense-input mode), so every
+stored tile's MAC runs.  A skipped tile adds exact zeros, so the output
+has the same bits either way; the plain versions never skip.
 
 The layout helpers (`halo_layout_dims`, `build_halo_input`,
 `stack_layout_dims`, `build_row_tap_stack`) are kept byte-for-byte with
@@ -67,14 +71,8 @@ __all__ = [
     "build_row_tap_stack", "stack_layout_dims", "stack_patches",
     "halo_kernel_cost", "stack_kernel_cost", "use_resident_halo",
     "RESIDENT_MAX_H", "halo_h_out", "stack_h_out", "use_stem_body",
-    "stem_smem_bytes", "INT8_STACK_UNPORTED",
+    "stem_smem_bytes",
 ]
-
-# The stack kernels' int8 branch is left to a later slice of the port.
-INT8_STACK_UNPORTED = (
-    "the int8 branch of the stack-layout kernels (vsconv_pallas, "
-    "vsconv_dw_stack_pallas) is not ported yet: a later slice of the port "
-    "brings it; serve int8 through the halo layout (impl='auto')")
 
 # Below this output height the reference's halo kernel switches to its
 # resident whole-input layout (a TPU DMA choice, kept for its cost model).
@@ -344,11 +342,14 @@ def vsconv_plain(
     residual: torch.Tensor | None = None,
     scale: torch.Tensor | None = None,
     fuse_relu: bool = False,
+    skip_zero_inputs: bool = True,
 ) -> torch.Tensor:
     """The plain PyTorch version of the halo kernel on the same halo
     input: the taps are cut out of the padded buffer (im2col) and the
     structural `vsmm_plain` multiplies the stored tiles, per group.  Runs
-    on any device."""
+    on any device.  It never skips (``skip_zero_inputs`` is taken for the
+    kernel's signature)."""
+    del skip_zero_inputs
     h_out = halo_h_out(xh.shape, w_out=w_out, kh=kh, kw=kw, stride=stride,
                        dilation=dilation)
     n, rows, bw, cb, vk = xh.shape
@@ -374,10 +375,12 @@ def vsconv_stack_plain(
     residual: torch.Tensor | None = None,
     scale: torch.Tensor | None = None,
     fuse_relu: bool = False,
+    skip_zero_inputs: bool = True,
 ) -> torch.Tensor:
     """The plain PyTorch version of the stack kernel on the same stack:
     each tap's plane and column window cut out (`stack_patches`), then the
-    structural product per group.  Runs on any device."""
+    structural product per group.  Runs on any device and never skips."""
+    del skip_zero_inputs
     stack_h_out(xt.shape, w_out=w_out, kh=kh, kw=kw, stride=stride,
                 dilation=dilation)
     _group_split(xt.shape[-1], vs.vk, vs, kh=kh, kw=kw, groups=groups)
@@ -391,7 +394,8 @@ def _conv_kernel(fn: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
                  w_out: int, d0: int, bw: int, c: int, vk: int, kh: int,
                  kw: int, stride: int, dilation: int, groups: int,
                  bias: torch.Tensor | None, residual: torch.Tensor | None,
-                 scale: torch.Tensor | None, fuse_relu: bool
+                 scale: torch.Tensor | None, fuse_relu: bool,
+                 skip_zero_inputs: bool
                  ) -> tuple[torch.Tensor, bool, bool]:
     """Checks and launch shared by the halo and the stack kernel; ``d0``
     is the buffer's second dimension (halo rows or stack planes).  Returns
@@ -414,7 +418,8 @@ def _conv_kernel(fn: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
     out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
     if out.numel():
         ints = (n, d0, bw, c // vk, h_out, w_out, kw, stride, dilation, nb,
-                s_steps, vk, vn, cbg, spg, int(fuse_relu))
+                s_steps, vk, vn, cbg, spg, int(fuse_relu),
+                int(skip_zero_inputs))
         if stem:
             aligned = x.data_ptr() % 16 == 0 and vs.vals.data_ptr() % 16 == 0
             launch("vsconv", fn.replace("_launch", "_stem_launch"),
@@ -441,6 +446,7 @@ def vsconv_halo_kernel(
     residual: torch.Tensor | None = None,
     scale: torch.Tensor | None = None,
     fuse_relu: bool = False,
+    skip_zero_inputs: bool = True,
 ) -> torch.Tensor:
     """Direct input xh (N, rows, bW, CB, vk) * sparse (kh*kw*CB*vk/groups,
     Cout) -> (N, Hout, w_out, Cout) f32 with Hout = (rows - ke_h) // stride
@@ -451,10 +457,11 @@ def vsconv_halo_kernel(
     ``bias``/``scale`` are (Cout,), ``residual`` (N, Hout, w_out, Cout).
     int8 ``xh`` and ``vs.vals`` with a ``scale`` launch the int8 branch of
     the generic body (counted on ``int8_launches`` too).
+    ``skip_zero_inputs=False`` turns the input-side skip off.
     """
     kw_ = dict(w_out=w_out, kh=kh, kw=kw, stride=stride, dilation=dilation,
                groups=groups, bias=bias, residual=residual, scale=scale,
-               fuse_relu=fuse_relu)
+               fuse_relu=fuse_relu, skip_zero_inputs=skip_zero_inputs)
     if xh.device.type == "cpu":
         return vsconv_plain(xh, vs, **kw_)
     if xh.device.type != "cuda":
@@ -491,6 +498,7 @@ def vsconv_stack_kernel(
     residual: torch.Tensor | None = None,
     scale: torch.Tensor | None = None,
     fuse_relu: bool = False,
+    skip_zero_inputs: bool = True,
 ) -> torch.Tensor:
     """Row-tap stack xt (N, kh*stride, Hout, bW, C) * sparse
     (kh*kw*C/groups, Cout) -> (N, Hout, w_out, Cout) f32.
@@ -498,28 +506,31 @@ def vsconv_stack_kernel(
     CUDA tensors launch ``vsconv_stack_kernel`` of ``csrc/vsconv.cu`` on
     the current stream (built at first use); CPU tensors run
     `vsconv_stack_plain`.  ``bias``/``scale`` are (Cout,), ``residual``
-    (N, Hout, w_out, Cout).  The kernel's int8 branch is not ported: int8
-    CUDA tensors raise NotImplementedError.
+    (N, Hout, w_out, Cout).  int8 ``xt`` and ``vs.vals`` with a ``scale``
+    launch the int8 branch of the generic body (counted on
+    ``int8_launches`` too).  ``skip_zero_inputs=False`` turns the
+    input-side skip off.
     """
     kw_ = dict(w_out=w_out, kh=kh, kw=kw, stride=stride, dilation=dilation,
                groups=groups, bias=bias, residual=residual, scale=scale,
-               fuse_relu=fuse_relu)
+               fuse_relu=fuse_relu, skip_zero_inputs=skip_zero_inputs)
     if xt.device.type == "cpu":
         return vsconv_stack_plain(xt, vs, **kw_)
     if xt.device.type != "cuda":
         raise ValueError(f"vsconv_stack_kernel runs on cuda or cpu, "
                          f"not {xt.device}")
-    if xt.dtype == torch.int8:
-        raise NotImplementedError(INT8_STACK_UNPORTED)
     h_out = stack_h_out(xt.shape, w_out=w_out, kh=kh, kw=kw, stride=stride,
                         dilation=dilation)
     _, planes, _, bw, c = xt.shape
-    out, stem, _ = _conv_kernel("vsconv_stack_launch", xt, vs, h_out=h_out,
-                             d0=planes, bw=bw, c=c, vk=vs.vk, **kw_)
+    out, stem, int8 = _conv_kernel("vsconv_stack_launch", xt, vs,
+                                   h_out=h_out, d0=planes, bw=bw, c=c,
+                                   vk=vs.vk, **kw_)
     vsconv_stack_kernel.launches += 1
     vsconv_stack_kernel.stem_launches += int(stem)
+    vsconv_stack_kernel.int8_launches += int(int8)
     return out
 
 
 vsconv_stack_kernel.launches = 0  # type: ignore[attr-defined]
 vsconv_stack_kernel.stem_launches = 0  # type: ignore[attr-defined]
+vsconv_stack_kernel.int8_launches = 0  # type: ignore[attr-defined]

@@ -19,11 +19,14 @@ kernels
 each launches its kernel for CUDA tensors and runs its plain version
 (`vsconv_dw_plain`, `vsconv_dw_stack_plain`) for CPU tensors; a CUDA
 tensor the kernel does not take raises.  Their ``launches`` attributes
-count launches.  The halo kernel has an int8 branch (int8 window and
-taps, converted to f32 for the MAC: every product and sum is an exact
-integer, bit-equal to the reference's f32 MAC on int8 values), counted on
-``int8_launches`` too; the stack kernel's int8 branch is not ported.
-`dw_tile` picks the 2-D output tile a block of either kernel takes.
+count launches.  Both kernels have an int8 branch (int8 window and taps,
+converted to f32 for the MAC: every product and sum is an exact integer,
+bit-equal to the reference's f32 MAC on int8 values), counted on
+``int8_launches`` too.  ``skip_zero_inputs=False`` (the reference's flag,
+the paper's dense-input mode) turns the kernels' input-side skip off: the
+same bits, since a skipped window adds exact zeros; the plain versions
+never skip.  `dw_tile` picks the 2-D output tile a block of either kernel
+takes.
 `dw_halo_kernel_cost` and `dw_stack_kernel_cost` are the reference TPU
 kernels' cost model, copied for cost tooling; they do not describe the
 CUDA kernels.
@@ -38,8 +41,7 @@ from repro_torch.core.sparse_ops import (patch_conv, tap_matrix_width,
                                          tap_patches)
 from repro_torch.core.vector_sparse import VectorSparse
 from repro_torch.kernels._build import launch
-from repro_torch.kernels.vsconv import (INT8_STACK_UNPORTED, halo_h_out,
-                                        stack_h_out, stack_patches)
+from repro_torch.kernels.vsconv import halo_h_out, stack_h_out, stack_patches
 from repro_torch.kernels.vsmm import (MAX_VN, check_epilogue, check_operands,
                                       entry_name)
 
@@ -163,11 +165,13 @@ def vsconv_dw_plain(
     residual: torch.Tensor | None = None,
     scale: torch.Tensor | None = None,
     fuse_relu: bool = False,
+    skip_zero_inputs: bool = True,
 ) -> torch.Tensor:
     """The plain PyTorch version of the depthwise halo kernel on the same
     halo buffer (`build_halo_input(x, vk=vc)`): the taps are cut out of the
     buffer and, step by step, each channel tile's stored tap vector scales
-    its input at that tap.  Runs on any device."""
+    its input at that tap.  Runs on any device and never skips."""
+    del skip_zero_inputs
     h_out = halo_h_out(xh.shape, w_out=w_out, kh=kh, kw=kw, stride=stride,
                        dilation=dilation)
     n, rows, bw, cb, vc = xh.shape
@@ -195,9 +199,12 @@ def vsconv_dw_stack_plain(
     residual: torch.Tensor | None = None,
     scale: torch.Tensor | None = None,
     fuse_relu: bool = False,
+    skip_zero_inputs: bool = True,
 ) -> torch.Tensor:
     """The plain PyTorch version of the depthwise stack kernel on the same
-    stack (N, kh*stride, H, bW, C).  Runs on any device."""
+    stack (N, kh*stride, H, bW, C).  Runs on any device and never
+    skips."""
+    del skip_zero_inputs
     stack_h_out(xt.shape, w_out=w_out, kh=kh, kw=kw, stride=stride,
                 dilation=dilation)
     patches = stack_patches(xt, kh=kh, kw=kw, stride=stride,
@@ -211,7 +218,8 @@ def _dw_kernel(layout: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
                w_out: int, d0: int, bw: int, c: int, kh: int, kw: int,
                stride: int, dilation: int, bias: torch.Tensor | None,
                residual: torch.Tensor | None, scale: torch.Tensor | None,
-               fuse_relu: bool) -> tuple[torch.Tensor, bool]:
+               fuse_relu: bool, skip_zero_inputs: bool
+               ) -> tuple[torch.Tensor, bool]:
     """Checks and launch shared by the two depthwise kernels (``layout``
     "halo" or "stack"); ``d0`` is the buffer's second dimension (halo rows
     or stack planes).  Returns the output and whether the int8 branch
@@ -242,7 +250,7 @@ def _dw_kernel(layout: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
                (x, vs.vals, vs.idx, scale, bias, residual, out),
                (n, d0, bw, c // vc, h_out, w_out, kw, stride, dilation,
                 vs.nnz_per_strip, vc, int(fuse_relu), kh, th, tw, vec,
-                threads),
+                threads, int(skip_zero_inputs)),
                x.device)
     return out, int8
 
@@ -260,6 +268,7 @@ def vsconv_dw_halo_kernel(
     residual: torch.Tensor | None = None,
     scale: torch.Tensor | None = None,
     fuse_relu: bool = False,
+    skip_zero_inputs: bool = True,
 ) -> torch.Tensor:
     """Depthwise over the halo buffer xh (N, rows, bW, CB, vc) with the
     (kh*kw, C) tap matrix -> (N, Hout, w_out, C) f32.
@@ -271,7 +280,8 @@ def vsconv_dw_halo_kernel(
     branch (counted on ``int8_launches`` too).
     """
     kw_ = dict(w_out=w_out, kh=kh, kw=kw, stride=stride, dilation=dilation,
-               bias=bias, residual=residual, scale=scale, fuse_relu=fuse_relu)
+               bias=bias, residual=residual, scale=scale, fuse_relu=fuse_relu,
+               skip_zero_inputs=skip_zero_inputs)
     if xh.device.type == "cpu":
         return vsconv_dw_plain(xh, vs, **kw_)
     if xh.device.type != "cuda":
@@ -307,31 +317,34 @@ def vsconv_dw_stack_kernel(
     residual: torch.Tensor | None = None,
     scale: torch.Tensor | None = None,
     fuse_relu: bool = False,
+    skip_zero_inputs: bool = True,
 ) -> torch.Tensor:
     """Depthwise over the row-tap stack xt (N, kh*stride, Hout, bW, C) with
     the (kh*kw, C) tap matrix -> (N, Hout, w_out, C) f32.
 
     CUDA tensors launch ``vsconv_dw_stack_kernel`` of
     ``csrc/vsconv_dw.cu`` on the current stream (built at first use); CPU
-    tensors run `vsconv_dw_stack_plain`.  The int8 branch is not ported:
-    int8 CUDA tensors raise NotImplementedError.
+    tensors run `vsconv_dw_stack_plain`.  int8 ``xt`` and ``vs.vals``
+    with a ``scale`` launch the int8 branch (counted on ``int8_launches``
+    too).
     """
     kw_ = dict(w_out=w_out, kh=kh, kw=kw, stride=stride, dilation=dilation,
-               bias=bias, residual=residual, scale=scale, fuse_relu=fuse_relu)
+               bias=bias, residual=residual, scale=scale, fuse_relu=fuse_relu,
+               skip_zero_inputs=skip_zero_inputs)
     if xt.device.type == "cpu":
         return vsconv_dw_stack_plain(xt, vs, **kw_)
     if xt.device.type != "cuda":
         raise ValueError(f"vsconv_dw_stack_kernel runs on cuda or cpu, "
                          f"not {xt.device}")
-    if xt.dtype == torch.int8:
-        raise NotImplementedError(INT8_STACK_UNPORTED)
     h_out = stack_h_out(xt.shape, w_out=w_out, kh=kh, kw=kw, stride=stride,
                         dilation=dilation)
     _, planes, _, bw, c = xt.shape
-    out, _ = _dw_kernel("stack", xt, vs, h_out=h_out,
-                        d0=planes, bw=bw, c=c, **kw_)
+    out, int8 = _dw_kernel("stack", xt, vs, h_out=h_out,
+                           d0=planes, bw=bw, c=c, **kw_)
     vsconv_dw_stack_kernel.launches += 1
+    vsconv_dw_stack_kernel.int8_launches += int(int8)
     return out
 
 
 vsconv_dw_stack_kernel.launches = 0  # type: ignore[attr-defined]
+vsconv_dw_stack_kernel.int8_launches = 0  # type: ignore[attr-defined]

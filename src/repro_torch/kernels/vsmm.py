@@ -15,6 +15,9 @@ reference's and to `vsmm_plain`.
 `vsmm_kernel` is the wrapper: it launches the kernel for CUDA tensors and
 runs `vsmm_plain` for CPU tensors, and nothing else — a CUDA tensor that
 the kernel does not take raises, it never falls back.
+``skip_zero_inputs=False`` (the reference's flag, the paper's dense-input
+mode) turns the input-side skip off: every stored step's MAC runs, and
+the output has the same bits (a skipped step adds exact zeros).
 ``vsmm_kernel.launches`` counts kernel launches, ``int8_launches`` those
 of the int8 branch among them.
 """
@@ -74,6 +77,7 @@ def vsmm_plain(
     residual: torch.Tensor | None = None,
     scale: torch.Tensor | None = None,
     fuse_relu: bool = False,
+    skip_zero_inputs: bool = True,
 ) -> torch.Tensor:
     """The plain PyTorch version of the kernel: x (M, K) @ W -> (M, N).
 
@@ -86,8 +90,10 @@ def vsmm_plain(
     an f32 product of int8 values, exact (every partial sum is an integer
     below 127² * vk < 2^24 for vk <= 1040, whatever order the product
     sums in), so it equals the reference's int32 partial; the output is
-    f32.
+    f32.  It never skips (``skip_zero_inputs`` is taken for the kernel's
+    signature).
     """
+    del skip_zero_inputs
     m, k = x.shape
     nb, s_steps, vk, vn = vs.vals.shape
     x3 = x.float().reshape(m, k // vk, vk)
@@ -151,6 +157,7 @@ def vsmm_kernel(
     residual: torch.Tensor | None = None,
     scale: torch.Tensor | None = None,
     fuse_relu: bool = False,
+    skip_zero_inputs: bool = True,
 ) -> torch.Tensor:
     """x (M, K) @ vector-sparse W (K, N) -> (M, N) f32, epilogue fused.
 
@@ -158,7 +165,8 @@ def vsmm_kernel(
     first use); CPU tensors run `vsmm_plain`.  ``bias``/``scale`` are (N,),
     ``residual`` (M, N).  Any M works: the kernel masks the ragged tail.
     int8 ``x`` and ``vs.vals`` with a ``scale`` launch the int8 branch
-    (counted on ``int8_launches`` too).
+    (counted on ``int8_launches`` too).  ``skip_zero_inputs=False`` turns
+    the input-side skip off.
     """
     if x.device.type == "cpu":
         return vsmm_plain(x, vs, bias=bias, residual=residual, scale=scale,
@@ -183,7 +191,8 @@ def vsmm_kernel(
         return out
     launch("vsmm", entry_name("vsmm_launch", int8),
            (x, vs.vals, vs.idx, scale, bias, residual, out),
-           (m, k, nb, s_steps, vk, vn, int(fuse_relu)), x.device)
+           (m, k, nb, s_steps, vk, vn, int(fuse_relu),
+            int(skip_zero_inputs)), x.device)
     vsmm_kernel.launches += 1
     vsmm_kernel.int8_launches += int(int8)
     return out

@@ -49,8 +49,8 @@ __all__ = [
     "sparse_conv_from_dense", "apply_sparse_conv", "apply_sparse_fc",
     "weight_scales", "quantize_weights_int8", "quantize_activations_int8",
     "net_schema", "net_apply", "sparsify", "input_refusal", "output_finite",
-    "build_resnet18", "RESNET18_STAGES", "build_mobilenet_v1",
-    "MOBILENET_V1_PLAN", "BN_EPS",
+    "build_vgg16", "VGG16_LAYERS", "build_resnet18", "RESNET18_STAGES",
+    "build_mobilenet_v1", "MOBILENET_V1_PLAN", "BN_EPS",
 ]
 
 BN_EPS = 1e-5
@@ -779,6 +779,36 @@ def sparsify(net: SparseNet, params: dict, density: float, *,
 # --------------------------------------------------------------------------
 # Builders
 # --------------------------------------------------------------------------
+
+# channels per conv layer; 'M' = 2x2 max-pool
+VGG16_LAYERS = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+                512, 512, 512, "M", 512, 512, 512, "M"]
+
+
+def build_vgg16(num_classes: int = 1000, *,
+                image_size: int = 224) -> SparseNet:
+    """The paper's evaluation model: 13 3x3 convs (ReLU, no BN) with five
+    2x2 max-pools, Flatten, fc1/fc2 (ReLU) and the classifier.  fc1's
+    fan-in ``512 * (image_size // 32)**2`` ties the net to its image size.
+    The first conv (cin 3 padded to 8) runs the conv kernels' stem body in
+    f32, the other 12 their generic body, the three FCs vsmm."""
+    layers: list = []
+    cin, i = 3, 1
+    for c in VGG16_LAYERS:
+        if c == "M":
+            layers.append(Pool("max", 2))
+        else:
+            layers.append(Conv(f"conv{i}", cin, c))
+            cin, i = c, i + 1
+    fc_in = 512 * (image_size // 32) ** 2
+    layers += [
+        Flatten(),
+        FC("fc1", fc_in, 4096),
+        FC("fc2", 4096, 4096),
+        Classifier("fc3", 4096, num_classes),
+    ]
+    return SparseNet("vgg16", tuple(layers))
+
 
 # (channels, blocks) per stage — the ResNet-18 basic-block plan.
 RESNET18_STAGES = ((64, 2), (128, 2), (256, 2), (512, 2))

@@ -637,18 +637,301 @@ def test_int8_quantizer_on_the_card_equals_the_cpu(cuda):
 
 
 def test_int8_stack_kernels_raise_not_implemented(cuda):
+    """The stack kernels' int8 branches are ported: int8 CUDA stacks
+    launch them (no NotImplementedError), counted on ``int8_launches``;
+    int8 operands without a dequant scale still raise."""
     rng = np.random.default_rng(8)
     vs, s_w = _int8_sparse(rng, 9 * 64, 64, 32, 64, 0.5, cuda, cb=2)
     xq, sx = _int8_input(rng, (1, 8, 8, 64), cuda)
     xt = build_row_tap_stack(xq, kh=3, kw=3)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        vsconv_stack_kernel(xt, vs, w_out=8, scale=sx * s_w)
+    before = (vsconv_stack_kernel.int8_launches,
+              vsconv_dw_stack_kernel.int8_launches)
+    y = vsconv_stack_kernel(xt, vs, w_out=8, scale=sx * s_w)
     dvs, ds = _int8_sparse(rng, 9, 64, 1, 64, 0.5, cuda)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        vsconv_dw_stack_kernel(xt, dvs, w_out=8, scale=sx * ds)
+    yd = vsconv_dw_stack_kernel(xt, dvs, w_out=8, scale=sx * ds)
+    torch.cuda.synchronize()
+    assert (vsconv_stack_kernel.int8_launches,
+            vsconv_dw_stack_kernel.int8_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    _assert_bit_equal(y, vsconv_stack_plain(xt, vs, w_out=8,
+                                            scale=sx * s_w))
+    _assert_bit_equal(yd, vsconv_dw_stack_plain(xt, dvs, w_out=8,
+                                                scale=sx * ds))
     with pytest.raises(ValueError, match="scale"):
         vsmm_kernel(xq.reshape(64, 64), _int8_sparse(
             rng, 64, 64, 32, 64, 0.5, cuda)[0])
+    with pytest.raises(ValueError, match="scale"):
+        vsconv_stack_kernel(xt, vs, w_out=8)
+
+
+@pytest.mark.parametrize("size,cin,cout,kh,stride,groups,vk,vn,density", [
+    (32, 8, 64, 7, 2, 1, 8, 64, 1.0),     # ResNet-18's stem: 14 planes
+    (32, 8, 64, 3, 1, 1, 8, 64, 1.0),     # VGG-16's conv1 (generic body)
+    (16, 64, 64, 3, 1, 1, 32, 64, 0.5),
+    (16, 64, 128, 3, 2, 1, 32, 128, 0.25),
+    (3, 128, 128, 3, 1, 1, 32, 128, 0.5),  # Hout < 4
+    (12, 64, 64, 3, 1, 4, 16, 16, 0.5),    # grouped
+    (11, 12, 12, 3, 2, 1, 6, 6, 0.5),      # vk 6: byte loads
+])
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_vsconv_stack_int8_kernel_bit_equal_to_plain(
+        cuda, size, cin, cout, kh, stride, groups, vk, vn, density,
+        epilogue):
+    rng = np.random.default_rng(size + cin + kh + 1)
+    cin_g = cin // groups
+    vs, s_w = _int8_sparse(rng, kh * kh * cin_g, cout, vk, vn, density,
+                           cuda, cb=cin_g // vk)
+    xq, sx = _int8_input(rng, (2, size, size, cin), cuda)
+    xt = build_row_tap_stack(xq, kh=kh, kw=kh, stride=stride)
+    ho = -(-size // stride)
+    kw = dict(w_out=ho, kh=kh, kw=kh, stride=stride, groups=groups,
+              **_int8_kwargs(cuda, sx * s_w, cout, (2, ho, ho, cout),
+                             epilogue))
+    k = vsconv_stack_kernel
+    before = (k.launches, k.int8_launches, k.stem_launches)
+    y = k(xt, vs, **kw)
+    torch.cuda.synchronize()
+    assert (k.launches, k.int8_launches, k.stem_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    _assert_bit_equal(y, vsconv_stack_plain(xt, vs, **kw))
+
+
+def test_vsconv_stack_int8_kernel_keeps_stored_step_order(cuda):
+    """±127 weights over 72 stored steps (3x3, 256 channels in tiles of
+    32) against codes of 127 and 126: the f32 sum passes 2^24, so only
+    the stored order of the f32 adds gives the plain version's bits."""
+    rng = np.random.default_rng(11)
+    k, n, vk, vn = 9 * 256, 128, 32, 128
+    wq = np.where(rng.random((k, n)) < 0.9, 127, -127).astype(np.int8)
+    vs = conv_cin_major(from_mask(torch.as_tensor(wq, device=cuda),
+                                  np.ones((k // vk, n // vn), bool), vk, vn),
+                        256 // vk)
+    xq = torch.as_tensor(np.where(rng.random((1, 6, 6, 256)) < 0.5, 127,
+                                  126).astype(np.int8), device=cuda)
+    xt = build_row_tap_stack(xq, kh=3, kw=3)
+    scale = torch.ones(n, device=cuda)
+    y = vsconv_stack_kernel(xt, vs, w_out=6, scale=scale)
+    torch.cuda.synchronize()
+    _assert_bit_equal(y, vsconv_stack_plain(xt, vs, w_out=6, scale=scale))
+    assert float(y.abs().max()) > 2 ** 24
+
+
+@pytest.mark.parametrize("size,c,stride,vc", [
+    (112, 32, 1, 32),   # MobileNetV1's dw1 at 224 px
+    (40, 64, 2, 64),
+    (14, 512, 2, 128),  # dw12
+    (9, 12, 1, 12),     # vc 12: 4-byte copies through the runtime-vc body
+    (9, 6, 2, 6),       # vc 6: one-byte loads
+])
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_dw_stack_int8_kernel_bit_equal_to_plain(cuda, size, c, stride, vc,
+                                                 epilogue):
+    rng = np.random.default_rng(size + c + 1)
+    vs, s_w = _int8_sparse(rng, 9, c, 1, vc, 0.5, cuda)
+    xq, sx = _int8_input(rng, (2, size, size, c), cuda)
+    xt = build_row_tap_stack(xq, kh=3, kw=3, stride=stride)
+    ho = -(-size // stride)
+    kw = dict(w_out=ho, kh=3, kw=3, stride=stride,
+              **_int8_kwargs(cuda, sx * s_w, c, (2, ho, ho, c), epilogue))
+    before = vsconv_dw_stack_kernel.int8_launches
+    y = vsconv_dw_stack_kernel(xt, vs, **kw)
+    torch.cuda.synchronize()
+    assert vsconv_dw_stack_kernel.int8_launches == before + 1
+    _assert_bit_equal(y, vsconv_dw_stack_plain(xt, vs, **kw))
+
+
+# --------------------------------------------------------------------------
+# skip_zero_inputs=False: the same bits as the skip on, for every entry
+# --------------------------------------------------------------------------
+
+SKIP_CASES = [  # kernel, dtype
+    ("vsmm", "f32"), ("vsmm", "int8"),
+    ("halo", "f32"), ("halo", "int8"), ("halo_stem", "f32"),
+    ("stack", "f32"), ("stack", "int8"), ("stack_stem", "f32"),
+    ("dw_halo", "f32"), ("dw_halo", "int8"),
+    ("dw_stack", "f32"), ("dw_stack", "int8"),
+]
+
+
+def _skip_case(rng, kernel, dtype, cuda):
+    """(wrapper, plain version, buffer, weight, kwargs): a post-ReLU input
+    whose first quarter of channels is zero (whole zero tiles) and whose
+    first image is all zero (every tile of its blocks zero)."""
+    int8 = dtype == "int8"
+    stem = kernel.endswith("_stem")
+    if kernel == "vsmm":
+        x = _relu_input(rng, (64, 128), cuda)
+        x[:32] = 0
+        k, n, vk, vn, cb, shape = 128, 128, 32, 128, None, (64, 128)
+    elif kernel.startswith("dw_"):
+        x = _relu_input(rng, (2, 12, 12, 64), cuda)
+        k, n, vk, vn, cb, shape = 9, 64, 1, 64, None, (2, 12, 12, 64)
+    else:
+        cin, vk, vn = (8, 8, 64) if stem else (64, 32, 64)
+        x = _relu_input(rng, (2, 16, 16, cin), cuda)
+        if stem:
+            x[..., 3:] = 0  # the stem's cin padding
+        k, n, cb, shape = 9 * cin, 64, cin // vk, (2, 16, 16, 64)
+    if kernel != "vsmm":
+        x[0] = 0
+    kw = {}
+    if int8:
+        vs, s_w = _int8_sparse(rng, k, n, vk, vn, 0.5, cuda, cb=cb)
+        x, sx = TG.quantize_activations_int8(x)
+        kw["scale"] = sx * s_w
+    else:
+        vs = _sparse(rng, k, n, vk, vn, 0.5, cuda)
+        if cb is not None:
+            vs = conv_cin_major(vs, cb)
+    kw.update(bias=torch.randn(n, device=cuda), fuse_relu=True,
+              residual=torch.randn(*shape, device=cuda))
+    if kernel == "vsmm":
+        return vsmm_kernel, vsmm_plain, x, vs, kw
+    kw.update(w_out=shape[2], kh=3, kw=3)
+    if kernel.startswith("halo"):
+        buf = build_halo_input(x, kh=3, kw=3, vk=vk)
+        return vsconv_halo_kernel, vsconv_plain, buf, vs, kw
+    if kernel == "dw_halo":
+        buf = build_halo_input(x, kh=3, kw=3, vk=vn)
+        return vsconv_dw_halo_kernel, vsconv_dw_plain, buf, vs, kw
+    buf = build_row_tap_stack(x, kh=3, kw=3)
+    if kernel == "dw_stack":
+        return vsconv_dw_stack_kernel, vsconv_dw_stack_plain, buf, vs, kw
+    return vsconv_stack_kernel, vsconv_stack_plain, buf, vs, kw
+
+
+@pytest.mark.parametrize("kernel,dtype", SKIP_CASES)
+def test_skip_off_bit_equal_to_skip_on(cuda, kernel, dtype):
+    """``skip_zero_inputs=False`` runs every stored step's MAC (no vote);
+    a skipped step adds exact zeros, so the output has the skip-on bits,
+    and equals the plain version (bit for bit in int8, 1e-5 in f32)."""
+    rng = np.random.default_rng(len(kernel) + len(dtype))
+    wrapper, plain, buf, vs, kw = _skip_case(rng, kernel, dtype, cuda)
+    before = (wrapper.launches, getattr(wrapper, "stem_launches", 0))
+    y_on = wrapper(buf, vs, **kw)
+    y_off = wrapper(buf, vs, skip_zero_inputs=False, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before[0] + 2
+    if kernel.endswith("_stem"):
+        assert wrapper.stem_launches == before[1] + 2
+    assert torch.equal(y_on, y_off)
+    ref = plain(buf, vs, skip_zero_inputs=False, **kw)
+    if dtype == "int8":
+        _assert_bit_equal(y_off, ref)
+    else:
+        assert _rel(y_off, ref) <= RTOL
+
+
+def test_dispatch_passes_skip_flag_through(cuda):
+    """`ops.vsmm`, `ops.vsconv` (both layouts, depthwise too) and
+    `sparse_ops.vs_matmul` with the skip off give the skip-on bits."""
+    from repro_torch.core.sparse_ops import vs_matmul
+    rng = np.random.default_rng(12)
+    x = _relu_input(rng, (2, 10, 10, 64), cuda)
+    vs = conv_cin_major(_sparse(rng, 9 * 64, 64, 32, 64, 0.5, cuda), 2)
+    dvs = _taps(rng, 3, 64, 64, 0.5, cuda)
+    for impl in ("halo", "stack"):
+        for w, groups in ((vs, 1), (dvs, 64)):
+            on = ops.vsconv(x, w, groups=groups, impl=impl)
+            off = ops.vsconv(x, w, groups=groups, impl=impl,
+                             skip_zero_inputs=False)
+            assert torch.equal(on, off)
+    mvs = _sparse(rng, 64, 128, 32, 128, 0.5, cuda)
+    x2 = x.reshape(-1, 64)
+    assert torch.equal(ops.vsmm(x2, mvs),
+                       ops.vsmm(x2, mvs, skip_zero_inputs=False))
+    assert torch.equal(vs_matmul(x2, mvs, impl="pallas"),
+                       vs_matmul(x2, mvs, impl="pallas",
+                                 skip_zero_inputs=False))
+
+
+# --------------------------------------------------------------------------
+# VGG-16's new shapes, and the int8 stack serving paths
+# --------------------------------------------------------------------------
+
+def test_vgg16_conv1_takes_the_stem_body(cuda):
+    """VGG-16's conv1 at 224 px (3x3/s1, cin 3 -> 8, vk 8, vn 64): the
+    stem body's first stride-1 use, in both layouts, within 1e-5 of
+    plain."""
+    assert use_stem_body(8, 8, 1, 3, 3, 64, stride=1)
+    rng = np.random.default_rng(13)
+    vs = conv_cin_major(_sparse(rng, 72, 64, 8, 64, 0.235, cuda), 1)
+    x = _relu_input(rng, (2, 224, 224, 8), cuda)
+    x[..., 3:] = 0
+    kw = dict(w_out=224, kh=3, kw=3, bias=torch.randn(64, device=cuda),
+              fuse_relu=True)
+    for kernel, plain, buf in (
+            (vsconv_halo_kernel, vsconv_plain,
+             build_halo_input(x, kh=3, kw=3, vk=8)),
+            (vsconv_stack_kernel, vsconv_stack_plain,
+             build_row_tap_stack(x, kh=3, kw=3))):
+        before = kernel.stem_launches
+        y = kernel(buf, vs, **kw)
+        torch.cuda.synchronize()
+        assert kernel.stem_launches == before + 1
+        assert _rel(y, plain(buf, vs, **kw)) <= RTOL
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_vgg16_fc1_matches_plain(cuda, dtype):
+    """fc1 at 224 px: 25088 -> 4096 at 8 rows (kb 784, 32 strips, density
+    0.235); int8 bit for bit."""
+    rng = np.random.default_rng(14)
+    x = torch.rand(8, 25088, device=cuda)
+    kw = dict(bias=torch.randn(4096, device=cuda), fuse_relu=True)
+    if dtype == "int8":
+        vs, s_w = _int8_sparse(rng, 25088, 4096, 32, 128, 0.235, cuda)
+        x, sx = TG.quantize_activations_int8(x)
+        kw["scale"] = sx * s_w
+    else:
+        vs = _sparse(rng, 25088, 4096, 32, 128, 0.235, cuda)
+    y = vsmm_kernel(x, vs, **kw)
+    torch.cuda.synchronize()
+    ref = vsmm_plain(x, vs, **kw)
+    if dtype == "int8":
+        _assert_bit_equal(y, ref)
+    else:
+        assert _rel(y, ref) <= RTOL
+
+
+@pytest.mark.parametrize("arch,per_wave", [
+    ("vscnn-vgg16", {"stack": 13, "vsmm": 3}),
+    ("vscnn-resnet18", {"stack": 17, "vsmm": 4}),
+    ("vscnn-mobilenet-v1", {"stack": 1, "dw_stack": 13, "vsmm": 14}),
+])
+def test_int8_stack_served_wave_bit_equal_to_plain(cuda, arch, per_wave):
+    """One int8 wave of 4 images at 32 px through `CNNServer(dtype="int8",
+    impl="pallas-stack")`: every conv through an int8 stack kernel, every
+    FC and 1x1 through vsmm's int8 branch, no stem body, logits bit-equal
+    to `net_apply(impl="plain")` on the card."""
+    counters = {"stack": vsconv_stack_kernel,
+                "dw_stack": vsconv_dw_stack_kernel, "vsmm": vsmm_kernel,
+                "halo": vsconv_halo_kernel, "dw_halo": vsconv_dw_halo_kernel}
+    srv = TS.CNNServer(get_config(arch).reduce(), batch=4, density=0.5,
+                       seed=0, dtype="int8", impl="pallas-stack",
+                       device=cuda)
+    rng = np.random.default_rng(3)
+    imgs = [rng.standard_normal((32, 32, 3)).astype(np.float32)
+            for _ in range(4)]
+    reqs = [TS.ImageRequest(rid=i, image=im) for i, im in enumerate(imgs)]
+    for k in counters.values():
+        k.launches = k.int8_launches = 0
+    vsconv_stack_kernel.stem_launches = 0
+    srv.serve(reqs)
+    torch.cuda.synchronize()
+    assert {n: k.launches for n, k in counters.items()
+            if k.launches} == per_wave
+    assert {n: k.int8_launches for n, k in counters.items()
+            if k.int8_launches} == per_wave
+    assert vsconv_stack_kernel.stem_launches == 0
+    with torch.inference_mode():
+        ref = TG.net_apply(srv.net, srv.params,
+                           torch.from_numpy(np.stack(imgs)).to(cuda),
+                           sparse=srv.sparse, impl="plain").cpu().numpy()
+    for i, r in enumerate(reqs):
+        assert r.outcome.status == "delivered"
+        assert np.isfinite(r.logits).all()
+        np.testing.assert_array_equal(r.logits, ref[i])
 
 
 @pytest.mark.parametrize("arch,per_wave", [
