@@ -13,11 +13,13 @@ repository around it, or when any phase fails.  Phases:
    (``vsmm.cu``, ``vsconv.cu``, ``vsconv_dw.cu``, ``flash_fwd.cu``; one
    nvcc per source, started together) and print their register use, the
    registers and spill bytes of each flash instantiation (the bf16 hd-128
-   one must not spill), of each of the 18 stem-body and depthwise
-   instantiations and of the 13 int8 instantiations (vsmm, the halo and
-   stack convs' generic body, 5 dw halo, 5 dw stack; none of these 31 may
-   spill), and the flash kernel's dynamic shared memory per head dim and
-   body.
+   one must not spill), of each of the 26 stem-body and depthwise
+   instantiations (8 f32 and 8 int8 stem bodies, 10 dw), of the 26 int8
+   instantiations (vsmm's 5 phase-1 and 1 phase-2 kernels, the 8 int8
+   stem bodies, the halo and stack convs' generic body, 5 dw halo, 5 dw
+   stack) and of the 10 vsmm instantiations (f32 and int8, both phases);
+   none of these may spill), and the flash kernel's dynamic shared memory
+   per head dim and body.
 2. Kernel phase.  Each kernel against its plain version on the card,
    within a relative error of 1e-5 of max|y| (1e-2 for the flash kernel
    on bf16 inputs), then timed (see below).  One JSON line per case.  The
@@ -25,7 +27,10 @@ repository around it, or when any phase fails.  Phases:
    the fused epilogue (bias + residual + ReLU):
    - halo conv: the ResNet-18 layers (stem 7x7/s2 vk 8; 3x3/s1 at 56;
      3x3/s2 64->128; 3x3 512->512 at Hout 7) and one Hout < 4 conv
-     (layer4 at 32 px); vsmm: the 1x1/s2 projection and the FC head;
+     (layer4 at 32 px); vsmm: the 1x1/s2 projection and the FC head,
+     and VGG-16's fc1, MobileNetV1's pw1, pw13 and head (`vsmm_cases`,
+     f32 and int8); every vsmm row names its plan (``rows``,
+     ``splits``: `vsmm_plan`);
    - depthwise halo: MobileNetV1's dw1 (112, C 32), dw2 (112 -> 56, C 64),
      dw7 (14, C 512), dw12 (14 -> 7, C 512), dw13 (7, C 1024);
    - stack conv: the ResNet-18 stem 7x7/s2, a 3x3/s1 at 56, a 3x3/s2
@@ -39,14 +44,16 @@ repository around it, or when any phase fails.  Phases:
    The int8 branches (`int8_kernel_cases`), each bit-equal to its plain
    version (max|Δ| 0), without and with the epilogue, on int8 tiles and
    activations quantized on the card: the halo and the stack conv at the
-   ResNet-18 stem (the generic body: int8 never takes the stem body),
-   3x3/s1 at 56, 3x3/s2 64->128, 3x3 512->512 at Hout 7 and the Hout < 4
-   case; vsmm at the 1x1/s2 projection and the FC head; the dw halo and
-   dw stack at dw1, dw2, dw12.
+   stems (ResNet-18's 7x7/s2, MobileNetV1's 3x3/s2, VGG-16's conv1 and
+   7x7/s2 at 227 px, on the int8 stem body), 3x3/s1 at 56, 3x3/s2
+   64->128, 3x3 512->512 at Hout 7 and the Hout < 4 case; vsmm at the
+   1x1/s2 projection and the FC head; the dw halo and dw stack at dw1,
+   dw2, dw12.
    The dense-input mode (`skip_cases`): every kernel and branch (f32 and
-   int8 generic bodies and the f32 stem body in both layouts, at 3x3/s1
-   56 px and VGG-16's conv1; both dw kernels at dw2; vsmm at the 1x1/s2
-   projection) with ``skip_zero_inputs=False`` on a post-ReLU input whose
+   int8 generic and stem bodies in both layouts, at 3x3/s1 56 px and
+   VGG-16's conv1; both dw kernels at dw2; vsmm at the 1x1/s2 projection
+   and, split, at MobileNetV1's head) with ``skip_zero_inputs=False`` on
+   a post-ReLU input whose
    first image is all zero: bit-equal to the skip on, equal to plain,
    both timed (``kernel_ms`` skip off, ``skip_on_ms``).
    The flash kernel (`flash_phase`): Qwen1.5-4B's admission prefill (BH
@@ -79,10 +86,10 @@ repository around it, or when any phase fails.  Phases:
      vsmm per wave (conv1 on the stem body);
    - VGG-16, int8 stack (8 requests): 13 vsconv_stack + 3 vsmm, all int8
      launches.
-   Each f32 path must run the stem body exactly once a wave (the
-   wrappers' ``stem_launches``), each int8 path never (its stems take the
-   generic body), and every launch of an int8 path must be of an int8
-   branch (``int8_launches``), none of an f32 path.
+   Each path must run the stem body exactly once a wave (the wrappers'
+   ``stem_launches``; an int8 path its int8 twin), and every launch of an
+   int8 path must be of an int8 branch (``int8_launches``), none of an
+   f32 path.
    Every request must be delivered, finite, and equal to a direct
    ``net_apply(impl="plain")`` on the card within 1e-5 (f32) or bit for
    bit (int8).  The halo paths then serve their traffic again, warm:
@@ -106,8 +113,9 @@ repository around it, or when any phase fails.  Phases:
    ``library_ms`` and ``bound_ms`` are per forward at batch 8 (the JSON
    file keeps the sums per path), ``launches`` the counts of the serve
    phases summed over the paths (per path in ``launches_by_path``).  The
-   ``vsconv_halo`` and ``vsconv_stack`` entries carry ``stem_body``: the
-   stem layers' share (launches, ms, plain, bound and library ms).
+   ``vsconv_halo`` and ``vsconv_stack`` entries and their ``_int8`` twins
+   carry ``stem_body``: the stem layers' share (launches, ms, plain, bound
+   and library ms).
    Then the paper's dense-versus-sparse comparison on VGG-16
    (`dense_vs_sparse_phase`): device ms of a batch-8 forward summed over
    its layers at their real inputs, (a) as served (density 0.235, skip
@@ -519,10 +527,11 @@ def _mm_case(timer: Timer, label: str, x, vs, *, n_real: int, bias=None,
     zero padding of a remainder strip; the bound counts only the real
     ones.  ``quant`` and ``skip`` as `_conv_case`'s; int8 rows also time
     ``torch._int_mm`` on the densified int8 weight where it takes the
-    shape (``int_mm_ms``; else null and ``int_mm_refused``)."""
+    shape (``int_mm_ms``; else null and ``int_mm_refused``).  Every row
+    names the kernel's plan (``rows``, ``splits``: `vsmm_plan`)."""
     import torch
     from repro_torch.core.vector_sparse import decode
-    from repro_torch.kernels.vsmm import vsmm_kernel, vsmm_plain
+    from repro_torch.kernels.vsmm import vsmm_kernel, vsmm_plain, vsmm_plan
 
     qkw, x_deq, w_scale, peak, suffix, rtol = _quant_args(timer, x, quant)
     kw = dict(bias=bias, residual=residual, fuse_relu=relu, **qkw)
@@ -537,6 +546,9 @@ def _mm_case(timer: Timer, label: str, x, vs, *, n_real: int, bias=None,
         extra.update(int_mm_ms=None if fn is None else _device_ms(fn, reps),
                      int_mm_refused=refused)
     m, n_enc = x.shape[0], vs.shape[1]
+    nb, s_steps, vk, vn = vs.vals.shape
+    extra["rows"], extra["splits"] = vsmm_plan(m, nb, s_steps, vk, vn,
+                                               quant is not None)
     real = n_real / n_enc  # balanced pruning: every strip holds S tiles
     return timer.run(
         label, "vsmm" + suffix,
@@ -628,8 +640,49 @@ def kernel_phase(timer: Timer, dev) -> None:
             timer, label + " +bias+residual+relu", x, vs, n_real=n_real,
             bias=torch.randn(n_out, generator=gen).to(dev),
             residual=torch.randn(m, n_out, generator=gen).to(dev), relu=True)
+    vsmm_cases(timer, dev, gen, act)
     int8_kernel_cases(timer, dev, gen, act, epilogue)
     skip_cases(timer, dev, gen, act)
+
+
+def vsmm_cases(timer: Timer, dev, gen, act) -> None:
+    """vsmm at the main paths' shapes that the plan splits or tiles
+    widest, f32 and int8 (bit-equal), without and with the epilogue:
+    VGG-16's fc1 (8 rows, 16 chunks a strip), MobileNetV1's pw1 (128-row
+    tiles), pw13 and head.  Each pruned weight serves both branches (int8:
+    quantized as ``sparsify(dtype="int8")`` does)."""
+    import torch
+    from repro_torch.models.graph import (quantize_activations_int8,
+                                          quantize_weights_int8,
+                                          weight_scales)
+
+    cases = [  # label, M, K, N (encoded), N (real), vn, density
+        ("VGG-16 fc1 25088->4096", BATCH, 25088, 4096, 4096, 128, DENSITY),
+        ("MobileNetV1 pw1 112px 32->64", BATCH * 112 * 112, 32, 64, 64, 64,
+         DW_DENSITY),
+        ("MobileNetV1 pw13 7px 1024->1024", BATCH * 7 * 7, 1024, 1024, 1024,
+         128, DW_DENSITY),
+        ("MobileNetV1 head 1024->1000 (1024, NB 8)", BATCH, 1024, 1024, 1000,
+         128, DW_DENSITY),
+    ]
+    for label, m, k, n_out, n_real, vn, d in cases:
+        w, mask = _pruned(gen, 1, k, n_out, 32, vn, d)
+        s_w = weight_scales(w)
+        vs8 = _encode(quantize_weights_int8(w, s_w), mask, 1, k, 32, vn, dev)
+        vs = _encode(w, mask, 1, k, 32, vn, dev)
+        del w
+        x = act(m, k)
+        xq, sx = quantize_activations_int8(x)
+        epi = dict(bias=torch.randn(n_out, generator=gen).to(dev),
+                   residual=torch.randn(m, n_out, generator=gen).to(dev),
+                   relu=True)
+        quant = (sx, torch.as_tensor(s_w, device=dev))
+        for tag, xin, w_enc, q in (("", x, vs, None), ("int8 ", xq, vs8,
+                                                       quant)):
+            _mm_case(timer, f"{tag}{label}", xin, w_enc, n_real=n_real,
+                     quant=q)
+            _mm_case(timer, f"{tag}{label} +bias+residual+relu", xin, w_enc,
+                     n_real=n_real, quant=q, **epi)
 
 
 def int8_kernel_cases(timer: Timer, dev, gen, act, epilogue) -> None:
@@ -637,12 +690,18 @@ def int8_kernel_cases(timer: Timer, dev, gen, act, epilogue) -> None:
     cases' 224 px geometries, in both layouts, without and with the
     epilogue: int8 tiles and activations quantized on the card as the int8
     path does, each kernel bit-equal to its plain version.  The stems run
-    the generic body in int8."""
+    the int8 stem body."""
     import torch
     from repro_torch.models.graph import quantize_activations_int8
 
     conv_cases = [  # label, H, cin, cout, kh, stride, vk, vn, density
         ("stem 7x7/s2 224px cin 3->8", 224, 8, 64, 7, 2, 8, 64, 1.0),
+        ("MobileNetV1 stem 3x3/s2 224px cin 3->8 ->32", 224, 8, 32, 3, 2, 8,
+         32, 1.0),
+        ("VGG-16 conv1 3x3/s1 224px cin 3->8 ->64", 224, 8, 64, 3, 1, 8, 64,
+         1.0),
+        ("stem 7x7/s2 227px cin 3->8 (Hout 114: ragged 8x16 tiles)", 227, 8,
+         64, 7, 2, 8, 64, 1.0),
         ("3x3/s1 56px 64->64", 56, 64, 64, 3, 1, 32, 64, DENSITY),
         ("3x3/s2 56px 64->128", 56, 64, 128, 3, 2, 32, 128, DENSITY),
         ("3x3/s1 7px 512->512", 7, 512, 512, 3, 1, 32, 128, DENSITY),
@@ -690,10 +749,11 @@ def skip_cases(timer: Timer, dev, gen, act) -> None:
     """``skip_zero_inputs=False`` in every CNN kernel and branch (f32 and
     int8 generic bodies, the f32 stem body, both layouts, the depthwise
     kernels, vsmm), at main-path geometries with the fused epilogue: the
-    input is post-ReLU and its first image (vsmm: its first 32 rows) is
-    all zero, so the skip-on kernel skips whole tiles.  The skip-off
-    output must have the skip-on bits (`_skip_extra`) and equal the plain
-    version (bit for bit in int8); both are timed."""
+    input is post-ReLU and its first image (vsmm: its first 32 rows; on
+    the split path at MobileNetV1's head, 8 rows, half its K-tiles) is all
+    zero, so the skip-on kernel skips whole tiles.  The skip-off output
+    must have the skip-on bits (`_skip_extra`) and equal the plain version
+    (bit for bit in int8); both are timed."""
     import torch
     from repro_torch.models.graph import quantize_activations_int8
 
@@ -748,6 +808,13 @@ def skip_cases(timer: Timer, dev, gen, act) -> None:
         _mm_case(timer, f"skip off {tag}1x1/s2 projection 56px 64->128 "
                  f"+bias+residual+relu", x, vs, n_real=128, quant=quant,
                  skip=False, **epi((m, 128), 128))
+        args = (1, 1024, 1024, 32, 128, DW_DENSITY)
+        x = act(BATCH, 1024)
+        x[:, :512] = 0
+        x, vs, quant = prep(x, _sparse_weight(gen, *args, dev), args)
+        _mm_case(timer, f"skip off {tag}split MobileNetV1 head 1024->1000 "
+                 f"(1024) +bias+residual+relu", x, vs, n_real=1000,
+                 quant=quant, skip=False, **epi((BATCH, 1024), 1024))
 
 
 # label, BH, Tq, Tk, hd, causal, window, q_offset, dtype
@@ -873,16 +940,17 @@ def flash_instantiations(log: str) -> list:
 
 
 def stencil_instantiations(conv_log: str, dw_log: str) -> list:
-    """One row per instantiation of the stem bodies (``vsconv.cu``: vn =
-    32 x NC, C input channels) and of the depthwise bodies
+    """One row per instantiation of the stem bodies (``vsconv.cu``, f32 and
+    int8: vn = 32 x NC, C input channels) and of the depthwise bodies
     (``vsconv_dw.cu``: VC, 0 for any runtime vc, and VEC floats a copy),
     with their registers and spill bytes."""
     rows = []
     for name, use in ptxas_usage(conv_log).items():
-        if m := re.search(r"vsconv_(halo|stack)_stem_kernelILi(\d+)ELi(\d+)E",
-                          name):
-            rows.append({"kernel": f"vsconv_{m.group(1)}_stem",
-                         "vn": 32 * int(m.group(2)), "c": int(m.group(3)),
+        if m := re.search(r"vsconv_(halo|stack)_stem_(int8_)?kernel"
+                          r"ILi(\d+)ELi(\d+)E", name):
+            rows.append({"kernel": f"vsconv_{m.group(1)}_stem"
+                                   + ("_int8" if m.group(2) else ""),
+                         "vn": 32 * int(m.group(3)), "c": int(m.group(4)),
                          **use})
     for name, use in ptxas_usage(dw_log).items():
         if m := re.search(r"vsconv_dw_(halo|stack)_kernelILi(\d+)ELi(\d+)E",
@@ -910,8 +978,8 @@ def _counters() -> dict:
 
 # path -> (config, impl, dtype, requests, launches per wave, stem-body
 # launches per wave, warm re-serve).  The int8 paths launch the int8
-# branches only (their launches are filed under "<kernel>_int8"), and their
-# stems take the generic body.
+# branches only (their launches are filed under "<kernel>_int8"); their
+# stems take the int8 stem body.
 PATHS = {
     "resnet18-halo": ("vscnn-resnet18", "auto", None, 16,
                       {"vsconv_halo": 17, "vsmm": 4}, 1, True),
@@ -919,28 +987,28 @@ PATHS = {
                           {"vsconv_halo": 1, "vsconv_dw_halo": 13,
                            "vsmm": 14}, 1, True),
     "resnet18-int8-halo": ("vscnn-resnet18", "auto", "int8", 16,
-                           {"vsconv_halo_int8": 17, "vsmm_int8": 4}, 0,
+                           {"vsconv_halo_int8": 17, "vsmm_int8": 4}, 1,
                            True),
     "mobilenet_v1-int8-halo": ("vscnn-mobilenet-v1", "auto", "int8", 16,
                                {"vsconv_halo_int8": 1,
                                 "vsconv_dw_halo_int8": 13,
-                                "vsmm_int8": 14}, 0, True),
+                                "vsmm_int8": 14}, 1, True),
     "mobilenet_v1-stack": ("vscnn-mobilenet-v1", "pallas-stack", None, BATCH,
                            {"vsconv_stack": 1, "vsconv_dw_stack": 13,
                             "vsmm": 14}, 1, False),
     "resnet18-stack": ("vscnn-resnet18", "pallas-stack", None, BATCH,
                        {"vsconv_stack": 17, "vsmm": 4}, 1, False),
     "resnet18-int8-stack": ("vscnn-resnet18", "pallas-stack", "int8", BATCH,
-                            {"vsconv_stack_int8": 17, "vsmm_int8": 4}, 0,
+                            {"vsconv_stack_int8": 17, "vsmm_int8": 4}, 1,
                             False),
     "mobilenet_v1-int8-stack": ("vscnn-mobilenet-v1", "pallas-stack", "int8",
                                 BATCH, {"vsconv_stack_int8": 1,
                                         "vsconv_dw_stack_int8": 13,
-                                        "vsmm_int8": 14}, 0, False),
+                                        "vsmm_int8": 14}, 1, False),
     "vgg16-halo": ("vscnn-vgg16", "auto", None, 16,
                    {"vsconv_halo": 13, "vsmm": 3}, 1, True),
     "vgg16-int8-stack": ("vscnn-vgg16", "pallas-stack", "int8", BATCH,
-                         {"vsconv_stack_int8": 13, "vsmm_int8": 3}, 0,
+                         {"vsconv_stack_int8": 13, "vsmm_int8": 3}, 1,
                          False),
 }
 
@@ -1055,12 +1123,12 @@ def serve_phase(path: str, dev) -> dict:
 
 
 def _kind(name: str) -> str:
-    for kind in ("vsconv_dw_halo", "vsconv_dw_stack", "vsconv_halo",
-                 "vsconv_stack", "vsmm", "flash_fwd"):
-        if f"{kind}_int8_kernel" in name:
-            return f"{kind}_int8"
-        if f"{kind}_kernel" in name or f"{kind}_stem_kernel" in name:
-            return kind   # a stem body is filed under its kernel
+    # a stem body is filed under its kernel, vsmm's phase 2 under vsmm
+    m = re.search(r"(vsconv_dw_halo|vsconv_dw_stack|vsconv_halo|"
+                  r"vsconv_stack|vsmm|flash_fwd)_(?:stem_)?(int8_)?"
+                  r"(?:reduce_)?kernel", name)
+    if m:
+        return m.group(1) + ("_int8" if m.group(2) else "")
     if "flash_mma_kernel" in name or "flash_simt_kernel" in name:
         return "flash_fwd"   # the flash kernel's bf16 and f32 bodies
     if "Memcpy" in name or "Memset" in name:
@@ -1626,20 +1694,54 @@ SOURCES.update({f"{k}_int8": SOURCES[k] for k in list(SOURCES)})
 
 
 def int8_instantiations(logs: dict) -> list:
-    """One row per int8 kernel instantiation (``vsmm_int8_kernel``,
-    ``vsconv_{halo,stack}_int8_kernel``, ``vsconv_dw_{halo,stack}_int8_
-    kernel`` per VC and VEC) with its registers and spill bytes."""
+    """One row per int8 kernel instantiation (``vsmm_int8_kernel`` per RT
+    and SPLIT and its phase 2 ``vsmm_int8_reduce_kernel``,
+    ``vsconv_{halo,stack}_int8_kernel``, the int8 stem bodies
+    ``vsconv_{halo,stack}_stem_int8_kernel`` per NC and C,
+    ``vsconv_dw_{halo,stack}_int8_kernel`` per VC and VEC) with its
+    registers and spill bytes."""
     rows = []
     for source in ("vsmm", "vsconv", "vsconv_dw"):
         for name, use in ptxas_usage(logs[source]).items():
-            m = re.search(r"(vsmm|vsconv_halo|vsconv_stack|vsconv_dw_halo|"
-                          r"vsconv_dw_stack)_int8_kernel"
+            if source == "vsmm":
+                row = _vsmm_row(name)
+                if row is not None and row["kernel"].startswith("vsmm_int8"):
+                    rows.append({**row, **use})
+                continue
+            m = re.search(r"(vsconv_halo|vsconv_stack|vsconv_dw_halo|"
+                          r"vsconv_dw_stack)_(stem_)?int8_kernel"
                           r"(?:ILi(\d+)ELi(\d+)E)?", name)
             if m:
-                row = {"kernel": f"{m.group(1)}_int8"}
-                if m.group(2):
-                    row.update(vc=int(m.group(2)), vec=int(m.group(3)))
+                row = {"kernel": f"{m.group(1)}_{m.group(2) or ''}int8"}
+                if m.group(3) and m.group(2):
+                    row.update(vn=32 * int(m.group(3)), c=int(m.group(4)))
+                elif m.group(3):
+                    row.update(vc=int(m.group(3)), vec=int(m.group(4)))
                 rows.append({**row, **use})
+    return sorted(rows, key=lambda r: tuple(str(v) for v in r.values()))
+
+
+def _vsmm_row(name: str) -> dict | None:
+    """vsmm.cu's entry functions: the phase-1 kernels per RT (rows a
+    thread) and, for int8, SPLIT; the phase-2 reduce kernels."""
+    m = re.search(r"vsmm_(int8_)?(reduce_)?kernel(?:ILi(\d+)E(?:Lb([01])E)?)?",
+                  name)
+    if m is None:
+        return None
+    row = {"kernel": "vsmm" + ("_int8" if m.group(1) else "")
+           + ("_reduce" if m.group(2) else "")}
+    if m.group(3):
+        row["rt"] = int(m.group(3))
+    if m.group(4):
+        row["split"] = m.group(4) == "1"
+    return row
+
+
+def vsmm_instantiations(log: str) -> list:
+    """One row per instantiation of ``vsmm.cu`` (f32 and int8, both
+    phases) with its registers and spill bytes."""
+    rows = [{**row, **use} for name, use in ptxas_usage(log).items()
+            if (row := _vsmm_row(name)) is not None]
     return sorted(rows, key=lambda r: tuple(str(v) for v in r.values()))
 
 
@@ -1692,10 +1794,10 @@ def main() -> int:
         print(f"built {r}")
     spilled = [r for r in stencils if r["spill_stores"] or r["spill_loads"]
                or r["spill_stores"] is None]
-    if len(stencils) != 18 or spilled:
+    if len(stencils) != 26 or spilled:
         print(f"chip_smoke: {len(stencils)} stem and depthwise "
-              f"instantiations (expected 18), spilling or unread: "
-              f"{spilled}", file=sys.stderr)
+              f"instantiations (expected 26: 8 f32 and 8 int8 stem bodies, "
+              f"10 dw), spilling or unread: {spilled}", file=sys.stderr)
         return 1
     int8_rows = int8_instantiations(
         {k: _build.build_log(k) for k in ("vsmm", "vsconv", "vsconv_dw")})
@@ -1703,10 +1805,23 @@ def main() -> int:
         print(f"built {r}")
     spilled = [r for r in int8_rows if r["spill_stores"]
                or r["spill_loads"] or r["spill_stores"] is None]
-    if len(int8_rows) != 13 or spilled:
+    if len(int8_rows) != 26 or spilled:
         print(f"chip_smoke: {len(int8_rows)} int8 instantiations (expected "
-              f"13: vsmm, the halo and stack convs, 5 dw halo, 5 dw stack), "
+              f"26: vsmm's 5 phase-1 and 1 phase-2 kernels, the halo and "
+              f"stack convs, 8 stem bodies, 5 dw halo, 5 dw stack), "
               f"spilling or unread: {spilled}", file=sys.stderr)
+        return 1
+    vsmm_rows = vsmm_instantiations(_build.build_log("vsmm"))
+    for r in vsmm_rows:
+        print(f"built {r}")
+    spilled = [r for r in vsmm_rows if r["spill_stores"]
+               or r["spill_loads"] or r["spill_stores"] is None]
+    if len(vsmm_rows) != 10 or spilled:
+        print(f"chip_smoke: {len(vsmm_rows)} vsmm instantiations (expected "
+              f"10: f32 phase 1 per RT 2/4/8 and phase 2, int8 phase 1 per "
+              f"RT unsplit and RT 2/4 split, and phase 2), spilling or "
+              f"unread: {spilled}",
+              file=sys.stderr)
         return 1
     lib = _build.load("flash_fwd")
     smem = {body: {hd: lib.flash_fwd_smem_bytes(hd, int(body == "mma"))
@@ -1717,6 +1832,7 @@ def main() -> int:
                       "flash_fwd_instantiations": flash,
                       "stencil_instantiations": stencils,
                       "int8_instantiations": int8_rows,
+                      "vsmm_instantiations": vsmm_rows,
                       "flash_fwd_dynamic_smem_bytes_by_hd": smem}),
           flush=True)
 

@@ -1,8 +1,8 @@
-// Tile machinery shared by the vector-sparse kernels (vsmm.cu, vsconv.cu).
+// Tile machinery of the conv kernels' generic body (vsconv.cu); vsmm.cu
+// has its own since it was rebuilt for split stored steps.
 //
-// Both kernels compute one (kRows x vn) output tile per block: kRows rows
-// (matrix rows for vsmm, flattened output pixels for the conv) of one
-// output strip j.  The block loops over the strip's S stored tiles in
+// The body computes one (kRows x vn) output tile per block: kRows
+// flattened output pixels of one output strip j.  The block loops over the strip's S stored tiles in
 // stored order.  Step s stages the stored (vk x vn) weight tile and the
 // (kRows x vk) activation tile that idx[j, s] selects in shared memory,
 // votes block-wide whether the activation tile has a nonzero (the paper's

@@ -10,7 +10,9 @@
 //                       `_kernel`), the conv over the row-tap stack.
 //   vsconv_halo_stem_kernel, vsconv_stack_stem_kernel: the stem body of
 //                       the same two kernels (below), picked by the
-//                       wrappers' `use_stem_body` for narrow inputs.
+//                       wrappers' `use_stem_body` for narrow inputs;
+//                       vsconv_{halo,stack}_stem_int8_kernel its int8
+//                       twin.
 //
 //   out (N, Hout, Wout, NB*vn) = conv of the input with a balanced
 //   block-CSR weight (kh*kw*CBg*vk, Cout): stored tiles vals (NB, S, vk,
@@ -37,16 +39,16 @@
 //
 // Each pixel's base offset is computed once per block, each step's tap
 // offset once per step.  The ids are decoded as given, in stored
-// (cin-major) order.  Zero-skip and epilogue are those of vsmm
-// (vs_tile.cuh), the residual being the output-shaped ResNet shortcut.
-// Both kernels' generic body has an int8 branch as vsmm's
+// (cin-major) order.  Zero-skip and epilogue are vs_tile.cuh's, the
+// residual being the output-shaped ResNet shortcut.  Both kernels'
+// generic body has an int8 branch
 // (vsconv_halo_int8_kernel, vsconv_stack_int8_kernel; vs_tile.cuh,
 // Step<int8_t>): int8 buffer and tiles, each step's partial exact in
 // int32, added into the f32 accumulator in stored order.  Pixel bases and
 // tap offsets stay in elements (bytes, for int8); every row offset is a
 // multiple of vk, so int8 rows load as 32-bit words where vk % 4 == 0 and
-// the buffer is 4-byte aligned.  Int8 convs never take the stem body (it
-// stages f32 windows; the wrapper's `use_stem_body` says so).
+// the buffer is 4-byte aligned.  Int8 stems take the int8 stem body
+// (below), as f32 stems take the f32 one.
 //
 // Every entry takes `skip`: 0 is the reference's skip_zero_inputs=False
 // (the paper's dense-input mode): no vote, every stored tile's MAC runs.
@@ -78,6 +80,17 @@
 // zeros); with `skip` 0 no vote is taken.  The ids are decoded as given, in
 // stored order.  The epilogue is vs::epilogue's, masked at the tile's
 // right and bottom edges.
+//
+// The int8 stem body (stem::body_int8; the same shape rule, tile and
+// thread layout) stages an int8 window (C bytes a pixel, 8- or 16-byte
+// cp.async copies: a quarter of the f32 window's shared memory, ResNet-18's
+// 7x7/s2 stack stem 17.9 KB instead of 69.9) and packed int8 tiles (four
+// k a word, transposed with __byte_perm from a chunk loaded into registers
+// one chunk ahead: one barrier a chunk).  Per stored tile a lane computes
+// each (pixel, channel) partial exactly with two __dp4a and adds it into
+// its f32 accumulator, one add a tile in stored order, as the reference
+// does: bit-equal to it.  Its epilogue is the f32 body's, dequant scale
+// first.
 //
 // What bounds it on an H100: fp32 FMAs on the CUDA cores (no tensor cores:
 // TF32 would break the 1e-5 agreement with the f32 reference) and the
@@ -514,6 +527,273 @@ __device__ __forceinline__ void body(
   }
 }
 
+// ---- The int8 stem body: the f32 body's twin on int8 windows and tiles.
+
+// Words of a staged int8 window row: pw pixels of C bytes, 16-byte
+// aligned (C 16: 16-byte copies; C 8: 8-byte copies).  A lane reads a
+// pixel's cin tile as one 8-byte word pair, and a half-warp's two pixels
+// are C bytes apart, so no row padding is needed against bank conflicts.
+__host__ __device__ inline int int8_row_words(int kw, int stride,
+                                              int dilation, int c) {
+  return (row_pixels(kw, stride, dilation) * c / 4 + 3) / 4 * 4;
+}
+
+// Dynamic shared memory of an int8 block: window, two packed weight
+// chunks (four k a word), and the word offset and cin tile of each stored
+// tile.
+inline size_t smem_bytes_int8(bool stack, int c, int vn, int kh, int kw,
+                              int stride, int dilation, int s_steps) {
+  return sizeof(int) *
+         (static_cast<size_t>(window_rows(stack, kh, stride, dilation)) *
+              int8_row_words(kw, stride, dilation, c) +
+          2 * kChunk * (kVK / 4) * static_cast<size_t>(vn) + 2 * s_steps);
+}
+
+// window_votes for an int8 window: bit ct when cin tile ct (8 bytes a
+// pixel) is nonzero anywhere in it.
+template <int C>
+__device__ __forceinline__ int window_votes_int8(const int* win, int rows,
+                                                 int row_words, int pw) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int bits = 0;
+  for (int row = warp; row < rows; row += kThreads / 32) {
+    const int2* w2 = reinterpret_cast<const int2*>(win + row * row_words);
+    for (int e = lane; e < pw * (C / kVK); e += 32) {
+      const int2 v = w2[e];
+      bits |= static_cast<int>(v.x != 0 || v.y != 0) << (e % (C / kVK));
+    }
+  }
+  int alive = 0;
+#pragma unroll
+  for (int ct = 0; ct < C / kVK; ++ct) {
+    alive |= (__syncthreads_or((bits >> ct) & 1) ? 1 : 0) << ct;
+  }
+  return alive;
+}
+
+// A 32-bit word of 4 int8 at p: one load where `aligned`, else 4 bytes.
+__device__ __forceinline__ unsigned load_word(const int8_t* p,
+                                              bool aligned) {
+  if (aligned) return *reinterpret_cast<const unsigned*>(p);
+  unsigned v = 0;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    v |= static_cast<unsigned>(static_cast<uint8_t>(p[b])) << (8 * b);
+  }
+  return v;
+}
+
+// f32 bits of 1.5 * 2^23: an int32 p with |p| < 2^22 added to these bits
+// is the float 1.5 * 2^23 + p, so subtracting 1.5 * 2^23 gives float(p)
+// exactly, in two full-rate instructions (the add rides in dp4a's
+// accumulator input).
+constexpr int kMagicBits = 0x4B400000;
+constexpr float kMagic = 12582912.0f;
+
+// The int8 block.  Layout, window and tiling as `body`; what differs:
+//   - the window holds C int8 a pixel (a quarter of the f32 bytes),
+//     staged with 8-byte (C 8) or 16-byte (C 16) cp.async copies where x
+//     is 16-byte aligned, else by byte loads;
+//   - a chunk of stored tiles is loaded into registers one chunk ahead and
+//     stored packed four k a word (words [q][col], k = 4q + byte), a
+//     4 x 4 byte transpose with __byte_perm, so one barrier a chunk;
+//   - per stored tile a lane computes each (pixel, channel) partial
+//     exactly, two __dp4a into int32 (|partial| <= 128^2 * 8 < 2^22), and
+//     adds it into its f32 accumulator: one add a tile, in stored order,
+//     as the reference does.  A skipped tile would add exact zeros.
+template <int NC, int C, bool kStack>
+__device__ __forceinline__ void body_int8(
+    const int8_t* __restrict__ x, const int8_t* __restrict__ vals,
+    const int* __restrict__ idx, const float* __restrict__ scale,
+    const float* __restrict__ bias, const float* __restrict__ residual,
+    float* __restrict__ out, int d0, int bw, int h_out, int w_out, int kh,
+    int kw, int stride, int dilation, int nb, int s_steps, int cbg,
+    int aligned, int relu, int skip) {
+  constexpr int VN = 32 * NC;
+  constexpr int CPL = VN / 8;       // output channels a lane
+  constexpr int P = kTW / 2;        // output pixels a lane
+  constexpr int CW = C / 4;         // words a pixel
+  constexpr int kChunkWords = kChunk * (kVK / 4) * VN;
+  constexpr int kUnits = kChunk * (kVK / 4) * (VN / 4);  // 4 x 4 transposes
+  static_assert(kUnits <= kThreads, "one transpose a thread");
+  extern __shared__ __align__(16) int stem_int8_smem[];
+  const int s = stride, d = dilation;
+  const int tiles_w = (w_out + kTW - 1) / kTW;
+  const int tiles_h = (h_out + kTH - 1) / kTH;
+  const int tw_i = blockIdx.x % tiles_w;
+  const int th_i = (blockIdx.x / tiles_w) % tiles_h;
+  const long long img = blockIdx.x / (tiles_w * tiles_h);
+  const int h0 = th_i * kTH, w0 = tw_i * kTW;
+  const int j = blockIdx.y;
+  const int pw = row_pixels(kw, s, d);
+  const int row_words = int8_row_words(kw, s, d, C);
+  const int rows = window_rows(kStack, kh, s, d);
+  int* win = stem_int8_smem;
+  int* wbuf = win + rows * row_words;
+  int* toff = wbuf + 2 * kChunkWords;
+  int* tct = toff + s_steps;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  // Stage the window: warp-strided rows, lane-strided pixels.
+  for (int row = warp; row < rows; row += kThreads / 32) {
+    int gr, gc0, gstep;
+    long long rbase;
+    bool row_ok;
+    if (kStack) {  // row = plane*kTH + i
+      const int plane = row / kTH;
+      gr = h0 + row % kTH;
+      row_ok = gr < h_out;
+      rbase = ((img * d0 + plane) * h_out + gr) * bw;
+      gc0 = w0;
+      gstep = 1;
+    } else {       // row = r*s + phase
+      const int r = row / s;
+      gr = h0 * s + r;
+      row_ok = gr < d0;
+      rbase = (img * d0 + gr) * bw;
+      gc0 = w0 * s + row % s;
+      gstep = s;
+    }
+    int* dst_row = win + row * row_words;
+    for (int q = lane; q < pw; q += 32) {
+      const int gc = gc0 + q * gstep;
+      const bool ok = row_ok && gc < bw;
+      const int8_t* src = ok ? x + (rbase + gc) * C : x;
+      int* dst = dst_row + q * CW;
+      if (aligned) {
+        if (C == 16) {
+          vs::cp_async16(dst, src, ok);
+        } else {
+          vs::cp_async8(dst, src, ok);
+        }
+      } else {
+#pragma unroll
+        for (int w = 0; w < CW; ++w) {
+          dst[w] = ok ? static_cast<int>(load_word(src + 4 * w, false)) : 0;
+        }
+      }
+    }
+  }
+  vs::cp_async_commit();
+  // Window offset (words, from a lane's first pixel) and cin tile of each
+  // stored id, decoded as given.
+  const int ph_rows = kStack ? kTH : 1;
+  const int ky_rows = kStack ? s * kTH : d * s;
+  for (int t = threadIdx.x; t < s_steps; t += kThreads) {
+    const int id = idx[static_cast<long long>(j) * s_steps + t];
+    const int tap = id / cbg;
+    const int ct = id - tap * cbg;
+    const int ky = tap / kw;
+    const int kx = tap - ky * kw;
+    toff[t] = (ky * ky_rows + ((kx * d) % s) * ph_rows) * row_words +
+              ((kx * d) / s) * CW + ct * (kVK / 4);
+    tct[t] = ct;
+  }
+  // This thread's transpose of a chunk: tile u / (VN/2), k quad q, columns
+  // 4*cw .. 4*cw+3.
+  const int8_t* tiles = vals + static_cast<long long>(j) * s_steps * kVK * VN;
+  const int u_tile = threadIdx.x / (VN / 2);
+  const int u_q = (threadIdx.x / (VN / 4)) % (kVK / 4);
+  const int u_cw = threadIdx.x % (VN / 4);
+  unsigned raw[4];
+  auto load_chunk = [&](int chunk) {  // rows 4q .. 4q+3 of 4 columns
+    const int t = chunk * kChunk + u_tile;
+    if (threadIdx.x < kUnits && t < s_steps) {
+      const int8_t* p = tiles + (static_cast<long long>(t) * kVK + 4 * u_q) *
+                                    VN + 4 * u_cw;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        raw[kk] = load_word(p + kk * VN, aligned);
+      }
+    }
+  };
+  auto store_chunk = [&](int chunk) {  // packed: word [q][col] = 4 k
+    const int t = chunk * kChunk + u_tile;
+    if (threadIdx.x < kUnits && t < s_steps) {
+      const unsigned lo01 = __byte_perm(raw[0], raw[1], 0x5140);
+      const unsigned hi01 = __byte_perm(raw[0], raw[1], 0x7362);
+      const unsigned lo23 = __byte_perm(raw[2], raw[3], 0x5140);
+      const unsigned hi23 = __byte_perm(raw[2], raw[3], 0x7362);
+      int* dst = wbuf + (chunk & 1) * kChunkWords +
+                 (u_tile * (kVK / 4) + u_q) * VN + 4 * u_cw;
+      dst[0] = static_cast<int>(__byte_perm(lo01, lo23, 0x5410));
+      dst[1] = static_cast<int>(__byte_perm(lo01, lo23, 0x7632));
+      dst[2] = static_cast<int>(__byte_perm(hi01, hi23, 0x5410));
+      dst[3] = static_cast<int>(__byte_perm(hi01, hi23, 0x7632));
+    }
+  };
+
+  const int grp = lane >> 3;
+  const int li = lane & 7;
+  const int i = 2 * warp + (grp >> 1);  // output row in the tile
+  const int col0 = grp & 1;             // first output column; then + 2
+  const int x_off = i * (kStack ? 1 : s * s) * row_words + col0 * CW;
+  float acc[P][CPL] = {};
+  const int n_chunks = (s_steps + kChunk - 1) / kChunk;
+  if (n_chunks > 0) {
+    load_chunk(0);
+    store_chunk(0);
+  }
+  int alive = 0;
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    if (chunk + 1 < n_chunks) load_chunk(chunk + 1);  // in flight meanwhile
+    if (chunk == 0) vs::cp_async_wait<0>();
+    __syncthreads();  // the window, this chunk and toff/tct are in place
+    if (chunk == 0) {
+      alive = skip ? window_votes_int8<C>(win, rows, row_words, pw) : ~0;
+    }
+    const int* wt = wbuf + (chunk & 1) * kChunkWords + li;
+    const int t_end = min(s_steps, (chunk + 1) * kChunk);
+    for (int t = chunk * kChunk; t < t_end; ++t, wt += (kVK / 4) * VN) {
+      if (!((alive >> tct[t]) & 1)) continue;  // block-uniform
+      int w_lo[CPL], w_hi[CPL];
+#pragma unroll
+      for (int m = 0; m < CPL; ++m) {
+        w_lo[m] = wt[8 * m];
+        w_hi[m] = wt[VN + 8 * m];
+      }
+      const int* xp = win + x_off + toff[t];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int2 a = *reinterpret_cast<const int2*>(xp + 2 * p * CW);
+#pragma unroll
+        for (int m = 0; m < CPL; ++m) {
+          const int part =
+              __dp4a(a.y, w_hi[m], __dp4a(a.x, w_lo[m], kMagicBits));
+          acc[p][m] += __int_as_float(part) - kMagic;  // exact, in order
+        }
+      }
+    }
+    // the next chunk's buffer was last read before this chunk's barrier
+    if (chunk + 1 < n_chunks) store_chunk(chunk + 1);
+  }
+  if (n_chunks == 0) vs::cp_async_wait<0>();
+
+  // Epilogue, as `body`'s: masked at the image's right and bottom.
+  const int h = h0 + i;
+  if (h >= h_out) return;
+  const int n_total = nb * VN;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int wc = w0 + col0 + 2 * p;
+    if (wc >= w_out) continue;
+    const long long o =
+        ((img * h_out + h) * w_out + wc) * n_total + j * VN + li;
+#pragma unroll
+    for (int m = 0; m < CPL; ++m) {
+      const int col = j * VN + li + 8 * m;
+      float v = acc[p][m];
+      if (scale) v = v * scale[col];
+      if (bias) v = v + bias[col];
+      if (residual) v = v + residual[o + 8 * m];
+      if (relu && v < 0.f) v = 0.f;  // NaN passes through, as in max(v, 0)
+      out[o + 8 * m] = v;
+    }
+  }
+}
+
 }  // namespace stem
 
 #define VSCONV_STEM_PARAMS                                                  \
@@ -539,13 +819,53 @@ __global__ void __launch_bounds__(stem::kThreads, 4)
   stem::body<NC, C, true>(VSCONV_STEM_ARGS);
 }
 
+#define VSCONV_STEM_INT8_PARAMS                                             \
+  const int8_t *__restrict__ x, const int8_t *__restrict__ vals,            \
+      const int *__restrict__ idx, const float *__restrict__ scale,         \
+      const float *__restrict__ bias, const float *__restrict__ residual,   \
+      float *__restrict__ out, int d0, int bw, int h_out, int w_out, int kh, \
+      int kw, int stride, int dilation, int nb, int s_steps, int cbg,       \
+      int aligned, int relu, int skip
+
 template <int NC, int C>
+__global__ void __launch_bounds__(stem::kThreads, 4)
+    vsconv_halo_stem_int8_kernel(VSCONV_STEM_INT8_PARAMS) {
+  stem::body_int8<NC, C, false>(VSCONV_STEM_ARGS);
+}
+
+template <int NC, int C>
+__global__ void __launch_bounds__(stem::kThreads, 4)
+    vsconv_stack_stem_int8_kernel(VSCONV_STEM_INT8_PARAMS) {
+  stem::body_int8<NC, C, true>(VSCONV_STEM_ARGS);
+}
+
+template <int NC, int C, class T>
 int stem_launch_one(bool stack, int n_img, void* stream,
-                    VSCONV_STEM_PARAMS) {
-  auto kernel = stack ? vsconv_stack_stem_kernel<NC, C>
-                      : vsconv_halo_stem_kernel<NC, C>;
-  const size_t smem = stem::smem_bytes(stack, C, 32 * NC, kh, kw, stride,
-                                       dilation, s_steps);
+                    const T* __restrict__ x, const T* __restrict__ vals,
+                    const int* __restrict__ idx,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ residual,
+                    float* __restrict__ out, int d0, int bw, int h_out,
+                    int w_out, int kh, int kw, int stride, int dilation,
+                    int nb, int s_steps, int cbg, int aligned, int relu,
+                    int skip) {
+  constexpr bool kInt8 = sizeof(T) == 1;
+  void (*kernel)(const T*, const T*, const int*, const float*, const float*,
+                 const float*, float*, int, int, int, int, int, int, int,
+                 int, int, int, int, int, int, int);
+  if constexpr (kInt8) {
+    kernel = stack ? vsconv_stack_stem_int8_kernel<NC, C>
+                   : vsconv_halo_stem_int8_kernel<NC, C>;
+  } else {
+    kernel = stack ? vsconv_stack_stem_kernel<NC, C>
+                   : vsconv_halo_stem_kernel<NC, C>;
+  }
+  const size_t smem =
+      kInt8 ? stem::smem_bytes_int8(stack, C, 32 * NC, kh, kw, stride,
+                                    dilation, s_steps)
+            : stem::smem_bytes(stack, C, 32 * NC, kh, kw, stride, dilation,
+                               s_steps);
   if (smem > stem::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -560,8 +880,13 @@ int stem_launch_one(bool stack, int n_img, void* stream,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class T>
 int stem_launch(bool stack, int n_img, int cb, int vk, int vn,
-                void* stream, VSCONV_STEM_PARAMS) {
+                void* stream, const T* x, const T* vals, const int* idx,
+                const float* scale, const float* bias, const float* residual,
+                float* out, int d0, int bw, int h_out, int w_out, int kh,
+                int kw, int stride, int dilation, int nb, int s_steps,
+                int cbg, int aligned, int relu, int skip) {
   const int c = cb * vk;
   if (vk != stem::kVK) return static_cast<int>(cudaErrorInvalidValue);
   if (vn == 32 && c == 8) {
@@ -629,6 +954,36 @@ extern "C" int vsconv_halo_stem_launch(
 
 extern "C" int vsconv_stack_stem_launch(
     const float* xt, const float* vals, const int* idx, const float* scale,
+    const float* bias, const float* residual, float* out, int n_img,
+    int planes, int bw, int cb, int h_out, int w_out, int kw, int stride,
+    int dilation, int nb, int s_steps, int vk, int vn, int cbg, int spg,
+    int relu, int skip, int kh, int aligned, void* stream) {
+  (void)spg;
+  return stem_launch(true, n_img, cb, vk, vn, stream, xt, vals, idx, scale,
+                     bias, residual, out, planes, bw, h_out, w_out, kh, kw,
+                     stride, dilation, nb, s_steps, cbg, aligned, relu,
+                     skip);
+}
+
+// The int8 stem body of the two kernels: xh / xt and vals int8, scale
+// (the combined dequant scale, a power of two per column) given; the same
+// arguments as the f32 stem entries, `aligned` 1 when x and vals are
+// 16-byte aligned (cp.async and word loads; else byte loads).
+extern "C" int vsconv_halo_stem_int8_launch(
+    const int8_t* xh, const int8_t* vals, const int* idx, const float* scale,
+    const float* bias, const float* residual, float* out, int n_img,
+    int rows, int bw, int cb, int h_out, int w_out, int kw, int stride,
+    int dilation, int nb, int s_steps, int vk, int vn, int cbg, int spg,
+    int relu, int skip, int kh, int aligned, void* stream) {
+  (void)spg;
+  return stem_launch(false, n_img, cb, vk, vn, stream, xh, vals, idx, scale,
+                     bias, residual, out, rows, bw, h_out, w_out, kh, kw,
+                     stride, dilation, nb, s_steps, cbg, aligned, relu,
+                     skip);
+}
+
+extern "C" int vsconv_stack_stem_int8_launch(
+    const int8_t* xt, const int8_t* vals, const int* idx, const float* scale,
     const float* bias, const float* residual, float* out, int n_img,
     int planes, int bw, int cb, int h_out, int w_out, int kw, int stride,
     int dilation, int nb, int s_steps, int vk, int vn, int cbg, int spg,

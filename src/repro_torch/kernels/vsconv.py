@@ -30,12 +30,12 @@ inputs, vk 8: a 2-D output tile over a shared-memory window, see
 to build or launch, the wrapper raises: it never carries on in the
 generic body.
 
-Both kernels' generic body has an int8 branch (int8 buffer and tiles, a
+Both kernels' bodies have an int8 branch (int8 buffer and tiles, a
 per-column dequant scale): each stored step's partial is an exact
 integer, added into the f32 accumulator in stored order, bit-equal to the
 plain versions and the reference.  Its launches count on
-``int8_launches`` too; int8 convs never take the stem body (it stages
-f32 windows).
+``int8_launches`` too; int8 stems take the int8 stem body (an int8
+window, ``dp4a`` partials) under the same rule as f32 stems.
 
 ``skip_zero_inputs`` (default True) is the reference's flag: False turns
 the kernels' input-side skip off (the paper's dense-input mode), so every
@@ -95,33 +95,40 @@ STEM_MAX_SMEM = 227 * 1024  # an H100 block's shared memory
 
 
 def stem_smem_bytes(c: int, vn: int, *, kh: int, kw: int, stride: int,
-                    dilation: int, layout: str) -> int:
+                    dilation: int, layout: str, itemsize: int = 4) -> int:
     """Shared memory of one stem-body block at the most stored tiles a
-    strip can hold (S = kh*kw*CB): the input window (C floats a pixel,
-    columns split by phase, rows padded), two weight chunks and two ints
-    per stored tile."""
+    strip can hold (S = kh*kw*CB): the input window (C elements a pixel,
+    columns split by phase; f32 rows padded by 4 floats, int8 rows
+    rounded up to 16 bytes), two weight chunks (C elements a tile row) and
+    two ints per stored tile.  ``itemsize`` 4 is the f32 body, 1 the
+    int8 one."""
     pw = STEM_TW + ((kw - 1) * dilation) // stride
     if layout == "stack":
         rows = kh * stride * STEM_TH
     else:
         rows = ((STEM_TH - 1) * stride + (kh - 1) * dilation + 1) * stride
     s_max = kh * kw * (c // STEM_VK)
-    return 4 * (rows * (pw * c + STEM_ROW_PAD)
-                + 2 * STEM_CHUNK * STEM_VK * vn + 2 * s_max)
+    if itemsize == 1:
+        row_bytes = -(-pw * c // 16) * 16
+    else:
+        row_bytes = 4 * (pw * c + STEM_ROW_PAD)
+    return (rows * row_bytes + itemsize * 2 * STEM_CHUNK * STEM_VK * vn
+            + 8 * s_max)
 
 
 @functools.lru_cache(maxsize=None)
 def use_stem_body(c: int, vk: int, groups: int, kh: int, kw: int, vn: int,
                   *, stride: int = 1, dilation: int = 1,
                   int8: bool = False) -> bool:
-    """True when the conv kernels run their stem body: an f32 ungrouped
-    conv with kh*kw > 1 over a narrow input, C = CB*vk of 8 or 16 channels
-    in K-tiles of vk 8 (what `models/graph.py::conv_tile_geometry` gives
-    any cin that does not tile by 32), vn 32 or 64, and a window that fits
-    an H100 block's shared memory in both layouts.  Every other conv, and
-    every int8 conv (the stem body stages f32 only), runs the generic
-    body."""
-    return (not int8 and groups == 1 and kh * kw > 1 and vk == STEM_VK
+    """True when the conv kernels run their stem body: an ungrouped conv
+    with kh*kw > 1 over a narrow input, C = CB*vk of 8 or 16 channels in
+    K-tiles of vk 8 (what `models/graph.py::conv_tile_geometry` gives any
+    cin that does not tile by 32), vn 32 or 64, and an f32 window that
+    fits an H100 block's shared memory in both layouts.  The rule is the
+    same for f32 and int8 (``int8`` picks the int8 twin of the body, whose
+    window is smaller); every other conv runs the generic body."""
+    del int8  # the same shape rule for both bodies
+    return (groups == 1 and kh * kw > 1 and vk == STEM_VK
             and c in STEM_CHANNELS and vn in STEM_VN
             and all(stem_smem_bytes(c, vn, kh=kh, kw=kw, stride=stride,
                                     dilation=dilation, layout=layout)
@@ -422,7 +429,8 @@ def _conv_kernel(fn: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
                 int(skip_zero_inputs))
         if stem:
             aligned = x.data_ptr() % 16 == 0 and vs.vals.data_ptr() % 16 == 0
-            launch("vsconv", fn.replace("_launch", "_stem_launch"),
+            launch("vsconv", entry_name(fn.replace("_launch", "_stem_launch"),
+                                        int8),
                    (x, vs.vals, vs.idx, scale, bias, residual, out),
                    ints + (kh, int(aligned)), x.device)
         else:
@@ -456,7 +464,7 @@ def vsconv_halo_kernel(
     current stream (built at first use); CPU tensors run `vsconv_plain`.
     ``bias``/``scale`` are (Cout,), ``residual`` (N, Hout, w_out, Cout).
     int8 ``xh`` and ``vs.vals`` with a ``scale`` launch the int8 branch of
-    the generic body (counted on ``int8_launches`` too).
+    the body the conv takes (counted on ``int8_launches`` too).
     ``skip_zero_inputs=False`` turns the input-side skip off.
     """
     kw_ = dict(w_out=w_out, kh=kh, kw=kw, stride=stride, dilation=dilation,
@@ -507,7 +515,7 @@ def vsconv_stack_kernel(
     the current stream (built at first use); CPU tensors run
     `vsconv_stack_plain`.  ``bias``/``scale`` are (Cout,), ``residual``
     (N, Hout, w_out, Cout).  int8 ``xt`` and ``vs.vals`` with a ``scale``
-    launch the int8 branch of the generic body (counted on
+    launch the int8 branch of the body the conv takes (counted on
     ``int8_launches`` too).  ``skip_zero_inputs=False`` turns the
     input-side skip off.
     """

@@ -141,3 +141,52 @@ def test_build_log_is_kept_beside_a_built_library(build_dir):
     lib.with_suffix(".log").write_text(PTXAS)
     assert _build.build("k") == {}
     assert _build.build_log("k") == PTXAS
+
+
+_MM = "_ZN12_GLOBAL__N__2b3c4d5e_7_vsmm_cu_6f7a8b9c"
+
+
+def test_profile_kinds_file_the_new_entry_functions():
+    """vsmm's phase-1 and phase-2 kernels and the int8 stem bodies are
+    filed under their kernel and branch."""
+    for name, kind in (
+            (f"{_MM}11vsmm_kernelILi2EEEvPKfS1_", "vsmm"),
+            (f"{_MM}18vsmm_reduce_kernelEPKfS1_", "vsmm"),
+            (f"{_MM}16vsmm_int8_kernelILi8ELb1EEEvPKa", "vsmm_int8"),
+            (f"{_MM}23vsmm_int8_reduce_kernelEPK4int2", "vsmm_int8"),
+            ("void (anonymous namespace)::vsconv_halo_stem_int8_kernel<2, 8>("
+             "const signed char *, ...)", "vsconv_halo_int8"),
+            (f"{_VS}29vsconv_stack_stem_int8_kernelILi1ELi8EEEvPKa",
+             "vsconv_stack_int8")):
+        assert chip_smoke._kind(name) == kind, name
+
+
+def test_vsmm_and_int8_instantiations_name_their_templates():
+    mm = (_entry(f"{_MM}11vsmm_kernelILi8EEEvPKf", 96)
+          + _entry(f"{_MM}18vsmm_reduce_kernelEPKf", 20)
+          + _entry(f"{_MM}16vsmm_int8_kernelILi2ELb0EEEvPKa", 60)
+          + _entry(f"{_MM}16vsmm_int8_kernelILi8ELb1EEEvPKa", 110, spill=4)
+          + _entry(f"{_MM}23vsmm_int8_reduce_kernelEPK4int2", 30))
+    rows = chip_smoke.vsmm_instantiations(mm)
+    assert [(r["kernel"], r.get("rt"), r.get("split")) for r in rows] == [
+        ("vsmm", 8, None), ("vsmm_int8", 2, False), ("vsmm_int8", 8, True),
+        ("vsmm_int8_reduce", None, None), ("vsmm_reduce", None, None)]
+    assert rows[2]["spill_stores"] == 4
+    conv = (_entry(f"{_VS}29vsconv_stack_stem_int8_kernelILi2ELi16EEEvPKa",
+                   80)
+            + _entry(f"{_VS}23vsconv_halo_stem_kernelILi2ELi8EEEvPKf", 90)
+            + _entry(f"{_VS}23vsconv_halo_int8_kernelEPKa", 64))
+    dw = _entry(f"{_DW}26vsconv_dw_halo_int8_kernelILi128ELi4EEEvPKa", 48)
+    rows = chip_smoke.int8_instantiations({"vsmm": mm, "vsconv": conv,
+                                           "vsconv_dw": dw})
+    by = {r["kernel"]: r for r in rows}
+    assert set(by) == {"vsmm_int8", "vsmm_int8_reduce", "vsconv_halo_int8",
+                       "vsconv_stack_stem_int8", "vsconv_dw_halo_int8"}
+    assert len(rows) == 6  # two vsmm_int8 instantiations
+    assert (by["vsconv_stack_stem_int8"]["vn"],
+            by["vsconv_stack_stem_int8"]["c"]) == (64, 16)
+    assert (by["vsconv_dw_halo_int8"]["vc"],
+            by["vsconv_dw_halo_int8"]["vec"]) == (128, 4)
+    stencils = chip_smoke.stencil_instantiations(conv, dw)
+    assert {r["kernel"] for r in stencils} == {"vsconv_stack_stem_int8",
+                                               "vsconv_halo_stem"}

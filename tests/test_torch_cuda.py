@@ -565,7 +565,7 @@ def test_vsmm_int8_kernel_keeps_stored_step_order(cuda):
 
 
 @pytest.mark.parametrize("size,cin,cout,kh,stride,groups,vk,vn,density", [
-    (32, 8, 64, 7, 2, 1, 8, 64, 1.0),     # the stem: the generic body
+    (32, 8, 64, 7, 2, 1, 8, 64, 1.0),     # the stem: the int8 stem body
     (16, 64, 64, 3, 1, 1, 32, 64, 0.5),
     (16, 64, 128, 3, 2, 1, 32, 128, 0.25),
     (3, 128, 128, 3, 1, 1, 32, 128, 0.5),  # Hout < 4
@@ -588,11 +588,14 @@ def test_vsconv_halo_int8_kernel_bit_equal_to_plain(
                              epilogue))
     before = (vsconv_halo_kernel.launches, vsconv_halo_kernel.int8_launches,
               vsconv_halo_kernel.stem_launches)
+    stem = use_stem_body(cin, vk, groups, kh, kh, vn, stride=stride,
+                         int8=True)
+    assert stem == (cin == 8)
     y = vsconv_halo_kernel(xh, vs, **kw)
     torch.cuda.synchronize()
     assert (vsconv_halo_kernel.launches, vsconv_halo_kernel.int8_launches,
             vsconv_halo_kernel.stem_launches) == (
-        before[0] + 1, before[1] + 1, before[2])
+        before[0] + 1, before[1] + 1, before[2] + stem)
     _assert_bit_equal(y, vsconv_plain(xh, vs, **kw))
 
 
@@ -666,7 +669,7 @@ def test_int8_stack_kernels_raise_not_implemented(cuda):
 
 @pytest.mark.parametrize("size,cin,cout,kh,stride,groups,vk,vn,density", [
     (32, 8, 64, 7, 2, 1, 8, 64, 1.0),     # ResNet-18's stem: 14 planes
-    (32, 8, 64, 3, 1, 1, 8, 64, 1.0),     # VGG-16's conv1 (generic body)
+    (32, 8, 64, 3, 1, 1, 8, 64, 1.0),     # VGG-16's conv1 (stem body)
     (16, 64, 64, 3, 1, 1, 32, 64, 0.5),
     (16, 64, 128, 3, 2, 1, 32, 128, 0.25),
     (3, 128, 128, 3, 1, 1, 32, 128, 0.5),  # Hout < 4
@@ -689,10 +692,13 @@ def test_vsconv_stack_int8_kernel_bit_equal_to_plain(
                              epilogue))
     k = vsconv_stack_kernel
     before = (k.launches, k.int8_launches, k.stem_launches)
+    stem = use_stem_body(cin, vk, groups, kh, kh, vn, stride=stride,
+                         int8=True)
+    assert stem == (cin == 8)
     y = k(xt, vs, **kw)
     torch.cuda.synchronize()
     assert (k.launches, k.int8_launches, k.stem_launches) == (
-        before[0] + 1, before[1] + 1, before[2])
+        before[0] + 1, before[1] + 1, before[2] + stem)
     _assert_bit_equal(y, vsconv_stack_plain(xt, vs, **kw))
 
 
@@ -747,7 +753,9 @@ def test_dw_stack_int8_kernel_bit_equal_to_plain(cuda, size, c, stride, vc,
 SKIP_CASES = [  # kernel, dtype
     ("vsmm", "f32"), ("vsmm", "int8"),
     ("halo", "f32"), ("halo", "int8"), ("halo_stem", "f32"),
+    ("halo_stem", "int8"),
     ("stack", "f32"), ("stack", "int8"), ("stack_stem", "f32"),
+    ("stack_stem", "int8"),
     ("dw_halo", "f32"), ("dw_halo", "int8"),
     ("dw_stack", "f32"), ("dw_stack", "int8"),
 ]
@@ -901,9 +909,9 @@ def test_vgg16_fc1_matches_plain(cuda, dtype):
 ])
 def test_int8_stack_served_wave_bit_equal_to_plain(cuda, arch, per_wave):
     """One int8 wave of 4 images at 32 px through `CNNServer(dtype="int8",
-    impl="pallas-stack")`: every conv through an int8 stack kernel, every
-    FC and 1x1 through vsmm's int8 branch, no stem body, logits bit-equal
-    to `net_apply(impl="plain")` on the card."""
+    impl="pallas-stack")`: every conv through an int8 stack kernel (the
+    stem through its int8 stem body), every FC and 1x1 through vsmm's int8
+    branch, logits bit-equal to `net_apply(impl="plain")` on the card."""
     counters = {"stack": vsconv_stack_kernel,
                 "dw_stack": vsconv_dw_stack_kernel, "vsmm": vsmm_kernel,
                 "halo": vsconv_halo_kernel, "dw_halo": vsconv_dw_halo_kernel}
@@ -923,7 +931,7 @@ def test_int8_stack_served_wave_bit_equal_to_plain(cuda, arch, per_wave):
             if k.launches} == per_wave
     assert {n: k.int8_launches for n, k in counters.items()
             if k.int8_launches} == per_wave
-    assert vsconv_stack_kernel.stem_launches == 0
+    assert vsconv_stack_kernel.stem_launches == 1
     with torch.inference_mode():
         ref = TG.net_apply(srv.net, srv.params,
                            torch.from_numpy(np.stack(imgs)).to(cuda),
@@ -940,8 +948,9 @@ def test_int8_stack_served_wave_bit_equal_to_plain(cuda, arch, per_wave):
 ])
 def test_int8_served_wave_bit_equal_to_plain(cuda, arch, per_wave):
     """One int8 wave of 4 images at 32 px through `CNNServer(dtype=
-    "int8")`: every conv and FC through an int8 kernel branch, no stem
-    body, logits bit-equal to `net_apply(impl="plain")` on the card."""
+    "int8")`: every conv and FC through an int8 kernel branch (the stem
+    through the int8 stem body), logits bit-equal to
+    `net_apply(impl="plain")` on the card."""
     counters = {"halo": vsconv_halo_kernel, "dw_halo": vsconv_dw_halo_kernel,
                 "vsmm": vsmm_kernel}
     srv = TS.CNNServer(get_config(arch).reduce(), batch=4, density=0.5,
@@ -959,7 +968,7 @@ def test_int8_served_wave_bit_equal_to_plain(cuda, arch, per_wave):
             if k.launches} == per_wave
     assert {n: k.int8_launches for n, k in counters.items()
             if k.int8_launches} == per_wave
-    assert vsconv_halo_kernel.stem_launches == 0
+    assert vsconv_halo_kernel.stem_launches == 1
     with torch.inference_mode():
         ref = TG.net_apply(srv.net, srv.params,
                            torch.from_numpy(np.stack(imgs)).to(cuda),

@@ -129,7 +129,8 @@ def test_check_operands_takes_int8_only_with_a_scale():
         with pytest.raises(ValueError):
             tvsmm.check_operands(bad, dev)
     assert tvsmm.entry_name("vsmm_launch", True) == "vsmm_int8_launch"
-    assert not tvsconv.use_stem_body(8, 8, 1, 7, 7, 64, stride=2, int8=True)
+    # int8 stems take the stem body (its int8 twin) under the f32 rule
+    assert tvsconv.use_stem_body(8, 8, 1, 7, 7, 64, stride=2, int8=True)
     assert tvsconv.use_stem_body(8, 8, 1, 7, 7, 64, stride=2)
 
 
