@@ -14,12 +14,15 @@ repository around it, or when any phase fails.  Phases:
    nvcc per source, started together) and print their register use, the
    registers and spill bytes of each flash instantiation (the bf16 hd-128
    one must not spill), of each of the 26 stem-body and depthwise
-   instantiations (8 f32 and 8 int8 stem bodies, 10 dw), of the 26 int8
-   instantiations (vsmm's 5 phase-1 and 1 phase-2 kernels, the 8 int8
-   stem bodies, the halo and stack convs' generic body, 5 dw halo, 5 dw
-   stack) and of the 10 vsmm instantiations (f32 and int8, both phases);
-   none of these may spill), and the flash kernel's dynamic shared memory
-   per head dim and body.
+   instantiations (8 f32 and 8 int8 stem bodies, 10 dw), of the 42 int8
+   instantiations (vsmm's 5 phase-1 and 1 phase-2 kernels, the generic
+   conv body's 16 phase-1 and 2 phase-2 int8 kernels, the 8 int8 stem
+   bodies, 5 dw halo, 5 dw stack), of the 10 vsmm instantiations (f32 and
+   int8, both phases) and of the 30 generic conv body instantiations
+   (per layout: f32 at 128 and 64 rows x vn 128 and 64 and the general
+   one; int8 the same four, split at 64 rows x vn 128 and 64, the general
+   one whole and split; phase 2 f32 and int8); none of these may spill),
+   and the flash kernel's dynamic shared memory per head dim and body.
 2. Kernel phase.  Each kernel against its plain version on the card,
    within a relative error of 1e-5 of max|y| (1e-2 for the flash kernel
    on bf16 inputs), then timed (see below).  One JSON line per case.  The
@@ -39,8 +42,13 @@ repository around it, or when any phase fails.  Phases:
      stem at 227 px (Hout 114, which cuts the stem body's 8 x 16 tiles),
      one grouped 3x3 (64 -> 64, groups 4, 56 px);
    - depthwise stack: dw1, dw2 and dw12.
+   The generic conv body (`generic_cases`): VGG-16's conv2 (224 px, vn
+   64), conv9 (28 px), conv11 (14 px) and ResNet-18's layer4 (7 px), f32
+   and int8 (bit-equal), both layouts, without and with the epilogue.
    Each conv row names its body (``"stem"`` where `use_stem_body` holds,
-   else ``"generic"``).
+   else ``"generic"``); a generic row names its plan (``rows``,
+   ``splits``: `conv_plan`), and where the plan splits the stored steps
+   two launches must give the same bits.
    The int8 branches (`int8_kernel_cases`), each bit-equal to its plain
    version (max|Δ| 0), without and with the epilogue, on int8 tiles and
    activations quantized on the card: the halo and the stack conv at the
@@ -367,10 +375,16 @@ def _int8_weight(gen, kh: int, cin: int, cout: int, vk: int, vn: int,
     """As `_sparse_weight`, quantized to int8 as ``sparsify(dtype="int8")``
     does (per-column power-of-two scales of the pruned weight): (the int8
     encoding, the scales on ``device``)."""
+    w, mask = _pruned(gen, kh, cin, cout, vk, vn, density)
+    return _quantized(w, mask, kh, cin, vk, vn, device)
+
+
+def _quantized(w, mask, kh: int, cin: int, vk: int, vn: int, device):
+    """A pruned weight quantized as ``sparsify(dtype="int8")`` does: (the
+    int8 encoding, the per-column power-of-two scales on ``device``)."""
     import torch
     from repro_torch.models.graph import quantize_weights_int8, weight_scales
 
-    w, mask = _pruned(gen, kh, cin, cout, vk, vn, density)
     s_w = weight_scales(w)
     return (_encode(quantize_weights_int8(w, s_w), mask, kh, cin, vk, vn,
                     device), torch.as_tensor(s_w, device=device))
@@ -447,6 +461,17 @@ def _conv_case(timer: Timer, label: str, x, vs, *, kh: int, stride: int,
                            int8=quant is not None)
     extra = {} if skip else _skip_extra(
         label, lambda on: kernel(buf, vs, skip_zero_inputs=on, **kw), reps)
+    if not stem:  # the generic body's plan; a split must be deterministic
+        nb, s_steps, vk, vn = vs.vals.shape
+        extra["rows"], extra["splits"] = K.conv_plan(
+            n * ho * wo, nb, s_steps, vk, vn, int8=quant is not None)
+        if extra["splits"] > 1:
+            y1, y2 = (kernel(buf, vs, skip_zero_inputs=skip, **kw)
+                      for _ in range(2))
+            if not torch.equal(y1, y2):
+                raise SystemExit(f"chip_smoke: {label}: two launches of a "
+                                 f"split conv differ")
+            extra["two_launches_bit_equal"] = True
     return timer.run(
         label, name + suffix,
         lambda: kernel(buf, vs, skip_zero_inputs=skip, **kw),
@@ -641,8 +666,41 @@ def kernel_phase(timer: Timer, dev) -> None:
             bias=torch.randn(n_out, generator=gen).to(dev),
             residual=torch.randn(m, n_out, generator=gen).to(dev), relu=True)
     vsmm_cases(timer, dev, gen, act)
+    generic_cases(timer, dev, gen, act, epilogue)
     int8_kernel_cases(timer, dev, gen, act, epilogue)
     skip_cases(timer, dev, gen, act)
+
+
+def generic_cases(timer: Timer, dev, gen, act, epilogue) -> None:
+    """The generic conv body at the main paths' shapes that its plan cuts
+    differently, f32 and int8 (bit-equal), both layouts, without and with
+    the epilogue: VGG-16's conv2 (224 px, vn 64: 128-row tiles), conv9
+    (28 px: 64-row tiles), conv11 (14 px: 2 chunks a strip) and ResNet-18's
+    layer4 (7 px: 9 chunks a strip).  Each row names its plan; a split
+    case must give the same bits in two launches (`_conv_case`)."""
+    from repro_torch.models.graph import quantize_activations_int8
+
+    cases = [  # label, H, cin, cout, vn
+        ("VGG-16 conv2 3x3/s1 224px 64->64", 224, 64, 64, 64),
+        ("VGG-16 conv9 3x3/s1 28px 512->512", 28, 512, 512, 128),
+        ("VGG-16 conv11 3x3/s1 14px 512->512", 14, 512, 512, 128),
+        ("ResNet-18 layer4 3x3/s1 7px 512->512", 7, 512, 512, 128),
+    ]
+    for label, h, cin, cout, vn in cases:
+        w, mask = _pruned(gen, 3, cin, cout, 32, vn, DENSITY)
+        vs = _encode(w, mask, 3, cin, 32, vn, dev)
+        vs8, s_w = _quantized(w, mask, 3, cin, 32, vn, dev)
+        x = act(BATCH, h, h, cin)
+        xq, sx = quantize_activations_int8(x)
+        epi = epilogue(BATCH, h, cout)
+        for tag, xin, w_enc, quant in (("", x, vs, None),
+                                       ("int8 ", xq, vs8, (sx, s_w))):
+            for layout in ("halo", "stack"):
+                kw = dict(kh=3, stride=1, cin_real=cin, layout=layout,
+                          quant=quant)
+                _conv_case(timer, f"{tag}{layout} {label}", xin, w_enc, **kw)
+                _conv_case(timer, f"{tag}{layout} {label} "
+                           f"+bias+residual+relu", xin, w_enc, **kw, **epi)
 
 
 def vsmm_cases(timer: Timer, dev, gen, act) -> None:
@@ -652,9 +710,7 @@ def vsmm_cases(timer: Timer, dev, gen, act) -> None:
     tiles), pw13 and head.  Each pruned weight serves both branches (int8:
     quantized as ``sparsify(dtype="int8")`` does)."""
     import torch
-    from repro_torch.models.graph import (quantize_activations_int8,
-                                          quantize_weights_int8,
-                                          weight_scales)
+    from repro_torch.models.graph import quantize_activations_int8
 
     cases = [  # label, M, K, N (encoded), N (real), vn, density
         ("VGG-16 fc1 25088->4096", BATCH, 25088, 4096, 4096, 128, DENSITY),
@@ -667,8 +723,7 @@ def vsmm_cases(timer: Timer, dev, gen, act) -> None:
     ]
     for label, m, k, n_out, n_real, vn, d in cases:
         w, mask = _pruned(gen, 1, k, n_out, 32, vn, d)
-        s_w = weight_scales(w)
-        vs8 = _encode(quantize_weights_int8(w, s_w), mask, 1, k, 32, vn, dev)
+        vs8, s_w = _quantized(w, mask, 1, k, 32, vn, dev)
         vs = _encode(w, mask, 1, k, 32, vn, dev)
         del w
         x = act(m, k)
@@ -676,7 +731,7 @@ def vsmm_cases(timer: Timer, dev, gen, act) -> None:
         epi = dict(bias=torch.randn(n_out, generator=gen).to(dev),
                    residual=torch.randn(m, n_out, generator=gen).to(dev),
                    relu=True)
-        quant = (sx, torch.as_tensor(s_w, device=dev))
+        quant = (sx, s_w)
         for tag, xin, w_enc, q in (("", x, vs, None), ("int8 ", xq, vs8,
                                                        quant)):
             _mm_case(timer, f"{tag}{label}", xin, w_enc, n_real=n_real,
@@ -1708,6 +1763,11 @@ def int8_instantiations(logs: dict) -> list:
                 if row is not None and row["kernel"].startswith("vsmm_int8"):
                     rows.append({**row, **use})
                 continue
+            gen = _generic_row(name)
+            if gen is not None:
+                if gen["kernel"].endswith(("_int8", "_int8_reduce")):
+                    rows.append({**gen, **use})
+                continue
             m = re.search(r"(vsconv_halo|vsconv_stack|vsconv_dw_halo|"
                           r"vsconv_dw_stack)_(stem_)?int8_kernel"
                           r"(?:ILi(\d+)ELi(\d+)E)?", name)
@@ -1718,6 +1778,40 @@ def int8_instantiations(logs: dict) -> list:
                 elif m.group(3):
                     row.update(vc=int(m.group(3)), vec=int(m.group(4)))
                 rows.append({**row, **use})
+    return sorted(rows, key=lambda r: tuple(str(v) for v in r.values()))
+
+
+def _generic_row(name: str) -> dict | None:
+    """vsconv.cu's generic-body entry functions, by layout: phase 1 with
+    its tile (``rows`` x ``vn`` outputs; f32 ``vsconv_*_kernel<RT, CT,
+    kFast>``: 16*RT x 16*CT; int8 ``vsconv_*_int8_kernel<MI, WC, kFast,
+    kSplit>``: 8/WC*16*MI x 32*WC), whether it is a fast instantiation
+    (vk 32) or the general one, and (int8) whether it keeps split sums;
+    and phase 2 (``vsconv_*_reduce_kernel``).  A name without template
+    arguments gives the kernel alone."""
+    m = re.search(r"(vsconv_halo|vsconv_stack)_(int8_)?(reduce_)?kernel"
+                  r"(I(?:L[ib]\d+E)+E)?", name)
+    if m is None:
+        return None
+    row = {"kernel": m.group(1) + ("_int8" if m.group(2) else "")
+           + ("_reduce" if m.group(3) else "")}
+    args = [int(a) for a in re.findall(r"L[ib](\d+)E", m.group(4) or "")]
+    if m.group(2) and len(args) == 4:
+        mi, wc, fast, split = args
+        row.update(rows=8 // wc * 16 * mi, vn=32 * wc, fast=bool(fast),
+                   split=bool(split))
+    elif not m.group(2) and len(args) == 3:
+        rt, ct, fast = args
+        row.update(rows=16 * rt, vn=16 * ct, fast=bool(fast))
+    return row
+
+
+def generic_instantiations(log: str) -> list:
+    """One row per instantiation of ``vsconv.cu``'s generic body (f32 and
+    int8, both layouts, both phases) with its registers and spill
+    bytes."""
+    rows = [{**row, **use} for name, use in ptxas_usage(log).items()
+            if (row := _generic_row(name)) is not None]
     return sorted(rows, key=lambda r: tuple(str(v) for v in r.values()))
 
 
@@ -1805,10 +1899,24 @@ def main() -> int:
         print(f"built {r}")
     spilled = [r for r in int8_rows if r["spill_stores"]
                or r["spill_loads"] or r["spill_stores"] is None]
-    if len(int8_rows) != 26 or spilled:
+    if len(int8_rows) != 42 or spilled:
         print(f"chip_smoke: {len(int8_rows)} int8 instantiations (expected "
-              f"26: vsmm's 5 phase-1 and 1 phase-2 kernels, the halo and "
-              f"stack convs, 8 stem bodies, 5 dw halo, 5 dw stack), "
+              f"42: vsmm's 5 phase-1 and 1 phase-2 kernels, the generic "
+              f"body's 16 phase-1 and 2 phase-2 kernels, 8 stem bodies, 5 "
+              f"dw halo, 5 dw stack), spilling or unread: {spilled}",
+              file=sys.stderr)
+        return 1
+    generic_rows = generic_instantiations(_build.build_log("vsconv"))
+    for r in generic_rows:
+        print(f"built {r}")
+    spilled = [r for r in generic_rows if r["spill_stores"]
+               or r["spill_loads"] or r["spill_stores"] is None]
+    if len(generic_rows) != 30 or spilled:
+        print(f"chip_smoke: {len(generic_rows)} generic-body instantiations "
+              f"(expected 30: per layout f32 phase 1 at 128 and 64 rows x "
+              f"vn 128 and 64 and the general one, int8 phase 1 at 128 and "
+              f"64 rows x vn 128 and 64, split at 64 rows x vn 128 and 64, "
+              f"the general one whole and split, and phase 2 f32 and int8), "
               f"spilling or unread: {spilled}", file=sys.stderr)
         return 1
     vsmm_rows = vsmm_instantiations(_build.build_log("vsmm"))
@@ -1832,6 +1940,7 @@ def main() -> int:
                       "flash_fwd_instantiations": flash,
                       "stencil_instantiations": stencils,
                       "int8_instantiations": int8_rows,
+                      "generic_instantiations": generic_rows,
                       "vsmm_instantiations": vsmm_rows,
                       "flash_fwd_dynamic_smem_bytes_by_hd": smem}),
           flush=True)

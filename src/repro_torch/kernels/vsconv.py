@@ -23,19 +23,35 @@ is added in the kernel).
 launches its kernel for CUDA tensors and runs its plain version
 (`vsconv_plain`, `vsconv_stack_plain`) for CPU tensors; a CUDA tensor the
 kernel does not take raises.  Their ``launches`` attributes count
-launches.  Both kernels have a second body for the CNN stems (narrow
-inputs, vk 8: a 2-D output tile over a shared-memory window, see
-``csrc/vsconv.cu``), picked by `use_stem_body`; its launches count on
-``launches`` too and, besides, on ``stem_launches``.  If that body fails
-to build or launch, the wrapper raises: it never carries on in the
-generic body.
+launches.
 
-Both kernels' bodies have an int8 branch (int8 buffer and tiles, a
-per-column dequant scale): each stored step's partial is an exact
-integer, added into the f32 accumulator in stored order, bit-equal to the
-plain versions and the reference.  Its launches count on
-``int8_launches`` too; int8 stems take the int8 stem body (an int8
-window, ``dp4a`` partials) under the same rule as f32 stems.
+Every conv but the stems runs the generic body: `conv_plan` cuts the work
+from the shapes alone into tiles of 64 or 128 output pixels, the output
+strips and, where those do not fill the card's SMs, ``splits`` chunks of
+each strip's stored steps.  A block streams its steps through a 3-stage
+``cp.async`` ring (one stored tile and its gathered activations a stage,
+one barrier a stage, which carries the zero-skip vote).  f32 runs
+register-tiled FMAs on the CUDA cores (8 x 8 or 8 x 4 outputs a thread);
+int8 runs one exact ``mma.sync.m16n8k32.s8`` a stored tile of vk 32.
+With ``splits > 1`` the kernel runs in two phases on the current stream:
+each chunk's partial goes to a workspace (allocated here, no host sync),
+and a second launch sums the chunks in chunk order and applies the
+epilogue, so the output has the same bits from run to run.
+
+Both kernels have a second body for the CNN stems (narrow inputs, vk 8: a
+2-D output tile over a shared-memory window, see ``csrc/vsconv.cu``),
+picked by `use_stem_body`; its launches count on ``launches`` too and,
+besides, on ``stem_launches``.  If a body fails to build or launch, the
+wrapper raises: it never carries on in another body or on the CPU.
+
+Both bodies have an int8 branch (int8 buffer and tiles, a per-column
+dequant scale): each stored step's partial is an exact integer, added
+into the f32 accumulator in stored order, bit-equal to the plain versions
+and the reference (a split keeps each chunk's exact integer sum and
+recomputes in stored order any element whose sums might pass 2^24).  Its
+launches count on ``int8_launches`` too; int8 stems take the int8 stem
+body (an int8 window, ``dp4a`` partials) under the same rule as f32
+stems.
 
 ``skip_zero_inputs`` (default True) is the reference's flag: False turns
 the kernels' input-side skip off (the paper's dense-input mode), so every
@@ -62,7 +78,8 @@ import torch.nn.functional as F
 from repro_torch.core.sparse_ops import patch_conv, same_pads, tap_patches
 from repro_torch.core.vector_sparse import VectorSparse
 from repro_torch.kernels._build import launch
-from repro_torch.kernels.vsmm import (MAX_VN, check_epilogue, check_operands,
+from repro_torch.kernels.vsmm import (MAX_VN, SMS, TARGET_BLOCKS,
+                                      check_epilogue, check_operands,
                                       entry_name)
 
 __all__ = [
@@ -71,7 +88,8 @@ __all__ = [
     "build_row_tap_stack", "stack_layout_dims", "stack_patches",
     "halo_kernel_cost", "stack_kernel_cost", "use_resident_halo",
     "RESIDENT_MAX_H", "halo_h_out", "stack_h_out", "use_stem_body",
-    "stem_smem_bytes",
+    "stem_smem_bytes", "conv_plan", "conv_smem_bytes", "conv_fast",
+    "CONV_ROWS", "CONV_MIN_CHUNK", "MAX_VK",
 ]
 
 # Below this output height the reference's halo kernel switches to its
@@ -133,6 +151,65 @@ def use_stem_body(c: int, vk: int, groups: int, kh: int, kw: int, vn: int,
             and all(stem_smem_bytes(c, vn, kh=kh, kw=kw, stride=stride,
                                     dilation=dilation, layout=layout)
                     <= STEM_MAX_SMEM for layout in ("halo", "stack")))
+
+
+# The generic body (csrc/vsconv.cu, namespace gen): tiles of 64 or 128
+# output pixels, vk <= 32, a 3-stage ring; a split chunk takes at least 2
+# stored steps.
+CONV_ROWS = (64, 128)
+CONV_MIN_CHUNK = 2
+CONV_STAGES = 3
+MAX_VK = 32
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def conv_fast(vk: int, vn: int) -> bool:
+    """True for the generic body's fast instantiations (the main path's
+    vk 32 with vn 64 or 128); any other vk <= 32, vn <= 128 takes its
+    general one (64-row tiles, tiles zero-padded to 32 x 128)."""
+    return vk == MAX_VK and vn in (64, 128)
+
+
+def conv_plan(m: int, nb: int, s_steps: int, vk: int, vn: int, *,
+              int8: bool = False) -> tuple[int, int]:
+    """(rows, splits) of the generic body for a conv of m = N*Hout*Wout
+    output pixels, NB strips of S stored (vk, vn) tiles: a pure function of
+    the shapes, as `vsmm_plan` is.
+
+    rows: 128 where the 128-row tiles x NB reach TARGET_BLOCKS (two
+    blocks an SM) and the shape has a fast instantiation, else 64.
+    splits: 1 where the row tiles x NB fill the SMs; otherwise as many
+    chunks of at least CONV_MIN_CHUNK steps as keep the blocks within
+    TARGET_BLOCKS.  int8 splits only under vsmm's exact-sum rule: never
+    where a chunk's exact int32 sum could overflow (128^2 * vk * S >=
+    2^31)."""
+    rows = (128 if conv_fast(vk, vn) and _cdiv(m, 128) * nb >= TARGET_BLOCKS
+            else 64)
+    blocks = _cdiv(m, rows) * nb
+    splits = 1
+    if blocks < SMS:
+        splits = max(1, min(TARGET_BLOCKS // blocks,
+                            s_steps // CONV_MIN_CHUNK))
+    if int8 and 128 * 128 * vk * s_steps >= 2 ** 31:
+        splits = 1
+    return rows, splits
+
+
+def conv_smem_bytes(rows: int, vk: int, vn: int, *, int8: bool = False
+                    ) -> int:
+    """Dynamic shared memory of one generic-body block: 3 stages of a
+    stored tile (f32: 32 rows of 64 or 128 floats; int8: 64 or 128
+    columns of 48 bytes, k transposed) and the gathered activations (f32:
+    rows of 36 floats; int8: rows of 48 bytes)."""
+    wide = not conv_fast(vk, vn) or vn == 128
+    if int8:
+        stage = 48 * (128 if wide else 64) + 48 * rows
+    else:
+        stage = 4 * MAX_VK * (128 if wide else 64) + 4 * rows * 36
+    return CONV_STAGES * stage
 
 
 def stack_kernel_cost(
@@ -414,6 +491,8 @@ def _conv_kernel(fn: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
     cout = nb * vn
     if vn > MAX_VN:
         raise ValueError(f"{fn} takes vn <= {MAX_VN}, got {vn}")
+    if vk > MAX_VK:
+        raise ValueError(f"{fn} takes vk <= {MAX_VK}, got {vk}")
     out_shape = (n, h_out, w_out, cout)
     check_epilogue(bias=bias, scale=scale, residual=residual, cout=cout,
                    out_shape=out_shape)
@@ -434,9 +513,17 @@ def _conv_kernel(fn: str, x: torch.Tensor, vs: VectorSparse, *, h_out: int,
                    (x, vs.vals, vs.idx, scale, bias, residual, out),
                    ints + (kh, int(aligned)), x.device)
         else:
+            m = n * h_out * w_out
+            rows, splits = conv_plan(m, nb, s_steps, vk, vn, int8=int8)
+            work = None
+            if splits > 1:  # each chunk's partial: f32, or int8's (T_c, A_c)
+                work = torch.empty((splits, m, cout, 2) if int8
+                                   else (splits, m, cout),
+                                   dtype=torch.int32 if int8
+                                   else torch.float32, device=x.device)
             launch("vsconv", entry_name(fn, int8),
-                   (x, vs.vals, vs.idx, scale, bias, residual, out), ints,
-                   x.device)
+                   (x, vs.vals, vs.idx, scale, bias, residual, out, work),
+                   ints + (rows, splits), x.device)
     return out, stem, int8
 
 
