@@ -73,8 +73,13 @@ repository around it, or when any phase fails.  Phases:
    two launches of each case must give bit-equal outputs.
 3. Serve phases, one per path.  Before each, every launch count is set
    to 0; the port's ``CNNServer(cfg, batch=8, impl=...)`` serves seeded
-   224x224x3 requests; the counts are read just after and must be exactly
-   the path's per-wave launches times the waves:
+   224x224x3 requests, every wave by CUDA-graph replay (one graph per
+   shape bucket, `BatchedApply`); the counts are read just after.  The
+   first wave of a bucket runs its forward twice on the device, an eager
+   warm-up and the first replay, and the capture between them runs
+   nothing: the counts count what the device ran (`kernels.capture`), so
+   they must be exactly the path's per-forward launches times (waves +
+   graphs captured), with one graph and one replay a wave:
    - ResNet-18, halo (16 requests): 17 vsconv_halo + 4 vsmm per wave;
    - MobileNetV1, halo (16 requests):
      1 vsconv_halo + 13 vsconv_dw_halo + 14 vsmm per wave;
@@ -98,15 +103,25 @@ repository around it, or when any phase fails.  Phases:
    ``stem_launches``; an int8 path its int8 twin), and every launch of an
    int8 path must be of an int8 branch (``int8_launches``), none of an
    f32 path.
-   Every request must be delivered, finite, and equal to a direct
-   ``net_apply(impl="plain")`` on the card within 1e-5 (f32) or bit for
-   bit (int8).  The halo paths then serve their traffic again, warm:
-   images/s and ms per wave.
-4. Profile.  One more warm serve of each halo path under
-   `torch.profiler`: the device's busy time and idle share over that
-   serve, and device time by kind.  The busy time over the unprofiled warm
-   serve's wall clock is printed too, named as the estimate from two
-   serves that it is.
+   Every request must be delivered, finite, bit-equal to an eager
+   ``net_apply`` with the path's impl on the same batches, and equal to a
+   direct ``net_apply(impl="plain")`` on the card within 1e-5 (f32) or
+   bit for bit (int8).  Every path then serves its traffic 5 more times,
+   warm (no capture, one replay a wave): images/s and ms per wave.
+   Partial waves (`bucket_mix_phase`, ResNet-18 halo f32 and int8): with
+   the counts at 0 again, 4 requests capture a second bucket (batch 4)
+   and 12 requests twice replay 8, 4, 8, 4, so two graphs that share one
+   memory pool replay out of their capture order; every wave bit-equal
+   to eager ``net_apply``, the counts exactly 6 forwards' (the warm-up and
+   5 replays).
+4. Profile.  One more warm serve of each path under `torch.profiler`:
+   the device's busy time and idle share over that serve, and device time
+   by kind.  The busy time over the unprofiled warm serve's wall clock is
+   printed too, named as the estimate from two serves that it is.  The
+   trace must hold device events, and one of each kernel for each launch
+   the serve counted: CUPTI reports the kernels inside graph replays, and
+   this is what shows that the replays, whose counts the capture
+   recorded, ran them.
 5. Per-forward breakdown.  Every sparse layer of one batch-8 forward of
    each halo path, and every layer that runs a stack kernel in each stack
    path (every layer of a stack path without a halo twin), is re-run at
@@ -120,7 +135,8 @@ repository around it, or when any phase fails.  Phases:
    halo twin's, where it has one, timed once): ``ms``, ``plain_ms``,
    ``library_ms`` and ``bound_ms`` are per forward at batch 8 (the JSON
    file keeps the sums per path), ``launches`` the counts of the serve
-   phases summed over the paths (per path in ``launches_by_path``).  The
+   phases summed over the paths (per path in ``launches_by_path``; warm-ups
+   and replays of the first serve, as the device ran them).  The
    ``vsconv_halo`` and ``vsconv_stack`` entries and their ``_int8`` twins
    carry ``stem_body``: the stem layers' share (launches, ms, plain, bound
    and library ms).
@@ -143,14 +159,19 @@ repository around it, or when any phase fails.  Phases:
    within 2e-2, or within the spread of two other valid attention
    implementations where that is larger), and a greedy ``prefill`` +
    ``decode_step`` loop (no flash launch in its decode steps) must emit
-   exactly the tokens the server delivered.  The traffic is served again
-   warm (prefill seconds per run, decode tokens/s, ms per decode step),
-   once more under `torch.profiler` (idle share, device time by kind:
-   flash kernel, GEMMs, copies, other), and one batch-8, T-512 prefill is
-   broken down into the flash kernel's share (per layer x 40: device,
-   plain, library and bound ms) and the rest.  The ``kernels`` line's
-   flash entry is per such prefill (40 launches); ``launches`` is the
-   serve phase's count.
+   exactly the tokens the server delivered.  The server decodes by
+   replaying one CUDA graph per (batch, capacity), once a step (checked).
+   The traffic is served again warm (prefill seconds per run, decode
+   tokens/s, ms per decode step).  Then (`lm_decode_phase`) one replayed
+   decode step must equal an eager ``decode_step`` from the same caches
+   and position bit for bit, and the step is timed at batch 8 (ms per
+   served step, device ms per replay, device operations per step).  The
+   traffic is served once more under `torch.profiler` (idle share, device
+   time by kind: flash kernel, GEMMs, copies, other), and one batch-8,
+   T-512 prefill is broken down into the flash kernel's share (per layer
+   x 40: device, plain, library and bound ms) and the rest.  The
+   ``kernels`` line's flash entry is per such prefill (40 launches);
+   ``launches`` is the serve phase's count.
 
 ``kernel_ms``, ``plain_ms`` and ``library_ms`` are device time per call:
 a run of calls is captured in one CUDA graph and its replays are timed
@@ -1018,73 +1039,75 @@ def stencil_instantiations(conv_log: str, dw_log: str) -> list:
 
 def _counters() -> dict:
     """The launch counter of every kernel wrapper, by kernel name."""
-    from repro_torch.kernels.flash import flash_fwd_kernel
-    from repro_torch.kernels.vsconv import (vsconv_halo_kernel,
-                                            vsconv_stack_kernel)
-    from repro_torch.kernels.vsconv_dw import (vsconv_dw_halo_kernel,
-                                               vsconv_dw_stack_kernel)
-    from repro_torch.kernels.vsmm import vsmm_kernel
-    return {"vsconv_halo": vsconv_halo_kernel, "vsmm": vsmm_kernel,
-            "vsconv_dw_halo": vsconv_dw_halo_kernel,
-            "vsconv_stack": vsconv_stack_kernel,
-            "vsconv_dw_stack": vsconv_dw_stack_kernel,
-            "flash_fwd": flash_fwd_kernel}
+    from repro_torch.kernels.capture import wrappers
+    return wrappers()
 
 
 # path -> (config, impl, dtype, requests, launches per wave, stem-body
-# launches per wave, warm re-serve).  The int8 paths launch the int8
-# branches only (their launches are filed under "<kernel>_int8"); their
-# stems take the int8 stem body.
+# launches per wave).  The int8 paths launch the int8 branches only (their
+# launches are filed under "<kernel>_int8"); their stems take the int8
+# stem body.
 PATHS = {
     "resnet18-halo": ("vscnn-resnet18", "auto", None, 16,
-                      {"vsconv_halo": 17, "vsmm": 4}, 1, True),
+                      {"vsconv_halo": 17, "vsmm": 4}, 1),
     "mobilenet_v1-halo": ("vscnn-mobilenet-v1", "auto", None, 16,
                           {"vsconv_halo": 1, "vsconv_dw_halo": 13,
-                           "vsmm": 14}, 1, True),
+                           "vsmm": 14}, 1),
     "resnet18-int8-halo": ("vscnn-resnet18", "auto", "int8", 16,
-                           {"vsconv_halo_int8": 17, "vsmm_int8": 4}, 1,
-                           True),
+                           {"vsconv_halo_int8": 17, "vsmm_int8": 4}, 1),
     "mobilenet_v1-int8-halo": ("vscnn-mobilenet-v1", "auto", "int8", 16,
                                {"vsconv_halo_int8": 1,
                                 "vsconv_dw_halo_int8": 13,
-                                "vsmm_int8": 14}, 1, True),
+                                "vsmm_int8": 14}, 1),
     "mobilenet_v1-stack": ("vscnn-mobilenet-v1", "pallas-stack", None, BATCH,
                            {"vsconv_stack": 1, "vsconv_dw_stack": 13,
-                            "vsmm": 14}, 1, False),
+                            "vsmm": 14}, 1),
     "resnet18-stack": ("vscnn-resnet18", "pallas-stack", None, BATCH,
-                       {"vsconv_stack": 17, "vsmm": 4}, 1, False),
+                       {"vsconv_stack": 17, "vsmm": 4}, 1),
     "resnet18-int8-stack": ("vscnn-resnet18", "pallas-stack", "int8", BATCH,
-                            {"vsconv_stack_int8": 17, "vsmm_int8": 4}, 1,
-                            False),
+                            {"vsconv_stack_int8": 17, "vsmm_int8": 4}, 1),
     "mobilenet_v1-int8-stack": ("vscnn-mobilenet-v1", "pallas-stack", "int8",
                                 BATCH, {"vsconv_stack_int8": 1,
                                         "vsconv_dw_stack_int8": 13,
-                                        "vsmm_int8": 14}, 1, False),
+                                        "vsmm_int8": 14}, 1),
     "vgg16-halo": ("vscnn-vgg16", "auto", None, 16,
-                   {"vsconv_halo": 13, "vsmm": 3}, 1, True),
+                   {"vsconv_halo": 13, "vsmm": 3}, 1),
     "vgg16-int8-stack": ("vscnn-vgg16", "pallas-stack", "int8", BATCH,
-                         {"vsconv_stack_int8": 13, "vsmm_int8": 3}, 1,
-                         False),
+                         {"vsconv_stack_int8": 13, "vsmm_int8": 3}, 1),
 }
+WARM_SERVES = 5   # warm re-serves of a CNN path's traffic, timed together
+
+
+def _zero_counters() -> None:
+    from repro_torch.kernels.capture import add_counts, counts
+    add_counts({k: -n for k, n in counts().items()})
 
 
 def serve_phase(path: str, dev) -> dict:
     """One path: the port's CNN server answering seeded requests, with
-    every kernel's launch count set to 0 just before and read just
-    after."""
+    every kernel's launch count set to 0 just before and read just after.
+
+    The server runs every wave by CUDA-graph replay (`BatchedApply`: one
+    graph per shape bucket).  The first wave of a bucket warms the forward
+    up eagerly, captures it and replays it: the warm-up's launches ran on
+    the device and count, the capture ran nothing and counts nothing
+    (`kernels.capture`), and every replay counts the graph's launches.  So
+    over a first serve of ``waves`` waves that captured ``graphs`` graphs
+    each kernel's count is its launches per wave times (waves + graphs)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import CNNServer, ImageRequest
     from repro_torch.models.graph import net_apply
 
-    name, impl, dtype, n_req, per_wave, stem_per_wave, warm = PATHS[path]
+    name, impl, dtype, n_req, per_wave, stem_per_wave = PATHS[path]
     int8 = dtype == "int8"
     cfg = get_config(name)
     t0 = time.perf_counter()
     srv = CNNServer(cfg, batch=BATCH, impl=impl, dtype=dtype, seed=0,
                     device=dev)
     setup_s = time.perf_counter() - t0
+    apply = srv.backend.apply
     rng = np.random.default_rng(0)
     images = [rng.standard_normal((SIZE, SIZE, 3)).astype(np.float32)
               for _ in range(n_req)]
@@ -1095,13 +1118,7 @@ def serve_phase(path: str, dev) -> dict:
     reqs = requests()
     counters = _counters()
     stems = [k for k in counters.values() if hasattr(k, "stem_launches")]
-    int8s = [k for k in counters.values() if hasattr(k, "int8_launches")]
-    for k in counters.values():
-        k.launches = 0
-    for k in stems:
-        k.stem_launches = 0
-    for k in int8s:
-        k.int8_launches = 0
+    _zero_counters()
     t0 = time.perf_counter()
     stats = srv.serve(reqs)
     torch.cuda.synchronize()
@@ -1114,19 +1131,27 @@ def serve_phase(path: str, dev) -> dict:
                      if getattr(k, "int8_launches", 0)}
 
     waves = sum(s["steps"] for s in stats)
+    graphs, replays = apply.compiles, apply.replays
     delivered = [r for r in reqs if r.outcome is not None
                  and r.outcome.status == "delivered"]
     if len(delivered) != n_req:
         raise SystemExit(f"chip_smoke: {path}: {len(delivered)}/{n_req} "
                          f"delivered")
-    expected = {k: v * waves for k, v in per_wave.items()}
+    if graphs != 1 or replays != waves:
+        raise SystemExit(f"chip_smoke: {path}: {graphs} graphs captured "
+                         f"and {replays} replays over {waves} waves, "
+                         f"expected 1 and one a wave")
+    runs = waves + graphs   # the replays and each graph's warm-up
+    expected = {k: v * runs for k, v in per_wave.items()}
     if launches != expected:
         raise SystemExit(f"chip_smoke: {path}: launches {launches} over "
-                         f"{waves} waves, expected {per_wave} per wave")
-    if stem_launches != stem_per_wave * waves:
+                         f"{waves} waves and {graphs} warm-ups, expected "
+                         f"{per_wave} per forward")
+    if stem_launches != stem_per_wave * runs:
         raise SystemExit(f"chip_smoke: {path}: the stem body ran "
-                         f"{stem_launches} times over {waves} waves, "
-                         f"expected {stem_per_wave} a wave")
+                         f"{stem_launches} times over {waves} waves and "
+                         f"{graphs} warm-ups, expected {stem_per_wave} a "
+                         f"forward")
     if int8_launches != ({n: k.launches for n, k in counters.items()
                           if k.launches} if int8 else {}):
         raise SystemExit(f"chip_smoke: {path}: int8 branch launches "
@@ -1136,12 +1161,21 @@ def serve_phase(path: str, dev) -> dict:
             not np.isfinite(served).all():
         raise SystemExit(f"chip_smoke: {path}: served logits {served.shape} "
                          f"not finite or of the wrong shape")
-    with torch.inference_mode():
-        ref = torch.cat([
-            net_apply(srv.net, srv.params,
-                      torch.from_numpy(np.stack(images[i:i + BATCH])).to(dev),
-                      sparse=srv.sparse, impl="plain")
-            for i in range(0, n_req, BATCH)]).cpu()
+
+    def direct(impl_: str):
+        with torch.inference_mode():
+            return torch.cat([net_apply(
+                srv.net, srv.params,
+                torch.from_numpy(np.stack(images[i:i + BATCH])).to(dev),
+                sparse=srv.sparse, impl=impl_)
+                for i in range(0, n_req, BATCH)]).cpu()
+
+    eager = direct(apply.impl)
+    if not np.array_equal(served, eager.numpy()):
+        raise SystemExit(f"chip_smoke: {path}: replayed logits differ from "
+                         f"eager net_apply(impl={apply.impl!r}) (max abs "
+                         f"{_rel_err(torch.from_numpy(served), eager)[1]:.3e})")
+    ref = direct("plain")
     rel, abs_err = _rel_err(torch.from_numpy(served), ref)
     if int8 and not np.array_equal(served, ref.numpy()):
         raise SystemExit(f"chip_smoke: {path}: served int8 logits differ "
@@ -1153,28 +1187,93 @@ def serve_phase(path: str, dev) -> dict:
         "phase": "serve", "path": path, "config": cfg.name, "impl": impl,
         "dtype": dtype or "float32",
         "batch": BATCH, "requests": n_req, "delivered": len(delivered),
-        "waves": waves, "launches": launches,
-        "stem_launches": stem_launches, "setup_s": setup_s,
+        "waves": waves, "graphs": graphs, "replays": replays,
+        "launches": launches, "stem_launches": stem_launches,
+        "setup_s": setup_s,
         "first_serve_s": serve_s, "first_images_per_s": n_req / serve_s,
+        "served_vs_eager_bit_equal": True,
         "served_vs_plain_rel_err": rel,
         "served_vs_plain_bit_equal": bool(np.array_equal(served,
                                                          ref.numpy())),
     }
-    warm_s = None
-    if warm:
-        # the same traffic again, now warm: steady-state rate
-        t0 = time.perf_counter()
-        stats2 = srv.serve(requests())
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        out.update(
-            warm_serve_s=warm_s, warm_images_per_s=n_req / warm_s,
-            warm_ms_per_wave=1e3 * sum(s["run_s"] for s in stats2)
-            / sum(s["steps"] for s in stats2))
+    # the same traffic again, now warm: steady-state rate, every wave a
+    # replay of the captured graph
+    t0 = time.perf_counter()
+    stats2 = [st for _ in range(WARM_SERVES) for st in srv.serve(requests())]
+    torch.cuda.synchronize()
+    warm_s = (time.perf_counter() - t0) / WARM_SERVES
+    warm_waves = sum(s["steps"] for s in stats2)
+    if apply.compiles != graphs or apply.replays != replays + warm_waves:
+        raise SystemExit(f"chip_smoke: {path}: the warm serves captured "
+                         f"{apply.compiles - graphs} graphs and replayed "
+                         f"{apply.replays - replays} of {warm_waves} waves")
+    out.update(
+        warm_serve_s=warm_s, warm_images_per_s=n_req / warm_s,
+        warm_ms_per_wave=1e3 * sum(s["run_s"] for s in stats2) / warm_waves,
+        warm_waves=warm_waves, warm_replays=apply.replays - replays)
     print(json.dumps(out), flush=True)
     return {"srv": srv, "images": images, "launches": launches,
             "stem_launches": stem_launches, "warm_s": warm_s,
             "summary": out}
+
+
+BUCKET_MIX_PATHS = ("resnet18-halo", "resnet18-int8-halo")
+
+
+def bucket_mix_phase(path: str, served: dict, dev) -> dict:
+    """Partial waves on a served path: two shape buckets whose graphs share
+    the instance's memory pool, replayed out of their capture order.  The
+    server already holds the bucket of 8 (`serve_phase`); 4 requests
+    capture the bucket of 4, then 12 requests twice replay 8, 4, 8, 4.
+    Counts are set to 0 just before and read just after: each kernel's
+    count is its launches per forward times 6 (the new bucket's warm-up
+    and 5 replays).  Every wave's logits must equal eager `net_apply` with
+    the path's impl on the same batch, bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import ImageRequest
+    from repro_torch.models.graph import net_apply
+
+    _, _, dtype, _, per_wave, _ = PATHS[path]
+    srv, images = served["srv"], served["images"][:12]
+    apply = srv.backend.apply
+    suffix = "_int8" if dtype == "int8" else ""
+    with torch.inference_mode():
+        eager = {n: net_apply(
+            srv.net, srv.params,
+            torch.from_numpy(np.stack(images[i:i + n])).to(dev),
+            sparse=srv.sparse, impl=apply.impl).cpu().numpy()
+            for i, n in ((0, 8), (8, 4))}
+    graphs, replays = apply.compiles, apply.replays
+    counters = _counters()
+    _zero_counters()
+    served_logits = []
+    for batch in (images[8:], images, images):
+        reqs = [ImageRequest(rid=i, image=im) for i, im in enumerate(batch)]
+        srv.serve(reqs)
+        served_logits.append(np.stack([r.logits for r in reqs]))
+    launches = {n + suffix: k.launches for n, k in counters.items()
+                if k.launches}
+    new_graphs, new_replays = apply.compiles - graphs, apply.replays - replays
+    if (new_graphs, new_replays) != (1, 5):
+        raise SystemExit(f"chip_smoke: {path}: partial waves captured "
+                         f"{new_graphs} graphs and replayed {new_replays}, "
+                         f"expected 1 and 5")
+    if launches != {k: v * 6 for k, v in per_wave.items()}:
+        raise SystemExit(f"chip_smoke: {path}: partial waves launched "
+                         f"{launches}, expected {per_wave} x 6")
+    waves = [(served_logits[0], eager[4])] + [
+        (y[a:b], eager[b - a]) for y in served_logits[1:]
+        for a, b in ((0, 8), (8, 12))]
+    if not all(np.array_equal(y, e) for y, e in waves):
+        raise SystemExit(f"chip_smoke: {path}: a partial wave's replayed "
+                         f"logits differ from eager net_apply")
+    out = {"phase": "bucket_mix", "path": path, "buckets": [8, 4],
+           "replay_order": [4, 8, 4, 8, 4], "new_graphs": new_graphs,
+           "replays": new_replays, "launches": launches,
+           "served_vs_eager_bit_equal": True}
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def _kind(name: str) -> str:
@@ -1194,43 +1293,88 @@ def _kind(name: str) -> str:
     return "other"
 
 
-def profile_phase(path: str, serve, warm_s: float) -> dict:
+def _device_spans(events) -> list:
+    """(start us, end us, name) of every device event of a profile."""
+    from torch.autograd import DeviceType
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in events if e.device_type == DeviceType.CUDA)
+
+
+def _device_time(spans: list) -> tuple[float, dict]:
+    """(busy us, the union of the spans' intervals; {name: (device ms,
+    events)})."""
+    busy_us, reach, by_name = 0.0, float("-inf"), {}
+    for start, end, name in spans:
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (end - start) / 1e3, n + 1)
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    return busy_us, by_name
+
+
+def profile_phase(path: str, serve, warm_s: float, int8: bool = False
+                  ) -> dict:
     """One more warm serve of the path's traffic (``serve()``) under
     `torch.profiler`: the device's busy time (the union of its kernel and
     copy intervals) against the wall clock of the same serve, and device
     time by kind.  The profiler's own host overhead lengthens the wall
     clock, so that idle share is an upper bound.  The busy time over
-    ``warm_s``, the wall clock of the earlier unprofiled serve of the same
+    ``warm_s``, the wall clock of an earlier unprofiled serve of the same
     traffic, is printed as an estimate built from two serves.  A trace
-    without device events reports nulls (not measured) instead of
-    numbers."""
+    without device events fails the run: the launch counts of a replayed
+    graph are the capture's record, and the trace is what shows that the
+    device ran them.
+
+    The serve replays CUDA graphs: CUPTI reports each kernel node of a
+    replay as a device event of its own, and the busy time is the union of
+    those (device events only; ``cudaGraphLaunch`` is a host event,
+    counted apart as ``graph_launches``).  The trace must hold at least
+    one device event of each kernel for each launch that the wrappers'
+    counters gave the serve (a split vsmm or conv launch runs two kernels
+    of its kind), ``int8`` naming the int8 branches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    counters = _counters()
+    before = {n: k.launches for n, k in counters.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         serve()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    suffix = "_int8" if int8 else ""
+    launched = {n + suffix: k.launches - before[n]
+                for n, k in counters.items() if k.launches != before[n]}
+    events = prof.events()
+    spans = _device_spans(events)
+    graph_launches = sum(e.name == "cudaGraphLaunch" for e in events
+                         if e.device_type == DeviceType.CPU)
+    busy_us, by_name = _device_time(spans)
     by_kind: dict = {}
-    busy_us, reach = 0.0, float("-inf")
-    for start, end, name in spans:
+    events_by_kind: dict = {}
+    for name, (ms, n) in by_name.items():
         kind = _kind(name)
-        by_kind[kind] = by_kind.get(kind, 0.0) + (end - start) / 1e3
-        if end > reach:
-            busy_us += end - max(start, reach)
-            reach = end
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+        events_by_kind[kind] = events_by_kind.get(kind, 0) + n
+    unseen = {k: (events_by_kind.get(k, 0), n) for k, n in launched.items()
+              if events_by_kind.get(k, 0) < n}
+    if not spans:
+        raise SystemExit(f"chip_smoke: {path}: the profile holds no device "
+                         f"event, so it cannot show that the counted "
+                         f"launches {launched} ran")
+    if unseen:
+        raise SystemExit(f"chip_smoke: {path}: the profile saw fewer kernel "
+                         f"events than launches (events, launches): "
+                         f"{unseen}")
     out = {"phase": "profile", "path": path, "wall_ms": wall_ms,
-           "device_events": len(spans),
-           "device_busy_ms": busy_us / 1e3 if spans else None,
-           "device_idle_share": 1 - busy_us / 1e3 / wall_ms if spans
-           else None,
-           "idle_share_est_two_serves": 1 - busy_us / 1e3 / (warm_s * 1e3)
-           if spans else None,
+           "device_events": len(spans), "graph_launches": graph_launches,
+           "launches": launched, "kernel_events_by_kind": events_by_kind,
+           "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
+           "idle_share_est_two_serves": 1 - busy_us / 1e3 / (warm_s * 1e3),
            "device_ms_by_kind": by_kind}
     print(json.dumps(out), flush=True)
     return out
@@ -1303,8 +1447,7 @@ def lm_serve_phase(dev) -> dict:
     traffic = _lm_traffic(cfg.vocab)
     reqs = _lm_requests(traffic)
     counters = _counters()
-    for k in counters.values():
-        k.launches = 0
+    _zero_counters()
     t0 = time.perf_counter()
     stats = srv.serve(reqs)
     torch.cuda.synchronize()
@@ -1329,11 +1472,20 @@ def lm_serve_phase(dev) -> dict:
         raise SystemExit(f"chip_smoke: {LM_CONFIG}: launches {launches}, "
                          f"expected {expected} ({summary['runs']} runs + "
                          f"{summary['backfills']} backfills)")
+    graphs = srv.backend.graphs
+    replays = sum(g.graph.replays for g in graphs.values())
+    if list(graphs) != [(LM_BATCH, LM_CAPACITY)] or \
+            replays != summary["decode_steps"]:
+        raise SystemExit(f"chip_smoke: {LM_CONFIG}: decode graphs "
+                         f"{list(graphs)} replayed {replays} times over "
+                         f"{summary['decode_steps']} decode steps, expected "
+                         f"one graph at (batch, capacity) replayed each step")
     out = {"phase": "serve", "path": LM_CONFIG, "config": cfg.name,
            "layers": cfg.total_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab, "dtype": cfg.param_dtype, "batch": LM_BATCH,
            "capacity": LM_CAPACITY, "requests": len(reqs),
            "delivered": len(delivered), "launches": launches,
+           "decode_graphs": len(graphs), "decode_replays": replays,
            "setup_s": setup_s, "first_serve_s": serve_s, **summary}
     print(json.dumps(out), flush=True)
     return {"srv": srv, "traffic": traffic, "reqs": reqs,
@@ -1496,6 +1648,88 @@ def lm_warm_phase(srv, traffic: list) -> dict:
     warm_s = time.perf_counter() - t0
     out = {"phase": "warm_serve", "path": LM_CONFIG, "warm_serve_s": warm_s,
            **_lm_stats(stats)}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def lm_decode_phase(srv, traffic: list, dev) -> dict:
+    """The decode step at batch 8, warm, through the server's graph.
+
+    The first 8 long prompts are admitted (`LMBackend.start`, a prefill
+    into the backend's caches).  Then one replayed step's logits and
+    caches must equal, bit for bit, an eager `decode_step` from copies of
+    the same caches at the same tokens and position.  Then: ms per
+    `LMBackend.step` (the replay, sampling and the tokens' copy to the
+    host; CUDA-synchronized wall clock over 16 steps), device ms per
+    replay (CUDA events over 10 replays of the graph at one position),
+    and, under `torch.profiler`, the device operations and busy ms of one
+    replay (5 replays) and its 15 costliest kernels by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as tfm
+
+    be, cfg = srv.backend, srv.cfg
+    first = _lm_requests(traffic)[:LM_BATCH]
+    state, _ = be.start(first, LM_BATCH)
+    g = be.graphs[(LM_BATCH, srv.capacity)]
+    pos = state["len"] + state["i"]
+    copies = _tree_map(lambda t: t.clone(), state["caches"])
+    g.tokens.copy_(state["nxt"])
+    g.pos.fill_(pos)
+    g.graph.replay()
+    eager, copies = tfm.decode_step(srv.params, copies, state["nxt"], pos,
+                                    cfg)
+    torch.cuda.synchronize()
+    if not torch.equal(g.logits, eager):
+        raise SystemExit(f"chip_smoke: {LM_CONFIG}: a replayed decode "
+                         f"step's logits differ from eager decode_step (max "
+                         f"abs {_rel_err(g.logits, eager)[1]:.3e})")
+    leaves = []
+    _tree_map(leaves.append, [state["caches"], copies])
+    half = len(leaves) // 2
+    if not all(torch.equal(a, b) for a, b in zip(leaves[:half],
+                                                  leaves[half:])):
+        raise SystemExit(f"chip_smoke: {LM_CONFIG}: a replayed decode "
+                         f"step's caches differ from eager decode_step's")
+    del copies, leaves
+    torch.cuda.empty_cache()
+    steps = 16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = be.step(state, first)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        g.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    replay_ms = start.elapsed_time(end) / 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            g.graph.replay()
+        torch.cuda.synchronize()
+    spans = _device_spans(prof.events())
+    busy_us, by_name = _device_time(spans)
+    by_kind: dict = {}
+    for name, (ms, _) in by_name.items():
+        by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + ms / 5
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    out = {"phase": "lm_decode", "path": LM_CONFIG, "batch": LM_BATCH,
+           "capacity": LM_CAPACITY, "position": pos,
+           "replay_vs_eager_bit_equal": True,
+           "step_ms": step_ms, "replay_device_ms": replay_ms,
+           "device_ops_per_step": len(spans) / 5 if spans else None,
+           "device_busy_ms_per_step": busy_us / 5e3 if spans else None,
+           "device_ms_per_step_by_kind": by_kind,
+           "top_kernels_per_step": [{"name": name[:120], "ms": ms / 5,
+                                     "calls": n / 5}
+                                    for name, (ms, n) in top],
+           "decode_replays": g.graph.replays}
     print(json.dumps(out), flush=True)
     return out
 
@@ -1949,12 +2183,18 @@ def main() -> int:
     kernel_phase(timer, dev)
     flash_rows = flash_phase(timer, dev, bf16_peak)
     served = {path: serve_phase(path, dev) for path in PATHS}
+    bucket_mix = {path: bucket_mix_phase(path, served[path], dev)
+                  for path in BUCKET_MIX_PATHS}
     profiled = {
         path: profile_phase(
             path, lambda s=s: s["srv"].serve(
                 [ImageRequest(rid=i, image=im)
-                 for i, im in enumerate(s["images"])]), s["warm_s"])
-        for path, s in served.items() if s["warm_s"] is not None}
+                 for i, im in enumerate(s["images"])]), s["warm_s"],
+            int8=PATHS[path][2] == "int8")
+        for path, s in served.items()}
+    for path, s in served.items():
+        s["summary"]["device_idle_share"] = \
+            profiled[path]["device_idle_share"]
     for path, s in served.items():
         forward_phase(timer, path, s["srv"], s["images"], dev,
                       stack_layers_only=path.replace("-stack", "-halo")
@@ -1969,6 +2209,7 @@ def main() -> int:
     lm = lm_serve_phase(dev)
     lm_check = lm_check_phase(lm["srv"], lm["reqs"], dev)
     lm_warm = lm_warm_phase(lm["srv"], lm["traffic"])
+    lm_decode = lm_decode_phase(lm["srv"], lm["traffic"], dev)
     profiled[LM_CONFIG] = profile_phase(
         LM_CONFIG, lambda: lm["srv"].serve(_lm_requests(lm["traffic"])),
         lm_warm["warm_serve_s"])
@@ -2032,10 +2273,11 @@ def main() -> int:
         args.json.write_text(json.dumps(
             {"gpu": smi, "result": result, "per_forward": timer.sums,
              "per_forward_by_path": timer.by_path,
-             "serve": cnn_summaries,
+             "serve": cnn_summaries, "bucket_mix": bucket_mix,
              "flash": flash_rows,
              "lm": {"serve": lm["summary"], "check": lm_check,
-                    "warm": lm_warm, "prefill_breakdown": breakdown},
+                    "warm": lm_warm, "decode": lm_decode,
+                    "prefill_breakdown": breakdown},
              "profile": profiled, "dense_vs_sparse": dense_vs_sparse},
             indent=1))
     print(json.dumps({k: v for k, v in dense_vs_sparse.items()

@@ -13,6 +13,8 @@ attention.
 - `flash`   -- attention forward (causal, window, q_offset):
                ``csrc/flash_fwd.cu``, `flash_fwd_kernel` / `flash_fwd_plain`
 - `ops`     -- public wrappers (layout prep, 1x1 / depthwise routing)
+- `capture` -- CUDA-graph capture and replay that keeps the wrappers'
+               launch counters true
 - `ref`     -- dense oracles
 - `_build`  -- nvcc at first use into the git-ignored ``build/``
 

@@ -39,9 +39,12 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 
 // Wait until at most `N` of this thread's committed groups are pending.
+// The "memory" clobber keeps the compiler from moving shared-memory reads
+// of the landed copies (a skip vote reads them before any barrier) above
+// the wait.
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace vs

@@ -286,15 +286,6 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, int stride,
   }
 }
 
-// Wait for this thread's copies of the oldest stage in flight (all but
-// the newest kStages - 2 commit groups).  The wait carries no memory
-// clobber, so a compiler fence keeps the vote's shared-memory reads,
-// which come before the stage's barrier, from moving above it.
-__device__ __forceinline__ void landed() {
-  vs::cp_async_wait<kStages - 2>();
-  asm volatile("" ::: "memory");
-}
-
 // This thread's vote on a staged activation tile: a word it copied (the
 // units `stage_rows` gave it) has a bit set.  It reads only what its own
 // copies wrote, which its cp.async wait has completed, one 16-byte load a
@@ -453,7 +444,7 @@ __device__ __forceinline__ void body_f32(const Conv& a) {
   issue(0);
   issue(1);
   for (int q = 0; q < n; ++q) {
-    landed();  // this thread's copies of step q
+    vs::cp_async_wait<kStages - 2>();  // this thread's copies of step q
     const unsigned char* st = gen_smem + (q % kStages) * G::kStageBytes;
     int live = 1;
     if (a.skip) {
@@ -664,7 +655,7 @@ __device__ __forceinline__ void body_int8(const Conv& a) {
   issue(1);
   load_w(2);
   for (int q = 0; q < n; ++q) {
-    landed();  // this thread's copies of step q
+    vs::cp_async_wait<kStages - 2>();  // this thread's copies of step q
     const unsigned char* st = gen_smem + (q % kStages) * G::kStageBytes;
     int live = 1;
     if (a.skip) {

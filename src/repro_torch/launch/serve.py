@@ -10,6 +10,8 @@ The port of `repro/launch/serve.py` with one replica.  The LM arm:
   at the full batch width and reads its logits at the true position, and
   its cache rows are copied into the live caches in place.  Every prefill
   runs the flash kernel once per attention layer; decode steps run none.
+  The backend owns the caches; on the card a decode step replays one
+  CUDA graph per (width, capacity), the reference's jitted ``_decode``.
   Requests carry per-request sampling (``temperature`` / ``top_k``);
   temperature 0 is the plain argmax, bit-identical whatever the lane's
   neighbours do.
@@ -23,8 +25,9 @@ The CNN arm:
   from the queue so one batch shape serves wave after wave; a partial final
   wave shrinks to its occupied slots (pow2 ladder) instead of computing
   zero images.  ``step`` is split into ``dispatch`` (build the batch on the
-  device and enqueue the forward — CUDA launches return before the card
-  finishes) and ``collect`` (copy the logits to the host, which waits).
+  device and enqueue the forward — on the card a CUDA-graph replay per
+  shape bucket, `BatchedApply` — which returns before the card finishes)
+  and ``collect`` (copy the logits to the host, which waits).
 * `CNNServer` — builds the net from a config, makes seeded params,
   sparsifies them and serves through a `LockstepScheduler`.  It runs on
   CUDA unless ``device="cpu"``; ``impl="auto"`` takes the CUDA kernels on
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels.capture import Captured, capture
 from repro_torch.launch.scheduler import LockstepScheduler
 from repro_torch.models.graph import BatchedApply, SparseNet, input_refusal
 from repro_torch.models import transformer as tfm
@@ -136,6 +140,18 @@ def _copy_rows(dst: Any, src: Any, j: int) -> None:
             _copy_rows(dst[k], src[k], j)
 
 
+@dataclasses.dataclass
+class _DecodeGraph:
+    """One decode step captured at a (width, capacity): its static inputs
+    (``tokens`` (B, 1), ``pos`` a 0-d int64) and output (``logits`` (B,
+    Vp) f32)."""
+
+    graph: Captured
+    tokens: torch.Tensor
+    pos: torch.Tensor
+    logits: torch.Tensor
+
+
 class LMBackend:
     """Continuous-batching backend over the transformer prefill / decode.
 
@@ -148,6 +164,14 @@ class LMBackend:
     (`tfm.prefill(logit_pos=...)`); the pad rows' K/V junk is causally
     masked and overwritten by the following decode steps before any query
     attends it.
+
+    The backend owns the decode caches, one set per batch width
+    (``caches``): an admission prefill fills them in place and a backfill
+    copies its rows into them.  On the card each decode step replays one
+    CUDA graph per (width, capacity) (``graphs``), captured over those
+    caches at its first step, with the step's tokens and position copied
+    into its static inputs; sampling reads its static logits.  Prefills
+    run eagerly.  On the CPU a decode step runs eagerly.
     """
 
     def __init__(self, cfg: Any, params: dict, *, capacity: int,
@@ -163,6 +187,8 @@ class LMBackend:
                                 else 1)
         self.sample_seed = sample_seed
         self.device = resolve_device(device)
+        self.caches: dict = {}   # width -> the decode caches
+        self.graphs: dict = {}   # (width, capacity) -> _DecodeGraph
 
     # -- per-slot sampling --------------------------------------------------
 
@@ -235,8 +261,12 @@ class LMBackend:
         toks = np.zeros((width, max_len), np.int64)
         for i, r in enumerate(requests):  # left-pad
             toks[i, max_len - len(r.prompt):] = r.prompt
+        if width not in self.caches:
+            self.caches[width] = tfm.init_cache(self.cfg, width,
+                                                self.capacity, self.device)
         logits, caches = tfm.prefill(self.params, self._tokens(toks),
-                                     self.cfg, capacity=self.capacity)
+                                     self.cfg, capacity=self.capacity,
+                                     caches=self.caches[width])
         samp = [[r.temperature, r.top_k, r.rid, 0] for r in requests]
         samp += [self._greedy_lane() for _ in range(width - len(requests))]
         state = {"caches": caches, "nxt": None, "len": max_len, "i": 0,
@@ -248,15 +278,40 @@ class LMBackend:
                 for j in range(width)]
         return state, emis
 
+    def _decode(self, state: dict, pos: int) -> torch.Tensor:
+        """One decode step on the card: replay the (width, capacity) graph
+        with this step's tokens and position, capturing it first over the
+        backend's caches.  The capture's warm-up runs the same step
+        eagerly: it writes the same K/V rows that the replay then writes
+        again.  Returns the graph's static logits."""
+        width = int(state["nxt"].shape[0])
+        key = (width, self.capacity)
+        g = self.graphs.get(key)
+        if g is None:
+            caches = self.caches[width]
+            tokens = state["nxt"].clone()
+            p = torch.full((), pos, dtype=torch.int64, device=self.device)
+            graph, logits = capture(lambda: tfm.decode_step(
+                self.params, caches, tokens, p, self.cfg)[0])
+            g = self.graphs[key] = _DecodeGraph(graph, tokens, p, logits)
+        else:
+            g.tokens.copy_(state["nxt"])
+            g.pos.fill_(pos)
+        g.graph.replay()
+        return g.logits
+
     def step(self, state: dict, slots: list) -> tuple[dict, list]:
-        logits, caches = tfm.decode_step(
-            self.params, state["caches"], state["nxt"],
-            state["len"] + state["i"], self.cfg)
+        pos = state["len"] + state["i"]
+        if self.device.type == "cuda":
+            logits = self._decode(state, pos)
+        else:
+            logits, _ = tfm.decode_step(self.params, state["caches"],
+                                        state["nxt"], pos, self.cfg)
         for j, s in enumerate(slots):
             if s is None:                # retired lane: back to greedy
                 state["samp"][j] = self._greedy_lane()
         nxt = self._emit_tokens(state, logits, range(len(slots)))
-        state.update(caches=caches, nxt=nxt[:, None], i=state["i"] + 1)
+        state.update(nxt=nxt[:, None], i=state["i"] + 1)
         return state, [int(t) for t in nxt.cpu().numpy()]
 
     def can_backfill(self, state: dict, req: Request) -> bool:
@@ -342,6 +397,19 @@ class Server:
                 for s in self.scheduler.serve(list(requests))]
 
 
+def _pad_batch(out: np.ndarray, images: list) -> np.ndarray:
+    """Write ``images`` (H, W, C) into the first rows of the batch ``out``
+    (N, Hb, Wb, C), each zero-padded to Hb x Wb, and zero the other
+    rows."""
+    for i, im in enumerate(images):
+        h, w, _ = im.shape
+        out[i, :h, :w] = im
+        out[i, h:] = 0
+        out[i, :h, w:] = 0
+    out[len(images):] = 0
+    return out
+
+
 @dataclasses.dataclass
 class ImageRequest:
     """One CNN inference request."""
@@ -406,22 +474,25 @@ class CNNBackend:
 
     def dispatch(self, state: dict, slots: list
                  ) -> tuple[list[int], torch.Tensor]:
-        """Issue one wave: pad the occupied slots into a batch, copy it to
-        the device and enqueue the forward.  The returned logits may still
-        be in flight — `collect` waits for them."""
+        """Issue one wave: pad the occupied slots into a batch and enqueue
+        the forward (`BatchedApply`, on the card a graph replay).  The
+        returned logits may still be in flight — `collect` waits for them.
+
+        On the card they are the graph's static output, rewritten by the
+        next dispatch, so that must come after this wave's `collect` (the
+        lockstep scheduler's order).  A dispatcher that overlaps waves
+        (the replica fleet) must clone the logits."""
         hb, wb, c = state["bucket"]
         occ = [j for j, r in enumerate(slots) if r is not None]
         nb = min(state["width"], 1 << max(len(occ) - 1, 0).bit_length())
-        x = np.zeros((nb, hb, wb, c), np.float32)
-        for i, j in enumerate(occ):
-            h, w, _ = slots[j].image.shape
-            x[i, :h, :w] = slots[j].image
-        return occ, self.apply(torch.from_numpy(x).to(self.device))
+        images = [slots[j].image for j in occ]
+        return occ, self.apply((nb, hb, wb, c),
+                               lambda out: _pad_batch(out, images))
 
     def collect(self, state: dict, handle: tuple[list[int], torch.Tensor],
                 slots: list) -> tuple[dict, list]:
         occ, y_dev = handle
-        y = y_dev.cpu().numpy()
+        y = y_dev.to("cpu", copy=True).numpy()  # a static buffer on the card
         emis: list = [None] * state["width"]
         for i, j in enumerate(occ):
             emis[j] = y[i]

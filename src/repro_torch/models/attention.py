@@ -13,9 +13,13 @@ function, so no CUDA path runs the plain version.  The reference's
 `logical` sharding constraints have no counterpart here.
 
 Decode is plain torch, as in the reference (no Pallas kernel there): one
-query against the circular cache, grouped einsum, absolute positions per
-slot, window mask, f32 softmax.  The port writes the new K/V row into the
-cache in place and returns the same tensors.
+query against the circular cache, grouped products, absolute positions
+per slot, window mask, f32 softmax.  The position is a 0-d int64 tensor
+on the device, so one CUDA graph serves every step; the port writes the
+new K/V row into the cache in place (``index_copy_`` at ``pos % cap``)
+and returns the same tensors.  The scores read a bf16 cache as it is and
+sum in f32 (`_decode_scores`); the values product promotes the cache to
+f32, as the reference's does (its ``p`` is f32).
 """
 from __future__ import annotations
 
@@ -25,8 +29,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash import NEG_INF, flash_fwd_kernel
 from .layers import P, rms_norm, rope
 
-__all__ = ["attn_schema", "attention_apply", "flash_attention",
-           "init_kv_cache", "repeat_kv"]
+__all__ = ["attn_schema", "attention_apply", "decode_position",
+           "flash_attention", "init_kv_cache", "repeat_kv"]
 
 
 def attn_schema(cfg) -> dict:
@@ -78,6 +82,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, h, t, hd).transpose(1, 2)
 
 
+def decode_position(pos: torch.Tensor | int, device: torch.device
+                    ) -> torch.Tensor:
+    """A decode position as a 0-d int64 tensor on ``device``: a tensor as
+    it is, an int filled in on the device (no copy from the host)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int64).reshape(())
+    return torch.full((), pos, dtype=torch.int64, device=device)
+
+
 def init_kv_cache(cfg, batch: int, capacity: int, dtype: torch.dtype,
                   device: torch.device) -> dict:
     """One layer's cache arrays; the stack wrapper adds the group dim."""
@@ -116,6 +129,36 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg
     return q, k, v
 
 
+def _decode_scores(qg: torch.Tensor, k_cache: torch.Tensor
+                   ) -> torch.Tensor:
+    """Queries (B, KV, G, hd) against the cache (B, cap, KV, hd) -> (B, KV,
+    G, cap) f32 dot products, summed in f32: the reference's
+    ``preferred_element_type=f32``.  On the card a bf16 or f16 cache is
+    read in place: one ``bmm`` a batch row over a strided view of the
+    cache, f32 out (``aten::bmm.dtype``), so no copy of it is made.
+    Elsewhere both operands are taken to f32, the same function (each
+    product of two bf16 values is exact in f32)."""
+    if k_cache.device.type != "cuda" or k_cache.dtype == torch.float32 \
+            or qg.dtype != k_cache.dtype:
+        return torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float())
+    kt = k_cache.permute(0, 2, 3, 1)  # (B, KV, hd, cap): a view
+    return torch.stack([torch.bmm(qg[i], kt[i], out_dtype=torch.float32)
+                        for i in range(qg.shape[0])])
+
+
+def _decode_values(p: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
+    """Softmax weights (B, KV, G, cap) f32 against the cache (B, cap, KV,
+    hd) -> (B, KV, G, hd) f32.  The cache is promoted to f32, as the
+    reference's product promotes it (its ``p`` is f32): one f32 copy of
+    a bf16 cache a layer, made head-major, so one batched product takes
+    every (batch, head) pair."""
+    b, cap, kvh, hd = v_cache.shape
+    vf = torch.empty((b, kvh, cap, hd), dtype=torch.float32,
+                     device=v_cache.device)
+    vf.copy_(v_cache.permute(0, 2, 1, 3))
+    return torch.matmul(p, vf)
+
+
 def _out_proj(out: torch.Tensor, params: dict, x: torch.Tensor
               ) -> torch.Tensor:
     return torch.einsum("bthk,hkd->btd", out.to(x.dtype),
@@ -124,17 +167,19 @@ def _out_proj(out: torch.Tensor, params: dict, x: torch.Tensor
 
 def attention_apply(params: dict, x: torch.Tensor, cfg, *,
                     window: int | None = None, cache: dict | None = None,
-                    pos: int | None = None, decode: bool = False,
+                    pos: torch.Tensor | int | None = None,
+                    decode: bool = False,
                     cache_capacity: int | None = None
                     ) -> tuple[torch.Tensor, dict | None]:
     """Returns (out, new_cache); new_cache is None without a cache.
 
     Prefill / full sequence: flash attention over positions [0, T); if
     ``cache_capacity`` is given the projected K/V are persisted.  Decode:
-    x is (B, 1, D) at position ``pos``; writes slot pos % capacity of the
-    cache in place and reads it.  The absolute position of slot i under
-    write head ``pos`` is pos - ((pos - i) % cap), which is i when
-    cap > pos (a plain cache); slots of negative position are masked.
+    x is (B, 1, D) at position ``pos`` (a 0-d integer tensor on x's
+    device, or an int); writes slot pos % capacity of the cache in place
+    and reads it.  The absolute position of slot i under write head
+    ``pos`` is pos - ((pos - i) % cap), which is i when cap > pos (a plain
+    cache); slots of negative position are masked.
     """
     b, t, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg)
@@ -143,27 +188,25 @@ def attention_apply(params: dict, x: torch.Tensor, cfg, *,
     if decode:
         if cache is None or pos is None:
             raise ValueError("decode needs the cache and the position")
-        dpos = torch.full((1,), pos, device=x.device)
-        q = rope(q, dpos, theta=cfg.rope_theta)
-        k = rope(k, dpos, theta=cfg.rope_theta)
+        pos = decode_position(pos, x.device)
+        q = rope(q, pos.reshape(1), theta=cfg.rope_theta)
+        k = rope(k, pos.reshape(1), theta=cfg.rope_theta)
         k_cache, v_cache = cache["k"], cache["v"]
         cap = k_cache.shape[1]
-        slot = pos % cap
-        k_cache[:, slot:slot + 1] = k.to(k_cache.dtype)
-        v_cache[:, slot:slot + 1] = v.to(v_cache.dtype)
+        slot = (pos % cap).reshape(1)
+        k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
         kvh = cfg.n_kv_heads
         g = cfg.n_heads // kvh
-        qg = q.reshape(b, 1, kvh, g, hd)
-        scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
-                              k_cache.float()) * (hd ** -0.5)
+        qg = q.reshape(b, kvh, g, hd)
+        scores = _decode_scores(qg, k_cache) * (hd ** -0.5)
         kpos = pos - (pos - torch.arange(cap, device=x.device)) % cap
         valid = kpos >= 0
         if window is not None:
             valid &= pos - kpos < window
         scores = torch.where(valid, scores, NEG_INF)
         p = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.float()
-                           ).to(x.dtype)
+        out = _decode_values(p, v_cache).to(x.dtype)
         out = out.reshape(b, 1, cfg.n_heads, hd)
         return _out_proj(out, params, x), {"k": k_cache, "v": v_cache}
 

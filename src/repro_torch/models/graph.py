@@ -28,7 +28,7 @@ remainder strip.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -39,6 +39,7 @@ from repro_torch.core.sparse_ops import (dense_conv2d, same_pads, vs_conv2d,
                                          vs_matmul)
 from repro_torch.core.vector_sparse import (VectorSparse, conv_cin_major,
                                             from_mask)
+from repro_torch.kernels.capture import Captured, capture
 from repro_torch.models.layers import P
 
 __all__ = [
@@ -667,14 +668,38 @@ def output_finite(emission: Any) -> bool:
 
 
 @dataclasses.dataclass
-class BatchedApply:
-    """Batched serving entry point: `net_apply` on one wave, recording the
-    shape buckets it has served.
+class _Bucket:
+    """One shape bucket on the card: its page-locked host batch, its
+    static input, and once captured its graph and static output."""
 
-    PyTorch runs eagerly, so nothing is compiled per shape; ``buckets``
-    holds one key per (net, weight set, variant key, impl, input shape),
-    which is what the server's shape buckets and the pow2 wave ladder are
-    counted against (``compiles``, the reference's name for that count).
+    host: torch.Tensor
+    x: torch.Tensor
+    copied: torch.cuda.Event
+    graph: Captured | None = None
+    y: torch.Tensor | None = None
+
+
+@dataclasses.dataclass
+class BatchedApply:
+    """Batched serving entry point: `net_apply` on one wave, one CUDA graph
+    per shape bucket.
+
+    The port of the reference's jit cache: ``buckets`` holds one entry per
+    (net, weight set, variant key, impl, input shape), the reference's
+    cache key, and ``compiles`` counts them, as the reference counts its
+    executables.  A call names the batch's shape and a ``fill`` that
+    writes the padded batch on the host, and runs it where the weights
+    are.  On a CUDA device each entry is a captured graph
+    (`kernels.capture`) between a static input and a static output: a call
+    has ``fill`` write the bucket's page-locked host buffer, copies it
+    asynchronously into the static input and replays.  The first call of
+    a bucket warms `net_apply` up and captures it.  Every graph of the
+    instance is captured into one memory pool, so a graph's intermediates
+    may lie where another bucket's output lies: the output returned is the
+    graph's static buffer, valid until the next call of any bucket of this
+    instance, so read or clone it before that.  A failed capture or replay
+    raises; there is no eager fallback on the card.  On the CPU each call
+    runs `net_apply` eagerly and the entry is None.
     """
 
     net: SparseNet
@@ -682,22 +707,66 @@ class BatchedApply:
     sparse: dict | None = None
     impl: str = "auto"
     key: tuple = ()
-    buckets: set = dataclasses.field(default_factory=set)
+    buckets: dict = dataclasses.field(default_factory=dict)
+    pool: Any = dataclasses.field(default=None, init=False)
 
     def bucket_key(self, shape: tuple) -> tuple:
         return (self.net.name, id(self.params), id(self.sparse), self.key,
                 self.impl, tuple(shape))
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        self.buckets.add(self.bucket_key(x.shape))
+    @property
+    def device(self) -> torch.device:
+        """Where the weights are, and so where the forward runs."""
+        return next(t for entry in self.params.values()
+                    for t in entry.values()).device
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        return net_apply(self.net, self.params, x, sparse=self.sparse,
+                         impl=self.impl)
+
+    def __call__(self, shape: tuple, fill: Callable[[np.ndarray], Any]
+                 ) -> torch.Tensor:
+        """The logits of one f32 batch of ``shape`` (N, H, W, C), which
+        ``fill`` writes on the host into the array it is given, computed
+        on the weights' device."""
+        dev, shape = self.device, tuple(shape)
         with torch.inference_mode():
-            return net_apply(self.net, self.params, x, sparse=self.sparse,
-                             impl=self.impl)
+            key = self.bucket_key(shape)
+            if dev.type != "cuda":
+                self.buckets.setdefault(key, None)
+                x = np.empty(shape, np.float32)
+                fill(x)
+                return self._forward(torch.from_numpy(x).to(dev))
+            b = self.buckets.get(key)
+            if b is None:
+                b = self.buckets[key] = _Bucket(
+                    torch.empty(shape, dtype=torch.float32, pin_memory=True),
+                    torch.empty(shape, dtype=torch.float32, device=dev),
+                    torch.cuda.Event())
+            b.copied.synchronize()   # the last copy out of ``host`` is done
+            fill(b.host.numpy())
+            b.x.copy_(b.host, non_blocking=True)
+            b.copied.record()
+            if b.graph is None:
+                if self.pool is None:
+                    self.pool = torch.cuda.graph_pool_handle()
+                b.graph, b.y = capture(lambda: self._forward(b.x),
+                                       pool=self.pool)
+            b.graph.replay()
+            return b.y
 
     @property
     def compiles(self) -> int:
-        """Distinct shape buckets served (all variants)."""
-        return len(self.buckets)
+        """Shape buckets served (all variants); on the card, the captured
+        graphs."""
+        return sum(b is None or b.graph is not None
+                   for b in self.buckets.values())
+
+    @property
+    def replays(self) -> int:
+        """Graph replays over every bucket (0 on the CPU)."""
+        return sum(b.graph.replays for b in self.buckets.values()
+                   if b is not None and b.graph is not None)
 
 
 # --------------------------------------------------------------------------

@@ -11,14 +11,17 @@ the stacked tensors (views, not copies).
 Modes:
   train   — full-sequence forward (no caches)
   prefill — forward + populated decode caches
-  decode  — one token through the caches at position ``pos``; the port
-            updates the caches in place and returns the same tree
+  decode  — one token through the caches at position ``pos`` (a 0-d
+            int64 tensor on the device, so one CUDA graph serves every
+            step); the port updates the caches in place and returns the
+            same tree
 """
 from __future__ import annotations
 
 import torch
 
-from .attention import attention_apply, attn_schema, init_kv_cache
+from .attention import (attention_apply, attn_schema, decode_position,
+                        init_kv_cache)
 from .layers import P, mlp_apply, mlp_schema, rms_norm, stack
 
 __all__ = ["lm_schema", "layer_schema", "init_cache", "apply_layer",
@@ -92,7 +95,8 @@ def init_cache(cfg, batch: int, capacity: int, device: torch.device,
 
 
 def apply_layer(p: dict, h: torch.Tensor, spec, cfg, *, mode: str,
-                cache: dict | None = None, pos: int | None = None,
+                cache: dict | None = None,
+                pos: torch.Tensor | int | None = None,
                 capacity: int | None = None) -> tuple[torch.Tensor, dict]:
     """One (mixer, ffn) residual layer. Returns (h, new_cache)."""
     new_cache = {}
@@ -131,14 +135,17 @@ def _store(dst: dict, src: dict, r: int) -> None:
 
 
 def forward_hidden(params: dict, x: torch.Tensor, cfg, *, mode: str = "train",
-                   caches: list | None = None, pos: int | None = None,
+                   caches: list | None = None,
+                   pos: torch.Tensor | int | None = None,
                    capacity: int | None = None
                    ) -> tuple[torch.Tensor, list]:
-    """x (B, T, D) embeddings -> (h, caches).  Prefill allocates and fills
-    fresh stacked caches; decode updates ``caches`` in place."""
+    """x (B, T, D) embeddings -> (h, caches).  Prefill fills ``caches``
+    in place when given (caches the caller owns, as `init_cache` makes
+    them; every slot is overwritten), else fresh ones; decode updates
+    ``caches`` in place."""
     h = x
     out_caches = []
-    if mode == "prefill":
+    if mode == "prefill" and caches is None:
         caches = init_cache(cfg, x.shape[0], capacity, x.device)
     for si, seg in enumerate(cfg.segments):
         p_seg = params["segments"][si]
@@ -178,9 +185,16 @@ def unembed_matrix(params: dict, cfg) -> torch.Tensor:
 
 
 def _logits(h: torch.Tensor, params: dict, cfg) -> torch.Tensor:
-    """(B, T, D) -> (B, T, Vp) f32 logits: an f32 product of the values,
-    as the reference's ``preferred_element_type=f32``."""
-    return torch.matmul(h.float(), unembed_matrix(params, cfg).float())
+    """(B, T, D) -> (B, T, Vp) f32 logits, summed in f32 as the
+    reference's ``preferred_element_type=f32``.  On the card bf16 or f16
+    operands go into one ``mm`` with an f32 output (``aten::mm.dtype``):
+    no f32 copy of the unembedding.  Elsewhere both are taken to f32, the
+    same function."""
+    w = unembed_matrix(params, cfg)
+    if h.device.type == "cuda" and h.dtype == w.dtype != torch.float32:
+        y = torch.mm(h.reshape(-1, h.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*h.shape[:-1], w.shape[-1])
+    return torch.matmul(h.float(), w.float())
 
 
 def lm_apply(params: dict, batch: dict, cfg) -> torch.Tensor:
@@ -191,8 +205,11 @@ def lm_apply(params: dict, batch: dict, cfg) -> torch.Tensor:
 
 
 def prefill(params: dict, batch: dict, cfg, *, capacity: int,
-            logit_pos: int | None = None) -> tuple[torch.Tensor, list]:
-    """Full-context forward; returns (logits (B, Vp), caches).
+            logit_pos: int | None = None, caches: list | None = None
+            ) -> tuple[torch.Tensor, list]:
+    """Full-context forward; returns (logits (B, Vp), caches).  The
+    caches are ``caches`` filled in place when given (the caller's, of
+    this batch and capacity), else fresh ones.
 
     Logits are read at the last position by default; ``logit_pos`` reads
     them at a chosen position instead — the hook that lets a backfill
@@ -204,17 +221,21 @@ def prefill(params: dict, batch: dict, cfg, *, capacity: int,
     """
     x = embed_tokens(params, batch["tokens"], cfg)
     h, caches = forward_hidden(params, x, cfg, mode="prefill",
-                               capacity=capacity)
+                               caches=caches, capacity=capacity)
     t = h.shape[1] - 1 if logit_pos is None else logit_pos
     return _logits(h[:, t:t + 1], params, cfg)[:, 0], caches
 
 
-def decode_step(params: dict, caches: list, tokens: torch.Tensor, pos: int,
-                cfg) -> tuple[torch.Tensor, list]:
-    """One decode step. tokens (B, 1) integer, pos an int.
+def decode_step(params: dict, caches: list, tokens: torch.Tensor,
+                pos: torch.Tensor | int, cfg) -> tuple[torch.Tensor, list]:
+    """One decode step. tokens (B, 1) integer, pos a 0-d integer tensor on
+    the tokens' device (or an int).
 
-    Returns (logits (B, Vp), caches), the caches updated in place.
+    Returns (logits (B, Vp), caches), the caches updated in place.  With
+    a tensor ``pos`` the step waits on nothing from the host, so a CUDA
+    graph can capture it.
     """
+    pos = decode_position(pos, tokens.device)
     x = embed_tokens(params, tokens, cfg)
     h, caches = forward_hidden(params, x, cfg, mode="decode", caches=caches,
                                pos=pos)

@@ -911,7 +911,9 @@ def test_int8_stack_served_wave_bit_equal_to_plain(cuda, arch, per_wave):
     """One int8 wave of 4 images at 32 px through `CNNServer(dtype="int8",
     impl="pallas-stack")`: every conv through an int8 stack kernel (the
     stem through its int8 stem body), every FC and 1x1 through vsmm's int8
-    branch, logits bit-equal to `net_apply(impl="plain")` on the card."""
+    branch, logits bit-equal to `net_apply(impl="plain")` on the card.
+    The wave is its bucket's first: the device runs the forward twice (the
+    CUDA graph's eager warm-up and its first replay), and both count."""
     counters = {"stack": vsconv_stack_kernel,
                 "dw_stack": vsconv_dw_stack_kernel, "vsmm": vsmm_kernel,
                 "halo": vsconv_halo_kernel, "dw_halo": vsconv_dw_halo_kernel}
@@ -927,11 +929,12 @@ def test_int8_stack_served_wave_bit_equal_to_plain(cuda, arch, per_wave):
     vsconv_stack_kernel.stem_launches = 0
     srv.serve(reqs)
     torch.cuda.synchronize()
+    twice = {n: 2 * v for n, v in per_wave.items()}
     assert {n: k.launches for n, k in counters.items()
-            if k.launches} == per_wave
+            if k.launches} == twice
     assert {n: k.int8_launches for n, k in counters.items()
-            if k.int8_launches} == per_wave
-    assert vsconv_stack_kernel.stem_launches == 1
+            if k.int8_launches} == twice
+    assert vsconv_stack_kernel.stem_launches == 2
     with torch.inference_mode():
         ref = TG.net_apply(srv.net, srv.params,
                            torch.from_numpy(np.stack(imgs)).to(cuda),
@@ -950,7 +953,8 @@ def test_int8_served_wave_bit_equal_to_plain(cuda, arch, per_wave):
     """One int8 wave of 4 images at 32 px through `CNNServer(dtype=
     "int8")`: every conv and FC through an int8 kernel branch (the stem
     through the int8 stem body), logits bit-equal to
-    `net_apply(impl="plain")` on the card."""
+    `net_apply(impl="plain")` on the card.  As the bucket's first wave it
+    runs, and counts, the forward twice (warm-up and first replay)."""
     counters = {"halo": vsconv_halo_kernel, "dw_halo": vsconv_dw_halo_kernel,
                 "vsmm": vsmm_kernel}
     srv = TS.CNNServer(get_config(arch).reduce(), batch=4, density=0.5,
@@ -964,11 +968,12 @@ def test_int8_served_wave_bit_equal_to_plain(cuda, arch, per_wave):
     vsconv_halo_kernel.stem_launches = 0
     srv.serve(reqs)
     torch.cuda.synchronize()
+    twice = {n: 2 * v for n, v in per_wave.items()}
     assert {n: k.launches for n, k in counters.items()
-            if k.launches} == per_wave
+            if k.launches} == twice
     assert {n: k.int8_launches for n, k in counters.items()
-            if k.int8_launches} == per_wave
-    assert vsconv_halo_kernel.stem_launches == 1
+            if k.int8_launches} == twice
+    assert vsconv_halo_kernel.stem_launches == 2
     with torch.inference_mode():
         ref = TG.net_apply(srv.net, srv.params,
                            torch.from_numpy(np.stack(imgs)).to(cuda),
