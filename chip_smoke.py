@@ -98,7 +98,12 @@ repository around it, or when any phase fails.  Phases:
    - VGG-16, halo (``vscnn-vgg16``, 16 requests): 13 vsconv_halo + 3
      vsmm per wave (conv1 on the stem body);
    - VGG-16, int8 stack (8 requests): 13 vsconv_stack + 3 vsmm, all int8
-     launches.
+     launches;
+   - ResNet-34, halo and int8 halo (16 requests each): 33 vsconv_halo
+     (the stem and 32 3x3s) + 4 vsmm (3 projections, the head) per wave;
+   - ResNet-50, halo and int8 halo (16 requests each): 17 vsconv_halo
+     (the stem and 16 3x3s) + 37 vsmm (32 block 1x1s, every conv3 with
+     the shortcut fused, 4 projections, the head) per wave.
    Each path must run the stem body exactly once a wave (the wrappers'
    ``stem_launches``; an int8 path its int8 twin), and every launch of an
    int8 path must be of an int8 branch (``int8_launches``), none of an
@@ -146,7 +151,19 @@ repository around it, or when any phase fails.  Phases:
    on), (b) skip off, (c) density 1.0 on the same kernels, skip off, (d)
    the dense net on cuDNN/cuBLAS f32; printed on one line before the
    card's line.
-6. LM serve phase.  The port's ``Server(get_config("qwen1.5-4b"),
+6. Fleet phase (`fleet_phase`, ResNet-50 f32 halo and int8 halo): two
+   replicas on the card (`CNNServer(replicas=2)`) bit-identical to one
+   with exact counts per replica, a hand-made dispatch of both replicas
+   before either is collected, warm images/s at 1 and 2 replicas in
+   alternating pairs with each one's idle share, and four fault runs
+   (the seeded ``FaultPlan.random(0, replicas=2)``, a ``nan``, a
+   ``die_collect``, a ``stall``) held to one outcome a request and to the
+   bounds that the wave's size and members set (see `fleet_phase`).
+7. CLI phase (`cli_phase`): ``python -m repro_torch.launch.serve`` run
+   as a user runs it, on ResNet-50 with two replicas under chaos seed 0
+   and on Qwen1.5-4B (reduced configs); both must exit 0 and print their
+   summary.  Every phase's seconds are printed (``"phase": "seconds"``).
+8. LM serve phase.  The port's ``Server(get_config("qwen1.5-4b"),
    batch=8, capacity=552)`` with bf16 weights from seed 0 at full depth
    and width (40 layers, d_model 2560, vocab 151936) serves 16 seeded
    requests (12 prompts of 497-512 tokens with max_new 8-32, 4 of 241-256
@@ -252,10 +269,11 @@ def _device_ms(fn, reps: int, replays: int = 3) -> float:
     """Device time per call: ``reps`` calls captured in one CUDA graph,
     ``replays`` replays of it timed with CUDA events, per call."""
     import torch
+    from repro_torch.kernels.capture import no_collection
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with no_collection(), torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -1074,6 +1092,14 @@ PATHS = {
                    {"vsconv_halo": 13, "vsmm": 3}, 1),
     "vgg16-int8-stack": ("vscnn-vgg16", "pallas-stack", "int8", BATCH,
                          {"vsconv_stack_int8": 13, "vsmm_int8": 3}, 1),
+    "resnet34-halo": ("vscnn-resnet34", "auto", None, 16,
+                      {"vsconv_halo": 33, "vsmm": 4}, 1),
+    "resnet34-int8-halo": ("vscnn-resnet34", "auto", "int8", 16,
+                           {"vsconv_halo_int8": 33, "vsmm_int8": 4}, 1),
+    "resnet50-halo": ("vscnn-resnet50", "auto", None, 16,
+                      {"vsconv_halo": 17, "vsmm": 37}, 1),
+    "resnet50-int8-halo": ("vscnn-resnet50", "auto", "int8", 16,
+                           {"vsconv_halo_int8": 17, "vsmm_int8": 37}, 1),
 }
 WARM_SERVES = 5   # warm re-serves of a CNN path's traffic, timed together
 
@@ -1276,6 +1302,385 @@ def bucket_mix_phase(path: str, served: dict, dev) -> dict:
     return out
 
 
+FLEET_PATHS = ("resnet50-halo", "resnet50-int8-halo")
+FLEET_PAIRS = 3    # alternating (1 replica, 2 replicas) timing pairs
+FLEET_FAULT_REQUESTS = 20   # 2.5 waves: partial waves and steals can occur
+FLEET_PROFILE_TRIES = 3
+
+
+def _recording(backends: list, waves: dict) -> None:
+    """Make each CNN backend record, per request it dispatches, the wave
+    it ran in: ``waves[rid]`` = (the wave's request ids in slot order, its
+    padded batch size).  A re-served request keeps its last wave."""
+    for be in backends:
+        def dispatch(state, slots, _orig=be.dispatch):
+            occ, y = _orig(state, slots)
+            wave = (tuple(slots[j].rid for j in occ), int(y.shape[0]))
+            for j in occ:
+                waves[slots[j].rid] = wave
+            return occ, y
+        be.dispatch = dispatch
+
+
+def _fleet_counts(path: str, backends: list, stats: list, counters: dict,
+                  launches: dict) -> dict:
+    """Per replica: one graph, one replay a wave; the launches, summed
+    over the replicas, exactly the path's per forward times (waves +
+    graphs), every one of an int8 path an int8 launch."""
+    _, _, dtype, _, per_wave, stem_per_wave = PATHS[path]
+    int8_launches = {n: k.int8_launches for n, k in counters.items()
+                     if getattr(k, "int8_launches", 0)}
+    if int8_launches != ({n: k.launches for n, k in counters.items()
+                          if k.launches} if dtype == "int8" else {}):
+        raise SystemExit(f"chip_smoke: {path} fleet: int8 branch launches "
+                         f"{int8_launches} of launches {launches}")
+    per_replica = []
+    for i, be in enumerate(backends):
+        waves = sum(s["steps"] for s in stats if s["replica"] == i)
+        apply = be.apply
+        if apply.compiles != 1 or apply.replays != waves:
+            raise SystemExit(f"chip_smoke: {path} fleet: replica {i} "
+                             f"captured {apply.compiles} graphs and replayed "
+                             f"{apply.replays} over {waves} waves")
+        per_replica.append({"waves": waves, "graphs": apply.compiles,
+                            "replays": apply.replays})
+    runs = sum(r["waves"] + r["graphs"] for r in per_replica)
+    if launches != {k: v * runs for k, v in per_wave.items()}:
+        raise SystemExit(f"chip_smoke: {path} fleet: launches {launches} "
+                         f"over {per_replica}, expected {per_wave} a "
+                         f"forward")
+    stems = sum(k.stem_launches for k in counters.values()
+                if hasattr(k, "stem_launches"))
+    if stems != stem_per_wave * runs:
+        raise SystemExit(f"chip_smoke: {path} fleet: the stem body ran "
+                         f"{stems} times over {runs} forwards")
+    return {"per_replica": per_replica, "forwards": runs}
+
+
+def fleet_phase(path: str, served: dict, dev) -> dict:
+    """The replica fleet on one card (`CNNServer(replicas=2)`: a
+    `ReplicaGroup` of two backends, each with its own weights and its own
+    `BatchedApply`, behind `FleetScheduler`).
+
+    1. With every count at 0, the path's 16 requests: every logit equal,
+       bit for bit, to the one-replica server's (same seed, same images);
+       per replica one graph and one replay a wave; the launches summed
+       over the replicas exactly the path's per forward x (waves +
+       graphs).  The fleet dispatches both replicas' waves before it
+       collects either.
+    2. Dispatch before collect, by hand: replica 0 and replica 1 each
+       dispatch a wave of other images, then both are collected; each
+       equal to eager `net_apply` on its batch, bit for bit.
+    3. Warm images/s at 1 and 2 replicas, alternating, `FLEET_PAIRS`
+       pairs of `WARM_SERVES` serves each (a measurement, no pass mark),
+       then one profiled serve of each: the device's idle share.  Each
+       trace must hold as many events of each kernel as the path's own
+       profile did (the same graphs replay the same waves); a short one
+       is taken again, up to `FLEET_PROFILE_TRIES` serves, and the run
+       fails if every one is short.
+    4. Faults, each on fresh `ChaosBackend`s around the two replicas'
+       backends, over `FLEET_FAULT_REQUESTS` requests (the path's 16 and
+       4 more): ``FaultPlan.random(0, replicas=2)``, one ``nan`` (replica
+       0, its first dispatch), one ``die_collect`` (replica 1, its first
+       dispatch) and one ``stall`` (replica 0, 2 ticks: the other replica
+       steals half its queue, so waves change size).  Each must give
+       exactly one terminal outcome a request, one emission a delivered
+       request, a drained replica wherever a fault was not transient (a
+       stall is not a fault), and delivered logits held against the
+       one-replica server's on the same requests.  f32 logits depend on
+       the wave's padded size (it sets the kernels' plans): bit for bit
+       where it is the same, within 1e-5 relative where not.  int8 logits
+       also depend on the wave's members (the activations' per-tensor
+       scale is taken over the wave): bit for bit where the members are
+       the same.  A request whose wave changed must equal eager
+       `net_apply` on the wave it ran in, bit for bit.  The counts of
+       such requests and the max |d| against one replica are printed.
+    """
+    import numpy as np
+    import torch
+    from repro_torch.launch.faults import ChaosBackend, Fault, FaultPlan
+    from repro_torch.launch.scheduler import DRAINED, FleetScheduler
+    from repro_torch.launch.serve import CNNServer, ImageRequest
+    from repro_torch.models.graph import net_apply
+
+    name, impl, dtype, n_req, _, _ = PATHS[path]
+    int8 = dtype == "int8"
+    suffix = "_int8" if int8 else ""
+    one = served["srv"]
+    images = served["images"]
+    cfg = one.cfg
+    t0 = time.perf_counter()
+    fleet = CNNServer(cfg, batch=BATCH, impl=impl, dtype=dtype, seed=0,
+                      replicas=2, device=dev)
+    setup_s = time.perf_counter() - t0
+    backends = fleet.group.backends
+    if len({id(b.apply) for b in backends}) != 2 or \
+            backends[0].apply.params["conv1"]["w"].data_ptr() == \
+            backends[1].apply.params["conv1"]["w"].data_ptr():
+        raise SystemExit(f"chip_smoke: {path} fleet: the replicas share a "
+                         f"BatchedApply or weights")
+
+    def requests(ims):
+        return [ImageRequest(rid=i, image=im) for i, im in enumerate(ims)]
+
+    # 1. two replicas against one, with exact counts
+    ref1 = np.stack([r.logits for r in _serve_one(one, images)])
+    counters = _counters()
+    _zero_counters()
+    reqs = requests(images)
+    stats = fleet.serve(reqs)
+    torch.cuda.synchronize()
+    launches = {n + suffix: k.launches for n, k in counters.items()
+                if k.launches}
+    if not all(r.outcome is not None and r.outcome.status == "delivered"
+               for r in reqs):
+        raise SystemExit(f"chip_smoke: {path} fleet: not every request "
+                         f"delivered: {fleet.outcomes}")
+    got = np.stack([r.logits for r in reqs])
+    if not np.array_equal(got, ref1):
+        raise SystemExit(f"chip_smoke: {path} fleet: 2 replicas differ from "
+                         f"1 (max abs {np.abs(got - ref1).max():.3e})")
+    counted = _fleet_counts(path, backends, stats, counters, launches)
+
+    # 2. dispatch before collect, by hand
+    rng = np.random.default_rng(7)
+    extra = [rng.standard_normal((SIZE, SIZE, 3)).astype(np.float32)
+             for _ in range(2 * BATCH)]
+    waves = [requests(extra[:BATCH]), requests(extra[BATCH:])]
+    handles = []
+    for be, wave in zip(backends, waves):
+        state, _ = be.start(wave, BATCH)
+        handles.append((state, be.dispatch(state, wave)))
+    for be, wave, (state, h) in zip(backends, waves, handles):
+        _, emis = be.collect(state, h, wave)
+        with torch.inference_mode():
+            eager = net_apply(
+                be.apply.net, be.apply.params,
+                torch.from_numpy(np.stack([r.image for r in wave])).to(dev),
+                sparse=be.apply.sparse, impl=be.apply.impl).cpu().numpy()
+        if not np.array_equal(np.stack(emis), eager):
+            raise SystemExit(f"chip_smoke: {path} fleet: a wave dispatched "
+                             f"before the other replica's was collected "
+                             f"differs from eager net_apply")
+
+    # 3. warm images/s at 1 and 2 replicas, alternating
+    servers = {1: one, 2: fleet}
+    rates: dict = {1: [], 2: []}
+    for pair in range(FLEET_PAIRS):
+        for n in ((1, 2) if pair % 2 == 0 else (2, 1)):
+            t0 = time.perf_counter()
+            for _ in range(WARM_SERVES):
+                servers[n].serve(requests(images))
+            torch.cuda.synchronize()
+            rates[n].append(WARM_SERVES * n_req
+                            / (time.perf_counter() - t0))
+    idle = {}
+    expect = served["profile"]["kernel_events_by_kind"]
+    for n, srv in servers.items():
+        prof = profile_phase(f"{path} x{n} replicas",
+                             lambda srv=srv: srv.serve(requests(images)),
+                             n_req / float(np.median(rates[n])), int8=int8,
+                             expect=expect,
+                             tries=FLEET_PROFILE_TRIES)
+        idle[n] = {k: prof[k] for k in ("device_idle_share",
+                                        "idle_share_est_two_serves",
+                                        "device_busy_ms", "wall_ms",
+                                        "attempts", "device_margin_us")}
+
+    # 4. faults
+    fault_images = images + [rng.standard_normal((SIZE, SIZE, 3)).astype(
+        np.float32) for _ in range(FLEET_FAULT_REQUESTS - n_req)]
+    ref_waves: dict = {}
+    _recording([one.backend], ref_waves)
+    ref_reqs = _serve_one(one, fault_images)
+    del one.backend.dispatch
+    ref = {r.rid: r.logits for r in ref_reqs}
+    apply = backends[0].apply
+
+    def eager(wave):
+        """Eager `net_apply` on the padded batch a wave ran."""
+        rids, nb = wave
+        x = np.zeros((nb, SIZE, SIZE, 3), np.float32)
+        for i, rid in enumerate(rids):
+            x[i] = fault_images[rid]
+        with torch.inference_mode():
+            return net_apply(apply.net, apply.params,
+                             torch.from_numpy(x).to(dev), sparse=apply.sparse,
+                             impl=apply.impl).cpu().numpy()
+
+    plans = {
+        "random_seed_0": FaultPlan.random(0, replicas=2),
+        "nan_r0w1": FaultPlan([Fault("nan", 0, 1)]),
+        "die_collect_r1w1": FaultPlan([Fault("die_collect", 1, 1)]),
+        "stall_r0w1": FaultPlan([Fault("stall", 0, 1, ticks=2)]),
+    }
+    faults = {}
+    for label, plan in plans.items():
+        got_waves: dict = {}
+        _recording(backends, got_waves)
+        try:
+            chaos = [ChaosBackend(b, plan, replica=i)
+                     for i, b in enumerate(backends)]
+            sched = FleetScheduler(chaos, batch=BATCH)
+            reqs = requests(fault_images)
+            sched.serve(reqs)
+            torch.cuda.synchronize()
+        finally:
+            for b in backends:
+                del b.dispatch
+        if set(sched.outcomes) != {r.rid for r in reqs} or \
+                any(r.outcome is not sched.outcomes[r.rid] for r in reqs):
+            raise SystemExit(f"chip_smoke: {path} {label}: not one terminal "
+                             f"outcome a request")
+        delivered = [r for r in reqs if r.outcome.status == "delivered"]
+        if any(len(r.out) != 1 or r.logits is None for r in delivered):
+            raise SystemExit(f"chip_smoke: {path} {label}: a delivered "
+                             f"request has {[len(r.out) for r in reqs]} "
+                             f"emissions")
+        if any(sched.health[e["replica"]] != DRAINED
+               for e in sched.fault_events if not e["transient"]):
+            raise SystemExit(f"chip_smoke: {path} {label}: health "
+                             f"{sched.health} after {sched.fault_events}")
+        # f32 depends on the padded size (the kernels' plans), int8 also on
+        # the wave's members (the per-tensor activation scale)
+        size_changed = [r.rid for r in delivered
+                        if got_waves[r.rid][1] != ref_waves[r.rid][1]]
+        wave_changed = [r.rid for r in delivered
+                        if set(got_waves[r.rid][0])
+                        != set(ref_waves[r.rid][0])
+                        or got_waves[r.rid][1] != ref_waves[r.rid][1]]
+        same = (lambda rid: rid not in wave_changed) if int8 else \
+            (lambda rid: rid not in size_changed)
+        eagers: dict = {}
+        max_d, max_rel = 0.0, 0.0
+        for r in delivered:
+            d = float(np.abs(r.logits.astype(np.float64)
+                             - ref[r.rid]).max())
+            rel = d / max(float(np.abs(ref[r.rid]).max()), 1e-30)
+            if same(r.rid) and d != 0.0:
+                raise SystemExit(f"chip_smoke: {path} {label}: request "
+                                 f"{r.rid} (wave {got_waves[r.rid]}, alone "
+                                 f"{ref_waves[r.rid]}) differs from the "
+                                 f"one-replica server by {d:.3e}")
+            if not int8 and rel > RTOL:
+                raise SystemExit(f"chip_smoke: {path} {label}: request "
+                                 f"{r.rid} relative error {rel:.3e} > {RTOL}")
+            if not same(r.rid):
+                wave = got_waves[r.rid]
+                if wave not in eagers:
+                    eagers[wave] = eager(wave)
+                if not np.array_equal(r.logits,
+                                      eagers[wave][wave[0].index(r.rid)]):
+                    raise SystemExit(f"chip_smoke: {path} {label}: request "
+                                     f"{r.rid} differs from eager net_apply "
+                                     f"on the wave {wave} it ran in")
+            max_d, max_rel = max(max_d, d), max(max_rel, rel)
+        faults[label] = {
+            "plan": plan.describe(), "requests": len(reqs),
+            "delivered": len(delivered),
+            "refused": sorted({r.outcome.reason for r in reqs
+                               if r.outcome.status == "refused"}),
+            "health": list(sched.health),
+            "fault_events": [(e["wave"], e["replica"], e["fault"])
+                             for e in sched.fault_events],
+            "injected": [b.injected for b in chaos], "steals": sched.steals,
+            "padded_size_changed": len(size_changed),
+            "wave_members_changed": len(wave_changed),
+            "checked_against_eager_on_own_wave": len(
+                [r for r in delivered if not same(r.rid)]),
+            "max_abs_diff_vs_one_replica": max_d,
+            "max_rel_diff_vs_one_replica": max_rel}
+    out = {"phase": "fleet", "path": path, "replicas": 2,
+           "setup_s": setup_s, "requests": n_req, "launches": launches,
+           **counted, "two_vs_one_bit_equal": True,
+           "dispatch_before_collect_bit_equal": True,
+           "warm_images_per_s": {str(n): v for n, v in rates.items()},
+           "warm_images_per_s_median": {str(n): float(np.median(v))
+                                        for n, v in rates.items()},
+           "idle": {str(n): v for n, v in idle.items()}, "faults": faults}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _serve_one(srv, images) -> list:
+    from repro_torch.launch.serve import ImageRequest
+    reqs = [ImageRequest(rid=i, image=im) for i, im in enumerate(images)]
+    srv.serve(reqs)
+    if not all(r.outcome.status == "delivered" for r in reqs):
+        raise SystemExit("chip_smoke: the one-replica server refused a "
+                         "request")
+    return reqs
+
+
+CLI_RUNS = {
+    "cnn": ["--cnn", "vscnn-resnet50", "--replicas", "2", "--chaos-seed",
+            "0"],
+    "lm": ["--arch", "qwen1.5-4b", "--requests", "4", "--tokens", "8"],
+}
+
+
+def cli_phase() -> dict:
+    """The serve CLI as a user starts it, on the card, in processes of its
+    own (``python -m repro_torch.launch.serve``, the reduced configs),
+    both started together: ResNet-50 on two replicas under the seeded
+    chaos plan, and Qwen1.5-4B with 4 requests of 8 tokens.  Each must
+    exit 0 and print its summary line: every request accounted for
+    (delivered + refused = 16), and 4 x 8 tokens."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    out = {"phase": "cli"}
+    t0 = time.perf_counter()
+    procs = {label: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for label, argv in CLI_RUNS.items()}
+    done = {}
+    try:
+        for label, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            done[label] = (proc.returncode, stdout, stderr,
+                           time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for label, argv in CLI_RUNS.items():
+        rc, text, stderr, secs = done[label]
+        if rc != 0:
+            raise SystemExit(f"chip_smoke: cli {label} exited {rc}:\n"
+                             f"{text}\n{stderr[-4000:]}")
+        if label == "cnn":
+            m = re.search(r"served (\d+) images in (\d+) lockstep runs, "
+                          r"([\d.]+) img/s", text)
+            o = re.search(r"outcomes: (\d+) delivered, (\d+) refused", text)
+            if m is None or o is None or \
+                    int(o.group(1)) + int(o.group(2)) != 16 or \
+                    int(m.group(1)) != int(o.group(1)):
+                raise SystemExit(f"chip_smoke: cli {label}: summary not "
+                                 f"parsed or requests lost:\n{text}")
+            row = {"images": int(m.group(1)), "runs": int(m.group(2)),
+                   "images_per_s": float(m.group(3)),
+                   "delivered": int(o.group(1)), "refused": int(o.group(2))}
+        else:
+            m = re.search(r"served (\d+) requests in (\d+) lockstep runs: "
+                          r"(\d+) tokens, ([\d.]+) tok/s", text)
+            if m is None or int(m.group(1)) != 4 or int(m.group(3)) != 32:
+                raise SystemExit(f"chip_smoke: cli {label}: summary not "
+                                 f"parsed or tokens lost:\n{text}")
+            row = {"requests": int(m.group(1)), "runs": int(m.group(2)),
+                   "tokens": int(m.group(3)),
+                   "decode_tok_s": float(m.group(4))}
+        out[label] = {"argv": argv, "seconds": secs, **row,
+                      "summary": text.splitlines()[0]}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def _kind(name: str) -> str:
     # a stem body is filed under its kernel, vsmm's phase 2 under vsmm
     m = re.search(r"(vsconv_dw_halo|vsconv_dw_stack|vsconv_halo|"
@@ -1313,8 +1718,12 @@ def _device_time(spans: list) -> tuple[float, dict]:
     return busy_us, by_name
 
 
-def profile_phase(path: str, serve, warm_s: float, int8: bool = False
-                  ) -> dict:
+PROFILE_SLACK_S = 0.05   # idle host time at each end of a profile window
+SERVE_RANGE = "chip_smoke_serve"   # the profiled serve's `record_function`
+
+
+def profile_phase(path: str, serve, warm_s: float, int8: bool = False,
+                  expect: dict | None = None, tries: int = 1) -> dict:
     """One more warm serve of the path's traffic (``serve()``) under
     `torch.profiler`: the device's busy time (the union of its kernel and
     copy intervals) against the wall clock of the same serve, and device
@@ -1332,24 +1741,58 @@ def profile_phase(path: str, serve, warm_s: float, int8: bool = False
     counted apart as ``graph_launches``).  The trace must hold at least
     one device event of each kernel for each launch that the wrappers'
     counters gave the serve (a split vsmm or conv launch runs two kernels
-    of its kind), ``int8`` naming the int8 branches."""
+    of its kind), ``int8`` naming the int8 branches, and at least the
+    events of each kernel in ``expect`` (another profile of the same
+    graphs on the same waves).  The profiler keeps only device events
+    whose times fall inside its window, so the serve runs between two
+    idle `PROFILE_SLACK_S` stretches, and ``device_margin_us`` says how
+    far the first and last device events lay inside the serve's own host
+    span (negative: outside it, a clock offset).  A short trace is taken
+    again, up to ``tries`` serves in all (each shortfall is printed,
+    ``profile_short``); the run fails if every one is short."""
+    for attempt in range(1, tries + 1):
+        out = _profile_once(path, serve, warm_s, int8, expect or {})
+        if not out["unseen"]:
+            break
+        print(json.dumps({"phase": "profile_short", "path": path,
+                          "attempt": attempt, "unseen": out["unseen"],
+                          "graph_launches": out["graph_launches"],
+                          "device_margin_us": out["device_margin_us"]}),
+              flush=True)
+    else:
+        raise SystemExit(f"chip_smoke: {path}: {tries} profiles saw fewer "
+                         f"kernel events than needed (events, needed): "
+                         f"{out['unseen']}")
+    out["attempts"] = attempt
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _profile_once(path: str, serve, warm_s: float, int8: bool,
+                  expect: dict) -> dict:
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     counters = _counters()
     before = {n: k.launches for n, k in counters.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_SLACK_S)
         t0 = time.perf_counter()
-        serve()
-        torch.cuda.synchronize()
+        with record_function(SERVE_RANGE):
+            serve()
+            torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_SLACK_S)
     suffix = "_int8" if int8 else ""
     launched = {n + suffix: k.launches - before[n]
                 for n, k in counters.items() if k.launches != before[n]}
     events = prof.events()
+    # the range's device-side annotation spans all of its work: not work
     spans = _device_spans(events)
+    annotations = sum(sp[2] == SERVE_RANGE for sp in spans)
+    spans = [sp for sp in spans if sp[2] != SERVE_RANGE]
     graph_launches = sum(e.name == "cudaGraphLaunch" for e in events
                          if e.device_type == DeviceType.CPU)
     busy_us, by_name = _device_time(spans)
@@ -1359,25 +1802,26 @@ def profile_phase(path: str, serve, warm_s: float, int8: bool = False
         kind = _kind(name)
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
         events_by_kind[kind] = events_by_kind.get(kind, 0) + n
-    unseen = {k: (events_by_kind.get(k, 0), n) for k, n in launched.items()
+    need = {k: max(n, expect.get(k, 0)) for k, n in launched.items()}
+    unseen = {k: (events_by_kind.get(k, 0), n) for k, n in need.items()
               if events_by_kind.get(k, 0) < n}
     if not spans:
         raise SystemExit(f"chip_smoke: {path}: the profile holds no device "
                          f"event, so it cannot show that the counted "
                          f"launches {launched} ran")
-    if unseen:
-        raise SystemExit(f"chip_smoke: {path}: the profile saw fewer kernel "
-                         f"events than launches (events, launches): "
-                         f"{unseen}")
-    out = {"phase": "profile", "path": path, "wall_ms": wall_ms,
+    host = next(e.time_range for e in events
+                if e.name == SERVE_RANGE
+                and e.device_type == DeviceType.CPU)
+    margin = [spans[0][0] - host.start,
+              host.end - max(end for _, end, _ in spans)]
+    return {"phase": "profile", "path": path, "wall_ms": wall_ms,
            "device_events": len(spans), "graph_launches": graph_launches,
            "launches": launched, "kernel_events_by_kind": events_by_kind,
            "device_busy_ms": busy_us / 1e3,
            "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
            "idle_share_est_two_serves": 1 - busy_us / 1e3 / (warm_s * 1e3),
-           "device_ms_by_kind": by_kind}
-    print(json.dumps(out), flush=True)
-    return out
+           "device_ms_by_kind": by_kind, "unseen": unseen,
+           "device_margin_us": margin, "annotations_dropped": annotations}
 
 
 LM_CONFIG = "qwen1.5-4b"
@@ -2179,12 +2623,24 @@ def main() -> int:
                       "flash_fwd_dynamic_smem_bytes_by_hd": smem}),
           flush=True)
 
+    seconds = {"build": build_s}
+    clock = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        seconds[phase] = now - clock[0]
+        clock[0] = now
+
     timer = Timer(peak_flops, peak_bw, int8_peak)
     kernel_phase(timer, dev)
+    lap("kernel")
     flash_rows = flash_phase(timer, dev, bf16_peak)
+    lap("flash")
     served = {path: serve_phase(path, dev) for path in PATHS}
+    lap("serve")
     bucket_mix = {path: bucket_mix_phase(path, served[path], dev)
                   for path in BUCKET_MIX_PATHS}
+    lap("bucket_mix")
     profiled = {
         path: profile_phase(
             path, lambda s=s: s["srv"].serve(
@@ -2193,18 +2649,27 @@ def main() -> int:
             int8=PATHS[path][2] == "int8")
         for path, s in served.items()}
     for path, s in served.items():
+        s["profile"] = profiled[path]
         s["summary"]["device_idle_share"] = \
             profiled[path]["device_idle_share"]
+    lap("profile")
     for path, s in served.items():
         forward_phase(timer, path, s["srv"], s["images"], dev,
                       stack_layers_only=path.replace("-stack", "-halo")
                       in PATHS and path.endswith("-stack"))
+    lap("forward")
+    fleets = {path: fleet_phase(path, served[path], dev)
+              for path in FLEET_PATHS}
+    lap("fleet")
     vgg = served["vgg16-halo"]
     dense_vs_sparse = dense_vs_sparse_phase(vgg["srv"], vgg["images"], dev)
+    lap("dense_vs_sparse")
     cnn_launches = {path: s["launches"] for path, s in served.items()}
     stem_launches = {path: s["stem_launches"] for path, s in served.items()}
     cnn_summaries = {path: s["summary"] for path, s in served.items()}
     served.clear()  # free the CNN servers before the 4 B-parameter model
+    cli = cli_phase()
+    lap("cli")
 
     lm = lm_serve_phase(dev)
     lm_check = lm_check_phase(lm["srv"], lm["reqs"], dev)
@@ -2215,6 +2680,8 @@ def main() -> int:
         lm_warm["warm_serve_s"])
     qwen_row = flash_rows[QWEN_PREFILL_CASE]
     breakdown = prefill_breakdown_phase(lm["srv"], qwen_row, dev)
+    lap("lm")
+    print(json.dumps({"phase": "seconds", **seconds}), flush=True)
 
     kernels = []
     for kname, (src, replaces) in SOURCES.items():
@@ -2274,11 +2741,13 @@ def main() -> int:
             {"gpu": smi, "result": result, "per_forward": timer.sums,
              "per_forward_by_path": timer.by_path,
              "serve": cnn_summaries, "bucket_mix": bucket_mix,
+             "fleet": fleets, "cli": cli,
              "flash": flash_rows,
              "lm": {"serve": lm["summary"], "check": lm_check,
                     "warm": lm_warm, "decode": lm_decode,
                     "prefill_breakdown": breakdown},
-             "profile": profiled, "dense_vs_sparse": dense_vs_sparse},
+             "profile": profiled, "dense_vs_sparse": dense_vs_sparse,
+             "seconds": seconds},
             indent=1))
     print(json.dumps({k: v for k, v in dense_vs_sparse.items()
                       if k != "per_layer_ms"}))

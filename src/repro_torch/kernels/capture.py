@@ -16,16 +16,23 @@ eagerly and counts as it runs: a new graph's first call runs, and
 counts, its launches twice (the warm-up and the first replay).
 
 Only CUDA tensors are captured.  A capture that fails raises: callers
-have no eager fallback on the card.
+have no eager fallback on the card.  Destroying a graph (or an event or
+page-locked memory) while another is being captured invalidates that
+capture, and a dead server's graphs can sit in a reference cycle (a
+replica fault's traceback holds the fleet's frames) until the garbage
+collector runs: `capture` holds the collector off while it captures.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 from typing import Any, Callable
 
 import torch
 
-__all__ = ["COUNTERS", "wrappers", "counts", "add_counts", "Captured", "capture"]
+__all__ = ["COUNTERS", "wrappers", "counts", "add_counts", "Captured",
+           "capture", "no_collection"]
 
 COUNTERS = ("launches", "stem_launches", "int8_launches")
 
@@ -73,6 +80,19 @@ class Captured:
         self.replays += 1
 
 
+@contextlib.contextmanager
+def no_collection() -> Any:
+    """Keep the garbage collector off until the block ends: no dead graph
+    in a reference cycle is destroyed during a capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def capture(fn: Callable[[], Any], *, pool: Any = None
             ) -> tuple[Captured, Any]:
     """Run ``fn`` once eagerly on a side stream (the warm-up: kernels are
@@ -89,7 +109,7 @@ def capture(fn: Callable[[], Any], *, pool: Any = None
     graph = torch.cuda.CUDAGraph()
     before = counts()
     try:
-        with torch.cuda.graph(graph, pool=pool):
+        with no_collection(), torch.cuda.graph(graph, pool=pool):
             out = fn()
     finally:
         after = counts()

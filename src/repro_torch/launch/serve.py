@@ -1,6 +1,7 @@
-"""Batched serving: one lockstep scheduler, two backends.
+"""Batched serving: the lockstep scheduler and the replica fleet, two
+backends, and the serving CLI.
 
-The port of `repro/launch/serve.py` with one replica.  The LM arm:
+The port of `repro/launch/serve.py`.  The LM arm:
 
 * `LMBackend` — continuous batching over `models.transformer`'s prefill
   and decode: a sequence retires the moment it emits ``eos_id`` (or
@@ -28,32 +29,55 @@ The CNN arm:
   device and enqueue the forward — on the card a CUDA-graph replay per
   shape bucket, `BatchedApply` — which returns before the card finishes)
   and ``collect`` (copy the logits to the host, which waits).
-* `CNNServer` — builds the net from a config, makes seeded params,
-  sparsifies them and serves through a `LockstepScheduler`.  It runs on
-  CUDA unless ``device="cpu"``; ``impl="auto"`` takes the CUDA kernels on
-  the card and the plain path on the CPU.
+* `CNNServer` — checks the net with vscheck's IR gate (`validate_net`)
+  before it makes any weights, makes seeded params, sparsifies them and
+  serves through a `LockstepScheduler`; ``impl="auto"`` takes the CUDA
+  kernels on the card and the plain path on the CPU.
 
-Both run on CUDA unless ``device="cpu"``.  The replica fleet, sharded
-heads and chaos injection come in later slices.
+The replica fleet: ``replicas > 1`` (or ``shard_fc``, a ``fault_plan`` or
+``deadline_waves``) serves a `ReplicaGroup` — N `CNNBackend`s, each with
+its own weight tree on its device (replica 0 the server's, the others
+copies) and its own `BatchedApply`
+(graphs, memory pool, page-locked buffers) — behind
+`launch.scheduler.FleetScheduler`, which dispatches every replica's wave
+before it collects any.  On one card every replica shares the device and
+its stream, so what overlaps is one replica's host padding with another's
+graph replay.  A ``fault_plan`` (`launch.faults.FaultPlan`) wraps every
+replica in a `ChaosBackend` for replayable chaos runs.
+
+Every entry point runs on CUDA unless ``device="cpu"``.
+
+Usage (the reduced configs; add ``--device cpu`` to run on the CPU):
+  python -m repro_torch.launch.serve --arch qwen1.5-4b --requests 4 --tokens 8
+  python -m repro_torch.launch.serve --cnn vscnn-resnet50 --replicas 2 \\
+      --chaos-seed 0
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
 import dataclasses
+import time
 import zlib
 from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.capture import Captured, capture
-from repro_torch.launch.scheduler import LockstepScheduler
-from repro_torch.models.graph import BatchedApply, SparseNet, input_refusal
+from repro_torch.launch.faults import ChaosBackend, FaultPlan
+from repro_torch.launch.scheduler import FleetScheduler, LockstepScheduler
+from repro_torch.models.graph import (BatchedApply, SparseNet, input_refusal,
+                                      output_finite, place_params,
+                                      shard_sparse)
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import init_params
 
-__all__ = ["Request", "ImageRequest", "LMBackend", "CNNBackend", "Server",
-           "CNNServer"]
+__all__ = ["Request", "ImageRequest", "LMBackend", "CNNBackend",
+           "ReplicaGroup", "Server", "CNNServer", "validate_net",
+           "random_prompt_lengths", "main"]
 
 
 def _round_up(n: int, m: int) -> int:
@@ -243,6 +267,13 @@ class LMBackend:
             return f"prompt_too_long:{padded}>={self.capacity}"
         return None
 
+    def reset(self, req: Request) -> None:
+        """Clear partial progress before a fault-displaced re-serve.  A
+        greedy stream regenerates bit for bit; a sampling stream too, since
+        its generators are seeded from (seed, rid, emission count) and the
+        count restarts at 0 with the request."""
+        req.out.clear()
+
     def bucket_key(self, req: Request) -> int:
         return _round_up(max(len(req.prompt), 1), self.len_bucket)
 
@@ -390,6 +421,19 @@ class Server:
             "backfills": s["backfills"],
         }
 
+    def run_batch(self, requests: list[Request]) -> dict:
+        """One lockstep run: the first ``batch`` requests are admitted, the
+        rest backfill retired slots.  Returns its stats.  Raises if a
+        request can never join this run (capacity or context limits): use
+        `serve`, which gives leftovers a fresh run, for the general case."""
+        queue = list(requests)
+        stats = self.scheduler.run_lockstep(queue)
+        if queue:
+            raise ValueError(
+                f"{len(queue)} request(s) could not backfill into this "
+                f"lockstep run (capacity/context limits); use serve()")
+        return self._legacy_stats(stats)
+
     def serve(self, requests: list[Request]) -> list[dict]:
         """Bucket the queue by prompt length, then run lockstep batches with
         retirement + backfill until it drains (continuous batching)."""
@@ -431,6 +475,11 @@ class CNNBackend:
     shrunk to the occupied slots, rounded up to the next power of two and
     capped at the full width, so a shape bucket sees at most
     log2(width)+1 batch shapes.
+
+    The forward runs where ``params`` lie (`BatchedApply`).  Each backend
+    owns its `BatchedApply`, and so its graphs, memory pool and
+    page-locked buffers: a fleet gives every replica a backend of its own
+    (`ReplicaGroup`).
     """
 
     def __init__(self, net: SparseNet, params: dict, *,
@@ -453,6 +502,22 @@ class CNNBackend:
         become structured refusals."""
         return input_refusal(req.image, max_size=self.image_size,
                              channels=self.channels)
+
+    def check_emission(self, emission: np.ndarray) -> bool:
+        """Output guard: non-finite logits quarantine the replica that
+        produced them (`models.graph.output_finite`)."""
+        return output_finite(emission)
+
+    def reset(self, req: ImageRequest) -> None:
+        req.out.clear()
+        req.logits = None
+
+    def context(self) -> Any:
+        """Entered around each run: the weights' card as the current CUDA
+        device (a replica on another card captures and replays there)."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
 
     def bucket_key(self, req: ImageRequest) -> tuple[int, int, int]:
         h, w, c = req.image.shape
@@ -478,10 +543,14 @@ class CNNBackend:
         the forward (`BatchedApply`, on the card a graph replay).  The
         returned logits may still be in flight — `collect` waits for them.
 
-        On the card they are the graph's static output, rewritten by the
-        next dispatch, so that must come after this wave's `collect` (the
-        lockstep scheduler's order).  A dispatcher that overlaps waves
-        (the replica fleet) must clone the logits."""
+        On the card they are the graph's static output, which this
+        backend's next dispatch rewrites, so that must come after this
+        wave's `collect`.  Both schedulers keep that order per backend:
+        the fleet dispatches every replica before it collects any, but it
+        collects each replica before it dispatches that replica again, and
+        each replica's backend has its own `BatchedApply`, so one
+        replica's replay never touches another's output.  One backend
+        shared by several replicas would break it."""
         hb, wb, c = state["bucket"]
         occ = [j for j, r in enumerate(slots) if r is not None]
         nb = min(state["width"], 1 << max(len(occ) - 1, 0).bit_length())
@@ -517,40 +586,141 @@ class CNNBackend:
         return {"compiles": self.apply.compiles}
 
 
+class ReplicaGroup:
+    """N data-parallel CNN backend replicas, each with its own weights.
+
+    The devices form a (data, model) grid, the reference's: one device
+    group a replica along ``data`` (replicas beyond the grid wrap around,
+    so one card serves any number of replicas, each on its own copy of the
+    weights), and with ``shard_fc`` a ``model`` axis of ``devices //
+    replicas`` devices a replica, over which the reference shards the FC
+    heads' strips.  One device a replica (every replica of one card) only
+    places the tree; a wider ``model`` axis raises in `shard_sparse`.
+    Each replica holds ``params`` and ``sparse`` on its device and a
+    `CNNBackend` of its own, with its own `BatchedApply`.  Replica 0 uses
+    the caller's tensors wherever they already lie on its device and every
+    other replica gets a copy, so N replicas hold N weight trees.  The
+    caller owns the net's
+    check (`CNNServer` runs `validate_net` before it makes the weights).
+    """
+
+    def __init__(self, net: SparseNet, params: dict, *,
+                 sparse: dict | None = None, impl: str = "auto",
+                 density: float | None = None, image_size: int | None = None,
+                 pad_multiple: int = 8, replicas: int = 1,
+                 shard_fc: bool = False,
+                 device: str | torch.device | None = None):
+        if replicas < 1:
+            raise ValueError(f"replicas must be >= 1, got {replicas}")
+        dev = resolve_device(device)
+        self.replicas = replicas
+        self.shard_fc = shard_fc
+        devices = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if dev.type == "cuda" else [dev])
+        ndev = len(devices)
+        model = max(1, ndev // replicas) if shard_fc else 1
+        data = max(1, ndev // model)
+        grid = [devices[d * model:(d + 1) * model] for d in range(data)]
+        self.devices: list[torch.device] = []
+        self.backends: list[CNNBackend] = []
+        for i in range(replicas):
+            group = grid[i % data]
+            d_i = group[0]
+            s_i = (None if sparse is None
+                   else shard_sparse(sparse, d_i, model=len(group),
+                                     copy=i > 0))
+            self.devices.append(d_i)
+            self.backends.append(CNNBackend(
+                net, place_params(params, d_i, copy=i > 0), sparse=s_i,
+                impl=impl, density=density, image_size=image_size,
+                pad_multiple=pad_multiple, device=d_i))
+
+
+def validate_net(net: SparseNet, image_size: int, *,
+                 density: float | None = None, vk: int = 32,
+                 vn: int = 128) -> None:
+    """vscheck's IR gate before any weights are made or placed: walk the
+    net's shapes and tile geometry at the serving input size and refuse
+    (`analysis.VSCheckError`) on structural errors, which would otherwise
+    fail mid-forward after the weights are on the card."""
+    from repro_torch.analysis.ir import check_net
+    cin = next((l.cin for l in net.conv_layers()), 3)
+    nc = check_net(net, (1, image_size, image_size, cin),
+                   density=density if density is not None else 0.25,
+                   vk=vk, vn=vn)
+    nc.report.raise_errors()
+
+
 class CNNServer:
-    """Batched CNN serving: `net_apply` behind the lockstep scheduler.
+    """Batched CNN serving: `net_apply` behind the lockstep scheduler or
+    the replica fleet.
 
     ``cfg`` is a config from `repro_torch.configs`: ``cfg.build()`` gives the
-    `SparseNet`, ``cfg.weight_density`` the default pruning point.  Params
-    are initialized from ``seed`` and sparsified; ``sparse=False`` serves
-    the dense path.  ``dtype="int8"`` serves the compound sparsity x
-    precision path: per-cout power-of-two weight scales fixed at sparsify
-    time, activations quantized per tensor as each layer runs.
+    `SparseNet`, ``cfg.weight_density`` the default pruning point.  With
+    ``validate`` (the default) the net passes vscheck's IR gate
+    (`validate_net`) before any weights are made.  Params are initialized
+    from ``seed`` and sparsified; ``sparse=False`` serves the dense path.
+    ``dtype="int8"`` serves the compound sparsity x precision path:
+    per-cout power-of-two weight scales fixed at sparsify time,
+    activations quantized per tensor as each layer runs.
+
+    ``replicas > 1``, ``shard_fc``, a ``fault_plan`` or ``deadline_waves``
+    serve a `ReplicaGroup` behind the `FleetScheduler` (a ``fault_plan``
+    wraps each replica in a `ChaosBackend`); otherwise one `CNNBackend`
+    runs behind the `LockstepScheduler`.
     """
 
     def __init__(self, cfg: Any, *, batch: int, impl: str = "auto",
                  density: float | None = None, sparse: bool = True,
                  dtype: str | None = None,
-                 seed: int = 0, pad_multiple: int = 8,
+                 seed: int = 0, pad_multiple: int = 8, replicas: int = 1,
+                 shard_fc: bool = False, validate: bool = True,
+                 fault_plan: FaultPlan | None = None,
                  max_queue: int | None = None,
+                 deadline_waves: int | None = None, max_attempts: int = 3,
                  device: str | torch.device | None = None):
         self.cfg = cfg
+        self.replicas = replicas
+        self.fault_plan = fault_plan
         self.device = resolve_device(device)
         self.net = cfg.build()
         self.density = cfg.weight_density if density is None else density
+        if validate:
+            validate_net(self.net, cfg.image_size, density=self.density,
+                         vk=cfg.vk, vn=cfg.vn)
         self.params = init_params(self.net.schema(), seed,
                                   device=self.device)
         self.sparse = None
         if sparse:
             self.sparse, _ = self.net.sparsify(
                 self.params, self.density, vk=cfg.vk, vn=cfg.vn, dtype=dtype)
-        self.backend = CNNBackend(
-            self.net, self.params, sparse=self.sparse, impl=impl,
-            density=self.density if sparse else None,
-            image_size=cfg.image_size if cfg.fixed_image_size else None,
-            pad_multiple=pad_multiple, device=self.device)
-        self.scheduler = LockstepScheduler(self.backend, batch=batch,
-                                           max_queue=max_queue)
+        image_size = cfg.image_size if cfg.fixed_image_size else None
+        fleet = (replicas > 1 or shard_fc or fault_plan is not None
+                 or deadline_waves is not None)
+        if not fleet:
+            self.backend = CNNBackend(
+                self.net, self.params, sparse=self.sparse, impl=impl,
+                density=self.density if sparse else None,
+                image_size=image_size, pad_multiple=pad_multiple,
+                device=self.device)
+            self.backends: list = [self.backend]
+            self.scheduler: Any = LockstepScheduler(
+                self.backend, batch=batch, max_queue=max_queue)
+        else:
+            self.group = ReplicaGroup(
+                self.net, self.params, sparse=self.sparse, impl=impl,
+                density=self.density if sparse else None,
+                image_size=image_size, pad_multiple=pad_multiple,
+                replicas=replicas, shard_fc=shard_fc, device=self.device)
+            self.backends = list(self.group.backends)
+            if fault_plan is not None:
+                self.backends = [ChaosBackend(b, fault_plan, replica=i)
+                                 for i, b in enumerate(self.backends)]
+            self.backend = self.backends[0]
+            self.scheduler = FleetScheduler(
+                self.backends, batch=batch, max_queue=max_queue,
+                deadline_waves=deadline_waves, max_attempts=max_attempts)
 
     @property
     def outcomes(self) -> dict:
@@ -563,3 +733,131 @@ class CNNServer:
             s["images"] = s.pop("emissions")
             s["images_per_s"] = s["images"] / max(s["run_s"], 1e-9)
         return stats
+
+
+# --------------------------------------------------------------------------
+# CLI
+# --------------------------------------------------------------------------
+
+def random_prompt_lengths(rng: np.random.Generator, n: int, max_len: int,
+                          lo: int = 8) -> list[int]:
+    """n prompt lengths in [lo', max_len), with lo' clamped so that the
+    range is never empty (``--prompt-len 8`` gives lengths in [7, 8))."""
+    if max_len < 2:
+        raise ValueError(f"--prompt-len must be >= 2, got {max_len}")
+    lo = max(1, min(lo, max_len - 1))
+    return [int(rng.integers(lo, max_len)) for _ in range(n)]
+
+
+def _fmt(stats: dict) -> dict:
+    return {k: (round(v, 4) if isinstance(v, float) else v)
+            for k, v in stats.items()}
+
+
+def main(argv: list[str] | None = None) -> None:
+    """Serve seeded requests on a reduced config and print a summary."""
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("--arch", default=None, help="LM arch to serve")
+    ap.add_argument("--cnn", default=None,
+                    help="CNN arch to serve (e.g. vscnn-resnet50) instead "
+                         "of an LM")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=48)
+    ap.add_argument("--eos-id", type=int, default=None)
+    ap.add_argument("--impl", default="auto",
+                    choices=["auto", "plain", "pallas", "pallas-halo",
+                             "pallas-stack"],
+                    help="CNN sparse path: auto = the CUDA kernels (halo "
+                         "layout) on the card, the plain path on the CPU")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="CNN data-parallel replica fleet size")
+    ap.add_argument("--shard-fc", action="store_true",
+                    help="cout-shard FC heads over each replica's model-"
+                         "axis devices")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="LM sampling temperature (0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="LM top-k truncation (0 = full vocab)")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="CNN fleet: inject a seeded FaultPlan "
+                         "(deterministic chaos; forces the fleet path)")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bounded admission depth (load shedding)")
+    ap.add_argument("--deadline-waves", type=int, default=None,
+                    help="CNN fleet: per-request deadline in fleet ticks")
+    ap.add_argument("--device", default="cuda",
+                    help="where to serve (cuda, or cpu for the plain path)")
+    args = ap.parse_args(argv)
+    if (args.arch is None) == (args.cnn is None):
+        ap.error("choose exactly one of --arch (LM) or --cnn")
+
+    rng = np.random.default_rng(0)
+    if args.cnn:
+        cfg = get_config(args.cnn).reduce()
+        if getattr(cfg, "modality", "lm") != "cnn":
+            ap.error(f"{cfg.name} is an LM arch; serve it with --arch")
+        s = cfg.image_size
+        reqs = [ImageRequest(
+                    rid=i,
+                    image=rng.standard_normal((s, s, 3)).astype(np.float32))
+                for i in range(args.requests)]
+        plan = (None if args.chaos_seed is None else FaultPlan.random(
+            args.chaos_seed, replicas=max(args.replicas, 1)))
+        srv = CNNServer(cfg, batch=args.batch, impl=args.impl,
+                        replicas=args.replicas, shard_fc=args.shard_fc,
+                        fault_plan=plan, max_queue=args.max_queue,
+                        deadline_waves=args.deadline_waves,
+                        device=args.device)
+        t0 = time.time()
+        stats = srv.serve(reqs)
+        wall = time.time() - t0
+        tot = sum(st["images"] for st in stats)
+        print(f"served {tot} images in {len(stats)} lockstep runs, "
+              f"{tot / max(wall, 1e-9):.1f} img/s "
+              f"(density {srv.density}, batch {args.batch}, "
+              f"replicas {args.replicas}"
+              f"{', shard-fc' if args.shard_fc else ''}"
+              f"{f', chaos seed {args.chaos_seed}' if plan else ''})")
+        outcomes = list(srv.outcomes.values())
+        refused = [o for o in outcomes if o.status == "refused"]
+        if plan is not None or refused:
+            print(f"  outcomes: {len(outcomes) - len(refused)} delivered, "
+                  f"{len(refused)} refused "
+                  f"{sorted({o.reason for o in refused})}")
+            if plan is not None:
+                sch = srv.scheduler
+                print(f"  plan: {plan.describe()}")
+                print(f"  health: {sch.health}  "
+                      f"faults fired: {len(sch.fault_events)}")
+        for st in stats:
+            print("  ", _fmt(st))
+        return
+
+    cfg = get_config(args.arch).reduce()
+    if getattr(cfg, "modality", "lm") != "lm":
+        ap.error(f"{cfg.name} is a CNN arch; serve it with --cnn")
+    lens = random_prompt_lengths(rng, args.requests, args.prompt_len)
+    reqs = [
+        Request(rid=i,
+                prompt=rng.integers(0, cfg.vocab, lens[i], dtype=np.int32),
+                max_new=args.tokens, temperature=args.temperature,
+                top_k=args.top_k)
+        for i in range(args.requests)
+    ]
+    srv = Server(cfg, batch=args.batch,
+                 capacity=_round_up(args.prompt_len, 16) + args.tokens + 8,
+                 eos_id=args.eos_id, device=args.device)
+    stats = srv.serve(reqs)
+    tot_new = sum(s["new_tokens"] for s in stats)
+    tot_dec = sum(s["decode_s"] for s in stats)
+    print(f"served {len(reqs)} requests in {len(stats)} lockstep runs: "
+          f"{tot_new} tokens, {tot_new / max(tot_dec, 1e-9):.1f} tok/s "
+          f"decode")
+    for s in stats:
+        print("  ", _fmt(s))
+
+
+if __name__ == "__main__":
+    main()

@@ -50,8 +50,10 @@ __all__ = [
     "sparse_conv_from_dense", "apply_sparse_conv", "apply_sparse_fc",
     "weight_scales", "quantize_weights_int8", "quantize_activations_int8",
     "net_schema", "net_apply", "sparsify", "input_refusal", "output_finite",
-    "build_vgg16", "VGG16_LAYERS", "build_resnet18", "RESNET18_STAGES",
-    "build_mobilenet_v1", "MOBILENET_V1_PLAN", "BN_EPS",
+    "place_params", "shard_sparse", "build_vgg16", "VGG16_LAYERS", "build_resnet18",
+    "RESNET18_STAGES", "build_resnet34", "RESNET34_STAGES", "build_resnet50",
+    "RESNET50_STAGES", "build_mobilenet_v1", "MOBILENET_V1_PLAN",
+    "build_resnet_stem", "BN_EPS",
 ]
 
 BN_EPS = 1e-5
@@ -195,7 +197,8 @@ class TileGeometryError(ValueError):
     ``rule`` is the reference analyzer's rule id (e.g. ``VSC109``)."""
 
     def __init__(self, rule: str, path: str, message: str, hint: str = ""):
-        self.rule, self.path, self.hint = rule, path, hint
+        self.rule, self.path, self.message, self.hint = (rule, path, message,
+                                                         hint)
         super().__init__(f"{rule} {path}: {message}"
                          + (f" (hint: {hint})" if hint else ""))
 
@@ -769,6 +772,59 @@ class BatchedApply:
                    if b is not None and b.graph is not None)
 
 
+def _placed(t: torch.Tensor | None, device: torch.device, copy: bool
+            ) -> torch.Tensor | None:
+    return None if t is None else t.to(device, copy=copy)
+
+
+def place_params(params: dict, device: str | torch.device, *,
+                 copy: bool = True) -> dict:
+    """A param tree ({layer: {leaf: tensor}}) on ``device``: a copy of
+    every tensor (a replica's own weights, also where the tree already
+    lies), or with ``copy=False`` the tensors already there as they are."""
+    dev = torch.device(device)
+    return {name: {k: _placed(t, dev, copy) for k, t in entry.items()}
+            for name, entry in params.items()}
+
+
+def shard_sparse(sparse: dict, device: str | torch.device, *,
+                 model: int = 1, copy: bool = True) -> dict:
+    """Place a `sparsify` tree on a replica's devices: a copy of every
+    tensor of every entry on ``device`` (with ``copy=False`` the tensors
+    already there stay as they are).
+
+    The reference cout-shards each FC head's strips over the replica's
+    ``model`` devices (GSPMD all-gathers the logits) and replicates the
+    convs.  With one device a replica (``model == 1``: every replica of
+    one card, and the reference's grid on one device) that only places the
+    tree, which is what this does.  ``model > 1`` needs a cross-device
+    gather of the FC strips; it raises `NotImplementedError` (ROADMAP
+    queue 1, "Waiting for a multi-card cell") rather than replicate the
+    heads silently.
+    """
+    if model != 1:
+        raise NotImplementedError(
+            f"shard_fc over {model} devices a replica needs a cross-device "
+            f"gather of the FC strips (ROADMAP queue 1, \"Waiting for a "
+            f"multi-card cell\")")
+    dev = torch.device(device)
+
+    def place_vs(vs: VectorSparse) -> VectorSparse:
+        return VectorSparse(vals=_placed(vs.vals, dev, copy),
+                            idx=_placed(vs.idx, dev, copy), shape=vs.shape)
+
+    out = {}
+    for name, entry in sparse.items():
+        if isinstance(entry, (SparseConv, SparseFC)):
+            out[name] = dataclasses.replace(
+                entry, vs=place_vs(entry.vs),
+                bias=_placed(entry.bias, dev, copy),
+                scale=_placed(entry.scale, dev, copy))
+        else:  # a bare VectorSparse entry (FC-style)
+            out[name] = place_vs(entry)
+    return out
+
+
 # --------------------------------------------------------------------------
 # Generic sparsification (BN folding + vector pruning + remainder strips)
 # --------------------------------------------------------------------------
@@ -920,6 +976,80 @@ def build_resnet18(num_classes: int = 1000, *,
     return SparseNet("resnet18", tuple(layers))
 
 
+# (channels, blocks) per stage — the ResNet-34 basic-block plan: the
+# ResNet-50 stage depths on ResNet-18's block type.
+RESNET34_STAGES = ((64, 3), (128, 4), (256, 6), (512, 3))
+
+
+def build_resnet34(num_classes: int = 1000, *,
+                   image_size: int = 224) -> SparseNet:
+    """ResNet-34: ResNet-18's basic blocks at the (3, 4, 6, 3) stage
+    depths; no new conv geometry (7x7/s2 stem, 3x3 bodies, 1x1/s2
+    BN-projection downsamples).  33 convs run the halo kernel (the stem on
+    its stem body), 3 projections and the head run vsmm."""
+    del image_size  # geometry is size-agnostic; kept for config symmetry
+    layers: list = [
+        Conv("conv1", 3, 64, 7, 7, 2, bn=True),
+        Pool("max", 3, stride=2, padding="SAME"),
+    ]
+    cin = 64
+    for si, (c, blocks) in enumerate(RESNET34_STAGES):
+        for bi in range(blocks):
+            stride = 2 if (si > 0 and bi == 0) else 1
+            _basic_block(layers, f"layer{si + 1}_{bi}", cin, c, stride)
+            cin = c
+    layers += [Pool("gap"), Flatten(), Classifier("fc", 512, num_classes)]
+    return SparseNet("resnet34", tuple(layers))
+
+
+# (bottleneck width, blocks) per stage — ResNet-50's plan; output channels
+# are 4x the bottleneck width (the expansion).
+RESNET50_STAGES = ((64, 3), (128, 4), (256, 6), (512, 3))
+
+
+def _bottleneck_block(layers: list, prefix: str, cin: int, c: int,
+                      stride: int) -> None:
+    """Append one ResNet bottleneck: 1x1 reduce -> 3x3 (stride) -> 1x1
+    expand (4x), BN throughout, the shortcut (the block input or a
+    1x1/stride BN projection of it when the shape changes) added in the
+    expand conv's fused epilogue before the final ReLU."""
+    cout = 4 * c
+    inkey = f"{prefix}_in"
+    layers.append(Save(inkey))
+    idkey = inkey
+    if stride != 1 or cin != cout:
+        idkey = f"{prefix}_id"
+        layers.append(Conv(f"{prefix}_down", cin, cout, 1, 1, stride,
+                           bn=True, relu=False, src=inkey, dst=idkey))
+    layers.append(Conv(f"{prefix}_conv1", cin, c, 1, 1, 1, bn=True))
+    layers.append(Conv(f"{prefix}_conv2", c, c, 3, 3, stride, bn=True))
+    layers.append(Conv(f"{prefix}_conv3", c, cout, 1, 1, 1, bn=True,
+                       residual=idkey))
+
+
+def build_resnet50(num_classes: int = 1000, *,
+                   image_size: int = 224) -> SparseNet:
+    """ResNet-50: ResNet-18's 7x7/s2 BN stem and max-pool, then 4 stages of
+    (3, 4, 6, 3) bottleneck blocks (1x1 -> 3x3 -> 1x1 with 4x expansion;
+    1x1 BN-projection downsamples, stride 1 in the first block, 2 after),
+    GAP, 2048-d classifier.  17 convs run the halo kernel (the stem and 16
+    3x3s); the 32 block 1x1s (each conv3 with the shortcut fused), the 4
+    projections and the head run vsmm."""
+    del image_size  # geometry is size-agnostic; kept for config symmetry
+    layers: list = [
+        Conv("conv1", 3, 64, 7, 7, 2, bn=True),
+        Pool("max", 3, stride=2, padding="SAME"),
+    ]
+    cin = 64
+    for si, (c, blocks) in enumerate(RESNET50_STAGES):
+        for bi in range(blocks):
+            stride = 2 if (si > 0 and bi == 0) else 1
+            _bottleneck_block(layers, f"layer{si + 1}_{bi}", cin, c, stride)
+            cin = 4 * c
+    layers += [Pool("gap"), Flatten(), Classifier("fc", 2048, num_classes)]
+    return SparseNet("resnet50", tuple(layers))
+
+
 # (pointwise output channels, depthwise stride) per separable block — the
 # standard MobileNetV1 plan after the 3x3/s2/32 stem.
 MOBILENET_V1_PLAN = ((64, 1), (128, 2), (128, 1), (256, 2), (256, 1),
@@ -944,3 +1074,13 @@ def build_mobilenet_v1(num_classes: int = 1000, *,
         cin = c
     layers += [Pool("gap"), Flatten(), Classifier("fc", 1024, num_classes)]
     return SparseNet("mobilenet_v1", tuple(layers))
+
+
+def build_resnet_stem() -> SparseNet:
+    """The minimal geometry-coverage network (7x7/s2 -> 1x1 -> 3x3/s2; no
+    BN, plain biases)."""
+    return SparseNet("resnet_stem", (
+        Conv("stem7x7", 3, 64, 7, 7, 2),
+        Conv("proj1x1", 64, 128, 1, 1, 1),
+        Conv("down3x3", 128, 128, 3, 3, 2),
+    ))

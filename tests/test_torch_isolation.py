@@ -1,8 +1,9 @@
 """The port stands alone: it never imports JAX or the JAX package.
 
-Importing every module of `repro_torch` and `chip_smoke.py` in a fresh
-interpreter must leave ``jax`` and ``repro`` out of ``sys.modules``, and no
-source under ``src/repro_torch/`` may even name them.
+Importing every module of `repro_torch` (`repro_torch.analysis` among
+them) and `chip_smoke.py` in a fresh interpreter must leave ``jax`` and
+``repro`` out of ``sys.modules``, and no source under ``src/repro_torch/``
+may even name them.
 """
 import os
 import re
@@ -23,8 +24,10 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 15 else 0)
+missing = {"repro_torch.analysis.diagnostics", "repro_torch.analysis.ir",
+           "repro_torch.launch.faults"} - set(names)
+print(len(names), bad, missing)
+sys.exit(1 if bad or missing or len(names) < 15 else 0)
 """
 
 

@@ -31,12 +31,13 @@ def _images(n, size=32, seed=0):
 
 def test_registry_holds_resnet18():
     assert list_cnn_archs() == ["vscnn-mobilenet-v1", "vscnn-resnet18",
+                                "vscnn-resnet34", "vscnn-resnet50",
                                 "vscnn-vgg16"]
     full = get_config("vscnn-resnet18")
     assert (full.image_size, full.num_classes, full.weight_density,
             full.vk, full.vn) == (224, 1000, 0.235, 32, 128)
     with pytest.raises(KeyError):
-        get_config("vscnn-resnet50")
+        get_config("vscnn-resnet101")
 
 
 def test_served_logits_bit_identical_to_direct_apply(cfg):
