@@ -159,11 +159,25 @@ repository around it, or when any phase fails.  Phases:
    (the seeded ``FaultPlan.random(0, replicas=2)``, a ``nan``, a
    ``die_collect``, a ``stall``) held to one outcome a request and to the
    bounds that the wave's size and members set (see `fleet_phase`).
-7. CLI phase (`cli_phase`): ``python -m repro_torch.launch.serve`` run
+7. The paper's cycle model, the cost model's drift gate and vscheck
+   (no new kernel).  `paper_model_phase`: VGG-16's conv inputs at density
+   0.235 for one image through the served halo path on the card
+   (`collect_conv_traffic`), the cycle model (`core.accel_model`) on the
+   config's two 168-PE arrays, printed beside the paper's points and the
+   card's dense/sparse ratio of (5); the plain path's activations must
+   give the same vscnn cycles within 0.1%.  `calibration_phase`:
+   ``calibrate_torch.gate_calibration`` against the committed
+   ``src/repro_torch/baselines/CALIB_cuda.json`` (ResNet-18's 21 layers
+   re-measured at 224 px, batch 8, through the kernels: the constants'
+   round trip exact, the model's features within 2%, each layer's time
+   within 4x of its prediction after one machine scale).
+   `vscheck_phase`: ``python -m repro_torch.analysis --all-nets --size
+   224 --batch 8`` and ``--selftest`` (both must return 0).
+8. CLI phase (`cli_phase`): ``python -m repro_torch.launch.serve`` run
    as a user runs it, on ResNet-50 with two replicas under chaos seed 0
    and on Qwen1.5-4B (reduced configs); both must exit 0 and print their
    summary.  Every phase's seconds are printed (``"phase": "seconds"``).
-8. LM serve phase.  The port's ``Server(get_config("qwen1.5-4b"),
+9. LM serve phase.  The port's ``Server(get_config("qwen1.5-4b"),
    batch=8, capacity=552)`` with bf16 weights from seed 0 at full depth
    and width (40 layers, d_model 2560, vocab 151936) serves 16 seeded
    requests (12 prompts of 497-512 tokens with max_new 8-32, 4 of 241-256
@@ -224,16 +238,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# fp32 CUDA-core FLOP/s (no tensor cores), HBM bytes/s, dense bf16
-# tensor-core FLOP/s and dense int8 tensor-core OP/s per SKU, from NVIDIA's
-# datasheets (their sparsity figures halved); matched against the name
-# nvidia-smi gives.
-PEAKS = (
-    ("H100 NVL", 60e12, 3.9e12, 835e12, 1670e12),
-    ("H100 PCIe", 51e12, 2.0e12, 756e12, 1513e12),
-    ("H100", 67e12, 3.35e12, 989e12, 1979e12),   # H100 SXM5 80GB HBM3
-    ("H200", 67e12, 4.8e12, 989e12, 1979e12),
-)
 RTOL = 1e-5
 BF16_RTOL = 1e-2         # the flash kernel on bf16 inputs: p rounded at
                          # 64-key tiles, not 512-key blocks (flash_phase)
@@ -244,10 +248,15 @@ DW_DENSITY = 0.5         # MobileNetV1's
 
 
 def _peaks(name: str) -> tuple[float, float, float, float]:
-    for key, *peaks in PEAKS:
-        if key in name:
-            return tuple(peaks)
-    raise SystemExit(f"chip_smoke: no datasheet peaks for {name!r}")
+    """fp32 CUDA-core FLOP/s, HBM bytes/s, dense bf16 tensor-core FLOP/s
+    and dense int8 tensor-core OP/s of the card: the datasheet table of
+    `repro_torch.utils.roofline`."""
+    from repro_torch.utils.roofline import card
+    try:
+        hw = card(name)
+    except KeyError as e:
+        raise SystemExit(f"chip_smoke: {e.args[0]}") from None
+    return hw.f32_flops, hw.hbm_bw, hw.bf16_flops, hw.int8_ops
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -2212,28 +2221,16 @@ def prefill_breakdown_phase(srv, flash_row: dict, dev) -> dict:
 def _layer_inputs(net, params, sparse, x, impl: str) -> dict:
     """{layer name: its input} over one forward of ``x``: each conv's
     NHWC input (``net_apply``'s ``collect``) and each FC's (N, din) input
-    (recorded around `apply_sparse_fc`)."""
-    from unittest import mock
-
+    (its ``collect_fc``)."""
     import torch
-    from repro_torch.models import graph as G
+    from repro_torch.models.graph import net_apply
 
     rec: list = []
-    fc_in: list = []
-    fc_apply = G.apply_sparse_fc
-
-    def record(x, *args, **kw):
-        fc_in.append(x)
-        return fc_apply(x, *args, **kw)
-
-    with torch.inference_mode(), \
-            mock.patch.object(G, "apply_sparse_fc", record):
-        G.net_apply(net, params, x, sparse=sparse, impl=impl, collect=rec)
-    fcs = [l.name for l in net.layers if isinstance(l, G.FC)]
-    if len(fc_in) != len(fcs):
-        raise SystemExit(f"chip_smoke: recorded {len(fc_in)} FC inputs for "
-                         f"{fcs}")
-    return {**{name: xin for name, xin, *_ in rec}, **dict(zip(fcs, fc_in))}
+    fc_rec: list = []
+    with torch.inference_mode():
+        net_apply(net, params, x, sparse=sparse, impl=impl, collect=rec,
+                  collect_fc=fc_rec)
+    return {name: xin for name, xin, *_ in rec + fc_rec}
 
 
 def forward_phase(timer: Timer, path: str, srv, images, dev, *,
@@ -2409,6 +2406,141 @@ def dense_vs_sparse_phase(srv, images, dev) -> dict:
     return out
 
 
+def _quiet(fn, *args, **kw):
+    """(fn's result, what it printed): the phases below keep the long
+    tables of the tools they drive in the JSON file, not on stdout."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue()
+
+
+VSCHECK_ARGS = ["--all-nets", "--size", str(SIZE), "--batch", str(BATCH)]
+
+
+def vscheck_phase() -> dict:
+    """vscheck's three passes (`repro_torch.analysis`) over the five nets
+    at 224 px, batch 8 (IR, the layout and cost contract of every kernel
+    plan under f32 and int8, the lint of the port's tree), then its
+    selftest, which must catch every seeded violation.  Both must return
+    0."""
+    from repro_torch.analysis import main as vscheck
+
+    t0 = time.perf_counter()
+    rc, log = _quiet(vscheck, VSCHECK_ARGS)
+    check_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc_self, self_log = _quiet(vscheck, ["--selftest"])
+    self_s = time.perf_counter() - t0
+    if rc or rc_self:
+        raise SystemExit(f"chip_smoke: vscheck {VSCHECK_ARGS} returned {rc}, "
+                         f"--selftest {rc_self}:\n{log}\n{self_log}")
+    plans = re.search(r"contracts: (\d+) kernel plans", log)
+    files = re.search(r"lint: (\d+) files", log)
+    out = {"phase": "vscheck", "args": VSCHECK_ARGS, "returned": rc,
+           "kernel_plans": int(plans.group(1)),
+           "lint_files": int(files.group(1)),
+           "summary": log.strip().splitlines()[-1], "seconds": check_s,
+           "selftest_returned": rc_self,
+           "selftest_caught": self_log.count("caught"),
+           "selftest_seconds": self_s}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def calibration_phase(dev) -> dict:
+    """The cost model's drift gate (`calibrate_torch.gate_calibration`)
+    against the committed ``src/repro_torch/baselines/CALIB_cuda.json``:
+    ResNet-18's 21 gated layers re-measured at 224 px, batch 8, through
+    the kernels (each layer a CUDA graph, timed by CUDA events).  The
+    constants must reproduce every stored prediction exactly, the model's
+    features stay within 2%, and every layer's measured time, normalized
+    by the median measured/predicted ratio (the machine's scale), within
+    4x of its prediction."""
+    import calibrate_torch
+
+    gate, table = _quiet(calibrate_torch.gate_calibration, None, device=dev)
+    if gate["failures"]:
+        raise SystemExit("chip_smoke: calibration drift gate failed:\n"
+                         + table)
+    name, ratio = gate["worst"]
+    out = {"phase": "calibration", "layers": gate["layers"],
+           "scale": gate["scale"], "worst_layer": name,
+           "worst_normalized_ratio": ratio, "failures": 0}
+    print(json.dumps(out), flush=True)
+    out["table"] = gate["lines"]
+    return out
+
+
+CYCLE_AGREEMENT = 1e-3   # kernel-path vs plain-path activations, vscnn cycles
+
+
+def paper_model_phase(srv, images, dense_vs_sparse: dict, dev) -> dict:
+    """The paper's PE-array cycle model (`core.accel_model`) on VGG-16 at
+    density 0.235: one 224 px image through the served halo path on the
+    card (`collect_conv_traffic`: every conv's real input, the kernels'
+    activations), then `network_cycle_reports` on each of the config's
+    ``pe_configs`` (the paper's two 168-PE arrays), beside the config's
+    ``paper_*`` points and the card's own dense/sparse forward ratio
+    (`dense_vs_sparse_phase`, (d)/(a)).  The same model over the same
+    image's plain-path activations on the card must agree within 0.1% in
+    vscnn cycles (only a ReLU output at f32 noise around 0 can differ)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.accel_model import aggregate, network_cycle_reports
+    from repro_torch.core.vector_sparse import decode
+    from repro_torch.models.graph import collect_conv_traffic
+
+    cfg, net = srv.cfg, srv.net
+    # the pruned dense weights the cycle model reads, decoded from the
+    # served encoding (what `sparsify` returns as its pruned tree)
+    params = dict(srv.params)
+    for l in net.conv_layers():
+        spec = srv.sparse[l.name]
+        w = decode(spec.vs).reshape(l.kh, l.kw, l.cin + spec.cin_pad, l.cout)
+        params[l.name] = {"w": w[:, :, :l.cin], "b": spec.bias}
+    x = torch.from_numpy(np.asarray(images[0])[None]).to(dev)
+    t0 = time.perf_counter()
+    traffic = {impl: collect_conv_traffic(net, params, x, sparse=srv.sparse,
+                                          impl=impl)
+               for impl in ("auto", "plain")}
+    forward_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    models = []
+    for i, pe in enumerate(cfg.pe_configs):
+        agg = {impl: aggregate([r for _, r in network_cycle_reports(t, pe)])
+               for impl, t in traffic.items()}
+        r, plain = agg["auto"], agg["plain"]
+        if plain.dense != r.dense or \
+                abs(plain.vscnn - r.vscnn) > CYCLE_AGREEMENT * r.vscnn:
+            raise SystemExit(
+                f"chip_smoke: VGG-16 cycle model on PE {pe}: kernel-path "
+                f"activations give {r.vscnn} vscnn / {r.dense} dense "
+                f"cycles, plain-path {plain.vscnn} / {plain.dense}")
+        models.append({
+            "pe": f"{pe.blocks}x{pe.rows}x{pe.cols}", "n_pe": pe.n_pe,
+            "dense_cycles": r.dense, "vscnn_cycles": r.vscnn,
+            "ideal_vector_cycles": r.ideal_vector,
+            "ideal_fine_cycles": r.ideal_fine,
+            "speedup": r.speedup,
+            "frac_ideal_vector": r.frac_ideal_vector_exploited,
+            "frac_ideal_fine": r.frac_ideal_fine_exploited,
+            "plain_path_vscnn_cycles": plain.vscnn,
+            "paper_speedup": cfg.paper_speedup[i],
+            "paper_frac_ideal_vector": cfg.paper_frac_ideal_vector[i],
+            "paper_frac_ideal_fine": cfg.paper_frac_ideal_fine[i]})
+    out = {"phase": "paper_model", "config": cfg.name, "image_size": SIZE,
+           "images": 1, "density": srv.density,
+           "conv_layers": len(traffic["auto"]), "pe_configs": models,
+           "card_dense_over_sparse_forward": dense_vs_sparse["d_over_a"],
+           "forward_s": forward_s,
+           "model_s": time.perf_counter() - t0}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 # kernel -> (CUDA source, the Pallas function it replaces); a "_int8"
 # kernel is the int8 branch of the same CUDA kernel and Pallas function
 SOURCES = {
@@ -2535,14 +2667,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.launch.serve import ImageRequest
+    from repro_torch.utils.roofline import smi_name_and_power
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
+    smi = smi_name_and_power()
     name = torch.cuda.get_device_name(0)
     peak_flops, peak_bw, bf16_peak, int8_peak = _peaks(name)
 
@@ -2664,6 +2794,13 @@ def main() -> int:
     vgg = served["vgg16-halo"]
     dense_vs_sparse = dense_vs_sparse_phase(vgg["srv"], vgg["images"], dev)
     lap("dense_vs_sparse")
+    paper_model = paper_model_phase(vgg["srv"], vgg["images"],
+                                    dense_vs_sparse, dev)
+    lap("paper_model")
+    calibration = calibration_phase(dev)
+    lap("calibration")
+    vscheck = vscheck_phase()
+    lap("vscheck")
     cnn_launches = {path: s["launches"] for path, s in served.items()}
     stem_launches = {path: s["stem_launches"] for path, s in served.items()}
     cnn_summaries = {path: s["summary"] for path, s in served.items()}
@@ -2747,7 +2884,8 @@ def main() -> int:
                     "warm": lm_warm, "decode": lm_decode,
                     "prefill_breakdown": breakdown},
              "profile": profiled, "dense_vs_sparse": dense_vs_sparse,
-             "seconds": seconds},
+             "paper_model": paper_model, "calibration": calibration,
+             "vscheck": vscheck, "seconds": seconds},
             indent=1))
     print(json.dumps({k: v for k, v in dense_vs_sparse.items()
                       if k != "per_layer_ms"}))

@@ -7,9 +7,9 @@ layer path it anchors to (``net/layer``), a message and a fix hint.
 across an API boundary (`launch.serve.CNNServer` refusing an invalid net
 before it places any weights).
 
-The catalog is the reference's whole vocabulary.  The port checks the
-IR rules (VSC1xx, `analysis.ir`); the kernel-contract (VSC2xx) and lint
-(VSC3xx) passes are not ported yet.
+The catalog is the reference's whole vocabulary: the IR rules (VSC1xx,
+`analysis.ir`), the kernel-contract rules (VSC2xx, `analysis.contracts`)
+and the lint rules (VSC3xx, `analysis.lint`).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """MobileNetV1 on the vector-sparse datapath (the port of
-`repro/configs/vscnn_mobilenet_v1.py`, without the accelerator cycle
-model's PE configurations, which stay with that model).
+`repro/configs/vscnn_mobilenet_v1.py`; ``pe_configs`` are the paper's
+two 168-PE arrays that `core.accel_model` counts cycles on).
 
 Every depthwise layer is a `Conv(groups=cin)` run by the per-channel tap
 kernel (vk == 1 tap vectors over vn-channel tiles) and every pointwise
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.core.accel_model import PE_4_14_3, PE_8_7_3, PEConfig
 from repro_torch.models.graph import SparseNet
 
 
@@ -28,6 +29,7 @@ class VSCNNMobileNetV1Config:
     # GAP head: geometry is size-agnostic, so serving buckets pad images to
     # the nearest shape bucket instead of one fixed size
     fixed_image_size: bool = False
+    pe_configs: tuple[PEConfig, ...] = (PE_4_14_3, PE_8_7_3)
 
     def reduce(self) -> "VSCNNMobileNetV1Config":
         # num_classes=200 keeps a non-tileable head (200 % 128 != 0): the

@@ -1,6 +1,6 @@
 """ResNet-50 on the vector-sparse datapath (the port of
-`repro/configs/vscnn_resnet50.py`, without the accelerator cycle model's PE
-configurations, which stay with that model).
+`repro/configs/vscnn_resnet50.py`; ``pe_configs`` are the paper's two
+168-PE arrays that `core.accel_model` counts cycles on).
 
 The reference's headline benchmark, shared with SCNN.  The bottleneck
 block (1x1 reduce -> 3x3 -> 1x1 expand, 4x expansion) runs on the kernels
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.core.accel_model import PE_4_14_3, PE_8_7_3, PEConfig
 from repro_torch.models.graph import SparseNet
 
 
@@ -27,6 +28,7 @@ class VSCNNResNet50Config:
     # GAP head: geometry is size-agnostic, so serving buckets pad images to
     # the nearest shape bucket instead of one fixed size
     fixed_image_size: bool = False
+    pe_configs: tuple[PEConfig, ...] = (PE_4_14_3, PE_8_7_3)
 
     def reduce(self) -> "VSCNNResNet50Config":
         # num_classes=200 keeps a non-tileable head (200 % 128 != 0): the

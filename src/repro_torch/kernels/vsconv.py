@@ -65,7 +65,14 @@ the reference.  `halo_kernel_cost`, `stack_kernel_cost`,
 cost model (per-row-block DMAs, the resident layout), copied so that cost
 tooling can compare against it; they do not describe the CUDA kernels,
 which need no row-block padding of Hout (a TPU block constraint) and no
-second body for tiny feature maps (a TPU DMA choice).
+second body for tiny feature maps (a TPU DMA choice).  The index maps
+(`halo_in_index_map` and its siblings) are that contract's block offsets,
+which vscheck's pass 2 (`analysis.contracts`) proves in bounds and
+consistent with the cost formulas.
+
+Two plans share a name: `conv_plan` here is the CUDA launch plan of the
+generic body (rows, splits), and `kernels.plan.conv_plan` is the
+reference's contract plan (grid, buffers, cost) that vscheck checks.
 """
 from __future__ import annotations
 
@@ -89,7 +96,9 @@ __all__ = [
     "halo_kernel_cost", "stack_kernel_cost", "use_resident_halo",
     "RESIDENT_MAX_H", "halo_h_out", "stack_h_out", "use_stem_body",
     "stem_smem_bytes", "conv_plan", "conv_smem_bytes", "conv_fast",
-    "CONV_ROWS", "CONV_MIN_CHUNK", "MAX_VK",
+    "CONV_ROWS", "CONV_MIN_CHUNK", "MAX_VK", "halo_in_index_map",
+    "resident_in_index_map", "stack_in_index_map", "conv_weight_index_map",
+    "conv_out_index_map", "conv_bias_index_map",
 ]
 
 # Below this output height the reference's halo kernel switches to its
@@ -177,7 +186,8 @@ def conv_plan(m: int, nb: int, s_steps: int, vk: int, vn: int, *,
               int8: bool = False) -> tuple[int, int]:
     """(rows, splits) of the generic body for a conv of m = N*Hout*Wout
     output pixels, NB strips of S stored (vk, vn) tiles: a pure function of
-    the shapes, as `vsmm_plan` is.
+    the shapes, as `vsmm_plan` is.  This is the CUDA launch plan; the
+    reference's contract plan of the same name is `kernels.plan.conv_plan`.
 
     rows: 128 where the 128-row tiles x NB reach TARGET_BLOCKS (two
     blocks an SM) and the shape has a fast instantiation, else 64.
@@ -260,6 +270,99 @@ def halo_kernel_cost(
             + residual_bytes
         ),
     }
+
+
+# --------------------------------------------------------------------------
+# Index maps of the layout contract (shared with `repro_torch.analysis`)
+# --------------------------------------------------------------------------
+#
+# The reference's kernels hand these maps to their block specs: each gives
+# the offset of the block that grid step (g0, g1, g2) reads or writes, as
+# closed arithmetic (+ - * // %) over the grid indices and the stored-tile
+# table ``idx``, with one (g0, g1, g2, idx) signature in grid order.  They
+# are plain integer functions here: vscheck's pass 2 evaluates them over
+# intervals (the bounds proof) and over numpy index arrays (the byte
+# count), and the CUDA kernels read the same layout (the tap and cin tile
+# of a stored id in ``csrc/vsconv.cu``).  They change no kernel and no
+# wrapper.
+#
+# Grid orders: streaming conv (j, m, s) = (cout strip, image*row-block,
+# sparse step); resident halo (m, j, s), the row-block outermost.
+
+
+def halo_in_index_map(hb: int, stride: int, bh: int, cbg: int, spg: int):
+    """Streaming halo input (element offsets): one image, one overlapping
+    halo row window, full width, one cin tile.  The offset does not depend
+    on the tap, so consecutive sparse steps on one cin tile revisit the
+    block; a grouped strip adds its group's base cin tile."""
+    def index_map(j, m, s, idx):
+        return (
+            m // hb,                    # image
+            (m % hb) * stride * bh,     # halo window start row
+            0,
+            (j // spg) * cbg + idx[j, s] % cbg,  # cin tile (+ group base)
+            0,
+        )
+    return index_map
+
+
+def resident_in_index_map(hb: int, stride: int, bh: int):
+    """Resident (tiny-feature-map) halo input: one block holding every cin
+    tile, its offset a function of the row-block only."""
+    def index_map(m, j, s, idx):
+        return (m // hb, (m % hb) * stride * bh, 0, 0, 0)
+    return index_map
+
+
+def stack_in_index_map(hb: int, cbg: int, spg: int, kw: int, stride: int,
+                       dilation: int):
+    """Row-tap stack input (block indices): the plane is the tap select
+    ``ky*stride + (kx*dilation) % stride`` decoded from the stored tile
+    id, plus the strip's group-based cin tile."""
+    def index_map(j, m, s, idx):
+        t = idx[j, s]
+        return (
+            m // hb,                                            # image
+            (t // cbg // kw) * stride
+            + (((t // cbg) % kw) * dilation) % stride,          # (ky, phase)
+            m % hb,                                             # row block
+            0,
+            (j // spg) * cbg + t % cbg,                         # cin tile
+        )
+    return index_map
+
+
+def conv_weight_index_map(resident: bool = False):
+    """The s-th stored weight tile of strip j (both conv grid orders)."""
+    if resident:
+        def index_map(m, j, s, idx):
+            return (j, s, 0, 0)
+    else:
+        def index_map(j, m, s, idx):
+            return (j, s, 0, 0)
+    return index_map
+
+
+def conv_out_index_map(hb: int, resident: bool = False):
+    """Output/residual row-block tile of (strip j, image*row-block m)."""
+    if resident:
+        def index_map(m, j, s, idx):
+            return (m // hb, m % hb, 0, j)
+    else:
+        def index_map(j, m, s, idx):
+            return (m // hb, m % hb, 0, j)
+    return index_map
+
+
+def conv_bias_index_map(resident: bool = False):
+    """Strip j's bias (or int8 dequant scale) tile."""
+    if resident:
+        def index_map(m, j, s, idx):
+            return (j, 0)
+    else:
+        def index_map(j, m, s, idx):
+            return (j, 0)
+    return index_map
 
 
 def halo_layout_dims(h: int, w: int, *, kh: int, kw: int, stride: int,

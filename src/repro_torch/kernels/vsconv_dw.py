@@ -48,7 +48,8 @@ from repro_torch.kernels.vsmm import (MAX_VN, check_epilogue, check_operands,
 __all__ = [
     "vsconv_dw_halo_kernel", "vsconv_dw_plain", "vsconv_dw_stack_kernel",
     "vsconv_dw_stack_plain", "dw_halo_kernel_cost", "dw_stack_kernel_cost",
-    "dw_tile", "dw_window_bytes",
+    "dw_tile", "dw_window_bytes", "dw_halo_in_index_map",
+    "dw_stack_in_index_map",
 ]
 
 # The kernels' tile rule, per layout: (output elements a block aims at,
@@ -150,6 +151,32 @@ def dw_stack_kernel_cost(
             + residual_bytes
         ),
     }
+
+
+def dw_halo_in_index_map(hb: int, stride: int, bh: int):
+    """The reference's depthwise halo input map (element offsets; grid
+    (j, m, s)): strip j is the channel tile and the offset does not depend
+    on the tap, so the halo is fetched once per (strip, row-block).  A
+    plain integer function of the layout contract (see the index maps in
+    `kernels.vsconv`)."""
+    def index_map(j, m, s, idx):
+        return (m // hb, (m % hb) * stride * bh, 0, j, 0)
+    return index_map
+
+
+def dw_stack_in_index_map(hb: int, kw: int, stride: int, dilation: int):
+    """The reference's depthwise row-tap stack input map (block indices):
+    ``idx[j, s]`` is the bare tap id and the strip is the channel tile."""
+    def index_map(j, m, s, idx):
+        t = idx[j, s]
+        return (
+            m // hb,
+            (t // kw) * stride + ((t % kw) * dilation) % stride,  # (ky, ph)
+            m % hb,
+            0,
+            j,
+        )
+    return index_map
 
 
 def vsconv_dw_plain(

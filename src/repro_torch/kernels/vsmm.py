@@ -44,7 +44,8 @@ from repro_torch.kernels._build import launch
 __all__ = ["vsmm_kernel", "vsmm_plain", "vsmm_kernel_cost", "vsmm_plan",
            "min_chunk", "chunk_bounds", "MAX_VN", "check_operands", "check_epilogue",
            "entry_name", "SMS", "TARGET_BLOCKS", "SMALL_TARGET_BLOCKS",
-           "MIN_CHUNK", "ROW_TILES"]
+           "MIN_CHUNK", "ROW_TILES", "vsmm_x_index_map", "vsmm_w_index_map",
+           "vsmm_out_index_map", "vsmm_bias_index_map"]
 
 MAX_VN = 128  # the kernel's thread layout covers at most 128 columns
 
@@ -131,6 +132,39 @@ def vsmm_kernel_cost(
             + residual_bytes
         ),
     }
+
+
+# The reference's block index maps, grid (j, mi, s) = (output strip,
+# row-block, sparse step): plain integer functions of the layout contract
+# that vscheck's pass 2 evaluates (see the index maps in `kernels.vsconv`).
+
+def vsmm_x_index_map():
+    """Activation K-tile gather: the s-th stored vector of strip j reads
+    activation K-tile idx[j, s] (the paper's index system)."""
+    def index_map(j, mi, s, idx):
+        return (mi, idx[j, s])
+    return index_map
+
+
+def vsmm_w_index_map():
+    """The s-th stored weight vector of strip j."""
+    def index_map(j, mi, s, idx):
+        return (j, s, 0, 0)
+    return index_map
+
+
+def vsmm_out_index_map():
+    """Output/residual (row-block, strip) tile."""
+    def index_map(j, mi, s, idx):
+        return (mi, j)
+    return index_map
+
+
+def vsmm_bias_index_map():
+    """Strip j's bias (or int8 dequant scale) tile."""
+    def index_map(j, mi, s, idx):
+        return (j, 0)
+    return index_map
 
 
 def _epilogue(y: torch.Tensor, *, bias: torch.Tensor | None,

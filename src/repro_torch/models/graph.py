@@ -49,7 +49,8 @@ __all__ = [
     "conv_tile_geometry", "fc_tile_geometry", "strip_steps",
     "sparse_conv_from_dense", "apply_sparse_conv", "apply_sparse_fc",
     "weight_scales", "quantize_weights_int8", "quantize_activations_int8",
-    "net_schema", "net_apply", "sparsify", "input_refusal", "output_finite",
+    "net_schema", "net_apply", "collect_conv_traffic", "sparsify",
+    "input_refusal", "output_finite",
     "place_params", "shard_sparse", "build_vgg16", "VGG16_LAYERS", "build_resnet18",
     "RESNET18_STAGES", "build_resnet34", "RESNET34_STAGES", "build_resnet50",
     "RESNET50_STAGES", "build_mobilenet_v1", "MOBILENET_V1_PLAN",
@@ -148,6 +149,9 @@ class SparseNet:
 
     def conv_layers(self) -> list[Conv]:
         return [l for l in self.layers if isinstance(l, Conv)]
+
+    def fc_layers(self) -> list[FC]:
+        return [l for l in self.layers if isinstance(l, FC)]
 
 
 # --------------------------------------------------------------------------
@@ -575,13 +579,17 @@ def _pool(l: Pool, x: torch.Tensor) -> torch.Tensor:
 
 def net_apply(net: SparseNet, params: dict, x: torch.Tensor, *,
               sparse: dict | None = None, impl: str = "auto",
-              collect: list | None = None) -> torch.Tensor:
+              collect: list | None = None,
+              collect_fc: list | None = None) -> torch.Tensor:
     """Walk the graph: x (N, H, W, C) -> logits / features.
 
     sparse: {layer_name: SparseConv | SparseFC | VectorSparse} — layers
     present run the vector-sparse path (kernels or the plain path, per
     ``impl``); absent layers run dense.  ``collect`` (a list) records
-    (name, layer input NHWC, weight, stride, groups, dilation) per conv.
+    (name, layer input NHWC, weight, stride, groups, dilation) per conv
+    (the cycle model's input); ``collect_fc`` (a separate list, so the
+    conv record keeps its shape) records (name, layer input, weight) per
+    FC layer (the calibration measures FC layers on these inputs).
     """
     sparse = sparse or {}
     saved: dict[str, torch.Tensor] = {}
@@ -624,6 +632,8 @@ def net_apply(net: SparseNet, params: dict, x: torch.Tensor, *,
             x = x.reshape(x.shape[0], -1)
         elif isinstance(l, FC):
             p = params[l.name]
+            if collect_fc is not None:
+                collect_fc.append((l.name, x, p["w"]))
             if l.name in sparse:
                 entry = sparse[l.name]
                 spec = (entry if isinstance(entry, SparseFC)
@@ -637,6 +647,24 @@ def net_apply(net: SparseNet, params: dict, x: torch.Tensor, *,
         else:
             raise TypeError(f"unknown layer spec: {l!r}")
     return x
+
+
+def collect_conv_traffic(net: SparseNet, params: dict, x: torch.Tensor, *,
+                         sparse: dict | None = None,
+                         impl: str = "auto") -> list:
+    """Forward pass recording (name, conv input NHWC, weight, stride,
+    groups, dilation) per conv layer — the input of
+    `core.accel_model.network_cycle_reports` / `network_traffic_reports`.
+
+    ``sparse`` and ``impl`` are `net_apply`'s: with the `sparsify` entries
+    the recorded inputs are the sparse path's activations (the kernels' on
+    CUDA tensors under ``impl="auto"``); without them the dense forward of
+    ``params``.  Pass `sparsify`'s pruned tree as ``params`` so that the
+    recorded weights are the pruned ones."""
+    rec: list = []
+    with torch.inference_mode():
+        net_apply(net, params, x, sparse=sparse, impl=impl, collect=rec)
+    return rec
 
 
 def input_refusal(image: Any, *, max_size: int | None = None,

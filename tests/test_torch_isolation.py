@@ -1,9 +1,9 @@
 """The port stands alone: it never imports JAX or the JAX package.
 
 Importing every module of `repro_torch` (`repro_torch.analysis` among
-them) and `chip_smoke.py` in a fresh interpreter must leave ``jax`` and
-``repro`` out of ``sys.modules``, and no source under ``src/repro_torch/``
-may even name them.
+them), `chip_smoke.py` and `calibrate_torch.py` in a fresh interpreter
+must leave ``jax`` and ``repro`` out of ``sys.modules``, and no source
+under ``src/repro_torch/`` may even name them.
 """
 import os
 import re
@@ -22,10 +22,15 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import calibrate_torch
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 missing = {"repro_torch.analysis.diagnostics", "repro_torch.analysis.ir",
-           "repro_torch.launch.faults"} - set(names)
+           "repro_torch.launch.faults", "repro_torch.core.accel_model",
+           "repro_torch.core.calibration", "repro_torch.kernels.plan",
+           "repro_torch.analysis.contracts",
+           "repro_torch.analysis.intervals", "repro_torch.analysis.lint",
+           "repro_torch.utils.roofline"} - set(names)
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 15 else 0)
 """
@@ -47,7 +52,8 @@ def test_no_port_source_names_jax_or_the_reference():
             for n, line in enumerate(path.read_text().splitlines(), 1):
                 if pattern.search(line):
                     offenders.append(f"{path.relative_to(ROOT)}:{n}: {line}")
-    smoke = (ROOT / "chip_smoke.py").read_text()
-    if re.search(r"^\s*(import|from)\s+(jax|repro)\b", smoke, re.M):
-        offenders.append("chip_smoke.py imports jax or repro")
+    for script in ("chip_smoke.py", "calibrate_torch.py"):
+        text = (ROOT / script).read_text()
+        if re.search(r"^\s*(import|from)\s+(jax|repro)\b", text, re.M):
+            offenders.append(f"{script} imports jax or repro")
     assert not offenders, "\n".join(offenders)
