@@ -202,7 +202,27 @@ repository around it, or when any phase fails.  Phases:
    T-512 prefill is broken down into the flash kernel's share (per layer
    x 40: device, plain, library and bound ms) and the rest.  The
    ``kernels`` line's flash entry is per such prefill (40 launches);
-   ``launches`` is the serve phase's count.
+   ``launches`` is the sum of the LM serve phases' counts (per arch in
+   ``launches_by_path``).
+10. LM arch phases (`lm_arch_phase`), one model on the card at a time
+   (each server freed, device memory printed before and after).  Bf16
+   weights drawn on the card from seed 0, batch 8, 16 new tokens a
+   request, at full width: Phi-3-medium, Gemma-3-12B, Granite-MoE-3B and
+   RWKV-6-3B at full depth (10 requests in one length bucket: one run, 2
+   backfills; Gemma-3's prompts 1100-1600 tokens on an 800 ladder, so its
+   1024-windows apply and its circular caches wrap), Jamba-v0.1 (one of
+   4 blocks: 8 of 32 layers), Kimi-K2 (the dense stem and 1 MoE layer: 2
+   of 61) and Nemotron-4 (2 of 96 layers) on 8 requests.  Each: every
+   request delivered in range; flash launches = attention layers x (runs
+   + backfills), none for RWKV, every launch at a shape of `flash_phase`
+   (whose rows include each arch's admission and backfill prefills);
+   one decode graph replayed once a step; a plain greedy loop emits the
+   first run's tokens; prefill logits kernel vs plain within the bf16
+   noise floor; one replay bit-equal to eager ``decode_step``; ms a
+   decode step, ``setup_s``, ``serve_s`` and the idle share of a
+   profiled warm serve.  RWKV-6-3B is then served sampled (temperature
+   0.8, top-k 40, keys from the reference's threefry) twice: the streams
+   must repeat.
 
 ``kernel_ms``, ``plain_ms`` and ``library_ms`` are device time per call:
 a run of calls is captured in one CUDA graph and its replays are timed
@@ -938,6 +958,34 @@ FLASH_CASES = [
      "float32"),
     ("odd length BH 8 T 33 hd 32 causal f32", 8, 33, 33, 32, True, None, 0,
      "float32"),
+    # the prefill shapes of `lm_arch_phase`'s serves (batch 8): admission at
+    # the length bucket, backfill at cur = bucket + 15, on the 16-ladder
+    # (plain attention) or exact (a windowed arch).  Gemma-3's lengths are
+    # picked so that the plain version's blocks, the largest divisors of T
+    # up to 256 queries and 512 keys, stay large: T 2063, a prime, makes
+    # them 1 x 1 and the plain version takes hours
+    ("Phi-3 admission prefill BH 320 T 128 hd 128 causal bf16", 320, 128,
+     128, 128, True, None, 0, "bfloat16"),
+    ("Phi-3 backfill prefill BH 320 T 144 hd 128 causal bf16", 320, 144,
+     144, 128, True, None, 0, "bfloat16"),
+    ("Gemma-3 local admission prefill BH 128 T 1600 hd 240 window 1024 "
+     "bf16", 128, 1600, 1600, 240, True, 1024, 0, "bfloat16"),
+    ("Gemma-3 global admission prefill BH 128 T 1600 hd 240 causal bf16",
+     128, 1600, 1600, 240, True, None, 0, "bfloat16"),
+    ("Gemma-3 local backfill prefill BH 128 T 1615 hd 240 window 1024 bf16",
+     128, 1615, 1615, 240, True, 1024, 0, "bfloat16"),
+    ("Gemma-3 global backfill prefill BH 128 T 1615 hd 240 causal bf16",
+     128, 1615, 1615, 240, True, None, 0, "bfloat16"),
+    ("Granite-MoE admission prefill BH 192 T 128 hd 64 causal bf16", 192,
+     128, 128, 64, True, None, 0, "bfloat16"),
+    ("Granite-MoE backfill prefill BH 192 T 144 hd 64 causal bf16", 192,
+     144, 144, 64, True, None, 0, "bfloat16"),
+    ("Jamba admission prefill BH 256 T 128 hd 128 causal bf16", 256, 128,
+     128, 128, True, None, 0, "bfloat16"),
+    ("Kimi-K2 admission prefill BH 512 T 128 hd 112 causal bf16", 512, 128,
+     128, 112, True, None, 0, "bfloat16"),
+    ("Nemotron-4 admission prefill BH 768 T 128 hd 192 causal bf16", 768,
+     128, 128, 192, True, None, 0, "bfloat16"),
 ]
 QWEN_PREFILL_CASE = FLASH_CASES[0][0]
 
@@ -1945,12 +1993,15 @@ def lm_serve_phase(dev) -> dict:
             "launches": launches, "summary": out}
 
 
-def _logits_spread(srv, batch: dict, logits, logits_plain) -> dict:
+def _logits_spread(srv, batch: dict, logits, logits_plain,
+                   f32_weights: bool = True) -> dict:
     """How far apart other valid attention implementations put the same
     bf16 prefill's logits (relative to max|logit|): the kernel run again
     (determinism); attention in f32 with p unrounded and the output
-    rounded to bf16 (the reference's jnp flash); SDPA; and the whole
-    prefill with the weights in f32, kernel vs plain."""
+    rounded to bf16 (the reference's jnp flash); SDPA (with the window's
+    mask where a layer has one); and, with ``f32_weights``, the whole
+    prefill with the weights in f32, kernel vs plain (a model whose f32
+    copy would not fit beside its bf16 weights leaves that out)."""
     import dataclasses
     from unittest import mock
 
@@ -1973,9 +2024,14 @@ def _logits_spread(srv, batch: dict, logits, logits_plain) -> dict:
                                **kw).to(q.dtype)
 
     def sdpa(q, k, v, *, causal, window, q_offset):
-        assert window is None and q_offset == 0
+        assert q_offset == 0
+        if window is None:
+            return F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=causal)[0]
+        mask = _attn_mask(q.shape[1], k.shape[1], causal, window, 0,
+                          q.device)
         return F.scaled_dot_product_attention(
-            q[None], k[None], v[None], is_causal=causal)[0]
+            q[None], k[None], v[None], attn_mask=mask)[0]
 
     out = {
         "kernel_vs_kernel_again": _rel_err(logits, run())[0],
@@ -1983,6 +2039,8 @@ def _logits_spread(srv, batch: dict, logits, logits_plain) -> dict:
                                            run(f32_attention))[0],
         "plain_vs_sdpa": _rel_err(logits_plain, run(sdpa))[0],
     }
+    if not f32_weights:
+        return out
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 cache_dtype_str="float32")
     p32 = _tree_map(lambda t: t.float(), srv.params)
@@ -2001,17 +2059,104 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def lm_check_phase(srv, reqs: list, dev) -> dict:
+F32_CHECK_MARGIN = 12 << 30  # device bytes left to an f32 prefill's
+                             # activations beside its weights
+NOISE_FACTOR = 1.25          # an added arch's bf16 bound: 1.25 x the floor
+
+
+F32_HEAD_COLUMNS = 32768    # vocab columns of the f32 check's head
+
+
+def _f32_prefix(cfg, params: dict, budget: int, tokens):
+    """(cfg32, params32, tokens32) for an f32 run of ``cfg``'s longest
+    prefix of layers, at full width, whose weights in f32 fit in
+    ``budget`` bytes; each layer a segment of its own, its weights f32
+    copies of the served ones.  The embedding keeps only the rows of the
+    batch's ``tokens`` (renumbered), and an untied head its first
+    `F32_HEAD_COLUMNS` columns (a tied one is the kept rows): an f32 copy
+    of Nemotron-4's two vocab matrices alone would take 38 GB."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.base import Segment
+
+    def nbytes(tree) -> int:
+        leaves = []
+        _tree_map(leaves.append, tree)
+        return sum(4 * t.numel() for t in leaves)
+
+    rows = torch.unique(tokens)
+    top = {"final_norm": params["final_norm"], "embed": params["embed"][rows]}
+    if "out_head" in params:
+        top["out_head"] = params["out_head"][:, :F32_HEAD_COLUMNS]
+    used = nbytes(top)
+    specs, segs = [], []
+    order = [(si, r, i, sp) for si, seg in enumerate(cfg.segments)
+             for r in range(seg.repeat) for i, sp in enumerate(seg.layers)]
+    for si, r, i, sp in order:
+        layer = _tree_map(lambda t, r=r: t[r:r + 1],
+                          params["segments"][si][f"l{i}"])
+        used += nbytes(layer)
+        if used > budget:
+            break
+        specs.append(sp)
+        segs.append({"l0": _tree_map(lambda t: t.float(), layer)})
+    cfg32 = dataclasses.replace(
+        cfg, segments=tuple(Segment(1, (sp,)) for sp in specs),
+        n_layers=len(specs), param_dtype="float32",
+        cache_dtype_str="float32")
+    p32 = {k: v.float() for k, v in top.items()}
+    p32["segments"] = segs
+    return cfg32, p32, torch.searchsorted(rows, tokens)
+
+
+def _f32_prefix_check(srv, batch: dict) -> dict:
+    """The admission prefill with the weights in f32, kernel vs plain, on
+    the longest prefix of the model's layers whose f32 copy fits on the
+    card beside the served bf16 weights (`_f32_prefix`): it must hold at
+    least one attention layer (where the model has one), and the logits
+    must agree within 1e-4 of max|logit|."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.kernels.flash import flash_fwd_plain
+    from repro_torch.models import attention, transformer as tfm
+
+    _free_cuda()
+    budget = torch.cuda.mem_get_info()[0] - F32_CHECK_MARGIN
+    cfg32, p32, toks = _f32_prefix(srv.cfg, srv.params, budget,
+                                   batch["tokens"])
+    attn = _attention_layers(cfg32)
+    if _attention_layers(srv.cfg) and not attn:
+        raise SystemExit(f"chip_smoke: {srv.cfg.name}: no attention layer "
+                         f"fits the f32 check's {budget} bytes")
+    b32 = {"tokens": toks}
+    logits = tfm.prefill(p32, b32, cfg32, capacity=srv.capacity)[0]
+    with mock.patch.object(attention, "flash_fwd_kernel", flash_fwd_plain):
+        plain = tfm.prefill(p32, b32, cfg32, capacity=srv.capacity)[0]
+    rel = _rel_err(logits, plain)[0]
+    del p32, logits, plain
+    _free_cuda()
+    return {"f32_layers": cfg32.total_layers, "f32_attention_layers": attn,
+            "f32_weights_kernel_vs_plain": rel}
+
+
+def lm_check_phase(srv, reqs: list, dev, path: str = LM_CONFIG,
+                   f32_weights: bool = True,
+                   floor_factor: float = 1.0) -> dict:
     """The first run's admitted batch (the first bucket, longest prompts
     first, as the scheduler admits it), re-run directly on the card.
 
     Its admission prefill through the kernel against the same prefill
     through `flash_fwd_plain`, relative to max|logit|: with the weights in
-    f32 within 1e-4; as served (bf16) within 2e-2 or, where two other
+    f32 within 1e-4 (with ``f32_weights`` the whole model, else the
+    longest prefix of its layers whose f32 copy fits beside the served
+    weights: `_f32_prefix_check`); as served (bf16) within 2e-2 or,
+    where two other
     valid attention implementations already differ from the plain path by
     more (`_logits_spread`: on this random-weight 40-layer model any
     bf16 rounding difference grows to about 2e-2), within that noise
-    floor.  A greedy `prefill` + `decode_step` loop over the batch must
+    floor times ``floor_factor``.  A greedy `prefill` + `decode_step` loop over the batch must
     emit exactly the tokens the server delivered (lanes are independent:
     same shapes, same kernels).  The loop's decode steps must launch no
     flash kernel; their time per step is taken here (batch 8, one token a
@@ -2041,22 +2186,25 @@ def lm_check_phase(srv, reqs: list, dev) -> dict:
             raise SystemExit("chip_smoke: the plain prefill launched the "
                              "flash kernel")
     rel, _ = _rel_err(logits, logits_plain)
-    spread = _logits_spread(srv, batch, logits, logits_plain)
+    spread = _logits_spread(srv, batch, logits, logits_plain, f32_weights)
+    if not f32_weights:
+        spread.update(_f32_prefix_check(srv, batch))
     floor = max(spread["plain_vs_f32_attention"], spread["plain_vs_sdpa"])
     f32_rel = spread["f32_weights_kernel_vs_plain"]
-    print(json.dumps({"phase": "lm_logits_spread", "path": LM_CONFIG,
+    print(json.dumps({"phase": "lm_logits_spread", "path": path,
                       "kernel_vs_plain": rel, **spread,
                       "bf16_noise_floor": floor,
+                      "floor_factor": floor_factor,
                       "within_2e-2": rel <= 2e-2}), flush=True)
     if not f32_rel <= F32_LOGITS_RTOL:
-        raise SystemExit(f"chip_smoke: {LM_CONFIG}: f32-weight prefill "
+        raise SystemExit(f"chip_smoke: {path}: f32-weight prefill "
                          f"logits, kernel vs plain, relative error "
                          f"{f32_rel:.3e} > {F32_LOGITS_RTOL}")
-    if not rel <= max(LOGITS_RTOL, floor):
-        raise SystemExit(f"chip_smoke: {LM_CONFIG}: prefill logits, kernel "
+    if not rel <= max(LOGITS_RTOL, floor_factor * floor):
+        raise SystemExit(f"chip_smoke: {path}: prefill logits, kernel "
                          f"vs plain, relative error {rel:.3e} > "
-                         f"{LOGITS_RTOL} and > the bf16 noise floor "
-                         f"{floor:.3e}")
+                         f"{LOGITS_RTOL} and > {floor_factor} x the bf16 "
+                         f"noise floor {floor:.3e}")
     steps = max(r.max_new for r in first) - 1
     nxt = torch.argmax(logits, dim=-1)
     emitted = [nxt]
@@ -2077,9 +2225,9 @@ def lm_check_phase(srv, reqs: list, dev) -> dict:
     bad = [r.rid for j, r in enumerate(first)
            if r.out != direct[j, :r.max_new].tolist()]
     if bad:
-        raise SystemExit(f"chip_smoke: {LM_CONFIG}: requests {bad} of the "
+        raise SystemExit(f"chip_smoke: {path}: requests {bad} of the "
                          f"first run differ from the direct greedy loop")
-    out = {"phase": "lm_check", "path": LM_CONFIG,
+    out = {"phase": "lm_check", "path": path,
            "first_run_rids": [r.rid for r in first],
            "prefill_logits_kernel_vs_plain_rel_err": rel,
            "logits_spread": spread,
@@ -2105,7 +2253,18 @@ def lm_warm_phase(srv, traffic: list) -> dict:
     return out
 
 
-def lm_decode_phase(srv, traffic: list, dev) -> dict:
+def _decode_weight_bytes(srv) -> int:
+    """Bytes of the weights a decode step reads: every parameter but an
+    untied embedding table, of which a step gathers one row a lane (a
+    MoE layer's every expert: the port's expert product reads them all)."""
+    leaves = []
+    _tree_map(leaves.append, {k: v for k, v in srv.params.items()
+                              if k != "embed" or srv.cfg.tie_embeddings})
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def lm_decode_phase(srv, traffic: list, dev, path: str = LM_CONFIG
+                    ) -> dict:
     """The decode step at batch 8, warm, through the server's graph.
 
     The first 8 long prompts are admitted (`LMBackend.start`, a prefill
@@ -2116,7 +2275,9 @@ def lm_decode_phase(srv, traffic: list, dev) -> dict:
     host; CUDA-synchronized wall clock over 16 steps), device ms per
     replay (CUDA events over 10 replays of the graph at one position),
     and, under `torch.profiler`, the device operations and busy ms of one
-    replay (5 replays) and its 15 costliest kernels by name."""
+    replay (5 replays) and its 15 costliest kernels by name.  The step's
+    weight bytes over the card's HBM rate bound it from below
+    (`_decode_weight_bytes`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as tfm
@@ -2134,7 +2295,7 @@ def lm_decode_phase(srv, traffic: list, dev) -> dict:
                                     cfg)
     torch.cuda.synchronize()
     if not torch.equal(g.logits, eager):
-        raise SystemExit(f"chip_smoke: {LM_CONFIG}: a replayed decode "
+        raise SystemExit(f"chip_smoke: {path}: a replayed decode "
                          f"step's logits differ from eager decode_step (max "
                          f"abs {_rel_err(g.logits, eager)[1]:.3e})")
     leaves = []
@@ -2142,7 +2303,7 @@ def lm_decode_phase(srv, traffic: list, dev) -> dict:
     half = len(leaves) // 2
     if not all(torch.equal(a, b) for a, b in zip(leaves[:half],
                                                   leaves[half:])):
-        raise SystemExit(f"chip_smoke: {LM_CONFIG}: a replayed decode "
+        raise SystemExit(f"chip_smoke: {path}: a replayed decode "
                          f"step's caches differ from eager decode_step's")
     del copies, leaves
     torch.cuda.empty_cache()
@@ -2172,8 +2333,12 @@ def lm_decode_phase(srv, traffic: list, dev) -> dict:
     for name, (ms, _) in by_name.items():
         by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + ms / 5
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    out = {"phase": "lm_decode", "path": LM_CONFIG, "batch": LM_BATCH,
-           "capacity": LM_CAPACITY, "position": pos,
+    weight_bytes = _decode_weight_bytes(srv)
+    out = {"phase": "lm_decode", "path": path, "batch": LM_BATCH,
+           "capacity": srv.capacity, "position": pos,
+           "weight_bytes": weight_bytes,
+           "weight_bytes_bound_ms":
+               weight_bytes / _peaks(torch.cuda.get_device_name(0))[1] * 1e3,
            "replay_vs_eager_bit_equal": True,
            "step_ms": step_ms, "replay_device_ms": replay_ms,
            "device_ops_per_step": len(spans) / 5 if spans else None,
@@ -2214,6 +2379,223 @@ def prefill_breakdown_phase(srv, flash_row: dict, dev) -> dict:
            "library_ms_per_prefill": n * flash_row["library_ms"],
            "bound_ms_per_prefill": n * flash_row["bound_ms"],
            "rest_of_prefill_ms": prefill_ms - n * flash_row["kernel_ms"]}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+# name, layers served (None: every layer), requests, prompt lengths
+# [lo, hi), length bucket.  Every prompt of an arch falls in one bucket,
+# so 10 requests at batch 8 make one lockstep run with 2 backfills.
+LM_ARCHS = [
+    ("phi3-medium-14b", None, 10, (113, 129), 16),
+    ("gemma3-12b", None, 10, (1100, 1601), 800),
+    ("granite-moe-3b-a800m", None, 10, (113, 129), 16),
+    ("rwkv6-3b", None, 10, (113, 129), 16),
+    ("jamba-v0.1-52b", 8, 8, (113, 129), 16),
+    ("kimi-k2-1t-a32b", 2, 8, (113, 129), 16),
+    ("nemotron-4-340b", 2, 8, (113, 129), 16),
+]
+LM_ARCH_NEW = 16             # new tokens a request
+SAMPLED_ARCH = "rwkv6-3b"    # the README's sampled serve
+SAMPLING = (0.8, 40)         # its temperature and top-k
+
+
+def _cut_depth(cfg, layers: int):
+    """``cfg`` at full width with its first ``layers`` layers, in the
+    reference's order (whole repeats of each segment's layer group)."""
+    import dataclasses
+
+    from repro_torch.configs.base import Segment
+    segs, left = [], layers
+    for seg in cfg.segments:
+        n = min(seg.repeat, left // len(seg.layers))
+        if n:
+            segs.append(Segment(n, seg.layers))
+            left -= n * len(seg.layers)
+    if left:
+        raise SystemExit(f"chip_smoke: {cfg.name}: {layers} layers do not "
+                         f"cut at a layer group's end")
+    return dataclasses.replace(cfg, segments=tuple(segs), n_layers=layers)
+
+
+def _attention_layers(cfg) -> int:
+    return sum(seg.repeat * sum(sp.mixer == "attn" for sp in seg.layers)
+               for seg in cfg.segments)
+
+
+def _arch_traffic(vocab: int, n: int, lens: tuple, seed: int,
+                  sampling: tuple | None = None) -> list:
+    import numpy as np
+    from repro_torch.launch.serve import Request
+    rng = np.random.default_rng(seed)
+    t, k = sampling or (0.0, 0)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, int(rng.integers(
+        *lens)), dtype=np.int32), max_new=LM_ARCH_NEW, temperature=t,
+        top_k=k) for i in range(n)]
+
+
+def _flash_shapes() -> set:
+    return {case[1:] for case in FLASH_CASES}
+
+
+def _free_cuda() -> int:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def lm_arch_phase(name: str, layers, n_requests: int, lens: tuple,
+                  len_bucket: int, dev) -> dict:
+    """One more LM arch served by the port's `Server` at batch 8, bf16
+    weights drawn on the card from seed 0, at full width (and full depth
+    unless ``layers`` cuts it), ``n_requests`` seeded greedy requests of
+    16 new tokens, every launch count set to 0 just before the serve and
+    read just after.  Every request delivered with 16 tokens in range;
+    the flash kernel launched exactly attention layers x (runs +
+    backfills) (none for RWKV), every launch at a shape that
+    `flash_phase` held against the plain version; one decode graph at
+    (batch, capacity) replayed once a step.  Then `lm_check_phase` (the
+    first run's batch: a plain greedy loop emits the served tokens, the
+    prefill logits through the kernel within the bf16 noise floor of the
+    plain path's), `lm_decode_phase` (a replay bit-equal to eager
+    `decode_step`, logits and caches; ms a step), a warm serve and a
+    profiled one (the device's idle share).  For `SAMPLED_ARCH` the
+    traffic is served once more at temperature 0.8, top-k 40, twice:
+    the sampled streams must repeat.  The server is freed before the
+    next arch's is built; device memory is printed before and after."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Server, _round_up
+    from repro_torch.models import attention
+
+    cfg = get_config(name)
+    full_layers = cfg.total_layers
+    if layers is not None:
+        cfg = _cut_depth(cfg, layers)
+    mem_before = _free_cuda()
+    bucket = _round_up(lens[1] - 1, len_bucket)
+    capacity = bucket + 2 * LM_ARCH_NEW + 8
+    t0 = time.perf_counter()
+    srv = Server(cfg, batch=LM_BATCH, capacity=capacity, seed=0,
+                 len_bucket=len_bucket, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mem_model = torch.cuda.memory_allocated()
+    reqs = _arch_traffic(cfg.vocab, n_requests, lens, seed=1)
+    shapes = set()
+    real = attention.flash_fwd_kernel
+
+    def spy(q, k, v, *, causal=True, window=None, q_offset=0):
+        shapes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2], causal,
+                    window, q_offset, str(q.dtype).split(".")[-1]))
+        return real(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+    counters = _counters()
+    _zero_counters()
+    t0 = time.perf_counter()
+    with mock.patch.object(attention, "flash_fwd_kernel", spy):
+        stats = srv.serve(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in counters.items() if k.launches}
+    summary = _lm_stats(stats)
+    bad = [r.rid for r in reqs if r.outcome is None
+           or r.outcome.status != "delivered" or len(r.out) != r.max_new
+           or not all(0 <= t < cfg.padded_vocab for t in r.out)]
+    if bad:
+        raise SystemExit(f"chip_smoke: {name}: requests {bad} not delivered "
+                         f"with {LM_ARCH_NEW} tokens in range")
+    prefills = summary["runs"] + summary["backfills"]
+    n_flash = _attention_layers(cfg) * prefills
+    expected = {"flash_fwd": n_flash} if n_flash else {}
+    if launches != expected:
+        raise SystemExit(f"chip_smoke: {name}: launches {launches}, "
+                         f"expected {expected} ({summary['runs']} runs + "
+                         f"{summary['backfills']} backfills)")
+    unheld = shapes - _flash_shapes()
+    if unheld:
+        raise SystemExit(f"chip_smoke: {name}: flash launched at shapes "
+                         f"that flash_phase did not check: {unheld}")
+    graphs = srv.backend.graphs
+    replays = sum(g.graph.replays for g in graphs.values())
+    if list(graphs) != [(LM_BATCH, capacity)] or \
+            replays != summary["decode_steps"]:
+        raise SystemExit(f"chip_smoke: {name}: decode graphs {list(graphs)} "
+                         f"replayed {replays} times over "
+                         f"{summary['decode_steps']} decode steps")
+    traffic = [(r.rid, r.prompt, r.max_new) for r in reqs]
+    laps = {}
+    t0 = time.perf_counter()
+    check = lm_check_phase(srv, reqs, dev, path=name, f32_weights=False,
+                           floor_factor=NOISE_FACTOR)
+    laps["check_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decode = lm_decode_phase(srv, traffic, dev, path=name)
+    laps["decode_phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srv.serve(_lm_requests(traffic))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    prof = profile_phase(name, lambda: srv.serve(_lm_requests(traffic)),
+                         warm_s)
+    laps["profile_s"] = time.perf_counter() - t0 - warm_s
+    t0 = time.perf_counter()
+    sampled = None
+    if name == SAMPLED_ARCH:
+        streams = []
+        for _ in range(2):
+            sreqs = _arch_traffic(cfg.vocab, n_requests, lens, seed=1,
+                                  sampling=SAMPLING)
+            srv.serve(sreqs)
+            streams.append([r.out for r in sreqs])
+        if streams[0] != streams[1] or not all(
+                len(o) == LM_ARCH_NEW and all(0 <= t < cfg.padded_vocab
+                                              for t in o)
+                for o in streams[0]):
+            raise SystemExit(f"chip_smoke: {name}: a sampled serve "
+                             f"(temperature {SAMPLING[0]}, top-k "
+                             f"{SAMPLING[1]}) did not repeat its streams")
+        greedy = [r.out for r in reqs]
+        sampled = {"temperature": SAMPLING[0], "top_k": SAMPLING[1],
+                   "requests": n_requests, "repeated": True,
+                   "streams_unlike_greedy": sum(
+                       a != b for a, b in zip(streams[0], greedy)),
+                   "first_stream": streams[0][0]}
+    laps["sampled_s"] = time.perf_counter() - t0
+    del srv, stats
+    mem_after = _free_cuda()
+    out = {"phase": "lm_arch", "path": name, "layers": cfg.total_layers,
+           "full_layers": full_layers,
+           "reduced": (None if layers is None else
+                       f"{cfg.total_layers} of {full_layers} layers, "
+                       f"full width"),
+           "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "params": cfg.param_count(), "dtype": cfg.param_dtype,
+           "batch": LM_BATCH, "capacity": capacity, "len_bucket": len_bucket,
+           "prompt_lens": [len(r.prompt) for r in reqs],
+           "requests": len(reqs), "launches": launches,
+           "attention_layers": _attention_layers(cfg),
+           "flash_shapes": sorted(str(sh) for sh in shapes),
+           "decode_graphs": len(graphs), "decode_replays": replays,
+           "setup_s": setup_s, "serve_s": serve_s, "warm_serve_s": warm_s,
+           "decode_step_ms": decode["step_ms"],
+           "decode_replay_device_ms": decode["replay_device_ms"],
+           "decode_weight_bytes_bound_ms": decode["weight_bytes_bound_ms"],
+           "prefill_logits_kernel_vs_plain_rel_err":
+               check["prefill_logits_kernel_vs_plain_rel_err"],
+           "f32_prefix_layers": check["logits_spread"]["f32_layers"],
+           "f32_prefix_kernel_vs_plain":
+               check["logits_spread"]["f32_weights_kernel_vs_plain"],
+           "device_idle_share": prof["device_idle_share"],
+           "memory_allocated_before": mem_before,
+           "memory_allocated_model": mem_model,
+           "memory_allocated_after": mem_after, "sampled": sampled,
+           "seconds": laps, **summary}
     print(json.dumps(out), flush=True)
     return out
 
@@ -2817,7 +3199,11 @@ def main() -> int:
         lm_warm["warm_serve_s"])
     qwen_row = flash_rows[QWEN_PREFILL_CASE]
     breakdown = prefill_breakdown_phase(lm["srv"], qwen_row, dev)
+    del lm["srv"]  # one model on the card at a time
     lap("lm")
+    archs = {name: lm_arch_phase(name, layers, n, lens, bucket, dev)
+             for name, layers, n, lens, bucket in LM_ARCHS}
+    lap("lm_archs")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
 
     kernels = []
@@ -2854,12 +3240,15 @@ def main() -> int:
     layers = lm["summary"]["layers"]
     flash_bound = {k: layers * qwen_row[f"{k}_bound_ms"]
                    for k in ("flops", "bytes")}
+    flash_by_path = {LM_CONFIG: lm["launches"]["flash_fwd"],
+                     **{name: a["launches"].get("flash_fwd", 0)
+                        for name, a in archs.items()}}
     kernels.append({
         "name": "flash_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash.py:92",
-        "launches": lm["launches"]["flash_fwd"],
-        "launches_by_path": {LM_CONFIG: lm["launches"]["flash_fwd"]},
+        "launches": sum(flash_by_path.values()),
+        "launches_by_path": flash_by_path,
         "max_abs_err": timer.max_abs_err["flash_fwd"],
         "ms": layers * qwen_row["kernel_ms"],
         "plain_ms": layers * qwen_row["plain_ms"],
@@ -2883,6 +3272,7 @@ def main() -> int:
              "lm": {"serve": lm["summary"], "check": lm_check,
                     "warm": lm_warm, "decode": lm_decode,
                     "prefill_breakdown": breakdown},
+             "lm_archs": archs,
              "profile": profiled, "dense_vs_sparse": dense_vs_sparse,
              "paper_model": paper_model, "calibration": calibration,
              "vscheck": vscheck, "seconds": seconds},

@@ -5,14 +5,17 @@ reference's fields and defaults, so a config reads the same on both sides;
 ``dtype`` and ``cache_dtype`` give torch dtypes.  `reduce()` derives the
 same tiny CPU smoke-test config as the reference's.
 
-The port serves token-input attention + MLP stacks today.  A config that
-needs a module of a later slice (a MoE, a Mamba or RWKV mixer, the RWKV
-channel mix, the vector-sparse FFN, an embedding frontend, bf16-flow
-matmul outputs) is refused at construction with `NotImplementedError`.
+The port serves every token-input stack of the reference's registry:
+attention, Mamba and RWKV mixers; MLP, MoE and RWKV channel-mix FFNs.  A
+config that needs a module of a later slice (the vector-sparse FFN, an
+embedding frontend, bf16-flow matmul outputs) is refused at construction
+with `NotImplementedError`.  `param_count` and `active_param_count` are
+the reference's, counted from the port's schema.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -94,8 +97,6 @@ class ArchConfig:
     notes: str = ""
 
     def __post_init__(self) -> None:
-        if self.moe is not None:
-            raise NotImplementedError(f"{self.name}: the MoE FFN {_LATER}")
         if self.use_sparse_ffn:
             raise NotImplementedError(
                 f"{self.name}: the vector-sparse FFN (sparse_lm) {_LATER}")
@@ -105,14 +106,6 @@ class ArchConfig:
         if self.bf16_flow:
             raise NotImplementedError(
                 f"{self.name}: bf16-flow matmul outputs {_LATER}")
-        for seg in self.segments:
-            for sp in seg.layers:
-                if sp.mixer not in ("attn", "none"):
-                    raise NotImplementedError(
-                        f"{self.name}: the {sp.mixer!r} mixer {_LATER}")
-                if sp.ffn not in ("mlp", "none"):
-                    raise NotImplementedError(
-                        f"{self.name}: the {sp.ffn!r} FFN {_LATER}")
 
     # -- derived -------------------------------------------------------------
     @property
@@ -136,12 +129,56 @@ class ArchConfig:
     def total_layers(self) -> int:
         return sum(s.repeat * len(s.layers) for s in self.segments)
 
+    def _param_shapes(self) -> list[tuple[str, tuple]]:
+        """(path, shape) of every leaf of the LM schema, paths written as
+        the reference's ``keystr``."""
+        from repro_torch.models.layers import P
+        from repro_torch.models.transformer import lm_schema
+        out: list[tuple[str, tuple]] = []
+
+        def walk(node: Any, path: str) -> None:
+            if isinstance(node, P):
+                out.append((path, node.shape))
+            elif isinstance(node, list):
+                for i, v in enumerate(node):
+                    walk(v, f"{path}[{i}]")
+            else:
+                for k, v in node.items():
+                    walk(v, f"{path}[{k!r}]")
+
+        walk(lm_schema(self), "")
+        return out
+
+    def param_count(self) -> int:
+        """Total parameters (embedding included), from the schema."""
+        return sum(math.prod(s) for _, s in self._param_shapes())
+
+    def active_param_count(self) -> int:
+        """MoE-aware active parameters per token: a routed expert leaf
+        counts top_k of its padded experts."""
+        if self.moe is None:
+            return self.param_count()
+        ep = self.moe.padded_experts(self.tp_hint)
+        total = 0
+        for path, shape in self._param_shapes():
+            n = math.prod(shape)
+            if ("'ffn'" in path and "shared" not in path
+                    and "router" not in path):
+                n = n * self.moe.top_k // ep
+            total += n
+        return total
+
     def reduce(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests (the reference's)."""
         heads = max(2, min(4, self.n_heads))
         kv = max(1, min(self.n_kv_heads, heads))
         while heads % kv:
             kv -= 1
+        moe = None
+        if self.moe is not None:
+            moe = dataclasses.replace(
+                self.moe, n_experts=8, top_k=min(self.moe.top_k, 2), d_ff=64,
+            )
         segs = tuple(
             Segment(repeat=min(s.repeat, 2),
                     layers=tuple(
@@ -160,6 +197,7 @@ class ArchConfig:
             vocab=512,
             vocab_pad_to=64,
             segments=segs,
+            moe=moe,
             head_dim_override=None,
             scan_chunk=8,
             attn_block_q=32,

@@ -13,9 +13,12 @@ The port of `repro/launch/serve.py`.  The LM arm:
   runs the flash kernel once per attention layer; decode steps run none.
   The backend owns the caches; on the card a decode step replays one
   CUDA graph per (width, capacity), the reference's jitted ``_decode``.
-  Requests carry per-request sampling (``temperature`` / ``top_k``);
-  temperature 0 is the plain argmax, bit-identical whatever the lane's
-  neighbours do.
+  Requests carry per-request sampling (``temperature`` / ``top_k``),
+  keyed by (seed, rid, emission count) through the reference's threefry
+  (`core.threefry`), so a sampled stream is the reference's; temperature
+  0 is the plain argmax, bit-identical whatever the lane's neighbours
+  do.  Recurrent archs (RWKV, Mamba) backfill at the exact context
+  length, attention archs on the ``len_bucket`` ladder.
 * `Server` — seeded (or bridged) weights and an `LMBackend` behind a
   `LockstepScheduler`.
 
@@ -58,13 +61,13 @@ import argparse
 import contextlib
 import dataclasses
 import time
-import zlib
 from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import threefry
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.capture import Captured, capture
 from repro_torch.launch.faults import ChaosBackend, FaultPlan
@@ -109,8 +112,7 @@ class Request:
 
 
 def _sample_tokens(logits: torch.Tensor, temp: torch.Tensor,
-                   top_k: torch.Tensor,
-                   gens: list[torch.Generator | None]) -> torch.Tensor:
+                   top_k: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
     """Per-slot temperature/top-k sampling over (B, V) logits.
 
     Slots with ``temp == 0`` take the plain argmax of the raw logits, so a
@@ -118,8 +120,10 @@ def _sample_tokens(logits: torch.Tensor, temp: torch.Tensor,
     its neighbours sample.  ``top_k == 0`` means no truncation.  Ranking
     uses a stable double argsort, so ``top_k=1`` keeps exactly the argmax
     candidate (first max on ties, like argmax itself).  A sampling slot
-    draws Gumbel noise from its own CPU generator (``gens[i]``; None for a
-    greedy slot) and takes the argmax of the noisy scaled logits.
+    takes the argmax of its scaled logits plus Gumbel noise drawn under
+    its threefry key (``keys`` (B, 2), `core.threefry`) on the logits'
+    device: the reference's categorical draw, the same bits of noise up
+    to the last ulp of its logarithms.
     """
     greedy = torch.argmax(logits, dim=-1)
     order = torch.argsort(-logits, dim=-1, stable=True)
@@ -127,28 +131,49 @@ def _sample_tokens(logits: torch.Tensor, temp: torch.Tensor,
     k = torch.where(top_k > 0, top_k, logits.shape[-1])[:, None]
     masked = torch.where(rank < k, logits, -torch.inf)
     scaled = masked / torch.clamp_min(temp, 1e-30)[:, None]
-    vocab = logits.shape[-1]
-    noise = torch.stack([
-        torch.zeros(vocab) if g is None else
-        -torch.log(-torch.log(torch.rand(vocab, generator=g)))
-        for g in gens]).to(logits.device)
+    noise = threefry.gumbel(keys, logits.shape[-1])
     sampled = torch.argmax(scaled + noise, dim=-1)
     return torch.where(temp > 0.0, sampled, greedy)
 
 
 def _positional_caches(cfg: Any) -> bool:
-    """True when every cached layer state is plain positional attention K/V
-    (the port's configs hold only attention mixers and MLPs).
+    """True when every cached layer state is plain positional attention K/V.
 
-    Sliding-window attention is excluded: its K/V cache is *circular*
-    (slot = pos % window), so the right-pad junk of a bucketed backfill
-    would wrap onto slots holding real in-window history.  Only plain
-    full-context caches (slot == position; future slots masked, then
-    overwritten) survive the right-pad, and they gate the bucketed
-    backfill.
+    Recurrent mixers (rwkv/mamba and the RWKV channel mix) fold every
+    processed token into their state, so a backfill prefill right-padded
+    past the true context would corrupt it.  Sliding-window attention is
+    excluded too: its K/V cache is *circular* (slot = pos % window), so
+    the right-pad junk at positions [cur, curb) would wrap onto slots
+    holding real in-window history and be attended as it.  Only plain
+    full-context attention caches (slot == position; future slots masked,
+    then overwritten) survive the right-pad, and they gate the bucketed
+    backfill; the others backfill at the exact context length.
     """
-    return all(sp.window is None
-               for seg in cfg.segments for sp in seg.layers)
+    return all(
+        sp.mixer in ("attn", "none") and sp.window is None
+        and sp.ffn in ("mlp", "moe", "none")
+        for seg in cfg.segments for sp in seg.layers
+    )
+
+
+def _tree_clone(tree: Any) -> Any:
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, list):
+        return [_tree_clone(v) for v in tree]
+    return {k: _tree_clone(v) for k, v in tree.items()}
+
+
+def _tree_copy(dst: Any, src: Any) -> None:
+    """Copy every leaf of ``src`` into the same leaf of ``dst``."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, list):
+        for d, s in zip(dst, src):
+            _tree_copy(d, s)
+    else:
+        for k in dst:
+            _tree_copy(dst[k], src[k])
 
 
 def _copy_rows(dst: Any, src: Any, j: int) -> None:
@@ -224,9 +249,11 @@ class LMBackend:
                      ) -> torch.Tensor:
         """Next token for each slot index in ``js``; ``logits[i]`` is slot
         ``js[i]``'s row.  All-greedy batches take the plain argmax;
-        otherwise each sampling slot draws from a generator seeded from
-        (seed, rid, emission count), so a request's stream is reproducible
-        wherever its slot lands."""
+        otherwise each sampling slot draws under the key folded from
+        (seed, rid, emission count) as the reference folds it, so a
+        request's stream is reproducible wherever its slot lands and
+        equals the reference's.  The keys are made on the host (a few
+        integer operations a slot); the noise is drawn on the device."""
         sel = [state["samp"][j] for j in js]
         if not any(s[0] > 0 for s in sel):
             return torch.argmax(logits, dim=-1)
@@ -235,10 +262,11 @@ class LMBackend:
                              device=dev)
         topks = torch.tensor([s[1] for s in sel], dtype=torch.int64,
                              device=dev)
-        gens = [torch.Generator().manual_seed(zlib.crc32(
-            f"{self.sample_seed}:{s[2] & 0x7FFFFFFF}:{s[3]}".encode()))
-            if s[0] > 0 else None for s in sel]
-        toks = _sample_tokens(logits, temps, topks, gens)
+        base = threefry.prng_key(self.sample_seed)
+        keys = torch.tensor([threefry.fold_in(
+            threefry.fold_in(base, s[2] & 0x7FFFFFFF), s[3]) for s in sel],
+            dtype=torch.int64, device=dev)
+        toks = _sample_tokens(logits, temps, topks, keys)
         for s in sel:
             s[3] += 1
         return toks
@@ -270,8 +298,8 @@ class LMBackend:
     def reset(self, req: Request) -> None:
         """Clear partial progress before a fault-displaced re-serve.  A
         greedy stream regenerates bit for bit; a sampling stream too, since
-        its generators are seeded from (seed, rid, emission count) and the
-        count restarts at 0 with the request."""
+        its keys fold (seed, rid, emission count) and the count restarts
+        at 0 with the request."""
         req.out.clear()
 
     def bucket_key(self, req: Request) -> int:
@@ -313,17 +341,22 @@ class LMBackend:
         """One decode step on the card: replay the (width, capacity) graph
         with this step's tokens and position, capturing it first over the
         backend's caches.  The capture's warm-up runs the same step
-        eagerly: it writes the same K/V rows that the replay then writes
-        again.  Returns the graph's static logits."""
+        eagerly and advances the caches (a recurrent state would then
+        take this step twice), so the caches are copied before it and
+        put back after, and the first replay takes the step once.
+        Returns the graph's static logits."""
         width = int(state["nxt"].shape[0])
         key = (width, self.capacity)
         g = self.graphs.get(key)
         if g is None:
             caches = self.caches[width]
+            saved = _tree_clone(caches)
             tokens = state["nxt"].clone()
             p = torch.full((), pos, dtype=torch.int64, device=self.device)
             graph, logits = capture(lambda: tfm.decode_step(
                 self.params, caches, tokens, p, self.cfg)[0])
+            _tree_copy(caches, saved)
+            del saved
             g = self.graphs[key] = _DecodeGraph(graph, tokens, p, logits)
         else:
             g.tokens.copy_(state["nxt"])
@@ -383,7 +416,8 @@ class Server:
     """Batched LM serving: prefill/decode behind the lockstep scheduler.
 
     Weights are initialized from ``seed`` in the config's dtype on
-    ``device`` (CUDA by default), or taken as given (``params``, e.g. the
+    ``device`` (CUDA by default; on the card drawn there by a CUDA
+    generator), or taken as given (``params``, e.g. the
     reference's through `repro_torch.params.params_from_numpy`).
     """
 
@@ -397,7 +431,8 @@ class Server:
         self.capacity = capacity
         self.device = resolve_device(device)
         self.params = params if params is not None else init_params(
-            tfm.lm_schema(cfg), seed, dtype=cfg.dtype, device=self.device)
+            tfm.lm_schema(cfg), seed, dtype=cfg.dtype, device=self.device,
+            draw_on_device=True)
         self.backend = LMBackend(cfg, self.params, capacity=capacity,
                                  eos_id=eos_id, len_bucket=len_bucket,
                                  device=self.device)

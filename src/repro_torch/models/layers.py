@@ -4,20 +4,26 @@ A model's schema is a nested dict (or list) whose leaves are `P` entries
 (shape, logical axes, init law); `init_params` turns it into the same
 nesting of tensors.  The laws are the reference's `_leaf_init`: ``normal``
 draws N(0, 1) scaled by fan_in^-1/2, ``embed`` by shape[-1]^-1/2,
-``zeros`` / ``ones`` are constant.  Each leaf draws from its own
-`torch.Generator`, seeded from the run's seed and a CRC of the leaf's
-path, on the CPU — so the weights do not depend on the device and no
-leaf's draw depends on another's.  A leaf with a leading ``stack`` axis
-(`stack`) draws each slice of that axis from its own generator (seed,
-path, index) and moves it to the device before the next is drawn, so host
-memory holds one layer's slice at a time, not the whole stack (Qwen1.5-4B's
-stacked ``wi`` is 1.4 G values).  (The numbers differ from the JAX
-package's; tests that need both sides equal hand the same numpy weights to
-both.)
+``zeros`` / ``ones`` are constant, ``a_log`` is Mamba's A init (each row
+log(1..N), so A_n = -(n + 1)).  Each leaf draws from its own generator,
+seeded from the run's seed and a CRC of the leaf's path, so no leaf's
+draw depends on another's.  That is a CPU `torch.Generator`, so the
+weights do not depend on the device, unless the caller asks to draw on
+the device (``draw_on_device``, the LM `Server`: a 14 B-parameter tree
+drawn on the host would take minutes): a CUDA generator with the same
+seed then draws on the card, and the card's weights differ from the
+CPU's for the same seed.  A leaf with a leading
+``stack`` axis (`stack`) draws each slice of that axis from its own
+generator (seed, path, index), so host memory holds one layer's slice at
+a time, not the whole stack.  (The numbers differ from the JAX package's;
+tests that need both sides equal hand the same numpy weights to both.)
 
 The layers are the reference's `rms_norm`, `rope`, `dense`, `mlp_schema`
 and `mlp_apply`, with its precision: norms, rotary angles and activations
 in f32, matmuls accumulated in f32 and returned in the input's dtype.
+`matmul_f32` and `dense_f32` keep a product's f32 sum as it is, for the
+reference's products that stay in f32 (``preferred_element_type=f32``
+without a cast back).
 """
 from __future__ import annotations
 
@@ -30,8 +36,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.device import resolve_device
 
-__all__ = ["P", "init_params", "stack", "rms_norm", "dense", "rope",
-           "mlp_schema", "mlp_apply"]
+__all__ = ["P", "init_params", "stack", "rms_norm", "dense", "dense_f32",
+           "matmul_f32", "rope", "mlp_schema", "mlp_apply"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +46,7 @@ class P:
 
     shape: tuple
     axes: tuple  # logical axis name (or None) per dim
-    init: str = "normal"  # 'normal' | 'embed' | 'zeros' | 'ones'
+    init: str = "normal"  # 'normal' | 'embed' | 'zeros' | 'ones' | 'a_log'
     fan_in: int | None = None  # scaled normal: std = 1/sqrt(fan_in)
     dtype: Any = None  # None -> the init_params default
 
@@ -49,12 +55,22 @@ class P:
             raise ValueError(f"shape {self.shape} vs axes {self.axes}")
 
 
-def _draw(p: P, shape: tuple, key: str, dtype: torch.dtype) -> torch.Tensor:
-    """One tensor of law ``p.init`` and ``shape``, on the CPU."""
+_DRAW_CHUNK = 1 << 26
+
+
+def _draw(p: P, shape: tuple, key: str, dtype: torch.dtype,
+          device: torch.device | None = None) -> torch.Tensor:
+    """One tensor of law ``p.init`` and ``shape``, drawn on ``device``
+    (the CPU by default)."""
+    dev = torch.device("cpu") if device is None else device
     if p.init == "zeros":
-        return torch.zeros(shape, dtype=dtype)
+        return torch.zeros(shape, dtype=dtype, device=dev)
     if p.init == "ones":
-        return torch.ones(shape, dtype=dtype)
+        return torch.ones(shape, dtype=dtype, device=dev)
+    if p.init == "a_log":  # Mamba A init: A_n = -(n+1), stored as log
+        row = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                                     device=dev))
+        return row.expand(shape).to(dtype).contiguous()
     if p.init == "embed":
         std = p.shape[-1] ** -0.5
     elif p.init == "normal":
@@ -63,33 +79,48 @@ def _draw(p: P, shape: tuple, key: str, dtype: torch.dtype) -> torch.Tensor:
     else:
         raise NotImplementedError(f"init law {p.init!r} belongs to a later "
                                   f"slice of the LM arm")
-    # the CPU generator keeps 32 bits of its seed: hash seed and path into 32
-    gen = torch.Generator().manual_seed(zlib.crc32(key.encode()))
-    return (std * torch.randn(shape, generator=gen,
-                              dtype=torch.float32)).to(dtype)
+    # the generator keeps 32 bits of its seed: hash seed and path into 32
+    gen = torch.Generator(device=dev).manual_seed(zlib.crc32(key.encode()))
+    if dev.type == "cpu":
+        return (std * torch.randn(shape, generator=gen,
+                                  dtype=torch.float32)).to(dtype)
+    # on the card, f32 draws of at most _DRAW_CHUNK values at a time, in
+    # order, into the output (a Kimi-K2 expert slice is 11 G values)
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    flat = out.view(-1)
+    for a in range(0, flat.numel(), _DRAW_CHUNK):
+        n = min(_DRAW_CHUNK, flat.numel() - a)
+        flat[a:a + n] = std * torch.randn(n, generator=gen,
+                                          dtype=torch.float32, device=dev)
+    return out
 
 
 def _leaf_init(p: P, seed: int, path: str, default_dtype: torch.dtype,
-               device: torch.device) -> torch.Tensor:
+               device: torch.device, on_device: bool) -> torch.Tensor:
     dtype = p.dtype or default_dtype
     key = f"{seed}:{path}"
+    at = device if on_device and device.type == "cuda" else None
     if not p.axes or p.axes[0] != "stack":
-        return _draw(p, p.shape, key, dtype).to(device)
+        return _draw(p, p.shape, key, dtype, at).to(device)
     out = torch.empty(p.shape, dtype=dtype, device=device)
     for i in range(p.shape[0]):
-        out[i] = _draw(p, p.shape[1:], f"{key}:{i}", dtype)
+        out[i] = _draw(p, p.shape[1:], f"{key}:{i}", dtype, at)
     return out
 
 
 def init_params(schema: Any, seed: int = 0, *,
                 dtype: torch.dtype = torch.float32,
-                device: str | torch.device | None = None) -> Any:
-    """Deterministic init of a schema on ``device`` (CUDA by default)."""
+                device: str | torch.device | None = None,
+                draw_on_device: bool = False) -> Any:
+    """Deterministic init of a schema on ``device`` (CUDA by default).
+    With ``draw_on_device`` a CUDA device draws its own numbers (the LM
+    servers: billions of values); otherwise every value is the CPU law's,
+    whatever the device."""
     dev = resolve_device(device)
 
     def walk(node: Any, path: str) -> Any:
         if isinstance(node, P):
-            return _leaf_init(node, seed, path, dtype, dev)
+            return _leaf_init(node, seed, path, dtype, dev, draw_on_device)
         if isinstance(node, list):
             return [walk(v, f"{path}[{i}]") for i, v in enumerate(node)]
         return {k: walk(v, f"{path}[{k!r}]") for k, v in node.items()}
@@ -125,6 +156,28 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     reference's ``preferred_element_type=f32`` then ``astype`` does.
     """
     return torch.tensordot(x, w, dims=([x.ndim - 1], [0])).to(x.dtype)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., K) @ b (K, N), or a batched (E, M, K) @ (E, K, N), summed
+    in f32 and returned in f32.  On the card bf16 or f16 operands go into
+    one ``mm`` / ``bmm`` with an f32 output (``out_dtype``), so no f32
+    copy of the weight is made; elsewhere both are taken to f32, the same
+    function."""
+    if a.device.type == "cuda" and a.dtype == b.dtype != torch.float32:
+        if b.ndim == 3:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return y.reshape(*a.shape[:-1], b.shape[-1])
+    return torch.matmul(a.float(), b.float())
+
+
+def dense_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, ...out) -> (..., *out) in f32: `dense` without
+    the cast back."""
+    out = w.shape[1:]
+    y = matmul_f32(x, w.reshape(w.shape[0], -1))
+    return y.reshape(*x.shape[:-1], *out)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, *,

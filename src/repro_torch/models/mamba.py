@@ -1,0 +1,139 @@
+"""Mamba (S6 selective SSM): the Jamba hybrid's recurrent mixer.
+
+The port of `repro/models/mamba.py`.  d_inner = 2 * d_model, state size
+16, a causal depthwise conv of width 4, dt rank ceil(d_model / 16).  The
+in/out projections sum in f32 and round to the activations' dtype; the
+conv output, dt, B, C, the state and the scan are f32, as in the
+reference.  Where the reference runs a chunked `lax.scan` over the
+sequence, the port runs a plain loop over T of the same step; no kernel
+computes this scan in the JAX package, so none is written here.
+
+Caches (per layer): ``conv`` (B, 3, d_inner), the last three conv
+inputs, in the cache dtype, and ``ssm`` (B, d_inner, 16) in f32.  Decode
+updates both in place and returns the same tensors.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .layers import P, dense_f32, matmul_f32
+
+__all__ = ["mamba_schema", "mamba_apply", "init_mamba_cache"]
+
+D_STATE = 16
+D_CONV = 4
+
+
+def _dims(cfg) -> tuple[int, int]:
+    d_in = 2 * cfg.d_model
+    dt_rank = -(-cfg.d_model // 16)
+    return d_in, dt_rank
+
+
+def mamba_schema(cfg) -> dict:
+    d = cfg.d_model
+    d_in, dt_rank = _dims(cfg)
+    return {
+        "in_proj": P((2, d, d_in), (None, "fsdp", "ff"), fan_in=d),
+        "conv_w": P((D_CONV, d_in), (None, "ff"), fan_in=D_CONV),
+        "conv_b": P((d_in,), ("ff",), init="zeros"),
+        "x_proj": P((d_in, dt_rank + 2 * D_STATE), ("ff", None), fan_in=d_in),
+        "dt_proj": P((dt_rank, d_in), (None, "ff"), fan_in=dt_rank),
+        "dt_bias": P((d_in,), ("ff",), init="zeros"),
+        "a_log": P((d_in, D_STATE), ("ff", None), init="a_log"),
+        "d_skip": P((d_in,), ("ff",), init="ones"),
+        "out_proj": P((d_in, d), ("ff", "fsdp"), fan_in=d_in),
+    }
+
+
+def init_mamba_cache(cfg, batch: int, dtype: torch.dtype,
+                     device: torch.device) -> dict:
+    d_in, _ = _dims(cfg)
+    return {
+        "conv": torch.zeros((batch, D_CONV - 1, d_in), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, d_in, D_STATE), dtype=torch.float32,
+                           device=device),
+    }
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as the reference's logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _ssm_inputs(params: dict, xc: torch.Tensor, cfg
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """xc (B, T, d_in) post-conv activations -> (dt, B_ssm, C_ssm), f32."""
+    _, dt_rank = _dims(cfg)
+    proj = matmul_f32(xc, params["x_proj"])
+    dt_raw = proj[..., :dt_rank]
+    b_ssm = proj[..., dt_rank:dt_rank + D_STATE]
+    c_ssm = proj[..., dt_rank + D_STATE:]
+    dt = _softplus(dt_raw @ params["dt_proj"].float()
+                   + params["dt_bias"].float())
+    return dt, b_ssm, c_ssm
+
+
+def _scan_step(a_neg: torch.Tensor, h: torch.Tensor, xc: torch.Tensor,
+               dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """h_t = exp(dt A) h_{t-1} + dt B x_t ; y_t = <h_t, C_t> per channel.
+    xc, dt (B, d_in); b, c (B, N); h (B, d_in, N)."""
+    da = torch.exp(dt[..., None] * a_neg[None])             # (B, d_in, N)
+    dbx = (dt * xc.float())[..., None] * b[:, None, :]
+    h = da * h + dbx
+    y = torch.einsum("bin,bn->bi", h, c)                    # (B, d_in)
+    return h, y
+
+
+def mamba_apply(params: dict, x: torch.Tensor, cfg, *,
+                cache: dict | None = None, decode: bool = False,
+                prefill: bool = False) -> tuple[torch.Tensor, dict | None]:
+    """x (B, T, D) -> (out (B, T, D), new_cache)."""
+    b, t, _ = x.shape
+    d_in, _ = _dims(cfg)
+    x_in = dense_f32(x, params["in_proj"][0]).to(x.dtype)
+    z = dense_f32(x, params["in_proj"][1]).to(x.dtype)
+    a_neg = -torch.exp(params["a_log"].float())
+    conv_b = params["conv_b"].float()
+
+    if decode:
+        if cache is None:
+            raise ValueError("decode needs the cache")
+        # causal depthwise conv over (cached tail ++ current token)
+        window = torch.cat([cache["conv"].to(x_in.dtype), x_in], dim=1)
+        xc = torch.einsum("bki,ki->bi", window.float(),
+                          params["conv_w"].float())
+        xc = F.silu(xc + conv_b)[:, None, :].to(x.dtype)      # (B, 1, d_in)
+        dt, b_ssm, c_ssm = _ssm_inputs(params, xc, cfg)
+        h, y = _scan_step(a_neg, cache["ssm"], xc[:, 0], dt[:, 0],
+                          b_ssm[:, 0], c_ssm[:, 0])
+        cache["ssm"].copy_(h)
+        cache["conv"].copy_(window[:, 1:])
+        y = y[:, None, :]
+        new_cache = cache
+    else:
+        weight = params["conv_w"].to(x.dtype).t()[:, None, :]  # (d_in, 1, K)
+        xc = F.conv1d(F.pad(x_in.transpose(1, 2), (D_CONV - 1, 0)), weight,
+                      groups=d_in).transpose(1, 2)
+        xc = F.silu(xc.float() + conv_b).to(x.dtype)
+        dt, b_ssm, c_ssm = _ssm_inputs(params, xc, cfg)
+        h = torch.zeros((b, d_in, D_STATE), dtype=torch.float32,
+                        device=x.device)
+        ys = []
+        for i in range(t):
+            h, y_i = _scan_step(a_neg, h, xc[:, i], dt[:, i], b_ssm[:, i],
+                                c_ssm[:, i])
+            ys.append(y_i)
+        y = torch.stack(ys, dim=1)                           # (B, T, d_in)
+        new_cache = None
+        if prefill:  # persist the conv tail and the final ssm state
+            tail = x_in[:, -(D_CONV - 1):, :]
+            new_cache = {"conv": tail.to(cfg.cache_dtype), "ssm": h}
+
+    y = y.float() + params["d_skip"].float() * x_in.float()
+    y = (y * F.silu(z.float())).to(x.dtype)
+    out = dense_f32(y, params["out_proj"]).to(x.dtype)
+    return out, new_cache

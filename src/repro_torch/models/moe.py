@@ -1,0 +1,163 @@
+"""Mixture-of-experts FFN: top-k routing, capacity packing, the combine.
+
+The port of `repro/models/moe.py` for one device (the reference's
+``ctx is None`` path; the port has no mesh).  Every token's router
+logits pick its ``top_k`` experts (dead padding experts never win: their
+logits are -1e30); the (token, expert) assignments are sorted by expert,
+stably, and each expert takes the first ``capacity`` of its own, so an
+over-capacity token is dropped from that expert as the reference drops
+it (Switch semantics).  The packed (E, C, D) buffer runs through every
+expert's FFN as one batched product, and each token's outputs come back
+weighted by its normalized router probability.
+
+Everything stays on the device with static shapes: no host sync, no
+boolean-mask indexing, no ``nonzero``, so a decode step that routes
+through it can be captured as a CUDA graph.  The reference's
+``.at[slot].set(mode="drop")`` becomes a scatter into one spare slot
+past the end of the buffer, sliced off.  `lax.top_k` breaks ties by the
+lower index: a stable descending sort does the same.
+
+The combine reads, for each (token, j) assignment, its slot's output (a
+zero row where the assignment was dropped) and sums the ``top_k`` of a
+token in f32 in a fixed order: a gather and a reduction, no atomics, so
+the same inputs give the same bits on every launch (the reference's
+scatter-add of slot outputs into token rows sums the same terms).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .layers import P, matmul_f32
+
+__all__ = ["MoEConfig", "moe_schema", "moe_apply", "route_and_pack",
+           "capacity"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int
+    capacity_factor: float = 1.25
+    n_shared: int = 0  # shared-expert width multiplier (kimi-k2: 1)
+    aux_weight: float = 0.01
+
+    def padded_experts(self, tp: int) -> int:
+        return -(-self.n_experts // tp) * tp
+
+
+def moe_schema(d_model: int, moe: MoEConfig, *, gated: bool,
+               tp_hint: int = 16) -> dict:
+    ep = moe.padded_experts(tp_hint)
+    f = moe.d_ff
+    s = {
+        "router": P((d_model, ep), ("fsdp", None), fan_in=d_model),
+        "wo": P((ep, f, d_model), ("expert", "fsdp", None), fan_in=f),
+    }
+    if gated:
+        s["wi"] = P((2, ep, d_model, f), (None, "expert", None, "fsdp"),
+                    fan_in=d_model)
+    else:
+        s["wi"] = P((ep, d_model, f), ("expert", None, "fsdp"),
+                    fan_in=d_model)
+    return s
+
+
+def capacity(tokens: int, moe: MoEConfig) -> int:
+    """Slots per expert for a wave of ``tokens`` tokens (the reference's
+    `_capacity`): ceil(tokens * top_k / n_experts * capacity_factor),
+    rounded up to a multiple of 8, at least 8."""
+    c = math.ceil(tokens * moe.top_k / moe.n_experts * moe.capacity_factor)
+    return max(8, -(-c // 8) * 8)
+
+
+@dataclasses.dataclass
+class Routing:
+    """One wave's routing.  Slot i of the (E * C) buffer reads token
+    ``slot_tok[i]`` with combine weight ``slot_w[i]`` (token 0 and weight
+    0 where the slot is empty); ``slot_of[n * top_k + j]`` is the slot of
+    token n's j-th choice, or E * C where that choice was dropped."""
+
+    slot_tok: torch.Tensor   # (E * C,) int64
+    slot_w: torch.Tensor     # (E * C,) f32
+    slot_of: torch.Tensor    # (N * top_k,) int64
+    aux: torch.Tensor        # () f32, the switch load-balance loss
+
+
+def route_and_pack(xf: torch.Tensor, router: torch.Tensor, moe: MoEConfig,
+                   cap: int) -> Routing:
+    """Top-k routing of xf (N, D) over the router's ep (padded) experts,
+    packed into ``cap`` slots per expert (the reference's
+    `_route_and_pack` with every expert local)."""
+    n = xf.shape[0]
+    ep = router.shape[1]
+    k = moe.top_k
+    dev = xf.device
+    logits = xf.float() @ router.float()
+    if ep != moe.n_experts:  # dead padding experts never win top-k
+        live = torch.arange(ep, device=dev) < moe.n_experts
+        logits = torch.where(live, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    # top-k with ties to the lower index, as the reference's top_k
+    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, topi = topw[:, :k], topi[:, :k]
+    topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
+
+    nk = n * k
+    ids = topi.reshape(-1)
+    wts = topw.reshape(-1)
+    ids_s, order = torch.sort(ids, stable=True)
+    starts = torch.searchsorted(ids_s, torch.arange(ep, device=dev))
+    pos = torch.arange(nk, device=dev) - starts[ids_s]
+    spare = ep * cap
+    slot = torch.where(pos < cap, ids_s * cap + pos, spare)
+    slot_tok = torch.zeros(spare + 1, dtype=torch.int64, device=dev)
+    slot_tok.scatter_(0, slot, order // k)
+    slot_w = torch.zeros(spare + 1, dtype=torch.float32, device=dev)
+    slot_w.scatter_(0, slot, wts[order])
+    slot_of = torch.empty(nk, dtype=torch.int64, device=dev)
+    slot_of.scatter_(0, order, slot)
+
+    # switch-style load-balance loss
+    ends = torch.cat([starts[1:], starts.new_full((1,), nk)])
+    frac = (ends - starts).float() / nk
+    aux = moe.n_experts * torch.sum(frac * probs.mean(0))
+    return Routing(slot_tok[:spare], slot_w[:spare], slot_of, aux)
+
+
+def _expert_ffn(xbuf: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor, *,
+                gated: bool, activation_fn) -> torch.Tensor:
+    """xbuf (E, C, D) through every expert's FFN: (E, C, D) in its dtype.
+    The products sum in f32; the gate and up stay f32 through the
+    activation, as the reference's ``preferred_element_type=f32``."""
+    dt = xbuf.dtype
+    if gated:
+        gate = matmul_f32(xbuf, wi[0])
+        up = matmul_f32(xbuf, wi[1])
+        h = activation_fn(gate).to(dt) * up.to(dt)
+    else:
+        h = activation_fn(matmul_f32(xbuf, wi)).to(dt)
+    return matmul_f32(h, wo).to(dt)
+
+
+def moe_apply(params: dict, x: torch.Tensor, moe: MoEConfig, *,
+              gated: bool, activation_fn=F.silu
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, T, D) -> (y (B, T, D), aux), with capacity from the wave's
+    B * T tokens."""
+    b, t, d = x.shape
+    router, wi, wo = params["router"], params["wi"], params["wo"]
+    ep = router.shape[1]
+    cap = capacity(b * t, moe)
+    xf = x.reshape(b * t, d)
+    r = route_and_pack(xf, router, moe, cap)
+    xbuf = xf[r.slot_tok].reshape(ep, cap, d)
+    ybuf = _expert_ffn(xbuf, wi, wo, gated=gated, activation_fn=activation_fn)
+    yflat = ybuf.reshape(ep * cap, d) * r.slot_w[:, None].to(ybuf.dtype)
+    ypad = torch.cat([yflat, yflat.new_zeros((1, d))])
+    y = ypad[r.slot_of].reshape(b * t, moe.top_k, d).float().sum(1)
+    return y.to(x.dtype).reshape(b, t, d), r.aux

@@ -1,28 +1,39 @@
 """Pattern-based LM stack: segments of repeated homogeneous layer groups.
 
-The port of `repro/models/transformer.py` for attention + MLP layers.  An
-architecture is a list of `Segment`s; each repeats a tuple of `LayerSpec`s
-(mixer x ffn x window), and its params (and caches) are stacked on a
-leading axis of size ``repeat``, with the reference's nesting — so the
-weights bridge maps the reference's tree one to one.  Where the reference
-runs `lax.scan` over that axis, the port runs a Python loop and indexes
-the stacked tensors (views, not copies).
+The port of `repro/models/transformer.py`.  An architecture is a list of
+`Segment`s; each repeats a tuple of `LayerSpec`s (mixer x ffn x window):
+mixers ``attn`` (`attention`), ``mamba`` (`mamba`) and ``rwkv_tm``
+(`rwkv`), FFNs ``mlp``, ``moe`` (`moe`, with the shared expert
+``ffn_shared`` where the config has one) and ``rwkv_cm``.  A segment's
+params (and caches) are stacked on a leading axis of size ``repeat``,
+with the reference's nesting — so the weights bridge maps the
+reference's tree one to one.  Where the reference runs `lax.scan` over
+that axis, the port runs a Python loop and indexes the stacked tensors
+(views, not copies).  Each layer returns the MoE load-balance loss
+``aux`` (0 without a MoE), summed over the stack as the reference sums
+it.
 
 Modes:
   train   — full-sequence forward (no caches)
-  prefill — forward + populated decode caches
+  prefill — forward + populated decode caches (attention K/V, the
+            recurrent mixers' states)
   decode  — one token through the caches at position ``pos`` (a 0-d
             int64 tensor on the device, so one CUDA graph serves every
-            step); the port updates the caches in place and returns the
+            step); the port updates every cache in place and returns the
             same tree
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .attention import (attention_apply, attn_schema, decode_position,
                         init_kv_cache)
-from .layers import P, mlp_apply, mlp_schema, rms_norm, stack
+from .layers import P, matmul_f32, mlp_apply, mlp_schema, rms_norm, stack
+from .mamba import init_mamba_cache, mamba_apply, mamba_schema
+from .moe import moe_apply, moe_schema
+from .rwkv import (init_rwkv_cm_cache, init_rwkv_tm_cache, rwkv_channel_mix,
+                   rwkv_cm_schema, rwkv_time_mix, rwkv_tm_schema)
 
 __all__ = ["lm_schema", "layer_schema", "init_cache", "apply_layer",
            "forward_hidden", "embed_tokens", "unembed_matrix", "lm_apply",
@@ -34,15 +45,40 @@ __all__ = ["lm_schema", "layer_schema", "init_cache", "apply_layer",
 # ---------------------------------------------------------------------------
 
 
+def _gated(cfg) -> bool:
+    return cfg.activation in ("swiglu", "geglu")
+
+
+def _act_fn(cfg):
+    if cfg.activation == "swiglu":
+        return F.silu
+    return lambda g: F.gelu(g, approximate="tanh")
+
+
+_MIXER_SCHEMAS = {"attn": attn_schema, "mamba": mamba_schema,
+                  "rwkv_tm": rwkv_tm_schema}
+
+
 def layer_schema(spec, cfg) -> dict:
     d = cfg.d_model
     s = {}
     if spec.mixer != "none":
         s["ln1"] = P((d,), (None,), init="zeros")
-        s["mix"] = attn_schema(cfg)
+        s["mix"] = _MIXER_SCHEMAS[spec.mixer](cfg)
     if spec.ffn != "none":
         s["ln2"] = P((d,), (None,), init="zeros")
-        s["ffn"] = mlp_schema(d, cfg.d_ff, cfg.activation)
+        if spec.ffn == "mlp":
+            s["ffn"] = mlp_schema(d, cfg.d_ff, cfg.activation)
+        elif spec.ffn == "moe":
+            s["ffn"] = moe_schema(d, cfg.moe, gated=_gated(cfg),
+                                  tp_hint=cfg.tp_hint)
+            if cfg.moe.n_shared:
+                s["ffn_shared"] = mlp_schema(
+                    d, cfg.moe.d_ff * cfg.moe.n_shared, cfg.activation)
+        elif spec.ffn == "rwkv_cm":
+            s["ffn"] = rwkv_cm_schema(cfg)
+        else:
+            raise ValueError(spec.ffn)
     return s
 
 
@@ -72,21 +108,29 @@ def _stacked(tree: dict, n: int) -> dict:
     return {k: _stacked(v, n) for k, v in tree.items()}
 
 
+def _slot_cache(spec, cfg, batch: int, capacity: int, dtype: torch.dtype,
+                device: torch.device) -> dict:
+    slot = {}
+    if spec.mixer == "attn":
+        cap = min(capacity, spec.window) if spec.window else capacity
+        slot["mix"] = init_kv_cache(cfg, batch, cap, dtype, device)
+    elif spec.mixer == "mamba":
+        slot["mix"] = init_mamba_cache(cfg, batch, dtype, device)
+    elif spec.mixer == "rwkv_tm":
+        slot["mix"] = init_rwkv_tm_cache(cfg, batch, dtype, device)
+    if spec.ffn == "rwkv_cm":
+        slot["ffn"] = init_rwkv_cm_cache(cfg, batch, dtype, device)
+    return slot
+
+
 def init_cache(cfg, batch: int, capacity: int, device: torch.device,
                dtype: torch.dtype | None = None) -> list:
     """Decode caches: one stacked tree per segment (leading dim = repeat)."""
     dtype = dtype or cfg.cache_dtype
-    caches = []
-    for seg in cfg.segments:
-        group = {}
-        for i, sp in enumerate(seg.layers):
-            slot = {}
-            if sp.mixer == "attn":
-                cap = min(capacity, sp.window) if sp.window else capacity
-                slot["mix"] = init_kv_cache(cfg, batch, cap, dtype, device)
-            group[f"l{i}"] = slot
-        caches.append(_stacked(group, seg.repeat))
-    return caches
+    return [_stacked({f"l{i}": _slot_cache(sp, cfg, batch, capacity, dtype,
+                                           device)
+                      for i, sp in enumerate(seg.layers)}, seg.repeat)
+            for seg in cfg.segments]
 
 
 # ---------------------------------------------------------------------------
@@ -97,25 +141,52 @@ def init_cache(cfg, batch: int, capacity: int, device: torch.device,
 def apply_layer(p: dict, h: torch.Tensor, spec, cfg, *, mode: str,
                 cache: dict | None = None,
                 pos: torch.Tensor | int | None = None,
-                capacity: int | None = None) -> tuple[torch.Tensor, dict]:
-    """One (mixer, ffn) residual layer. Returns (h, new_cache)."""
+                capacity: int | None = None
+                ) -> tuple[torch.Tensor, dict, torch.Tensor]:
+    """One (mixer, ffn) residual layer. Returns (h, new_cache, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     new_cache = {}
     cache = cache or {}
+    decode = mode == "decode"
+    prefill = mode == "prefill"
     if spec.mixer != "none":
         inp = rms_norm(h, p["ln1"])
-        cap = None
-        if mode == "prefill":
-            cap = min(capacity, spec.window) if spec.window else capacity
-        out, nc = attention_apply(
-            p["mix"], inp, cfg, window=spec.window, cache=cache.get("mix"),
-            pos=pos, decode=mode == "decode", cache_capacity=cap)
+        if spec.mixer == "attn":
+            cap = None
+            if prefill:
+                cap = min(capacity, spec.window) if spec.window else capacity
+            out, nc = attention_apply(
+                p["mix"], inp, cfg, window=spec.window,
+                cache=cache.get("mix"), pos=pos, decode=decode,
+                cache_capacity=cap)
+        elif spec.mixer == "mamba":
+            out, nc = mamba_apply(p["mix"], inp, cfg, cache=cache.get("mix"),
+                                  decode=decode, prefill=prefill)
+        else:  # rwkv_tm
+            out, nc = rwkv_time_mix(p["mix"], inp, cfg,
+                                    cache=cache.get("mix"), decode=decode,
+                                    prefill=prefill)
         h = h + out
         if nc is not None:
             new_cache["mix"] = nc
     if spec.ffn != "none":
         inp = rms_norm(h, p["ln2"])
-        h = h + mlp_apply(p["ffn"], inp, activation=cfg.activation)
-    return h, new_cache
+        if spec.ffn == "mlp":
+            out = mlp_apply(p["ffn"], inp, activation=cfg.activation)
+        elif spec.ffn == "moe":
+            out, aux = moe_apply(p["ffn"], inp, cfg.moe, gated=_gated(cfg),
+                                 activation_fn=_act_fn(cfg))
+            if cfg.moe.n_shared:
+                out = out + mlp_apply(p["ffn_shared"], inp,
+                                      activation=cfg.activation)
+        else:  # rwkv_cm
+            out, nc = rwkv_channel_mix(p["ffn"], inp, cfg,
+                                       cache=cache.get("ffn"), decode=decode,
+                                       prefill=prefill)
+            if nc is not None:
+                new_cache["ffn"] = nc
+        h = h + out
+    return h, new_cache, aux
 
 
 def _index(tree, r: int):
@@ -138,13 +209,14 @@ def forward_hidden(params: dict, x: torch.Tensor, cfg, *, mode: str = "train",
                    caches: list | None = None,
                    pos: torch.Tensor | int | None = None,
                    capacity: int | None = None
-                   ) -> tuple[torch.Tensor, list]:
-    """x (B, T, D) embeddings -> (h, caches).  Prefill fills ``caches``
-    in place when given (caches the caller owns, as `init_cache` makes
-    them; every slot is overwritten), else fresh ones; decode updates
-    ``caches`` in place."""
+                   ) -> tuple[torch.Tensor, list, torch.Tensor]:
+    """x (B, T, D) embeddings -> (h, caches, aux).  Prefill fills
+    ``caches`` in place when given (caches the caller owns, as
+    `init_cache` makes them; every slot is overwritten), else fresh ones;
+    decode updates ``caches`` in place."""
     h = x
     out_caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "prefill" and caches is None:
         caches = init_cache(cfg, x.shape[0], capacity, x.device)
     for si, seg in enumerate(cfg.segments):
@@ -154,15 +226,16 @@ def forward_hidden(params: dict, x: torch.Tensor, cfg, *, mode: str = "train",
             p_group = _index(p_seg, r)
             for i, sp in enumerate(seg.layers):
                 key = f"l{i}"
-                h, nc = apply_layer(
+                h, nc, a = apply_layer(
                     p_group[key], h, sp, cfg, mode=mode,
                     cache=_index(c_seg[key], r) if mode == "decode" else None,
                     pos=pos, capacity=capacity)
+                aux = aux + a
                 if mode == "prefill":
                     _store(c_seg[key], nc, r)
         out_caches.append(c_seg)
     h = rms_norm(h, params["final_norm"])
-    return h, out_caches
+    return h, out_caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -186,21 +259,15 @@ def unembed_matrix(params: dict, cfg) -> torch.Tensor:
 
 def _logits(h: torch.Tensor, params: dict, cfg) -> torch.Tensor:
     """(B, T, D) -> (B, T, Vp) f32 logits, summed in f32 as the
-    reference's ``preferred_element_type=f32``.  On the card bf16 or f16
-    operands go into one ``mm`` with an f32 output (``aten::mm.dtype``):
-    no f32 copy of the unembedding.  Elsewhere both are taken to f32, the
-    same function."""
-    w = unembed_matrix(params, cfg)
-    if h.device.type == "cuda" and h.dtype == w.dtype != torch.float32:
-        y = torch.mm(h.reshape(-1, h.shape[-1]), w, out_dtype=torch.float32)
-        return y.reshape(*h.shape[:-1], w.shape[-1])
-    return torch.matmul(h.float(), w.float())
+    reference's ``preferred_element_type=f32`` (`matmul_f32`: on the card
+    no f32 copy of the unembedding)."""
+    return matmul_f32(h, unembed_matrix(params, cfg))
 
 
 def lm_apply(params: dict, batch: dict, cfg) -> torch.Tensor:
     """Plain forward to all-position logits (B, T, Vp)."""
     x = embed_tokens(params, batch["tokens"], cfg)
-    h, _ = forward_hidden(params, x, cfg, mode="train")
+    h, _, _ = forward_hidden(params, x, cfg, mode="train")
     return _logits(h, params, cfg)
 
 
@@ -220,8 +287,8 @@ def prefill(params: dict, batch: dict, cfg, *, capacity: int,
     them.
     """
     x = embed_tokens(params, batch["tokens"], cfg)
-    h, caches = forward_hidden(params, x, cfg, mode="prefill",
-                               caches=caches, capacity=capacity)
+    h, caches, _ = forward_hidden(params, x, cfg, mode="prefill",
+                                  caches=caches, capacity=capacity)
     t = h.shape[1] - 1 if logit_pos is None else logit_pos
     return _logits(h[:, t:t + 1], params, cfg)[:, 0], caches
 
@@ -237,6 +304,6 @@ def decode_step(params: dict, caches: list, tokens: torch.Tensor,
     """
     pos = decode_position(pos, tokens.device)
     x = embed_tokens(params, tokens, cfg)
-    h, caches = forward_hidden(params, x, cfg, mode="decode", caches=caches,
-                               pos=pos)
+    h, caches, _ = forward_hidden(params, x, cfg, mode="decode",
+                                  caches=caches, pos=pos)
     return _logits(h, params, cfg)[:, 0], caches

@@ -23,7 +23,6 @@ from repro.configs import get_config as ref_get_config
 from repro.models import transformer as RT
 from repro.models.layers import init_params as ref_init_params
 from repro_torch.configs import get_config, list_archs
-from repro_torch.configs.base import LayerSpec, Segment
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
@@ -82,17 +81,16 @@ def test_config_matches_the_reference(reduced):
         assert getattr(port, prop) == getattr(ref, prop), prop
     assert port.dtype == getattr(torch, str(ref.dtype))
     assert port.cache_dtype == getattr(torch, str(ref.cache_dtype))
-    assert list_archs() == ["qwen1.5-4b"]
+    assert list_archs() == ["gemma3-12b", "granite-moe-3b-a800m",
+                            "jamba-v0.1-52b", "kimi-k2-1t-a32b",
+                            "nemotron-4-340b", "phi3-medium-14b",
+                            "qwen1.5-4b", "rwkv6-3b"]
 
 
 @pytest.mark.parametrize("change", [
-    dict(moe=object()),
     dict(use_sparse_ffn=True),
     dict(bf16_flow=True),
     dict(embed_inputs=False),
-    dict(segments=(Segment(1, (LayerSpec("mamba", "mlp"),)),)),
-    dict(segments=(Segment(1, (LayerSpec("rwkv_tm", "rwkv_cm"),)),)),
-    dict(segments=(Segment(1, (LayerSpec("attn", "moe"),)),)),
 ])
 def test_unported_modules_are_refused(change):
     base = get_config("qwen1.5-4b")

@@ -185,11 +185,13 @@ def test_sampled_streams_are_reproducible_per_seed_and_rid(setup):
 def test_sample_tokens_keeps_greedy_lanes_and_top_k():
     """`_sample_tokens` on fixed logits: a temperature-0 lane is the argmax;
     top_k=2 draws only among the two largest."""
+    from repro_torch.core import threefry
     logits = torch.tensor([[0.0, 3.0, 1.0, 2.0],
                            [5.0, 0.0, 4.9, -1.0]])
     temps = torch.tensor([0.0, 50.0])
     for seed in range(20):
-        gens = [None, torch.Generator().manual_seed(seed)]
-        toks = TS._sample_tokens(logits, temps, torch.tensor([0, 2]), gens)
+        keys = torch.tensor([threefry.prng_key(seed),
+                             threefry.fold_in(threefry.prng_key(seed), 1)])
+        toks = TS._sample_tokens(logits, temps, torch.tensor([0, 2]), keys)
         assert toks[0] == 1
         assert toks[1] in (0, 2)
