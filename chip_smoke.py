@@ -17,8 +17,9 @@ repository around it, or when any phase fails.  Phases:
    instantiations (8 f32 and 8 int8 stem bodies, 10 dw), of the 42 int8
    instantiations (vsmm's 5 phase-1 and 1 phase-2 kernels, the generic
    conv body's 16 phase-1 and 2 phase-2 int8 kernels, the 8 int8 stem
-   bodies, 5 dw halo, 5 dw stack), of the 10 vsmm instantiations (f32 and
-   int8, both phases) and of the 30 generic conv body instantiations
+   bodies, 5 dw halo, 5 dw stack), of the 13 vsmm instantiations (f32,
+   bf16 and int8, both phases: f32 and bf16 share the f32 phase 2) and
+   of the 30 generic conv body instantiations
    (per layout: f32 at 128 and 64 rows x vn 128 and 64 and the general
    one; int8 the same four, split at 64 rows x vn 128 and 64, the general
    one whole and split; phase 2 f32 and int8); none of these may spill),
@@ -68,9 +69,21 @@ repository around it, or when any phase fails.  Phases:
    160 = 8 x 20 heads, T 512, hd 128, causal) in bf16 and f32, a backfill
    length (T 528), a window of 1024 at T 2048 and hd 240, a q_offset of
    512 (Tq 64 against Tk 576), a bf16 hd-64 case (BH 64, T 1024), a
-   non-causal hd 80 case and an odd length (T 33, hd 32).  bf16 runs the
-   tensor-core body, f32 the CUDA-core one; each row names its body, and
-   two launches of each case must give bit-equal outputs.
+   non-causal hd 80 case and an odd length (T 33, hd 32), and the LM
+   paths' prefill shapes (InternVL2-26B's BH 384 T 1280 hd 128 and
+   HuBERT-XLarge's non-causal BH 128 T 1000 hd 80, bf16; the sparse Qwen
+   serve's are the dense one's).  bf16 runs the tensor-core body, f32
+   the CUDA-core one; each row names its body, and two launches of each
+   case must give bit-equal outputs.
+   vsmm's bf16 branch (`vsmm_bf16_cases`): the sparse FFN's products of
+   Qwen1.5-4B (``wi``, vn 108; the merged ``wo``, vk 27) and Nemotron-4
+   at full width (tiles drawn on the card by the schema's laws), and one
+   weight pruned from a dense random matrix (K-tile ids that differ from
+   strip to strip), each at M 8 and 1024, bf16 in and f32 out: relative
+   1e-5 of its plain version, skip off bit-equal to skip on, the bf16
+   output the f32 one rounded; library = ``torch.mm`` of the bf16 input
+   and the decoded bf16 weight with an f32 output; the FLOP bound at the
+   bf16 tensor-core peak.
 3. Serve phases, one per path.  Before each, every launch count is set
    to 0; the port's ``CNNServer(cfg, batch=8, impl=...)`` serves seeded
    224x224x3 requests, every wave by CUDA-graph replay (one graph per
@@ -223,6 +236,27 @@ repository around it, or when any phase fails.  Phases:
    profiled warm serve.  RWKV-6-3B is then served sampled (temperature
    0.8, top-k 40, keys from the reference's threefry) twice: the streams
    must repeat.
+11. ``bf16_flow`` (`lm_flow_phase`), on the Qwen serve's weights and
+   capacity before they are freed: prefill logits within 2e-2 or the
+   Qwen check's bf16 noise floor of the f32-out path's, the traffic
+   served (flash 40 x prefills, one decode graph), a replay bit-equal to
+   eager, ms and device operations a decode step.
+12. The vector-sparse FFN (`LM_SPARSE`, through `lm_arch_phase`):
+   Qwen1.5-4B whole (16 requests of 497-512 tokens: one run, 8
+   backfills, at the dense Qwen serve's capacity) and Nemotron-4
+   (relu2; 2 of 96 layers, 8 requests) with ``use_sparse_ffn=True``, the
+   checks of (10), with vsmm launched exactly 3 (gated) or 2 a layer x
+   (prefills + decode steps + the decode graph's warm-up), every launch of
+   its bf16 branch; the plain path swaps both the flash kernel and vsmm
+   for their plain versions (`_plain_kernels`).
+13. The embedding-input archs (`frontend_phase`), whole: InternVL2-26B
+   (19.3 B parameters, bf16) prefills 8 x 1280 synthetic patch
+   embeddings and decodes 3 more, held against `lm_apply` over the whole
+   sequence; HuBERT-XLarge's non-causal encoder runs `lm_apply` on 8 x
+   1000 frames.  Each: flash launched once an attention layer at a held
+   shape; logits through the kernels against their plain versions within
+   the bf16 noise floor x 1.25 (or 2e-2) and, on the longest f32 prefix
+   of layers that fits, within 1e-4; ms a forward.
 
 ``kernel_ms``, ``plain_ms`` and ``library_ms`` are device time per call:
 a run of calls is captured in one CUDA graph and its replays are timed
@@ -244,7 +278,9 @@ residual read once and the output written once; the stems' zero-padded
 input channels (3 -> 8) and the FC heads' padding columns (1000 -> 1024)
 are left out of both.  For the flash kernel, FLOPs are 4 * hd per
 unmasked (query, key) pair and bytes q, k, v read once and the output
-written once.
+written once.  For vsmm's bf16 branch, FLOPs are 2 M x the stored tiles'
+elements and bytes x, the stored tiles and their ids read once and the
+f32 output written once.
 """
 from __future__ import annotations
 
@@ -940,6 +976,122 @@ def skip_cases(timer: Timer, dev, gen, act) -> None:
                  quant=quant, skip=False, **epi((BATCH, 1024), 1024))
 
 
+# The vector-sparse FFN's products at full width (`sparse_mlp_schema`,
+# density 0.235, vk 32, vn 128, tp_hint 16; ``wo`` merged over K = F):
+# arch, the FFN's label, and the M of a decode step and of a prefill
+BF16_FFN_ARCHS = ("qwen1.5-4b", "nemotron-4-340b")
+BF16_ROWS = (BATCH, 1024)
+
+
+def _bf16_case(timer: Timer, label: str, x, vs, bf16_peak: float,
+               reps: int) -> dict:
+    """vsmm's bf16 branch on (M, K) bf16 ``x`` with an f32 output (the
+    FFN's accumulator) against `vsmm_plain` on the card (relative 1e-5)
+    and ``torch.mm`` of bf16 ``x`` and the decoded bf16 weight with an f32
+    output; the skip off must give the skip on's bits and the bf16
+    output the f32 one's, rounded.  The bound: max(2 M NB S vk vn / the
+    bf16 tensor-core peak, (x, the stored tiles, idx and the f32 output
+    once) / HBM)."""
+    import torch
+    from repro_torch.core.vector_sparse import decode
+    from repro_torch.kernels.vsmm import vsmm_kernel, vsmm_plain, vsmm_plan
+
+    f32 = torch.float32
+    y = vsmm_kernel(x, vs, out_dtype=f32)
+    off = vsmm_kernel(x, vs, out_dtype=f32, skip_zero_inputs=False)
+    yb = vsmm_kernel(x, vs)
+    torch.cuda.synchronize()
+    if not torch.equal(y, off):
+        raise SystemExit(f"chip_smoke: {label}: skip off differs from on")
+    if yb.dtype != torch.bfloat16 or not torch.equal(yb, y.to(yb.dtype)):
+        raise SystemExit(f"chip_smoke: {label}: the bf16 output is not "
+                         f"the f32 output rounded")
+    del off, yb
+    w = decode(vs)
+    m, n = x.shape[0], vs.shape[1]
+    nb, s_steps, vk, vn = vs.vals.shape
+    rows, splits = vsmm_plan(m, nb, s_steps, vk, vn)
+    extra = {"skip_off_bit_equal_to_on": True,
+             "bf16_out_is_f32_out_rounded": True,
+             "skip_off_ms": _device_ms(lambda: vsmm_kernel(
+                 x, vs, out_dtype=f32, skip_zero_inputs=False), reps),
+             "rows": rows, "splits": splits, "m": m,
+             "tiles": [nb, s_steps, vk, vn],
+             "distinct_ids": bool((vs.idx != vs.idx[:1]).any())}
+    row = timer.run(
+        label, "vsmm_bf16", lambda: vsmm_kernel(x, vs, out_dtype=f32),
+        lambda: vsmm_plain(x, vs, out_dtype=f32),
+        lambda: torch.mm(x, w, out_dtype=f32),
+        flops=2 * m * vs.vals.numel(),
+        nbytes=_nbytes(x, vs.vals, vs.idx) + 4 * m * n, reps=reps,
+        peak_flops=bf16_peak, **extra)
+    del w
+    torch.cuda.empty_cache()
+    return row
+
+
+def vsmm_bf16_cases(timer: Timer, dev, bf16_peak: float) -> dict:
+    """vsmm's bf16 branch at the sparse FFN's shapes on the card: Qwen1.5-
+    4B's ``wi`` (a gate or up product, vn 108) and merged ``wo`` (vk 27),
+    Nemotron-4's ``wi`` and merged ``wo``, each at M = 8 (a decode step)
+    and 1024 (a prefill), their tiles drawn on the card by the schema's
+    laws (the ``vs_idx`` ids, the same in every strip), and one weight
+    pruned from a dense random matrix (`prune_vectors_balanced` +
+    `from_mask`: ids differing from strip to strip) at both M.  Returns
+    the rows by (arch or "pruned", "wi" or "wo merged", M)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruning import prune_vectors_balanced
+    from repro_torch.core.vector_sparse import VectorSparse, from_mask
+    from repro_torch.models.layers import init_params
+    from repro_torch.models.sparse_lm import (prepare_sparse_mlp,
+                                              sparse_mlp_schema)
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = {}
+
+    def x_for(m: int, k: int, relu2: bool):
+        x = torch.randn(m, k, generator=gen, device=dev)
+        return (torch.relu(x) ** 2 if relu2 else x).to(torch.bfloat16)
+
+    for arch in BF16_FFN_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), use_sparse_ffn=True)
+        ffn = prepare_sparse_mlp(init_params(
+            sparse_mlp_schema(cfg, cfg.sparsity), 0, dtype=torch.bfloat16,
+            device=dev, draw_on_device=True), cfg)
+        gated = ffn["wi_vals"].ndim == 5
+        wi = VectorSparse(ffn["wi_vals"][0] if gated else ffn["wi_vals"],
+                          ffn["wi_idx"][0] if gated else ffn["wi_idx"],
+                          (cfg.d_model, cfg.d_ff))
+        wo = VectorSparse(ffn["wo_csr_vals"], ffn["wo_csr_idx"],
+                          (cfg.d_ff, cfg.d_model))
+        for m in BF16_ROWS:
+            reps = 5 if m * wi.vals.numel() > 1 << 36 else 20
+            for name, vs, k, relu2 in (
+                    ("wi" + (" (gate)" if gated else ""), wi, cfg.d_model,
+                     False),
+                    ("wo merged", wo, cfg.d_ff, not gated)):
+                label = (f"vsmm bf16 {arch} sparse FFN {name} M {m} "
+                         f"{tuple(vs.vals.shape)}")
+                rows[(arch, name.split(" (")[0], m)] = _bf16_case(
+                    timer, label, x_for(m, k, relu2), vs, bf16_peak, reps)
+        del ffn, wi, wo
+        torch.cuda.empty_cache()
+    k, n, vk, vn = 2560, 6912, 32, 108
+    w = torch.randn(k, n, generator=torch.Generator().manual_seed(5))
+    pruned, mask = prune_vectors_balanced(w.numpy(), DENSITY, vk, vn)
+    vs = from_mask(torch.from_numpy(pruned).to(dev, torch.bfloat16), mask,
+                   vk, vn)
+    for m in BF16_ROWS:
+        label = (f"vsmm bf16 pruned random 2560->6912 vk 32 vn 108 M {m} "
+                 f"{tuple(vs.vals.shape)}")
+        rows[("pruned", "wi", m)] = _bf16_case(
+            timer, label, x_for(m, k, False), vs, bf16_peak, 20)
+    return rows
+
+
 # label, BH, Tq, Tk, hd, causal, window, q_offset, dtype
 FLASH_CASES = [
     ("Qwen admission prefill BH 160 T 512 hd 128 causal bf16", 160, 512,
@@ -986,6 +1138,12 @@ FLASH_CASES = [
      128, 112, True, None, 0, "bfloat16"),
     ("Nemotron-4 admission prefill BH 768 T 128 hd 192 causal bf16", 768,
      128, 128, 192, True, None, 0, "bfloat16"),
+    # the embedding-input forwards (`frontend_phase`): InternVL2-26B's 5
+    # tiles of 256 patch tokens, HuBERT-XLarge's 20 s of frames, non-causal
+    ("InternVL2 prefill BH 384 T 1280 hd 128 causal bf16", 384, 1280, 1280,
+     128, True, None, 0, "bfloat16"),
+    ("HuBERT encoder BH 128 T 1000 hd 80 non-causal bf16", 128, 1000, 1000,
+     80, False, None, 0, "bfloat16"),
 ]
 QWEN_PREFILL_CASE = FLASH_CASES[0][0]
 
@@ -1741,10 +1899,10 @@ def cli_phase() -> dict:
 def _kind(name: str) -> str:
     # a stem body is filed under its kernel, vsmm's phase 2 under vsmm
     m = re.search(r"(vsconv_dw_halo|vsconv_dw_stack|vsconv_halo|"
-                  r"vsconv_stack|vsmm|flash_fwd)_(?:stem_)?(int8_)?"
+                  r"vsconv_stack|vsmm|flash_fwd)_(?:stem_)?(int8_|bf16_)?"
                   r"(?:reduce_)?kernel", name)
     if m:
-        return m.group(1) + ("_int8" if m.group(2) else "")
+        return m.group(1) + ("_int8" if m.group(2) == "int8_" else "")
     if "flash_mma_kernel" in name or "flash_simt_kernel" in name:
         return "flash_fwd"   # the flash kernel's bf16 and f32 bodies
     if "Memcpy" in name or "Memset" in name:
@@ -1993,15 +2151,42 @@ def lm_serve_phase(dev) -> dict:
             "launches": launches, "summary": out}
 
 
+def _plain_kernels():
+    """A context in which the LM's kernel calls take their plain versions:
+    the flash kernel (`models.attention`) and the sparse FFN's vsmm
+    (`models.sparse_lm`)."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.kernels.flash import flash_fwd_plain
+    from repro_torch.kernels.vsmm import vsmm_plain
+    from repro_torch.models import attention, sparse_lm
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(attention, "flash_fwd_kernel",
+                                          flash_fwd_plain))
+    stack.enter_context(mock.patch.object(sparse_lm, "vsmm_kernel",
+                                          vsmm_plain))
+    return stack
+
+
+def _float(t):
+    """An f32 copy of a floating tensor; an integer one (a sparse FFN's
+    K-tile ids) as it is."""
+    return t.float() if t.is_floating_point() else t
+
+
 def _logits_spread(srv, batch: dict, logits, logits_plain,
-                   f32_weights: bool = True) -> dict:
+                   f32_weights: bool = True, forward=None) -> dict:
     """How far apart other valid attention implementations put the same
     bf16 prefill's logits (relative to max|logit|): the kernel run again
     (determinism); attention in f32 with p unrounded and the output
     rounded to bf16 (the reference's jnp flash); SDPA (with the window's
     mask where a layer has one); and, with ``f32_weights``, the whole
     prefill with the weights in f32, kernel vs plain (a model whose f32
-    copy would not fit beside its bf16 weights leaves that out)."""
+    copy would not fit beside its bf16 weights leaves that out).
+    ``forward(params, batch, cfg)`` replaces the prefill (an encoder's
+    `lm_apply`)."""
     import dataclasses
     from unittest import mock
 
@@ -2011,13 +2196,16 @@ def _logits_spread(srv, batch: dict, logits, logits_plain,
     from repro_torch.models import attention, transformer as tfm
 
     cfg, cap = srv.cfg, srv.capacity
+    if forward is None:
+        def forward(p, b, c):
+            return tfm.prefill(p, b, c, capacity=cap)[0]
 
     def run(fn=None, params=None, c=cfg):
         params = srv.params if params is None else params
         if fn is None:
-            return tfm.prefill(params, batch, c, capacity=cap)[0]
+            return forward(params, batch, c)
         with mock.patch.object(attention, "flash_fwd_kernel", fn):
-            return tfm.prefill(params, batch, c, capacity=cap)[0]
+            return forward(params, batch, c)
 
     def f32_attention(q, k, v, **kw):
         return flash_fwd_plain(q.float(), k.float(), v.float(),
@@ -2043,9 +2231,11 @@ def _logits_spread(srv, batch: dict, logits, logits_plain,
         return out
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 cache_dtype_str="float32")
-    p32 = _tree_map(lambda t: t.float(), srv.params)
-    out["f32_weights_kernel_vs_plain"] = _rel_err(
-        run(params=p32, c=cfg32), run(flash_fwd_plain, p32, cfg32))[0]
+    p32 = _tree_map(_float, srv.params)
+    kernel32 = run(params=p32, c=cfg32)
+    with _plain_kernels():
+        plain32 = run(params=p32, c=cfg32)
+    out["f32_weights_kernel_vs_plain"] = _rel_err(kernel32, plain32)[0]
     del p32
     torch.cuda.empty_cache()
     return out
@@ -2067,14 +2257,16 @@ NOISE_FACTOR = 1.25          # an added arch's bf16 bound: 1.25 x the floor
 F32_HEAD_COLUMNS = 32768    # vocab columns of the f32 check's head
 
 
-def _f32_prefix(cfg, params: dict, budget: int, tokens):
-    """(cfg32, params32, tokens32) for an f32 run of ``cfg``'s longest
+def _f32_prefix(cfg, params: dict, budget: int, batch: dict):
+    """(cfg32, params32, batch32) for an f32 run of ``cfg``'s longest
     prefix of layers, at full width, whose weights in f32 fit in
     ``budget`` bytes; each layer a segment of its own, its weights f32
-    copies of the served ones.  The embedding keeps only the rows of the
-    batch's ``tokens`` (renumbered), and an untied head its first
-    `F32_HEAD_COLUMNS` columns (a tied one is the kept rows): an f32 copy
-    of Nemotron-4's two vocab matrices alone would take 38 GB."""
+    copies of the served ones (integer leaves as they are).  The
+    embedding keeps only the rows of the batch's ``tokens`` (renumbered),
+    and an untied head its first `F32_HEAD_COLUMNS` columns (a tied one is
+    the kept rows): an f32 copy of Nemotron-4's two vocab matrices alone
+    would take 38 GB.  An embedding-input batch (``embeds``) is taken to
+    f32."""
     import dataclasses
 
     import torch
@@ -2085,8 +2277,10 @@ def _f32_prefix(cfg, params: dict, budget: int, tokens):
         _tree_map(leaves.append, tree)
         return sum(4 * t.numel() for t in leaves)
 
-    rows = torch.unique(tokens)
-    top = {"final_norm": params["final_norm"], "embed": params["embed"][rows]}
+    top = {"final_norm": params["final_norm"]}
+    if cfg.embed_inputs:
+        rows = torch.unique(batch["tokens"])
+        top["embed"] = params["embed"][rows]
     if "out_head" in params:
         top["out_head"] = params["out_head"][:, :F32_HEAD_COLUMNS]
     used = nbytes(top)
@@ -2100,40 +2294,41 @@ def _f32_prefix(cfg, params: dict, budget: int, tokens):
         if used > budget:
             break
         specs.append(sp)
-        segs.append({"l0": _tree_map(lambda t: t.float(), layer)})
+        segs.append({"l0": _tree_map(_float, layer)})
     cfg32 = dataclasses.replace(
         cfg, segments=tuple(Segment(1, (sp,)) for sp in specs),
         n_layers=len(specs), param_dtype="float32",
         cache_dtype_str="float32")
     p32 = {k: v.float() for k, v in top.items()}
     p32["segments"] = segs
-    return cfg32, p32, torch.searchsorted(rows, tokens)
+    if not cfg.embed_inputs:
+        return cfg32, p32, {"embeds": batch["embeds"].float()}
+    return cfg32, p32, {"tokens": torch.searchsorted(rows, batch["tokens"])}
 
 
-def _f32_prefix_check(srv, batch: dict) -> dict:
-    """The admission prefill with the weights in f32, kernel vs plain, on
-    the longest prefix of the model's layers whose f32 copy fits on the
-    card beside the served bf16 weights (`_f32_prefix`): it must hold at
-    least one attention layer (where the model has one), and the logits
-    must agree within 1e-4 of max|logit|."""
-    from unittest import mock
-
+def _f32_prefix_check(srv, batch: dict, forward=None) -> dict:
+    """The admission prefill (or ``forward(params, batch, cfg)``) with
+    the weights in f32, kernel vs plain (`_plain_kernels`), on the
+    longest prefix of the model's layers whose f32 copy fits on the card
+    beside the served bf16 weights (`_f32_prefix`): it must hold at least
+    one attention layer (where the model has one), and the logits must
+    agree within 1e-4 of max|logit|."""
     import torch
-    from repro_torch.kernels.flash import flash_fwd_plain
-    from repro_torch.models import attention, transformer as tfm
+    from repro_torch.models import transformer as tfm
 
+    if forward is None:
+        def forward(p, b, c):
+            return tfm.prefill(p, b, c, capacity=srv.capacity)[0]
     _free_cuda()
     budget = torch.cuda.mem_get_info()[0] - F32_CHECK_MARGIN
-    cfg32, p32, toks = _f32_prefix(srv.cfg, srv.params, budget,
-                                   batch["tokens"])
+    cfg32, p32, b32 = _f32_prefix(srv.cfg, srv.params, budget, batch)
     attn = _attention_layers(cfg32)
     if _attention_layers(srv.cfg) and not attn:
         raise SystemExit(f"chip_smoke: {srv.cfg.name}: no attention layer "
                          f"fits the f32 check's {budget} bytes")
-    b32 = {"tokens": toks}
-    logits = tfm.prefill(p32, b32, cfg32, capacity=srv.capacity)[0]
-    with mock.patch.object(attention, "flash_fwd_kernel", flash_fwd_plain):
-        plain = tfm.prefill(p32, b32, cfg32, capacity=srv.capacity)[0]
+    logits = forward(p32, b32, cfg32)
+    with _plain_kernels():
+        plain = forward(p32, b32, cfg32)
     rel = _rel_err(logits, plain)[0]
     del p32, logits, plain
     _free_cuda()
@@ -2147,8 +2342,10 @@ def lm_check_phase(srv, reqs: list, dev, path: str = LM_CONFIG,
     """The first run's admitted batch (the first bucket, longest prompts
     first, as the scheduler admits it), re-run directly on the card.
 
-    Its admission prefill through the kernel against the same prefill
-    through `flash_fwd_plain`, relative to max|logit|: with the weights in
+    Its admission prefill through the kernels against the same prefill
+    through their plain versions (`flash_fwd_plain`, and `vsmm_plain` for
+    a sparse FFN: `_plain_kernels`), relative to max|logit|: with the
+    weights in
     f32 within 1e-4 (with ``f32_weights`` the whole model, else the
     longest prefix of its layers whose f32 copy fits beside the served
     weights: `_f32_prefix_check`); as served (bf16) within 2e-2 or,
@@ -2161,12 +2358,11 @@ def lm_check_phase(srv, reqs: list, dev, path: str = LM_CONFIG,
     same shapes, same kernels).  The loop's decode steps must launch no
     flash kernel; their time per step is taken here (batch 8, one token a
     lane, CUDA-synchronized wall clock)."""
-    from unittest import mock
-
     import numpy as np
     import torch
-    from repro_torch.kernels.flash import flash_fwd_kernel, flash_fwd_plain
-    from repro_torch.models import attention, transformer as tfm
+    from repro_torch.kernels.flash import flash_fwd_kernel
+    from repro_torch.kernels.vsmm import vsmm_kernel
+    from repro_torch.models import transformer as tfm
 
     be, cfg = srv.backend, srv.cfg
     key = be.bucket_key(reqs[0])
@@ -2178,13 +2374,13 @@ def lm_check_phase(srv, reqs: list, dev, path: str = LM_CONFIG,
     batch = {"tokens": torch.from_numpy(toks).to(dev)}
     logits, caches = tfm.prefill(srv.params, batch, cfg,
                                  capacity=srv.capacity)
-    with mock.patch.object(attention, "flash_fwd_kernel", flash_fwd_plain):
-        n0 = flash_fwd_kernel.launches
+    with _plain_kernels():
+        n0 = (flash_fwd_kernel.launches, vsmm_kernel.launches)
         logits_plain, _ = tfm.prefill(srv.params, batch, cfg,
                                       capacity=srv.capacity)
-        if flash_fwd_kernel.launches != n0:
-            raise SystemExit("chip_smoke: the plain prefill launched the "
-                             "flash kernel")
+        if (flash_fwd_kernel.launches, vsmm_kernel.launches) != n0:
+            raise SystemExit("chip_smoke: the plain prefill launched a "
+                             "kernel")
     rel, _ = _rel_err(logits, logits_plain)
     spread = _logits_spread(srv, batch, logits, logits_plain, f32_weights)
     if not f32_weights:
@@ -2395,6 +2591,18 @@ LM_ARCHS = [
     ("kimi-k2-1t-a32b", 2, 8, (113, 129), 16),
     ("nemotron-4-340b", 2, 8, (113, 129), 16),
 ]
+# name, layers served, requests, prompt lengths, length bucket, the config
+# change, the path's name: the vector-sparse FFN (bf16 tiles, every FFN
+# product a vsmm launch) on Qwen1.5-4B whole (16 requests: one run, 8
+# backfills; prompts of 497-512 tokens, so capacity, decode position and
+# prefill shapes are the dense Qwen serve's) and on Nemotron-4 (relu2)
+# cut as in `LM_ARCHS`
+LM_SPARSE = [
+    ("qwen1.5-4b", None, 16, (497, 513), 16, {"use_sparse_ffn": True},
+     "qwen1.5-4b-sparse"),
+    ("nemotron-4-340b", 2, 8, (113, 129), 16, {"use_sparse_ffn": True},
+     "nemotron-4-340b-sparse"),
+]
 LM_ARCH_NEW = 16             # new tokens a request
 SAMPLED_ARCH = "rwkv6-3b"    # the README's sampled serve
 SAMPLING = (0.8, 40)         # its temperature and top-k
@@ -2447,17 +2655,31 @@ def _free_cuda() -> int:
     return torch.cuda.memory_allocated()
 
 
+def _sparse_ffn_launches(cfg) -> int:
+    """vsmm launches of one forward: 3 a gated sparse FFN layer (gate,
+    up, the merged wo), 2 a plain one; 0 without the sparse FFN."""
+    if not cfg.use_sparse_ffn:
+        return 0
+    per = 3 if cfg.activation in ("swiglu", "geglu") else 2
+    return per * sum(seg.repeat * sum(sp.ffn == "mlp" for sp in seg.layers)
+                     for seg in cfg.segments)
+
+
 def lm_arch_phase(name: str, layers, n_requests: int, lens: tuple,
-                  len_bucket: int, dev) -> dict:
-    """One more LM arch served by the port's `Server` at batch 8, bf16
-    weights drawn on the card from seed 0, at full width (and full depth
-    unless ``layers`` cuts it), ``n_requests`` seeded greedy requests of
-    16 new tokens, every launch count set to 0 just before the serve and
-    read just after.  Every request delivered with 16 tokens in range;
-    the flash kernel launched exactly attention layers x (runs +
-    backfills) (none for RWKV), every launch at a shape that
-    `flash_phase` held against the plain version; one decode graph at
-    (batch, capacity) replayed once a step.  Then `lm_check_phase` (the
+                  len_bucket: int, dev, change: dict | None = None,
+                  path: str | None = None) -> dict:
+    """One more LM arch (with the config ``change``, served as ``path``)
+    served by the port's `Server` at batch 8, bf16 weights drawn on the
+    card from seed 0, at full width (and full depth unless ``layers``
+    cuts it), ``n_requests`` seeded greedy requests of 16 new tokens,
+    every launch count set to 0 just before the serve and read just
+    after.  Every request delivered with 16 tokens in range; the flash
+    kernel launched exactly attention layers x (runs + backfills) (none
+    for RWKV), every launch at a shape that `flash_phase` held against
+    the plain version; one decode graph at (batch, capacity) replayed once
+    a step.  With the sparse FFN, vsmm launched exactly
+    `_sparse_ffn_launches` x (runs + backfills + decode steps + the
+    graph's warm-up), every launch of the bf16 branch.  Then `lm_check_phase` (the
     first run's batch: a plain greedy loop emits the served tokens, the
     prefill logits through the kernel within the bf16 noise floor of the
     plain path's), `lm_decode_phase` (a replay bit-equal to eager
@@ -2466,14 +2688,19 @@ def lm_arch_phase(name: str, layers, n_requests: int, lens: tuple,
     traffic is served once more at temperature 0.8, top-k 40, twice:
     the sampled streams must repeat.  The server is freed before the
     next arch's is built; device memory is printed before and after."""
+    import dataclasses
     from unittest import mock
 
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels.vsmm import vsmm_kernel
     from repro_torch.launch.serve import Server, _round_up
     from repro_torch.models import attention
 
     cfg = get_config(name)
+    if change:
+        cfg = dataclasses.replace(cfg, **change)
+    path = path or name
     full_layers = cfg.total_layers
     if layers is not None:
         cfg = _cut_depth(cfg, layers)
@@ -2503,45 +2730,52 @@ def lm_arch_phase(name: str, layers, n_requests: int, lens: tuple,
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = {n: k.launches for n, k in counters.items() if k.launches}
+    bf16_launches = vsmm_kernel.bf16_launches
     summary = _lm_stats(stats)
     bad = [r.rid for r in reqs if r.outcome is None
            or r.outcome.status != "delivered" or len(r.out) != r.max_new
            or not all(0 <= t < cfg.padded_vocab for t in r.out)]
     if bad:
-        raise SystemExit(f"chip_smoke: {name}: requests {bad} not delivered "
+        raise SystemExit(f"chip_smoke: {path}: requests {bad} not delivered "
                          f"with {LM_ARCH_NEW} tokens in range")
+    graphs = srv.backend.graphs
+    replays = sum(g.graph.replays for g in graphs.values())
     prefills = summary["runs"] + summary["backfills"]
     n_flash = _attention_layers(cfg) * prefills
     expected = {"flash_fwd": n_flash} if n_flash else {}
-    if launches != expected:
-        raise SystemExit(f"chip_smoke: {name}: launches {launches}, "
-                         f"expected {expected} ({summary['runs']} runs + "
-                         f"{summary['backfills']} backfills)")
+    n_vsmm = _sparse_ffn_launches(cfg) * (
+        prefills + summary["decode_steps"] + len(graphs))
+    if n_vsmm:
+        expected["vsmm"] = n_vsmm
+    if launches != expected or bf16_launches != expected.get("vsmm", 0):
+        raise SystemExit(f"chip_smoke: {path}: launches {launches} (vsmm "
+                         f"bf16 {bf16_launches}), expected {expected} "
+                         f"({summary['runs']} runs + {summary['backfills']} "
+                         f"backfills, {summary['decode_steps']} decode "
+                         f"steps, {len(graphs)} graph warm-ups)")
     unheld = shapes - _flash_shapes()
     if unheld:
-        raise SystemExit(f"chip_smoke: {name}: flash launched at shapes "
+        raise SystemExit(f"chip_smoke: {path}: flash launched at shapes "
                          f"that flash_phase did not check: {unheld}")
-    graphs = srv.backend.graphs
-    replays = sum(g.graph.replays for g in graphs.values())
     if list(graphs) != [(LM_BATCH, capacity)] or \
             replays != summary["decode_steps"]:
-        raise SystemExit(f"chip_smoke: {name}: decode graphs {list(graphs)} "
+        raise SystemExit(f"chip_smoke: {path}: decode graphs {list(graphs)} "
                          f"replayed {replays} times over "
                          f"{summary['decode_steps']} decode steps")
     traffic = [(r.rid, r.prompt, r.max_new) for r in reqs]
     laps = {}
     t0 = time.perf_counter()
-    check = lm_check_phase(srv, reqs, dev, path=name, f32_weights=False,
+    check = lm_check_phase(srv, reqs, dev, path=path, f32_weights=False,
                            floor_factor=NOISE_FACTOR)
     laps["check_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    decode = lm_decode_phase(srv, traffic, dev, path=name)
+    decode = lm_decode_phase(srv, traffic, dev, path=path)
     laps["decode_phase_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     srv.serve(_lm_requests(traffic))
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    prof = profile_phase(name, lambda: srv.serve(_lm_requests(traffic)),
+    prof = profile_phase(path, lambda: srv.serve(_lm_requests(traffic)),
                          warm_s)
     laps["profile_s"] = time.perf_counter() - t0 - warm_s
     t0 = time.perf_counter()
@@ -2569,7 +2803,7 @@ def lm_arch_phase(name: str, layers, n_requests: int, lens: tuple,
     laps["sampled_s"] = time.perf_counter() - t0
     del srv, stats
     mem_after = _free_cuda()
-    out = {"phase": "lm_arch", "path": name, "layers": cfg.total_layers,
+    out = {"phase": "lm_arch", "path": path, "layers": cfg.total_layers,
            "full_layers": full_layers,
            "reduced": (None if layers is None else
                        f"{cfg.total_layers} of {full_layers} layers, "
@@ -2579,12 +2813,16 @@ def lm_arch_phase(name: str, layers, n_requests: int, lens: tuple,
            "batch": LM_BATCH, "capacity": capacity, "len_bucket": len_bucket,
            "prompt_lens": [len(r.prompt) for r in reqs],
            "requests": len(reqs), "launches": launches,
+           "vsmm_bf16_launches": bf16_launches,
+           "vsmm_launches_per_forward": _sparse_ffn_launches(cfg),
            "attention_layers": _attention_layers(cfg),
            "flash_shapes": sorted(str(sh) for sh in shapes),
            "decode_graphs": len(graphs), "decode_replays": replays,
            "setup_s": setup_s, "serve_s": serve_s, "warm_serve_s": warm_s,
            "decode_step_ms": decode["step_ms"],
            "decode_replay_device_ms": decode["replay_device_ms"],
+           "decode_device_ops_per_step": decode["device_ops_per_step"],
+           "decode_weight_bytes": decode["weight_bytes"],
            "decode_weight_bytes_bound_ms": decode["weight_bytes_bound_ms"],
            "prefill_logits_kernel_vs_plain_rel_err":
                check["prefill_logits_kernel_vs_plain_rel_err"],
@@ -2596,6 +2834,218 @@ def lm_arch_phase(name: str, layers, n_requests: int, lens: tuple,
            "memory_allocated_model": mem_model,
            "memory_allocated_after": mem_after, "sampled": sampled,
            "seconds": laps, **summary}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+FLOW_PATH = "qwen1.5-4b-bf16-flow"
+
+
+def lm_flow_phase(srv, traffic: list, floor: float, dev) -> dict:
+    """Qwen1.5-4B with ``bf16_flow=True`` (matmul outputs in the
+    activations' dtype) on the served weights, at the Qwen serve's full
+    width, depth and capacity: the first run's admitted batch's prefill
+    logits against the f32-out path's within 2e-2 or the bf16 noise
+    floor ``floor`` of the Qwen serve's check; the traffic served (every
+    request delivered, flash launched 40 x (runs + backfills), one decode
+    graph replayed once a step); then `lm_decode_phase` (a replay
+    bit-equal to eager `decode_step`; ms and device operations a step)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(srv.cfg, bf16_flow=True)
+    flow = Server(cfg, batch=LM_BATCH, capacity=srv.capacity, device=dev,
+                  params=srv.params)
+    reqs = _lm_requests(traffic)
+    be = flow.backend
+    key = be.bucket_key(reqs[0])
+    first = sorted([r for r in reqs if be.bucket_key(r) == key],
+                   key=be.sort_key)[:LM_BATCH]
+    toks = np.zeros((LM_BATCH, key), np.int64)
+    for i, r in enumerate(first):
+        toks[i, key - len(r.prompt):] = r.prompt
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    f32_out = tfm.prefill(srv.params, batch, srv.cfg,
+                          capacity=srv.capacity)[0]
+    flowed = tfm.prefill(flow.params, batch, cfg, capacity=srv.capacity)[0]
+    rel = _rel_err(flowed, f32_out)[0]
+    if not rel <= max(LOGITS_RTOL, floor):
+        raise SystemExit(f"chip_smoke: {FLOW_PATH}: prefill logits vs the "
+                         f"f32-out path {rel:.3e} > {LOGITS_RTOL} and > the "
+                         f"bf16 noise floor {floor:.3e}")
+    counters = _counters()
+    _zero_counters()
+    stats = flow.serve(reqs)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in counters.items() if k.launches}
+    summary = _lm_stats(stats)
+    graphs = flow.backend.graphs
+    replays = sum(g.graph.replays for g in graphs.values())
+    expected = {"flash_fwd": cfg.total_layers
+                * (summary["runs"] + summary["backfills"])}
+    bad = [r.rid for r in reqs if r.outcome is None
+           or r.outcome.status != "delivered" or len(r.out) != r.max_new]
+    if bad or launches != expected or replays != summary["decode_steps"] \
+            or len(graphs) != 1:
+        raise SystemExit(f"chip_smoke: {FLOW_PATH}: undelivered {bad}, "
+                         f"launches {launches} (expected {expected}), "
+                         f"{len(graphs)} graphs replayed {replays} times "
+                         f"over {summary['decode_steps']} steps")
+    decode = lm_decode_phase(flow, traffic, dev, path=FLOW_PATH)
+    del flow
+    _free_cuda()
+    out = {"phase": "lm_flow", "path": FLOW_PATH,
+           "prefill_logits_vs_f32_out_rel_err": rel,
+           "bit_equal_to_f32_out": bool(torch.equal(flowed, f32_out)),
+           "bf16_noise_floor": floor, "launches": launches,
+           "decode_step_ms": decode["step_ms"],
+           "decode_replay_device_ms": decode["replay_device_ms"],
+           "decode_device_ops_per_step": decode["device_ops_per_step"],
+           **summary}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+# name, batch, sequence (InternVL2: five 448-px tiles of 256 patch
+# tokens; HuBERT: 20 s of audio at 50 frames/s), decode steps after it
+FRONTENDS = [
+    ("internvl2-26b", LM_BATCH, 1280, 3),
+    ("hubert-xlarge", LM_BATCH, 1000, 0),
+]
+
+
+def frontend_phase(name: str, batch: int, t: int, steps: int, dev) -> dict:
+    """An embedding-input arch whole, at full width and depth, bf16
+    weights drawn on the card from seed 0, on `synthetic_embeddings`
+    (the reference's frontend stub, drawn on the card), every launch
+    count set to 0 just before its forward and read just after: a
+    decoder (InternVL2-26B) runs `prefill` on ``t`` positions and
+    ``steps`` `decode_step`s on the next embeddings, an encoder
+    (HuBERT-XLarge, non-causal) `lm_apply`.  Flash launched once an
+    attention layer (none in decode), at a shape `flash_phase` held;
+    finite logits of the right shapes.  A decoder's prefill and decode
+    logits against `lm_apply` over the whole sequence (the reference's
+    serve-consistency check, `tests/test_models_smoke.py`); the
+    forward's logits through the kernels against their plain versions,
+    within the bf16 noise floor (x 1.25, or 2e-2) and, on the longest
+    f32 prefix of the layers that fits, within 1e-4; ms a forward (CUDA
+    events over a host loop of 3)."""
+    import types
+    from unittest import mock
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.threefry import prng_key
+    from repro_torch.models import attention, transformer as tfm
+    from repro_torch.models.frontend import synthetic_embeddings
+    from repro_torch.models.layers import init_params
+
+    cfg = get_config(name)
+    mem_before = _free_cuda()
+    t0 = time.perf_counter()
+    params = init_params(tfm.lm_schema(cfg), 0, dtype=cfg.dtype,
+                         device=dev, draw_on_device=True)
+    emb = synthetic_embeddings(prng_key(0), batch, t + steps, cfg.d_model,
+                               cfg.dtype, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cap = t + steps
+    main = {"embeds": emb[:, :t]}
+
+    def forward(p, b, c):
+        if c.encoder_only:
+            return tfm.lm_apply(p, b, c)
+        return tfm.prefill(p, b, c, capacity=cap)[0]
+
+    shapes = set()
+    real = attention.flash_fwd_kernel
+
+    def spy(q, k, v, *, causal=True, window=None, q_offset=0):
+        shapes.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2], causal,
+                    window, q_offset, str(q.dtype).split(".")[-1]))
+        return real(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+    counters = _counters()
+    _zero_counters()
+    dec = []
+    with mock.patch.object(attention, "flash_fwd_kernel", spy):
+        if cfg.encoder_only:
+            logits = tfm.lm_apply(params, main, cfg)
+        else:
+            logits, caches = tfm.prefill(params, main, cfg, capacity=cap)
+            for i in range(steps):
+                step, caches = tfm.decode_step(
+                    params, caches, emb[:, t + i:t + i + 1], t + i, cfg)
+                dec.append(step)
+            del caches
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in counters.items() if k.launches}
+    expected = {"flash_fwd": _attention_layers(cfg)}
+    if launches != expected:
+        raise SystemExit(f"chip_smoke: {name}: launches {launches}, "
+                         f"expected {expected}")
+    unheld = shapes - _flash_shapes()
+    if unheld:
+        raise SystemExit(f"chip_smoke: {name}: flash launched at shapes "
+                         f"that flash_phase did not check: {unheld}")
+    want = (batch, t, cfg.padded_vocab) if cfg.encoder_only else \
+        (batch, cfg.padded_vocab)
+    outs = [logits, *dec]
+    if tuple(logits.shape) != want or not all(
+            bool(torch.isfinite(o).all()) for o in outs):
+        raise SystemExit(f"chip_smoke: {name}: logits {tuple(logits.shape)}"
+                         f" (expected {want}) or not finite")
+    srv = types.SimpleNamespace(cfg=cfg, params=params, capacity=cap)
+    with _plain_kernels():
+        plain = forward(params, main, cfg)
+    rel = _rel_err(logits, plain)[0]
+    spread = _logits_spread(srv, main, logits, plain, f32_weights=False,
+                            forward=forward)
+    spread.update(_f32_prefix_check(srv, main, forward=forward))
+    floor = max(spread["plain_vs_f32_attention"], spread["plain_vs_sdpa"])
+    bound = max(LOGITS_RTOL, NOISE_FACTOR * floor)
+    consistency = None
+    if steps:
+        full = tfm.lm_apply(params, {"embeds": emb}, cfg)[:, t - 1:]
+        consistency = _rel_err(torch.stack(outs, dim=1), full)[0]
+        del full
+    print(json.dumps({"phase": "lm_logits_spread", "path": name,
+                      "kernel_vs_plain": rel, **spread,
+                      "bf16_noise_floor": floor,
+                      "prefill_decode_vs_lm_apply": consistency}),
+          flush=True)
+    if not spread["f32_weights_kernel_vs_plain"] <= F32_LOGITS_RTOL:
+        raise SystemExit(f"chip_smoke: {name}: f32-weight logits, kernel "
+                         f"vs plain, {spread['f32_weights_kernel_vs_plain']:.3e}"
+                         f" > {F32_LOGITS_RTOL}")
+    if not rel <= bound or not (consistency is None or consistency <= bound):
+        raise SystemExit(f"chip_smoke: {name}: logits kernel vs plain "
+                         f"{rel:.3e}, prefill + decode vs lm_apply "
+                         f"{consistency}: over {bound:.3e} (the bf16 floor "
+                         f"{floor:.3e} x {NOISE_FACTOR}, or {LOGITS_RTOL})")
+    forward_ms = _time_ms(lambda: forward(params, main, cfg), 3)
+    del params, emb, logits, plain, outs, dec, srv
+    mem_after = _free_cuda()
+    out = {"phase": "frontend", "path": name, "layers": cfg.total_layers,
+           "d_model": cfg.d_model, "params": cfg.param_count(),
+           "dtype": cfg.param_dtype, "batch": batch, "positions": t,
+           "decode_steps": steps, "causal": cfg.causal,
+           "launches": launches,
+           "flash_shapes": sorted(str(sh) for sh in shapes),
+           "setup_s": setup_s, "forward_ms": forward_ms,
+           "forward": "lm_apply" if cfg.encoder_only else "prefill",
+           "logits_kernel_vs_plain_rel_err": rel,
+           "bf16_noise_floor": floor,
+           "f32_prefix_layers": spread["f32_layers"],
+           "f32_prefix_kernel_vs_plain":
+               spread["f32_weights_kernel_vs_plain"],
+           "prefill_decode_vs_lm_apply_rel_err": consistency,
+           "memory_allocated_before": mem_before,
+           "memory_allocated_after": mem_after}
     print(json.dumps(out), flush=True)
     return out
 
@@ -3010,11 +3460,11 @@ def generic_instantiations(log: str) -> list:
 def _vsmm_row(name: str) -> dict | None:
     """vsmm.cu's entry functions: the phase-1 kernels per RT (rows a
     thread) and, for int8, SPLIT; the phase-2 reduce kernels."""
-    m = re.search(r"vsmm_(int8_)?(reduce_)?kernel(?:ILi(\d+)E(?:Lb([01])E)?)?",
-                  name)
+    m = re.search(r"vsmm_(int8_|bf16_)?(reduce_)?kernel"
+                  r"(?:ILi(\d+)E(?:Lb([01])E)?)?", name)
     if m is None:
         return None
-    row = {"kernel": "vsmm" + ("_int8" if m.group(1) else "")
+    row = {"kernel": "vsmm" + ("_" + m.group(1)[:-1] if m.group(1) else "")
            + ("_reduce" if m.group(2) else "")}
     if m.group(3):
         row["rt"] = int(m.group(3))
@@ -3024,11 +3474,46 @@ def _vsmm_row(name: str) -> dict | None:
 
 
 def vsmm_instantiations(log: str) -> list:
-    """One row per instantiation of ``vsmm.cu`` (f32 and int8, both
+    """One row per instantiation of ``vsmm.cu`` (f32, bf16 and int8, both
     phases) with its registers and spill bytes."""
     rows = [{**row, **use} for name, use in ptxas_usage(log).items()
             if (row := _vsmm_row(name)) is not None]
     return sorted(rows, key=lambda r: tuple(str(v) for v in r.values()))
+
+
+def _vsmm_bf16_entry(timer: Timer, rows: dict, sparse: dict) -> dict:
+    """The ``kernels`` line's entry of vsmm's bf16 branch: launches of the
+    sparse-FFN serves (by path); ms, plain, bound and library per
+    Qwen1.5-4B sparse decode step at batch 8 (40 layers x the gate, up and
+    merged wo products at M 8: 120 launches), from `vsmm_bf16_cases`."""
+    from repro_torch.configs import get_config
+
+    layers = get_config("qwen1.5-4b").total_layers
+    wi = rows[("qwen1.5-4b", "wi", BATCH)]
+    wo = rows[("qwen1.5-4b", "wo merged", BATCH)]
+
+    def per_step(key: str) -> float:
+        return layers * (2 * wi[key] + wo[key])
+
+    flops = per_step("flops_bound_ms")
+    nbytes = per_step("bytes_bound_ms")
+    by_path = {path: a["launches"].get("vsmm", 0)
+               for path, a in sparse.items()}
+    return {
+        "name": "vsmm_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/vsmm.cu",
+        "replaces": "src/repro/kernels/vsmm.py:172",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": timer.max_abs_err["vsmm_bf16"],
+        "ms": per_step("kernel_ms"), "plain_ms": per_step("plain_ms"),
+        "bound_ms": max(flops, nbytes),
+        "bound_by": "operations" if flops >= nbytes else "bytes",
+        "library_ms": per_step("library_ms"),
+        "host_loop_ms": per_step("kernel_host_loop_ms"),
+        "per": f"one Qwen1.5-4B sparse-FFN decode step, batch {BATCH} "
+               f"({3 * layers} launches)",
+        "library": "torch.mm of bf16 x and the decoded bf16 weight, f32 out",
+    }
 
 
 def main() -> int:
@@ -3114,11 +3599,11 @@ def main() -> int:
         print(f"built {r}")
     spilled = [r for r in vsmm_rows if r["spill_stores"]
                or r["spill_loads"] or r["spill_stores"] is None]
-    if len(vsmm_rows) != 10 or spilled:
+    if len(vsmm_rows) != 13 or spilled:
         print(f"chip_smoke: {len(vsmm_rows)} vsmm instantiations (expected "
-              f"10: f32 phase 1 per RT 2/4/8 and phase 2, int8 phase 1 per "
-              f"RT unsplit and RT 2/4 split, and phase 2), spilling or "
-              f"unread: {spilled}",
+              f"13: f32 and bf16 phase 1 per RT 2/4/8 and phase 2 (shared), "
+              f"int8 phase 1 per RT unsplit and RT 2/4 split, and phase 2), "
+              f"spilling or unread: {spilled}",
               file=sys.stderr)
         return 1
     lib = _build.load("flash_fwd")
@@ -3148,6 +3633,8 @@ def main() -> int:
     lap("kernel")
     flash_rows = flash_phase(timer, dev, bf16_peak)
     lap("flash")
+    bf16_rows = vsmm_bf16_cases(timer, dev, bf16_peak)
+    lap("vsmm_bf16")
     served = {path: serve_phase(path, dev) for path in PATHS}
     lap("serve")
     bucket_mix = {path: bucket_mix_phase(path, served[path], dev)
@@ -3199,11 +3686,23 @@ def main() -> int:
         lm_warm["warm_serve_s"])
     qwen_row = flash_rows[QWEN_PREFILL_CASE]
     breakdown = prefill_breakdown_phase(lm["srv"], qwen_row, dev)
-    del lm["srv"]  # one model on the card at a time
     lap("lm")
+    spread = lm_check["logits_spread"]
+    flow = lm_flow_phase(lm["srv"], lm["traffic"],
+                         max(spread["plain_vs_f32_attention"],
+                             spread["plain_vs_sdpa"]), dev)
+    del lm["srv"]  # one model on the card at a time
+    lap("lm_flow")
     archs = {name: lm_arch_phase(name, layers, n, lens, bucket, dev)
              for name, layers, n, lens, bucket in LM_ARCHS}
     lap("lm_archs")
+    sparse = {path: lm_arch_phase(name, layers, n, lens, bucket, dev,
+                                  change=change, path=path)
+              for name, layers, n, lens, bucket, change, path in LM_SPARSE}
+    lap("lm_sparse")
+    frontends = {name: frontend_phase(name, b, t, steps, dev)
+                 for name, b, t, steps in FRONTENDS}
+    lap("frontend")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
 
     kernels = []
@@ -3237,12 +3736,16 @@ def main() -> int:
                 "bound_ms": max(stem["flops_bound_ms"],
                                 stem["bytes_bound_ms"]),
                 "library_ms": stem["library_ms"]}
+    kernels.append(_vsmm_bf16_entry(timer, bf16_rows, sparse))
     layers = lm["summary"]["layers"]
     flash_bound = {k: layers * qwen_row[f"{k}_bound_ms"]
                    for k in ("flops", "bytes")}
     flash_by_path = {LM_CONFIG: lm["launches"]["flash_fwd"],
+                     FLOW_PATH: flow["launches"]["flash_fwd"],
                      **{name: a["launches"].get("flash_fwd", 0)
-                        for name, a in archs.items()}}
+                        for name, a in {**archs, **sparse}.items()},
+                     **{name: f["launches"]["flash_fwd"]
+                        for name, f in frontends.items()}}
     kernels.append({
         "name": "flash_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -3269,10 +3772,13 @@ def main() -> int:
              "serve": cnn_summaries, "bucket_mix": bucket_mix,
              "fleet": fleets, "cli": cli,
              "flash": flash_rows,
+             "vsmm_bf16": {" ".join(map(str, k)): v
+                           for k, v in bf16_rows.items()},
              "lm": {"serve": lm["summary"], "check": lm_check,
                     "warm": lm_warm, "decode": lm_decode,
                     "prefill_breakdown": breakdown},
-             "lm_archs": archs,
+             "lm_flow": flow, "lm_archs": archs, "lm_sparse": sparse,
+             "frontend": frontends,
              "profile": profiled, "dense_vs_sparse": dense_vs_sparse,
              "paper_model": paper_model, "calibration": calibration,
              "vscheck": vscheck, "seconds": seconds},

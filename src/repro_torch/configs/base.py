@@ -1,16 +1,18 @@
 """LM config dataclasses (the port of `repro/configs/base.py`).
 
-`ArchConfig`, `LayerSpec`, `Segment` and `SparsityConfig` keep the
-reference's fields and defaults, so a config reads the same on both sides;
-``dtype`` and ``cache_dtype`` give torch dtypes.  `reduce()` derives the
-same tiny CPU smoke-test config as the reference's.
+`ArchConfig`, `LayerSpec`, `Segment`, `ShapeSpec` and `SparsityConfig`
+keep the reference's fields and defaults, so a config reads the same on
+both sides; ``dtype`` and ``cache_dtype`` give torch dtypes.  `reduce()`
+derives the same tiny CPU smoke-test config as the reference's.
 
-The port serves every token-input stack of the reference's registry:
-attention, Mamba and RWKV mixers; MLP, MoE and RWKV channel-mix FFNs.  A
-config that needs a module of a later slice (the vector-sparse FFN, an
-embedding frontend, bf16-flow matmul outputs) is refused at construction
-with `NotImplementedError`.  `param_count` and `active_param_count` are
-the reference's, counted from the port's schema.
+The port runs every forward of the reference's registry: attention,
+Mamba and RWKV mixers; MLP, vector-sparse MLP (``use_sparse_ffn``), MoE
+and RWKV channel-mix FFNs; token or embedding inputs (``embed_inputs``);
+f32 or input-dtype matmul outputs (``bf16_flow``).  `supported_shapes`
+applies the reference's skip rules to its four input shapes (`SHAPES`).
+`param_count` and `active_param_count` are the reference's, counted from
+the port's schema.  `SparsityConfig.targets` is read nowhere, in the
+reference either.
 """
 from __future__ import annotations
 
@@ -20,9 +22,8 @@ from typing import Any
 
 import torch
 
-__all__ = ["LayerSpec", "Segment", "SparsityConfig", "ArchConfig"]
-
-_LATER = "is ported with the LM arm's later slices (ROADMAP queue 1)"
+__all__ = ["LayerSpec", "Segment", "ShapeSpec", "SparsityConfig",
+           "ArchConfig", "SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +37,22 @@ class LayerSpec:
 class Segment:
     repeat: int
     layers: tuple[LayerSpec, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,17 +113,6 @@ class ArchConfig:
     seq_shard_residual: bool = False  # Megatron-SP residual stream
     notes: str = ""
 
-    def __post_init__(self) -> None:
-        if self.use_sparse_ffn:
-            raise NotImplementedError(
-                f"{self.name}: the vector-sparse FFN (sparse_lm) {_LATER}")
-        if not self.embed_inputs:
-            raise NotImplementedError(
-                f"{self.name}: the embedding frontends {_LATER}")
-        if self.bf16_flow:
-            raise NotImplementedError(
-                f"{self.name}: bf16-flow matmul outputs {_LATER}")
-
     # -- derived -------------------------------------------------------------
     @property
     def head_dim(self) -> int:
@@ -128,6 +134,19 @@ class ArchConfig:
     @property
     def total_layers(self) -> int:
         return sum(s.repeat * len(s.layers) for s in self.segments)
+
+    def supported_shapes(self) -> dict[str, str]:
+        """shape name -> '' if runnable, else the skip reason."""
+        out = {}
+        for name, sh in SHAPES.items():
+            reason = ""
+            if sh.kind == "decode" and self.encoder_only:
+                reason = "encoder-only: no autoregressive decode step"
+            elif name == "long_500k" and not self.subquadratic:
+                reason = ("pure full-attention arch: 524k context requires "
+                          "sub-quadratic attention (assignment skip rule)")
+            out[name] = reason
+        return out
 
     def _param_shapes(self) -> list[tuple[str, tuple]]:
         """(path, shape) of every leaf of the LM schema, paths written as

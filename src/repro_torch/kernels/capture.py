@@ -7,11 +7,11 @@ puts on the current stream, and PyTorch's own), and a replay runs them
 again with no Python and no per-launch host cost.
 
 Each kernel wrapper adds one to its counters (``launches``, and
-``stem_launches`` / ``int8_launches`` where it has them) where it
-launches, and a replay never reaches the wrappers.  So `capture` records
-what the captured call added to each counter and takes it back (a
-capture runs nothing on the device), and `Captured.replay` adds it again
-each time the device runs the graph.  The warm-up before a capture runs
+``stem_launches`` / ``int8_launches`` / ``bf16_launches`` where it has
+them) where it launches, and a replay never reaches the wrappers.  So
+`capture` records what the captured call added to each counter and takes
+it back (a capture runs nothing on the device), and `Captured.replay`
+adds it again each time the device runs the graph.  The warm-up before a capture runs
 eagerly and counts as it runs: a new graph's first call runs, and
 counts, its launches twice (the warm-up and the first replay).
 
@@ -34,7 +34,7 @@ import torch
 __all__ = ["COUNTERS", "wrappers", "counts", "add_counts", "Captured",
            "capture", "no_collection"]
 
-COUNTERS = ("launches", "stem_launches", "int8_launches")
+COUNTERS = ("launches", "stem_launches", "int8_launches", "bf16_launches")
 
 
 def wrappers() -> dict:

@@ -49,10 +49,19 @@
 // the epilogue.  Both phases run on the caller's stream; the workspace is
 // the caller's (PyTorch's allocator), so a CUDA graph captures both.
 //
-// Two branches, as the reference's `_mac_dot` has:
+// Three branches, as the reference's `_mac_dot` takes f32, bf16 and int8:
 //   - f32: FMAs into f32 accumulators.  Phase 2 sums the chunks' partial
 //     tiles in chunk order: another summation order than the reference's,
 //     within the 1e-5 bound.
+//   - bf16 (bf16 x and tiles; the LM's vector-sparse FFN): the f32 body
+//     with each staged bf16 word widened to f32 at the MAC.  A product of
+//     two bf16 values is exact in f32, so the result differs from the
+//     plain version's f32 sum only in summation order.  The tensor cores'
+//     mma.sync.m16n8k16 would need vk % 16 == 0, and the FFN's wo tiles
+//     have vk 27 (Qwen1.5-4B: 6912 / 16 / 16); the widened body takes any
+//     vk (the staged tile is padded with zero rows and columns to k4).
+//     An odd vk leaves the activation rows 2-byte aligned only: they are
+//     staged by 2-byte loads, not cp.async.
 //   - int8 (int8 x and tiles, a per-column power-of-two dequant scale):
 //     each stored step's partial is an exact int32 (__dp4a; a weight row
 //     word is transposed to a column word with __byte_perm).  The
@@ -75,8 +84,11 @@
 // bytes.  The design keeps several stages of tiles in flight on every SM
 // and reuses each staged weight word for RT rows and each activation word
 // for 4 columns.
+// Every branch writes f32 or, with `out_bf16` (the reference's out_dtype),
+// rounds the epilogue's f32 result to bf16 (round to nearest even).
 #include "vs_async.cuh"
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -111,13 +123,15 @@ struct Geo {
   int step_bytes; // a staged step: weight tile, then activation tile
   int group;      // stored steps a stage
   int ring;       // stage buffers: kStages, or fewer if no block needs them
-  int mode_x, mode_w;  // copy units: 16 or 4 bytes (cp.async), 1 (loads)
-  int vec_out;    // 1: the epilogue reads and writes float4
+  int mode_x, mode_w;  // copy units: 16 or 4 bytes (cp.async), 2 or 1
+                       // (loads of that many bytes)
+  int vec_out;    // 1: the epilogue reads and writes 4 columns at once
+  int out_bf16;   // 1: the output is bf16
 };
 
 inline Geo make_geo(int rows, int vk, int vn, int esize, int max_chunk,
                     int tiles_per_block, int mode_x, int mode_w,
-                    int vec_out) {
+                    int vec_out, int out_bf16) {
   Geo g;
   g.rows = rows;
   g.rgn = rows / rows_per_thread(rows);
@@ -125,8 +139,10 @@ inline Geo make_geo(int rows, int vk, int vn, int esize, int max_chunk,
   g.threads = round_up(g.rgn * g.cgn, 32);
   g.k4 = round_up(vk, 4);
   // f32: rows 4 floats apart mod 32 banks (float4 reads of 8 rows hit 8
-  // distinct bank quads); int8: 16 bytes past the data, rows 16-aligned.
-  g.xs_stride = esize == 4 ? (g.k4 + 4) * 4 : round_up(vk, 16) + 16;
+  // distinct bank quads); int8 and bf16: 16 bytes past the data, rows
+  // 16-aligned.
+  g.xs_stride = esize == 4 ? (g.k4 + 4) * 4
+                           : round_up(g.k4 * esize, 16) + 16;
   g.ws_stride = round_up(vn, 4) * esize;
   g.w_bytes = round_up(g.k4 * g.ws_stride, 16);
   g.step_bytes = g.w_bytes + round_up(rows * g.xs_stride, 16);
@@ -142,6 +158,7 @@ inline Geo make_geo(int rows, int vk, int vn, int esize, int max_chunk,
   g.mode_x = mode_x;
   g.mode_w = mode_w;
   g.vec_out = vec_out;
+  g.out_bf16 = out_bf16;
   return g;
 }
 
@@ -153,7 +170,8 @@ inline size_t smem_bytes(const Geo& g) {
 // row r < valid takes `nbytes` bytes from src(r), then zeros up to
 // `pbytes`; rows >= valid are zeros.  mode 16 / 4: cp.async units of that
 // many bytes (nbytes a multiple of it, every src row aligned to it);
-// mode 1: byte loads packed into words (any alignment), stored at once.
+// mode 2 / 1: loads of 2 bytes (nbytes even, rows 2-aligned) or single
+// bytes (any alignment) packed into words, stored at once.
 // Walks a (rows x units) grid with the block's threads: thread t takes
 // units u0 + k*ustep of rows r0 + k*rstep (one division, at the start).
 struct Grid2 {
@@ -171,19 +189,29 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, int stride,
                                            int rows, int valid, int nbytes,
                                            int pbytes, int mode, Src src,
                                            const void* base) {
-  if (mode == 1) {
+  if (mode <= 2) {
     const int words = pbytes / 4;
     const Grid2 g(words);
     if (g.r0 >= g.rstep) return;  // the threads past rstep * ustep
     for (int r = g.r0; r < rows; r += g.rstep) {
       for (int q = g.u0; q < words; q += g.ustep) {
-        int v = 0;
+        unsigned v = 0;
         if (r < valid) {
           const unsigned char* p = src(r) + 4 * q;
           const int n = min(4, nbytes - 4 * q);
-          for (int b = 0; b < n; ++b) v |= static_cast<int>(p[b]) << (8 * b);
+          if (mode == 2) {
+            for (int b = 0; b < n; b += 2) {
+              v |= static_cast<unsigned>(
+                       *reinterpret_cast<const unsigned short*>(p + b))
+                   << (8 * b);
+            }
+          } else {
+            for (int b = 0; b < n; ++b) {
+              v |= static_cast<unsigned>(p[b]) << (8 * b);
+            }
+          }
         }
-        *reinterpret_cast<int*>(dst + r * stride + 4 * q) = v;
+        *reinterpret_cast<unsigned*>(dst + r * stride + 4 * q) = v;
       }
     }
     return;
@@ -212,7 +240,8 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, int stride,
 
 // This thread's share of the vote on a stage of n steps: bit s when an
 // activation word that this thread copied for step s (the units
-// `stage_rows` gives it) is nonzero or a NaN.  A thread reads only what
+// `stage_rows` gives it) holds a nonzero value or a NaN (a bf16 -0 is
+// zero, as in the reference's x != 0).  A thread reads only what
 // its own copies wrote, which its cp.async wait has completed, so the
 // stage's one barrier publishes the data and the vote together.
 template <class T>
@@ -220,8 +249,8 @@ __device__ __forceinline__ unsigned own_votes(const unsigned char* stage,
                                               int n, const Geo& g,
                                               int rows_valid, int vk) {
   const int nbytes = vk * static_cast<int>(sizeof(T));
-  const int unit = g.mode_x == 1 ? 4 : g.mode_x;
-  const int units = g.mode_x == 1 ? g.k4 * static_cast<int>(sizeof(T)) / 4
+  const int unit = g.mode_x <= 2 ? 4 : g.mode_x;
+  const int units = g.mode_x <= 2 ? g.k4 * static_cast<int>(sizeof(T)) / 4
                                   : nbytes / g.mode_x;
   const Grid2 w(units);
   unsigned bits = 0;
@@ -233,9 +262,10 @@ __device__ __forceinline__ unsigned own_votes(const unsigned char* stage,
       for (int u = w.u0; u < units; u += w.ustep) {
         const unsigned char* p = x + r * g.xs_stride + u * unit;
         for (int b = 0; b < unit; b += 4) {
-          nz |= sizeof(T) == 4
-                    ? *reinterpret_cast<const float*>(p + b) != 0.f
-                    : *reinterpret_cast<const int*>(p + b) != 0;
+          const unsigned w = *reinterpret_cast<const unsigned*>(p + b);
+          nz |= sizeof(T) == 4 ? __uint_as_float(w) != 0.f
+                : sizeof(T) == 2 ? (w & 0x7FFF7FFFu) != 0u
+                                 : w != 0u;
         }
       }
     }
@@ -277,6 +307,49 @@ __device__ __forceinline__ void mac_f32(float (&acc)[RT][4],
   }
 }
 
+__device__ __forceinline__ float bf16_lo(unsigned u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned u) {
+  return __uint_as_float(u & 0xFFFF0000u);
+}
+
+// acc[i][c] += x[row i] . w[:, col c] over one staged bf16 step: the f32
+// body's loop, each 8-byte word of 4 bf16 values widened to 4 floats.
+template <int RT>
+__device__ __forceinline__ void mac_bf16(float (&acc)[RT][4],
+                                         const unsigned char* step,
+                                         const Geo& g, int rg, int cg) {
+  const unsigned char* ws = step + 8 * cg;
+  const unsigned char* xs = step + g.w_bytes;
+  for (int kq = 0; kq < g.k4; kq += 4) {
+    float a[RT][4];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const uint2 u = *reinterpret_cast<const uint2*>(
+          xs + (rg + g.rgn * i) * g.xs_stride + 2 * kq);
+      a[i][0] = bf16_lo(u.x);
+      a[i][1] = bf16_hi(u.x);
+      a[i][2] = bf16_lo(u.y);
+      a[i][3] = bf16_hi(u.y);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint2 u =
+          *reinterpret_cast<const uint2*>(ws + (kq + kk) * g.ws_stride);
+      const float b0 = bf16_lo(u.x), b1 = bf16_hi(u.x);
+      const float b2 = bf16_lo(u.y), b3 = bf16_hi(u.y);
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        acc[i][0] = fmaf(a[i][kk], b0, acc[i][0]);
+        acc[i][1] = fmaf(a[i][kk], b1, acc[i][1]);
+        acc[i][2] = fmaf(a[i][kk], b2, acc[i][2]);
+        acc[i][3] = fmaf(a[i][kk], b3, acc[i][3]);
+      }
+    }
+  }
+}
+
 // part[i][c] += x[row i] . w[:, col c] over one staged int8 step, exact
 // in int32.  A weight word holds 4 columns of one k; four of them (k =
 // 4q .. 4q+3) are transposed into 4 words of one column each.
@@ -311,13 +384,14 @@ __device__ __forceinline__ void mac_int8(int (&part)[RT][4],
   }
 }
 
-// out[row, col] = relu?(v * scale + bias + residual) for 4 columns.
-__device__ __forceinline__ void store4(const float (&v)[4], float* out,
+// out[row, col] = relu?(v * scale + bias + residual) for 4 columns, in
+// f32 or (out_bf16) rounded to bf16.
+__device__ __forceinline__ void store4(const float (&v)[4], void* out,
                                        long long row, int n, int col,
                                        int ncols, const float* scale,
                                        const float* bias,
                                        const float* residual, int relu,
-                                       int vec) {
+                                       int vec, int out_bf16) {
   const long long o = row * n + col;
   if (vec) {
     float4 r = make_float4(v[0], v[1], v[2], v[3]);
@@ -339,7 +413,13 @@ __device__ __forceinline__ void store4(const float (&v)[4], float* out,
       if (r.z < 0.f) r.z = 0.f;
       if (r.w < 0.f) r.w = 0.f;
     }
-    *reinterpret_cast<float4*>(out + o) = r;
+    if (out_bf16) {
+      __nv_bfloat162* ob = static_cast<__nv_bfloat162*>(out) + o / 2;
+      ob[0] = __floats2bfloat162_rn(r.x, r.y);
+      ob[1] = __floats2bfloat162_rn(r.z, r.w);
+    } else {
+      *reinterpret_cast<float4*>(static_cast<float*>(out) + o) = r;
+    }
     return;
   }
 #pragma unroll
@@ -350,22 +430,27 @@ __device__ __forceinline__ void store4(const float (&v)[4], float* out,
     if (bias) r = r + bias[col + c];
     if (residual) r = r + residual[o + c];
     if (relu && r < 0.f) r = 0.f;
-    out[o + c] = r;
+    if (out_bf16) {
+      static_cast<__nv_bfloat16*>(out)[o + c] = __float2bfloat16_rn(r);
+    } else {
+      static_cast<float*>(out)[o + c] = r;
+    }
   }
 }
 
-// Phase 1 for element type T: float (SPLIT unused: the epilogue or the
-// workspace is picked at run time) or int8_t (SPLIT: exact T_c and A_c
-// instead of the f32 accumulator).
+// Phase 1 for element type T: float or __nv_bfloat16 (SPLIT unused: the
+// epilogue or the workspace is picked at run time) or int8_t (SPLIT:
+// exact T_c and A_c instead of the f32 accumulator).
 template <class T, int RT, bool SPLIT>
 __device__ __forceinline__ void vsmm_body(
     const T* __restrict__ x, const T* __restrict__ vals,
     const int* __restrict__ idx, const float* __restrict__ scale,
     const float* __restrict__ bias, const float* __restrict__ residual,
-    float* __restrict__ out, void* __restrict__ work, int m, int k, int nb,
+    void* __restrict__ out, void* __restrict__ work, int m, int k, int nb,
     int s_steps, int vk, int vn, int relu, int skip, int splits,
     const Geo& g) {
   constexpr bool kInt8 = sizeof(T) == 1;
+  constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ __align__(16) unsigned char vsmm_smem[];
   __shared__ unsigned vote[3];
   const int j = blockIdx.y;
@@ -458,7 +543,7 @@ __device__ __forceinline__ void vsmm_body(
           }
         } else {
           store4(acc[i], out, row, n_total, col, ncols, scale, bias,
-                 residual, relu, g.vec_out);
+                 residual, relu, g.vec_out, g.out_bf16);
         }
       }
 #pragma unroll
@@ -497,7 +582,9 @@ __device__ __forceinline__ void vsmm_body(
     for (int s = 0; s < n; ++s) {
       if (!((live >> s) & 1)) continue;  // block-uniform
       const unsigned char* step = stage + s * g.step_bytes;
-      if constexpr (!kInt8) {
+      if constexpr (kBf16) {
+        mac_bf16<RT>(acc, step, g, rg, cg);
+      } else if constexpr (!kInt8) {
         mac_f32<RT>(acc, step, g, rg, cg);
       } else if constexpr (SPLIT) {
         mac_int8<RT>(tsum, step, g, rg, cg);
@@ -536,7 +623,7 @@ __device__ __forceinline__ void vsmm_body(
   const T *__restrict__ x, const T *__restrict__ vals,                      \
       const int *__restrict__ idx, const float *__restrict__ scale,         \
       const float *__restrict__ bias, const float *__restrict__ residual,   \
-      float *__restrict__ out, void *__restrict__ work, int m, int k,       \
+      void *__restrict__ out, void *__restrict__ work, int m, int k,        \
       int nb, int s_steps, int vk, int vn, int relu, int skip, int splits
 #define VSMM_ARGS                                                         \
   x, vals, idx, scale, bias, residual, out, work, m, k, nb, s_steps, vk,  \
@@ -559,14 +646,21 @@ __global__ void __launch_bounds__(kMaxThreads, RT == 8 ? 2 : 3)
   vsmm_body<int8_t, RT, SPLIT>(VSMM_ARGS, g);
 }
 
-// Phase 2, f32: the chunks' partials summed in chunk order, epilogue.
+template <int RT>
+__global__ void __launch_bounds__(kMaxThreads, RT == 8 ? 2 : 3)
+    vsmm_bf16_kernel(VSMM_PARAMS(__nv_bfloat16), Geo g) {
+  vsmm_body<__nv_bfloat16, RT, false>(VSMM_ARGS, g);
+}
+
+// Phase 2, f32 and bf16: the chunks' f32 partials summed in chunk order,
+// epilogue.
 __global__ void __launch_bounds__(256)
     vsmm_reduce_kernel(const float* __restrict__ work,
                        const float* __restrict__ scale,
                        const float* __restrict__ bias,
                        const float* __restrict__ residual,
-                       float* __restrict__ out, long long mn, int n,
-                       int splits, int relu) {
+                       void* __restrict__ out, long long mn, int n,
+                       int splits, int relu, int out_bf16) {
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (e >= mn) return;
@@ -574,7 +668,7 @@ __global__ void __launch_bounds__(256)
   for (int c = 1; c < splits; ++c) v += work[c * mn + e];
   const float r[4] = {v, 0.f, 0.f, 0.f};
   store4(r, out, e / n, n, static_cast<int>(e % n), 1, scale, bias,
-         residual, relu, 0);
+         residual, relu, 0, out_bf16);
 }
 
 // Phase 2, int8: the chunks' exact sums walked in chunk order with an
@@ -588,9 +682,9 @@ __global__ void __launch_bounds__(256)
                             const float* __restrict__ scale,
                             const float* __restrict__ bias,
                             const float* __restrict__ residual,
-                            float* __restrict__ out, long long mn, int k,
+                            void* __restrict__ out, long long mn, int k,
                             int nb, int s_steps, int vk, int vn, int splits,
-                            int relu) {
+                            int relu, int out_bf16) {
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (e >= mn) return;
@@ -619,7 +713,7 @@ __global__ void __launch_bounds__(256)
     }
   }
   const float r[4] = {v, 0.f, 0.f, 0.f};
-  store4(r, out, row, n, col, 1, scale, bias, residual, relu, 0);
+  store4(r, out, row, n, col, 1, scale, bias, residual, relu, 0, out_bf16);
 }
 
 inline bool aligned(const void* p, int to) {
@@ -627,10 +721,10 @@ inline bool aligned(const void* p, int to) {
 }
 
 // Copy unit for `rows` rows of `nbytes` bytes, `pitch` bytes apart, from
-// base p: 16 or 4 bytes by cp.async where everything is aligned to it, 1
-// (byte loads) otherwise.
+// base p: 16 or 4 bytes by cp.async where everything is aligned to it, 2
+// (2-byte loads) where that is, 1 (byte loads) otherwise.
 inline int copy_mode(const void* p, long long nbytes, long long pitch) {
-  for (int unit : {16, 4}) {
+  for (int unit : {16, 4, 2}) {
     if (nbytes % unit == 0 && pitch % unit == 0 && aligned(p, unit)) {
       return unit;
     }
@@ -652,8 +746,9 @@ int launch_phase1(Kernel kernel, const Geo& g, int grid_x,
 }
 
 template <class T>
-int launch_vsmm(void* stream_ptr, VSMM_PARAMS(T), int rows) {
+int launch_vsmm(void* stream_ptr, VSMM_PARAMS(T), int rows, int out_bf16) {
   constexpr bool kInt8 = sizeof(T) == 1;
+  constexpr bool kBf16 = sizeof(T) == 2;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if ((rows != 8 && rows != 32 && rows != 64 && rows != 128) ||
@@ -681,10 +776,17 @@ int launch_vsmm(void* stream_ptr, VSMM_PARAMS(T), int rows) {
                          (row_tiles + grid_x - 1) / grid_x,
                          copy_mode(x, 1LL * vk * esize, 1LL * k * esize),
                          copy_mode(vals, 1LL * vn * esize, 1LL * vn * esize),
-                         vec_out);
+                         vec_out, out_bf16 != 0);
   if (smem_bytes(g) > 227 * 1024) return bad;
   int err;
-  if constexpr (kInt8) {
+  if constexpr (kBf16) {
+    err = rt == 2 ? launch_phase1<T>(vsmm_bf16_kernel<2>, g, grid_x, stream,
+                                    VSMM_ARGS)
+        : rt == 4 ? launch_phase1<T>(vsmm_bf16_kernel<4>, g, grid_x, stream,
+                                    VSMM_ARGS)
+                  : launch_phase1<T>(vsmm_bf16_kernel<8>, g, grid_x, stream,
+                                    VSMM_ARGS);
+  } else if constexpr (kInt8) {
     if (splits > 1) {  // 8- or 32-row tiles (checked above)
       err = rt == 2 ? launch_phase1<T>(vsmm_int8_kernel<2, true>, g, grid_x, stream,
                                        VSMM_ARGS)
@@ -712,11 +814,11 @@ int launch_vsmm(void* stream_ptr, VSMM_PARAMS(T), int rows) {
   if constexpr (kInt8) {
     vsmm_int8_reduce_kernel<<<blocks, 256, 0, stream>>>(
         static_cast<const int2*>(work), x, vals, idx, scale, bias, residual,
-        out, mn, k, nb, s_steps, vk, vn, splits, relu);
+        out, mn, k, nb, s_steps, vk, vn, splits, relu, out_bf16 != 0);
   } else {
     vsmm_reduce_kernel<<<blocks, 256, 0, stream>>>(
         static_cast<const float*>(work), scale, bias, residual, out, mn, n,
-        splits, relu);
+        splits, relu, out_bf16 != 0);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -728,16 +830,25 @@ int launch_vsmm(void* stream_ptr, VSMM_PARAMS(T), int rows) {
 // take.  Any of scale, bias and residual may be null.  `rows` and
 // `splits` are the plan (kernels/vsmm.py::vsmm_plan); `work` is the
 // workspace for splits > 1 (splits * M * N floats), else may be null.
-// `skip` 0 turns the input-side skip off.  The caller has checked shapes,
-// dtypes and contiguity.
-extern "C" int vsmm_launch(VSMM_PARAMS(float), int rows, void* stream) {
-  return launch_vsmm<float>(stream, VSMM_ARGS, rows);
+// `skip` 0 turns the input-side skip off; `out_bf16` 1 writes a bf16
+// output, 0 an f32 one.  The caller has checked shapes, dtypes and
+// contiguity.
+extern "C" int vsmm_launch(VSMM_PARAMS(float), int rows, int out_bf16,
+                           void* stream) {
+  return launch_vsmm<float>(stream, VSMM_ARGS, rows, out_bf16);
+}
+
+// The bf16 branch: x and vals bf16, scale, bias and residual f32; `work`
+// as the f32 branch's (splits * M * N floats).
+extern "C" int vsmm_bf16_launch(VSMM_PARAMS(__nv_bfloat16), int rows,
+                                int out_bf16, void* stream) {
+  return launch_vsmm<__nv_bfloat16>(stream, VSMM_ARGS, rows, out_bf16);
 }
 
 // The int8 branch: x and vals int8, scale (the combined dequant scale, a
 // power of two per column) given by the caller; `work` holds splits * M *
 // N int32 pairs (T_c, A_c).
-extern "C" int vsmm_int8_launch(VSMM_PARAMS(int8_t), int rows,
+extern "C" int vsmm_int8_launch(VSMM_PARAMS(int8_t), int rows, int out_bf16,
                                 void* stream) {
-  return launch_vsmm<int8_t>(stream, VSMM_ARGS, rows);
+  return launch_vsmm<int8_t>(stream, VSMM_ARGS, rows, out_bf16);
 }

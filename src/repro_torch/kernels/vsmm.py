@@ -15,8 +15,11 @@ tiles to a workspace (allocated here, no host sync), and a second launch
 combines the chunks in chunk order and applies the epilogue, so the
 output has the same bits from run to run.
 
-The kernel has an f32 branch and an int8 one (int8 x and tiles, a
-per-column dequant scale; the reference's `_mac_dot` on int8): each
+The kernel has an f32 branch, a bf16 one (bf16 x and tiles, the LM's
+vector-sparse FFN: each bf16 value widened to f32 at the MAC, so the
+products are exact and the sum is f32 in stored order, as the reference's
+`_mac_dot` on bf16) and an int8 one (int8 x and tiles, a per-column
+dequant scale; the reference's `_mac_dot` on int8): each
 stored step's int8 x int8 partial is an exact integer, and the result is
 bit-equal to the reference's and to `vsmm_plain`, whose f32 accumulator
 takes the partials in stored order: the kernel adds them in that order
@@ -30,9 +33,12 @@ the kernel does not take raises, it never falls back.
 ``skip_zero_inputs=False`` (the reference's flag, the paper's dense-input
 mode) turns the input-side skip off: every stored step's MAC runs, and
 the output has the same bits (a skipped step adds exact zeros).
+``out_dtype`` is the reference's: the output's dtype, f32 by default for
+int8 operands and x's dtype otherwise; the kernel writes it (f32, or its
+f32 result rounded to bf16).
 ``vsmm_kernel.launches`` counts wrapper calls that launch the kernel (one
-a layer, whatever the split), ``int8_launches`` those of the int8 branch
-among them.
+a layer, whatever the split), ``int8_launches`` and ``bf16_launches``
+those of the int8 and the bf16 branch among them.
 """
 from __future__ import annotations
 
@@ -191,6 +197,7 @@ def vsmm_plain(
     scale: torch.Tensor | None = None,
     fuse_relu: bool = False,
     skip_zero_inputs: bool = True,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """The plain PyTorch version of the kernel: x (M, K) @ W -> (M, N).
 
@@ -203,8 +210,10 @@ def vsmm_plain(
     an f32 product of int8 values, exact (every partial sum is an integer
     below 127² * vk < 2^24 for vk <= 1040, whatever order the product
     sums in), so it equals the reference's int32 partial; the output is
-    f32.  It never skips (``skip_zero_inputs`` is taken for the kernel's
-    signature).
+    f32.  bf16 ``x`` and ``vs.vals`` are widened to f32: each product is
+    exact, the sum f32.  The result is cast to ``out_dtype`` (f32 for
+    int8 operands by default, else x's dtype).  It never skips
+    (``skip_zero_inputs`` is taken for the kernel's signature).
     """
     del skip_zero_inputs
     m, k = x.shape
@@ -218,16 +227,27 @@ def vsmm_plain(
         acc += torch.einsum("mjk,jkn->mjn", xg, vals[:, s])
     y = _epilogue(acc.reshape(m, nb * vn), bias=bias, residual=residual,
                   scale=scale, fuse_relu=fuse_relu)
-    return y if x.dtype == torch.int8 else y.to(x.dtype)
+    return y.to(_out_dtype(x, out_dtype))
+
+
+def _out_dtype(x: torch.Tensor, out_dtype: torch.dtype | None
+               ) -> torch.dtype:
+    """The reference's default: f32 for int8 operands, else x's dtype."""
+    if out_dtype is not None:
+        return out_dtype
+    return torch.float32 if x.dtype == torch.int8 else x.dtype
 
 
 def check_operands(named: dict[str, torch.Tensor | None],
-                   device: torch.device) -> bool:
+                   device: torch.device, *, bf16: bool = False) -> bool:
     """Raise unless every given tensor is a contiguous tensor on ``device``
     of the dtype the CUDA kernels take: int32 ``idx``, float32 for the
     rest, except int8 ``x`` and ``vals`` together with a ``scale`` (the
-    int8 entries).  Returns True for the int8 entries."""
+    int8 entries) and, where the kernel has a bf16 branch (``bf16``:
+    vsmm), bf16 ``x`` and ``vals`` together.  Returns True for the int8
+    entries."""
     int8 = named["x"].dtype == torch.int8
+    half = bf16 and named["x"].dtype == torch.bfloat16
     if int8 and named.get("scale") is None:
         raise ValueError("int8 operands need a dequant scale")
     for name, t in named.items():
@@ -235,6 +255,7 @@ def check_operands(named: dict[str, torch.Tensor | None],
             continue
         want = (torch.int32 if name == "idx"
                 else torch.int8 if int8 and name in ("x", "vals")
+                else torch.bfloat16 if half and name in ("x", "vals")
                 else torch.float32)
         if t.device != device or t.dtype != want or not t.is_contiguous():
             raise ValueError(
@@ -244,10 +265,14 @@ def check_operands(named: dict[str, torch.Tensor | None],
     return int8
 
 
-def entry_name(fn: str, int8: bool) -> str:
+def entry_name(fn: str, int8: bool, bf16: bool = False) -> str:
     """The extern "C" launch entry of a kernel's int8 branch
-    (``<kernel>_int8_launch``) or its f32 one (``fn``)."""
-    return fn.replace("_launch", "_int8_launch") if int8 else fn
+    (``<kernel>_int8_launch``), its bf16 one (``<kernel>_bf16_launch``)
+    or its f32 one (``fn``)."""
+    if int8 or bf16:
+        return fn.replace("_launch", "_int8_launch" if int8
+                          else "_bf16_launch")
+    return fn
 
 
 def check_epilogue(*, bias: torch.Tensor | None,
@@ -271,20 +296,23 @@ def vsmm_kernel(
     scale: torch.Tensor | None = None,
     fuse_relu: bool = False,
     skip_zero_inputs: bool = True,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """x (M, K) @ vector-sparse W (K, N) -> (M, N) f32, epilogue fused.
+    """x (M, K) @ vector-sparse W (K, N) -> (M, N), epilogue fused.
 
     CUDA tensors launch ``csrc/vsmm.cu`` on the current stream (built at
     first use), cut by `vsmm_plan` (two launches where it splits the
     stored steps); CPU tensors run `vsmm_plain`.  ``bias``/``scale`` are (N,),
     ``residual`` (M, N).  Any M works: the kernel masks the ragged tail.
     int8 ``x`` and ``vs.vals`` with a ``scale`` launch the int8 branch
-    (counted on ``int8_launches`` too).  ``skip_zero_inputs=False`` turns
-    the input-side skip off.
+    (counted on ``int8_launches`` too), bf16 ones the bf16 branch (on
+    ``bf16_launches``).  ``skip_zero_inputs=False`` turns the input-side
+    skip off.  The output is ``out_dtype`` (f32 or bf16; by default f32
+    for int8 operands, else x's dtype).
     """
     if x.device.type == "cpu":
         return vsmm_plain(x, vs, bias=bias, residual=residual, scale=scale,
-                          fuse_relu=fuse_relu)
+                          fuse_relu=fuse_relu, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"vsmm_kernel runs on cuda or cpu, not {x.device}")
     m, k = x.shape
@@ -299,8 +327,12 @@ def vsmm_kernel(
                    out_shape=(m, n))
     int8 = check_operands({"x": x, "vals": vs.vals, "idx": vs.idx,
                            "bias": bias, "scale": scale,
-                           "residual": residual}, x.device)
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+                           "residual": residual}, x.device, bf16=True)
+    bf16 = x.dtype == torch.bfloat16
+    dt = _out_dtype(x, out_dtype)
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"vsmm_kernel writes f32 or bf16, not {dt}")
+    out = torch.empty((m, n), dtype=dt, device=x.device)
     if m == 0:
         return out
     rows, splits = vsmm_plan(m, nb, s_steps, vk, vn, int8)
@@ -309,14 +341,17 @@ def vsmm_kernel(
         work = torch.empty((splits, m, n, 2) if int8 else (splits, m, n),
                            dtype=torch.int32 if int8 else torch.float32,
                            device=x.device)
-    launch("vsmm", entry_name("vsmm_launch", int8),
+    launch("vsmm", entry_name("vsmm_launch", int8, bf16),
            (x, vs.vals, vs.idx, scale, bias, residual, out, work),
            (m, k, nb, s_steps, vk, vn, int(fuse_relu),
-            int(skip_zero_inputs), splits, rows), x.device)
+            int(skip_zero_inputs), splits, rows,
+            int(dt == torch.bfloat16)), x.device)
     vsmm_kernel.launches += 1
     vsmm_kernel.int8_launches += int(int8)
+    vsmm_kernel.bf16_launches += int(bf16)
     return out
 
 
 vsmm_kernel.launches = 0  # type: ignore[attr-defined]
 vsmm_kernel.int8_launches = 0  # type: ignore[attr-defined]
+vsmm_kernel.bf16_launches = 0  # type: ignore[attr-defined]

@@ -19,8 +19,15 @@ The port of `repro/launch/serve.py`.  The LM arm:
   0 is the plain argmax, bit-identical whatever the lane's neighbours
   do.  Recurrent archs (RWKV, Mamba) backfill at the exact context
   length, attention archs on the ``len_bucket`` ladder.
-* `Server` — seeded (or bridged) weights and an `LMBackend` behind a
-  `LockstepScheduler`.
+* `Server` — seeded (or bridged) weights in their served form
+  (`transformer.prepare_params`: each vector-sparse FFN's ``wo`` merged
+  once) and an `LMBackend` behind a `LockstepScheduler`.  It serves
+  token-input archs, dense or with the vector-sparse FFN
+  (``use_sparse_ffn``: its vsmm launches are captured in the decode
+  graph like every other kernel) and with or without ``bf16_flow``; it
+  refuses an embedding-input arch (``embed_inputs=False``), as the
+  reference's does: those run through `models.transformer`'s
+  ``lm_apply`` / ``prefill`` / ``decode_step``.
 
 The CNN arm:
 
@@ -418,7 +425,9 @@ class Server:
     Weights are initialized from ``seed`` in the config's dtype on
     ``device`` (CUDA by default; on the card drawn there by a CUDA
     generator), or taken as given (``params``, e.g. the
-    reference's through `repro_torch.params.params_from_numpy`).
+    reference's through `repro_torch.params.params_from_numpy`), then put
+    in their served form (`transformer.prepare_params`).  An
+    embedding-input config raises ``ValueError``.
     """
 
     def __init__(self, cfg: Any, *, batch: int, capacity: int, seed: int = 0,
@@ -426,13 +435,17 @@ class Server:
                  max_queue: int | None = None,
                  device: str | torch.device | None = None,
                  params: dict | None = None):
+        if not cfg.embed_inputs:
+            raise ValueError(f"{cfg.name}: the LM server expects "
+                             f"token-input archs (embed_inputs=False)")
         self.cfg = cfg
         self.batch = batch
         self.capacity = capacity
         self.device = resolve_device(device)
-        self.params = params if params is not None else init_params(
-            tfm.lm_schema(cfg), seed, dtype=cfg.dtype, device=self.device,
-            draw_on_device=True)
+        self.params = tfm.prepare_params(
+            params if params is not None else init_params(
+                tfm.lm_schema(cfg), seed, dtype=cfg.dtype,
+                device=self.device, draw_on_device=True), cfg)
         self.backend = LMBackend(cfg, self.params, capacity=capacity,
                                  eos_id=eos_id, len_bucket=len_bucket,
                                  device=self.device)

@@ -20,6 +20,16 @@ new K/V row into the cache in place (``index_copy_`` at ``pos % cap``)
 and returns the same tensors.  The scores read a bf16 cache as it is and
 sum in f32 (`_decode_scores`); the values product promotes the cache to
 f32, as the reference's does (its ``p`` is f32).
+
+Matmul output precision (`layers.matmul_out_dtype`), site by site: the
+q, k, v projections (reference ``attention.py:192``) and the output
+projection (``:306``, ``:339``) are rounded to the activations' dtype
+at once, the same function in both settings: the port takes them in
+that dtype in both.  ``:122`` rounds the jnp flash's p to v's dtype under
+``bf16_flow``; the port runs its flash kernel in both settings, as the
+reference's Pallas path does (its bf16 body rounds p to bf16 for the PV
+product, its f32 body keeps it f32).  The decode scores and values are
+f32 in both, as in the reference.
 """
 from __future__ import annotations
 

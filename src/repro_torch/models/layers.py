@@ -5,9 +5,11 @@ A model's schema is a nested dict (or list) whose leaves are `P` entries
 nesting of tensors.  The laws are the reference's `_leaf_init`: ``normal``
 draws N(0, 1) scaled by fan_in^-1/2, ``embed`` by shape[-1]^-1/2,
 ``zeros`` / ``ones`` are constant, ``a_log`` is Mamba's A init (each row
-log(1..N), so A_n = -(n + 1)).  Each leaf draws from its own generator,
-seeded from the run's seed and a CRC of the leaf's path, so no leaf's
-draw depends on another's.  That is a CPU `torch.Generator`, so the
+log(1..N), so A_n = -(n + 1)), ``vs_idx`` the vector-sparse FFN's K-tile
+ids (S of the fan_in = KB tiles, evenly spaced and sorted, the same in
+every strip: the reference's, value for value).  Each leaf draws from
+its own generator, seeded from the run's seed and a CRC of the leaf's
+path, so no leaf's draw depends on another's.  That is a CPU `torch.Generator`, so the
 weights do not depend on the device, unless the caller asks to draw on
 the device (``draw_on_device``, the LM `Server`: a 14 B-parameter tree
 drawn on the host would take minutes): a CUDA generator with the same
@@ -24,12 +26,23 @@ in f32, matmuls accumulated in f32 and returned in the input's dtype.
 `matmul_f32` and `dense_f32` keep a product's f32 sum as it is, for the
 reference's products that stay in f32 (``preferred_element_type=f32``
 without a cast back).
+
+Matmul output precision (the reference's ``bf16_flow`` knob): by default
+the activation products named by `matmul_out_dtype` emit f32 (f32-out);
+inside ``precision_flow(True)`` (the model entries open it from
+``cfg.bf16_flow``) they emit the input's dtype, still summed in f32 by
+the library, rounded once.  `matmul_out` and `dense_out` are those
+products.  Where the reference casts the f32 product straight back
+(`dense`, here and at its other sites) both settings give the same
+function; the port then computes in the input dtype either way.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import zlib
-from typing import Any
+from typing import Any, Iterator
 
 import torch
 import torch.nn.functional as F
@@ -37,7 +50,27 @@ import torch.nn.functional as F
 from repro_torch.core.device import resolve_device
 
 __all__ = ["P", "init_params", "stack", "rms_norm", "dense", "dense_f32",
-           "matmul_f32", "rope", "mlp_schema", "mlp_apply"]
+           "dense_out", "matmul_f32", "matmul_out", "matmul_out_dtype",
+           "precision_flow", "rope", "mlp_schema", "mlp_apply"]
+
+_MATMUL_OUT_F32 = contextvars.ContextVar("matmul_out_f32", default=True)
+
+
+def matmul_out_dtype() -> torch.dtype | None:
+    """The output dtype of the activation products: f32, or None (the
+    input's dtype) inside ``precision_flow(True)``."""
+    return torch.float32 if _MATMUL_OUT_F32.get() else None
+
+
+@contextlib.contextmanager
+def precision_flow(bf16_flow: bool) -> Iterator[None]:
+    """Within the block, `matmul_out_dtype` is None if ``bf16_flow``, else
+    f32."""
+    tok = _MATMUL_OUT_F32.set(not bf16_flow)
+    try:
+        yield
+    finally:
+        _MATMUL_OUT_F32.reset(tok)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,8 +79,10 @@ class P:
 
     shape: tuple
     axes: tuple  # logical axis name (or None) per dim
-    init: str = "normal"  # 'normal' | 'embed' | 'zeros' | 'ones' | 'a_log'
-    fan_in: int | None = None  # scaled normal: std = 1/sqrt(fan_in)
+    init: str = "normal"  # 'normal' | 'embed' | 'zeros' | 'ones' |
+                          # 'a_log' | 'vs_idx'
+    fan_in: int | None = None  # scaled normal: std = 1/sqrt(fan_in);
+                               # vs_idx: the K-tiles KB
     dtype: Any = None  # None -> the init_params default
 
     def __post_init__(self) -> None:
@@ -71,14 +106,19 @@ def _draw(p: P, shape: tuple, key: str, dtype: torch.dtype,
         row = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
                                      device=dev))
         return row.expand(shape).to(dtype).contiguous()
+    if p.init == "vs_idx":  # VectorSparse indices: S evenly-spaced K-tiles
+        kb, s = p.fan_in, shape[-1]
+        stride = max(1, kb // s)
+        row = torch.sort((torch.arange(s, dtype=torch.int64, device=dev)
+                          * stride) % kb).values
+        return row.to(dtype).expand(shape).contiguous()
     if p.init == "embed":
         std = p.shape[-1] ** -0.5
     elif p.init == "normal":
         fan_in = p.fan_in or (p.shape[0] if p.shape else 1)
         std = fan_in ** -0.5
     else:
-        raise NotImplementedError(f"init law {p.init!r} belongs to a later "
-                                  f"slice of the LM arm")
+        raise ValueError(f"unknown init law {p.init!r}")
     # the generator keeps 32 bits of its seed: hash seed and path into 32
     gen = torch.Generator(device=dev).manual_seed(zlib.crc32(key.encode()))
     if dev.type == "cpu":
@@ -153,9 +193,28 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., K) @ w (K, ...out), accumulated in f32, in x.dtype.
 
     A bf16 product accumulates in f32 and rounds its output once, as the
-    reference's ``preferred_element_type=f32`` then ``astype`` does.
+    reference's ``preferred_element_type=f32`` then ``astype`` does, and
+    as its bf16-flow product (``preferred_element_type=None``) does: the
+    same function in both settings (reference ``layers.py:160``).
     """
     return torch.tensordot(x, w, dims=([x.ndim - 1], [0])).to(x.dtype)
+
+
+def matmul_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., K) @ b (K, N) (or batched (E, M, K) @ (E, K, N)) in
+    `matmul_out_dtype`: `matmul_f32`, or inside ``precision_flow(True)``
+    the product in the input dtype (summed in f32, rounded once)."""
+    if matmul_out_dtype() is not None:
+        return matmul_f32(a, b)
+    return torch.matmul(a, b)
+
+
+def dense_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`dense_f32`, or inside ``precision_flow(True)`` the product in x's
+    dtype: x (..., K) @ w (K, ...out) in `matmul_out_dtype`."""
+    out = w.shape[1:]
+    y = matmul_out(x, w.reshape(w.shape[0], -1))
+    return y.reshape(*x.shape[:-1], *out)
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

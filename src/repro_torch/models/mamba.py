@@ -8,6 +8,11 @@ reference.  Where the reference runs a chunked `lax.scan` over the
 sequence, the port runs a plain loop over T of the same step; no kernel
 computes this scan in the JAX package, so none is written here.
 
+Matmul output precision (`layers.matmul_out_dtype`; reference
+``mamba.py:97`` and ``:147``): both projections are rounded to the
+activations' dtype at once, the same function in both settings; under
+``bf16_flow`` they are taken in that dtype (no f32 copy).
+
 Caches (per layer): ``conv`` (B, 3, d_inner), the last three conv
 inputs, in the cache dtype, and ``ssm`` (B, d_inner, 16) in f32.  Decode
 updates both in place and returns the same tensors.
@@ -17,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import P, dense_f32, matmul_f32
+from .layers import P, dense_out, matmul_f32
 
 __all__ = ["mamba_schema", "mamba_apply", "init_mamba_cache"]
 
@@ -94,8 +99,8 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg, *,
     """x (B, T, D) -> (out (B, T, D), new_cache)."""
     b, t, _ = x.shape
     d_in, _ = _dims(cfg)
-    x_in = dense_f32(x, params["in_proj"][0]).to(x.dtype)
-    z = dense_f32(x, params["in_proj"][1]).to(x.dtype)
+    x_in = dense_out(x, params["in_proj"][0]).to(x.dtype)
+    z = dense_out(x, params["in_proj"][1]).to(x.dtype)
     a_neg = -torch.exp(params["a_log"].float())
     conv_b = params["conv_b"].float()
 
@@ -135,5 +140,5 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg, *,
 
     y = y.float() + params["d_skip"].float() * x_in.float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = dense_f32(y, params["out_proj"]).to(x.dtype)
+    out = dense_out(y, params["out_proj"]).to(x.dtype)
     return out, new_cache

@@ -22,6 +22,13 @@ zero row where the assignment was dropped) and sums the ``top_k`` of a
 token in f32 in a fixed order: a gather and a reduction, no atomics, so
 the same inputs give the same bits on every launch (the reference's
 scatter-add of slot outputs into token rows sums the same terms).
+
+Matmul output precision (`layers.matmul_out_dtype`; reference
+``moe.py:66``): the expert products emit f32 by default, so gate and
+(plain FFN) the hidden stay f32 through the activation; under
+``bf16_flow`` they emit the input's dtype, and the activation reads the
+rounded gate (widened to f32), as the reference's does.  The down
+product is cast back either way.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .layers import P, matmul_f32
+from .layers import P, matmul_out
 
 __all__ = ["MoEConfig", "moe_schema", "moe_apply", "route_and_pack",
            "capacity"]
@@ -132,16 +139,16 @@ def route_and_pack(xf: torch.Tensor, router: torch.Tensor, moe: MoEConfig,
 def _expert_ffn(xbuf: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor, *,
                 gated: bool, activation_fn) -> torch.Tensor:
     """xbuf (E, C, D) through every expert's FFN: (E, C, D) in its dtype.
-    The products sum in f32; the gate and up stay f32 through the
-    activation, as the reference's ``preferred_element_type=f32``."""
+    The products sum in f32 and emit `matmul_out_dtype` (f32, or under
+    ``bf16_flow`` the input's dtype); the activation runs in f32."""
     dt = xbuf.dtype
     if gated:
-        gate = matmul_f32(xbuf, wi[0])
-        up = matmul_f32(xbuf, wi[1])
-        h = activation_fn(gate).to(dt) * up.to(dt)
+        gate = matmul_out(xbuf, wi[0])
+        up = matmul_out(xbuf, wi[1])
+        h = activation_fn(gate.float()).to(dt) * up.to(dt)
     else:
-        h = activation_fn(matmul_f32(xbuf, wi)).to(dt)
-    return matmul_f32(h, wo).to(dt)
+        h = activation_fn(matmul_out(xbuf, wi).float()).to(dt)
+    return matmul_out(h, wo).to(dt)
 
 
 def moe_apply(params: dict, x: torch.Tensor, moe: MoEConfig, *,

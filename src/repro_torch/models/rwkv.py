@@ -16,6 +16,17 @@ the port runs a plain loop over T of the same step (a handful of small
 kernels a token a layer); no kernel computes this scan in the JAX
 package, so none is written here.
 
+Matmul output precision (`layers.matmul_out_dtype`), site by site: the
+time mix's r, k, v (reference ``rwkv.py:124``) and its output
+(``:167``) are rounded to the activations' dtype at once, the same
+function in both settings; its g (``:124``) is f32 through its SiLU by
+default and under ``bf16_flow`` the SiLU of the rounded product, in the
+activations' dtype; the channel mix's k (``:184``) is squared in f32 by
+default, in the activations' dtype under ``bf16_flow``, and its v
+(``:188``) is multiplied by r in f32 by default, rounded first under
+``bf16_flow``.  The channel mix's r, the decay's LoRA and the recurrence
+stay f32 in both settings, as in the reference.
+
 Caches (per layer): the time mix keeps ``x_prev`` (B, D) in the cache
 dtype and ``s`` (B, H, hd, hd) in f32; the channel mix keeps ``x_prev``.
 Decode updates them in place and returns the same tensors, so a CUDA
@@ -26,7 +37,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import P, dense_f32, matmul_f32, rms_norm
+from .layers import P, dense_out, matmul_f32, rms_norm
 
 __all__ = ["rwkv_tm_schema", "rwkv_cm_schema", "rwkv_time_mix",
            "rwkv_channel_mix", "init_rwkv_tm_cache", "init_rwkv_cm_cache"]
@@ -124,10 +135,10 @@ def rwkv_time_mix(params: dict, x: torch.Tensor, cfg, *,
     xg = _lerp(x, xs, params["mu_g"])
     xw = _lerp(x, xs, params["mu_w"])
 
-    r = dense_f32(xr, params["wr"]).to(x.dtype)
-    k = dense_f32(xk, params["wk"]).to(x.dtype)
-    v = dense_f32(xv, params["wv"]).to(x.dtype)
-    g = F.silu(dense_f32(xg, params["wg"]))
+    r = dense_out(xr, params["wr"]).to(x.dtype)
+    k = dense_out(xk, params["wk"]).to(x.dtype)
+    v = dense_out(xv, params["wv"]).to(x.dtype)
+    g = F.silu(dense_out(xg, params["wg"]))
 
     # data-dependent decay (the RWKV-6 signature): per channel, in (0, 1)
     lora = torch.tanh(matmul_f32(xw, params["w_lora_a"]))
@@ -160,7 +171,7 @@ def rwkv_time_mix(params: dict, x: torch.Tensor, cfg, *,
 
     y = rms_norm(y, params["ln_x"])  # per-head group norm
     y = (y * g).to(x.dtype)
-    out = dense_f32(y.reshape(b, t, h * hd),
+    out = dense_out(y.reshape(b, t, h * hd),
                     params["wo"].reshape(h * hd, d)).to(x.dtype)
     return out, new_cache
 
@@ -173,9 +184,9 @@ def rwkv_channel_mix(params: dict, x: torch.Tensor, cfg, *,
     xk = _lerp(x, xs, params["mu_k"])
     xr = _lerp(x, xs, params["mu_r"])
     r = torch.sigmoid(matmul_f32(xr, params["wr"]))
-    k = dense_f32(xk, params["wk"])
+    k = dense_out(xk, params["wk"])
     hidden = torch.square(torch.relu(k))                     # squared ReLU
-    v = dense_f32(hidden.to(x.dtype), params["wv"])
+    v = dense_out(hidden.to(x.dtype), params["wv"])
     out = (r * v).to(x.dtype)
     new_cache = None
     if decode:

@@ -3,7 +3,8 @@
 The port of `repro/models/transformer.py`.  An architecture is a list of
 `Segment`s; each repeats a tuple of `LayerSpec`s (mixer x ffn x window):
 mixers ``attn`` (`attention`), ``mamba`` (`mamba`) and ``rwkv_tm``
-(`rwkv`), FFNs ``mlp``, ``moe`` (`moe`, with the shared expert
+(`rwkv`), FFNs ``mlp`` (`layers.mlp_apply`, or with ``use_sparse_ffn``
+the vector-sparse `sparse_lm`), ``moe`` (`moe`, with the shared expert
 ``ffn_shared`` where the config has one) and ``rwkv_cm``.  A segment's
 params (and caches) are stacked on a leading axis of size ``repeat``,
 with the reference's nesting — so the weights bridge maps the
@@ -12,6 +13,16 @@ that axis, the port runs a Python loop and indexes the stacked tensors
 (views, not copies).  Each layer returns the MoE load-balance loss
 ``aux`` (0 without a MoE), summed over the stack as the reference sums
 it.
+
+Inputs: token ids (``{"tokens": (B, T)}``), embedded and scaled by
+sqrt(d_model), or with ``embed_inputs=False`` (the stub frontends of
+HuBERT and InternVL2, `frontend`) embeddings ``{"embeds": (B, T, D)}``
+taken in the config's dtype; such a tree has no ``embed`` and always an
+``out_head``.  `decode_step` then takes a (B, 1, D) embedding as its
+``tokens``, as the reference's does.  Every entry runs inside
+``precision_flow(cfg.bf16_flow)`` (`layers`).  `prepare_params` gives a
+tree its served form (each sparse FFN's ``wo`` merged once,
+`sparse_lm.prepare_sparse_mlp`); the entries take either form.
 
 Modes:
   train   — full-sequence forward (no caches)
@@ -29,15 +40,18 @@ import torch.nn.functional as F
 
 from .attention import (attention_apply, attn_schema, decode_position,
                         init_kv_cache)
-from .layers import P, matmul_f32, mlp_apply, mlp_schema, rms_norm, stack
+from .layers import (P, matmul_f32, mlp_apply, mlp_schema, precision_flow,
+                     rms_norm, stack)
 from .mamba import init_mamba_cache, mamba_apply, mamba_schema
 from .moe import moe_apply, moe_schema
 from .rwkv import (init_rwkv_cm_cache, init_rwkv_tm_cache, rwkv_channel_mix,
                    rwkv_cm_schema, rwkv_time_mix, rwkv_tm_schema)
+from .sparse_lm import (prepare_sparse_mlp, sparse_mlp_apply,
+                        sparse_mlp_schema)
 
 __all__ = ["lm_schema", "layer_schema", "init_cache", "apply_layer",
            "forward_hidden", "embed_tokens", "unembed_matrix", "lm_apply",
-           "prefill", "decode_step"]
+           "prefill", "decode_step", "prepare_params"]
 
 
 # ---------------------------------------------------------------------------
@@ -47,6 +61,10 @@ __all__ = ["lm_schema", "layer_schema", "init_cache", "apply_layer",
 
 def _gated(cfg) -> bool:
     return cfg.activation in ("swiglu", "geglu")
+
+
+def _sparse_ffn(cfg) -> bool:
+    return cfg.use_sparse_ffn and cfg.sparsity is not None
 
 
 def _act_fn(cfg):
@@ -68,7 +86,10 @@ def layer_schema(spec, cfg) -> dict:
     if spec.ffn != "none":
         s["ln2"] = P((d,), (None,), init="zeros")
         if spec.ffn == "mlp":
-            s["ffn"] = mlp_schema(d, cfg.d_ff, cfg.activation)
+            if _sparse_ffn(cfg):
+                s["ffn"] = sparse_mlp_schema(cfg, cfg.sparsity)
+            else:
+                s["ffn"] = mlp_schema(d, cfg.d_ff, cfg.activation)
         elif spec.ffn == "moe":
             s["ffn"] = moe_schema(d, cfg.moe, gated=_gated(cfg),
                                   tp_hint=cfg.tp_hint)
@@ -84,9 +105,10 @@ def layer_schema(spec, cfg) -> dict:
 
 def lm_schema(cfg) -> dict:
     d, vp = cfg.d_model, cfg.padded_vocab
-    s = {"final_norm": P((d,), (None,), init="zeros"),
-         "embed": P((vp, d), ("vocab", "fsdp"), init="embed")}
-    if not cfg.tie_embeddings:
+    s = {"final_norm": P((d,), (None,), init="zeros")}
+    if cfg.embed_inputs:
+        s["embed"] = P((vp, d), ("vocab", "fsdp"), init="embed")
+    if not (cfg.tie_embeddings and cfg.embed_inputs):
         s["out_head"] = P((d, vp), ("fsdp", "vocab"), fan_in=d)
     s["segments"] = [
         stack({f"l{i}": layer_schema(sp, cfg) for i, sp in enumerate(seg.layers)},
@@ -172,7 +194,10 @@ def apply_layer(p: dict, h: torch.Tensor, spec, cfg, *, mode: str,
     if spec.ffn != "none":
         inp = rms_norm(h, p["ln2"])
         if spec.ffn == "mlp":
-            out = mlp_apply(p["ffn"], inp, activation=cfg.activation)
+            if _sparse_ffn(cfg):
+                out = sparse_mlp_apply(p["ffn"], inp, cfg)
+            else:
+                out = mlp_apply(p["ffn"], inp, activation=cfg.activation)
         elif spec.ffn == "moe":
             out, aux = moe_apply(p["ffn"], inp, cfg.moe, gated=_gated(cfg),
                                  activation_fn=_act_fn(cfg))
@@ -252,9 +277,34 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def unembed_matrix(params: dict, cfg) -> torch.Tensor:
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and cfg.embed_inputs:
         return params["embed"].T
     return params["out_head"]
+
+
+def _inputs_to_hidden(params: dict, batch: dict, cfg) -> torch.Tensor:
+    if cfg.embed_inputs:
+        return embed_tokens(params, batch["tokens"], cfg)
+    return batch["embeds"].to(cfg.dtype)
+
+
+def prepare_params(params: dict, cfg) -> dict:
+    """``params`` in the served form: each vector-sparse FFN's ``wo`` shard
+    CSRs merged into one (`sparse_lm.prepare_sparse_mlp`), once, so a
+    step launches one kernel for it.  Every other leaf is shared with
+    ``params``; a tree without a sparse FFN is returned as it is."""
+    if not _sparse_ffn(cfg):
+        return params
+    segs = []
+    for si, seg in enumerate(cfg.segments):
+        group = dict(params["segments"][si])
+        for i, sp in enumerate(seg.layers):
+            if sp.ffn == "mlp":
+                layer = dict(group[f"l{i}"])
+                layer["ffn"] = prepare_sparse_mlp(layer["ffn"], cfg)
+                group[f"l{i}"] = layer
+        segs.append(group)
+    return {**params, "segments": segs}
 
 
 def _logits(h: torch.Tensor, params: dict, cfg) -> torch.Tensor:
@@ -266,9 +316,10 @@ def _logits(h: torch.Tensor, params: dict, cfg) -> torch.Tensor:
 
 def lm_apply(params: dict, batch: dict, cfg) -> torch.Tensor:
     """Plain forward to all-position logits (B, T, Vp)."""
-    x = embed_tokens(params, batch["tokens"], cfg)
-    h, _, _ = forward_hidden(params, x, cfg, mode="train")
-    return _logits(h, params, cfg)
+    with precision_flow(cfg.bf16_flow):
+        x = _inputs_to_hidden(params, batch, cfg)
+        h, _, _ = forward_hidden(params, x, cfg, mode="train")
+        return _logits(h, params, cfg)
 
 
 def prefill(params: dict, batch: dict, cfg, *, capacity: int,
@@ -286,24 +337,28 @@ def prefill(params: dict, batch: dict, cfg, *, capacity: int,
     rows are overwritten by later decode steps before any query attends
     them.
     """
-    x = embed_tokens(params, batch["tokens"], cfg)
-    h, caches, _ = forward_hidden(params, x, cfg, mode="prefill",
-                                  caches=caches, capacity=capacity)
-    t = h.shape[1] - 1 if logit_pos is None else logit_pos
-    return _logits(h[:, t:t + 1], params, cfg)[:, 0], caches
+    with precision_flow(cfg.bf16_flow):
+        x = _inputs_to_hidden(params, batch, cfg)
+        h, caches, _ = forward_hidden(params, x, cfg, mode="prefill",
+                                      caches=caches, capacity=capacity)
+        t = h.shape[1] - 1 if logit_pos is None else logit_pos
+        return _logits(h[:, t:t + 1], params, cfg)[:, 0], caches
 
 
 def decode_step(params: dict, caches: list, tokens: torch.Tensor,
                 pos: torch.Tensor | int, cfg) -> tuple[torch.Tensor, list]:
-    """One decode step. tokens (B, 1) integer, pos a 0-d integer tensor on
-    the tokens' device (or an int).
+    """One decode step. tokens (B, 1) integer (with ``embed_inputs=False``
+    the embeddings (B, 1, D)), pos a 0-d integer tensor on the tokens'
+    device (or an int).
 
     Returns (logits (B, Vp), caches), the caches updated in place.  With
     a tensor ``pos`` the step waits on nothing from the host, so a CUDA
     graph can capture it.
     """
     pos = decode_position(pos, tokens.device)
-    x = embed_tokens(params, tokens, cfg)
-    h, caches, _ = forward_hidden(params, x, cfg, mode="decode",
-                                  caches=caches, pos=pos)
-    return _logits(h, params, cfg)[:, 0], caches
+    with precision_flow(cfg.bf16_flow):
+        x = embed_tokens(params, tokens, cfg) if cfg.embed_inputs \
+            else tokens
+        h, caches, _ = forward_hidden(params, x, cfg, mode="decode",
+                                      caches=caches, pos=pos)
+        return _logits(h, params, cfg)[:, 0], caches

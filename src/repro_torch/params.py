@@ -34,8 +34,11 @@ def params_from_numpy(tree: Any, device: str | torch.device | None = None
                       ) -> Any:
     """A nested dict / list of arrays (the reference's ``init_params``
     tree; an LM tree's ``segments`` is a list) -> the same nesting of
-    tensors on ``device`` (CUDA by default).  f32 and bfloat16 arrays keep
-    their dtype and bits."""
+    tensors on ``device`` (CUDA by default).  f32, bfloat16 and int32
+    arrays keep their dtype and bits: a vector-sparse FFN's tree (its
+    ``wi_vals`` / ``wo_vals`` tiles with their leading (gate, up) and tp
+    dims, int32 ``wi_idx`` / ``wo_idx``) and an embedding-input arch's
+    (no ``embed``) come across as they are."""
     dev = resolve_device(device)
 
     def walk(node: Any) -> Any:

@@ -82,20 +82,10 @@ def test_config_matches_the_reference(reduced):
     assert port.dtype == getattr(torch, str(ref.dtype))
     assert port.cache_dtype == getattr(torch, str(ref.cache_dtype))
     assert list_archs() == ["gemma3-12b", "granite-moe-3b-a800m",
+                            "hubert-xlarge", "internvl2-26b",
                             "jamba-v0.1-52b", "kimi-k2-1t-a32b",
                             "nemotron-4-340b", "phi3-medium-14b",
                             "qwen1.5-4b", "rwkv6-3b"]
-
-
-@pytest.mark.parametrize("change", [
-    dict(use_sparse_ffn=True),
-    dict(bf16_flow=True),
-    dict(embed_inputs=False),
-])
-def test_unported_modules_are_refused(change):
-    base = get_config("qwen1.5-4b")
-    with pytest.raises(NotImplementedError, match="later slices"):
-        dataclasses.replace(base, **change)
 
 
 def test_schema_matches_the_reference_at_full_size():
