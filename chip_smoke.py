@@ -17,8 +17,10 @@ repository around it, or when any phase fails.  Phases:
    instantiations (8 f32 and 8 int8 stem bodies, 10 dw), of the 42 int8
    instantiations (vsmm's 5 phase-1 and 1 phase-2 kernels, the generic
    conv body's 16 phase-1 and 2 phase-2 int8 kernels, the 8 int8 stem
-   bodies, 5 dw halo, 5 dw stack), of the 13 vsmm instantiations (f32,
-   bf16 and int8, both phases: f32 and bf16 share the f32 phase 2) and
+   bodies, 5 dw halo, 5 dw stack), of the 14 vsmm instantiations (f32
+   per RT, int8 per RT and split, bf16 per row tile on the tensor cores:
+   8, 16 and 32 rows decode, 64 prefill; the phase 2 kernels, f32 and
+   bf16 sharing the f32 one) and
    of the 30 generic conv body instantiations
    (per layout: f32 at 128 and 64 rows x vn 128 and 64 and the general
    one; int8 the same four, split at 64 rows x vn 128 and 64, the general
@@ -79,11 +81,18 @@ repository around it, or when any phase fails.  Phases:
    Qwen1.5-4B (``wi``, vn 108; the merged ``wo``, vk 27) and Nemotron-4
    at full width (tiles drawn on the card by the schema's laws), and one
    weight pruned from a dense random matrix (K-tile ids that differ from
-   strip to strip), each at M 8 and 1024, bf16 in and f32 out: relative
-   1e-5 of its plain version, skip off bit-equal to skip on, the bf16
-   output the f32 one rounded; library = ``torch.mm`` of the bf16 input
-   and the decoded bf16 weight with an f32 output; the FLOP bound at the
-   bf16 tensor-core peak.
+   strip to strip), each at M 8 and 1024 (Qwen's also at 4096, its
+   sparse prefill's rows), bf16 in and f32 out: relative 1e-5 of its
+   plain version, skip off bit-equal to skip on, the bf16 output the f32
+   one rounded; library = ``torch.mm`` of the bf16 input and the decoded
+   bf16 weight with an f32 output; the FLOP bound at the bf16 tensor-core
+   peak.  Each row names its plan (``tiling``, ``rows``, ``splits``:
+   `vsmm_bf16_plan`), its share of the bound and kernel_ms / library_ms.
+   `vk27_staging` then times two ways of staging the 2-byte aligned
+   activation rows of Qwen's merged ``wo`` (vk 27) at M 8 and 4096: the
+   kernel's own (the 16-byte units spanning each row, shifted in shared
+   memory) against padding x to vk 32 in the wrapper (the pad's time
+   plus the kernel on the padded operands).
 3. Serve phases, one per path.  Before each, every launch count is set
    to 0; the port's ``CNNServer(cfg, batch=8, impl=...)`` serves seeded
    224x224x3 requests, every wave by CUDA-graph replay (one graph per
@@ -402,6 +411,9 @@ class Timer:
             "max_abs_err": err, "rel_err": rel, "rtol": rtol, **extra,
         }
         row["bound_ms"] = max(row["flops_bound_ms"], row["bytes_bound_ms"])
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        row["kernel_over_library"] = (None if row["library_ms"] is None
+                                      else row["kernel_ms"] / row["library_ms"])
         self.max_abs_err[kernel] = max(self.max_abs_err.get(kernel, 0.0), err)
         print(json.dumps(row), flush=True)
         return row
@@ -980,7 +992,8 @@ def skip_cases(timer: Timer, dev, gen, act) -> None:
 # density 0.235, vk 32, vn 128, tp_hint 16; ``wo`` merged over K = F):
 # arch, the FFN's label, and the M of a decode step and of a prefill
 BF16_FFN_ARCHS = ("qwen1.5-4b", "nemotron-4-340b")
-BF16_ROWS = (BATCH, 1024)
+BF16_ROWS = {"qwen1.5-4b": (BATCH, 1024, 4096),
+             "nemotron-4-340b": (BATCH, 1024), "pruned": (BATCH, 1024)}
 
 
 def _bf16_case(timer: Timer, label: str, x, vs, bf16_peak: float,
@@ -994,7 +1007,8 @@ def _bf16_case(timer: Timer, label: str, x, vs, bf16_peak: float,
     once) / HBM)."""
     import torch
     from repro_torch.core.vector_sparse import decode
-    from repro_torch.kernels.vsmm import vsmm_kernel, vsmm_plain, vsmm_plan
+    from repro_torch.kernels.vsmm import (vsmm_bf16_plan, vsmm_kernel,
+                                          vsmm_plain)
 
     f32 = torch.float32
     y = vsmm_kernel(x, vs, out_dtype=f32)
@@ -1010,8 +1024,9 @@ def _bf16_case(timer: Timer, label: str, x, vs, bf16_peak: float,
     w = decode(vs)
     m, n = x.shape[0], vs.shape[1]
     nb, s_steps, vk, vn = vs.vals.shape
-    rows, splits = vsmm_plan(m, nb, s_steps, vk, vn)
+    rows, splits = vsmm_bf16_plan(m, nb, s_steps, vk, vn)
     extra = {"skip_off_bit_equal_to_on": True,
+             "tiling": "decode" if rows <= 32 else "prefill",
              "bf16_out_is_f32_out_rounded": True,
              "skip_off_ms": _device_ms(lambda: vsmm_kernel(
                  x, vs, out_dtype=f32, skip_zero_inputs=False), reps),
@@ -1028,6 +1043,62 @@ def _bf16_case(timer: Timer, label: str, x, vs, bf16_peak: float,
     del w
     torch.cuda.empty_cache()
     return row
+
+
+def _pad_vk(x, vs, vk_to: int):
+    """x (M, KB*vk) and the tiles (NB, S, vk, vn) of ``vs`` padded with
+    zeros to vk_to: x (M, KB*vk_to) and tiles (NB, S, vk_to, vn), the same
+    product (each padding column of x meets a zero row of a tile)."""
+    import torch.nn.functional as F
+    from repro_torch.core.vector_sparse import VectorSparse
+
+    m, k = x.shape
+    nb, s_steps, vk, vn = vs.vals.shape
+    kb = k // vk
+    xp = F.pad(x.view(m, kb, vk), (0, vk_to - vk)).reshape(m, kb * vk_to)
+    vals = F.pad(vs.vals, (0, 0, 0, vk_to - vk)).contiguous()
+    return xp, VectorSparse(vals, vs.idx, (kb * vk_to, vs.shape[1]))
+
+
+def vk27_staging(wo, *xs) -> dict:
+    """Two ways to stage an odd vk's activation rows (2-byte aligned
+    only), timed on Qwen1.5-4B's merged ``wo`` (vk 27) at each x's M: the
+    kernel's own (``kernel_ms``, twice: before and after; the 16-byte
+    units that span each row, shifted into place in shared memory)
+    against padding x to vk 32 in the wrapper (``pad_ms``, one ``F.pad``)
+    and the kernel on the padded operands, staged by plain 16-byte copies
+    (``padded_kernel_ms``; its tiles padded too, so it reads 32/27 of the
+    tiles' bytes: an upper bound on a wrapper that pads x alone).  The
+    padded product must equal the unpadded one within 1e-5."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.vsmm import vsmm_bf16_plan, vsmm_kernel
+
+    f32 = torch.float32
+    nb, s_steps, vk, vn = wo.vals.shape
+    out = {"phase": "vk27_staging", "tiles": [nb, s_steps, vk, vn]}
+    for x in xs:
+        m, k = x.shape
+        xp, wp = _pad_vk(x, wo, 32)
+        y = vsmm_kernel(x, wo, out_dtype=f32)
+        _check(f"vk27 staging M {m}: padded vs the kernel's staging",
+               vsmm_kernel(xp, wp, out_dtype=f32), y)
+        reps = 20 if m <= 32 else 5
+        own = [_device_ms(lambda: vsmm_kernel(x, wo, out_dtype=f32), reps)]
+        pad = _device_ms(lambda: F.pad(x.view(m, k // vk, vk),
+                                       (0, 32 - vk)), reps)
+        padded = _device_ms(lambda: vsmm_kernel(xp, wp, out_dtype=f32), reps)
+        own.append(_device_ms(lambda: vsmm_kernel(x, wo, out_dtype=f32),
+                              reps))
+        row = {"kernel_ms": own, "pad_ms": pad, "padded_kernel_ms": padded,
+               "pad_total_ms": pad + padded,
+               "plan": list(vsmm_bf16_plan(m, nb, s_steps, vk, vn)),
+               "cheaper": ("kernel" if max(own) <= pad + padded
+                           else "pad")}
+        out[f"M {m}"] = row
+        del xp, wp, y
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def vsmm_bf16_cases(timer: Timer, dev, bf16_peak: float) -> dict:
@@ -1067,7 +1138,7 @@ def vsmm_bf16_cases(timer: Timer, dev, bf16_peak: float) -> dict:
                           (cfg.d_model, cfg.d_ff))
         wo = VectorSparse(ffn["wo_csr_vals"], ffn["wo_csr_idx"],
                           (cfg.d_ff, cfg.d_model))
-        for m in BF16_ROWS:
+        for m in BF16_ROWS[arch]:
             reps = 5 if m * wi.vals.numel() > 1 << 36 else 20
             for name, vs, k, relu2 in (
                     ("wi" + (" (gate)" if gated else ""), wi, cfg.d_model,
@@ -1077,6 +1148,9 @@ def vsmm_bf16_cases(timer: Timer, dev, bf16_peak: float) -> dict:
                          f"{tuple(vs.vals.shape)}")
                 rows[(arch, name.split(" (")[0], m)] = _bf16_case(
                     timer, label, x_for(m, k, relu2), vs, bf16_peak, reps)
+        if wo.vals.shape[2] % 2:  # Qwen1.5-4B's merged wo: vk 27
+            vk27_staging(wo, x_for(BATCH, cfg.d_ff, False),
+                         x_for(4096, cfg.d_ff, False))
         del ffn, wi, wo
         torch.cuda.empty_cache()
     k, n, vk, vn = 2560, 6912, 32, 108
@@ -1084,7 +1158,7 @@ def vsmm_bf16_cases(timer: Timer, dev, bf16_peak: float) -> dict:
     pruned, mask = prune_vectors_balanced(w.numpy(), DENSITY, vk, vn)
     vs = from_mask(torch.from_numpy(pruned).to(dev, torch.bfloat16), mask,
                    vk, vn)
-    for m in BF16_ROWS:
+    for m in BF16_ROWS["pruned"]:
         label = (f"vsmm bf16 pruned random 2560->6912 vk 32 vn 108 M {m} "
                  f"{tuple(vs.vals.shape)}")
         rows[("pruned", "wi", m)] = _bf16_case(
@@ -3459,7 +3533,8 @@ def generic_instantiations(log: str) -> list:
 
 def _vsmm_row(name: str) -> dict | None:
     """vsmm.cu's entry functions: the phase-1 kernels per RT (rows a
-    thread) and, for int8, SPLIT; the phase-2 reduce kernels."""
+    thread) and, for int8, SPLIT; the bf16 tensor-core kernels per row
+    tile; the phase-2 reduce kernels."""
     m = re.search(r"vsmm_(int8_|bf16_)?(reduce_)?kernel"
                   r"(?:ILi(\d+)E(?:Lb([01])E)?)?", name)
     if m is None:
@@ -3467,7 +3542,7 @@ def _vsmm_row(name: str) -> dict | None:
     row = {"kernel": "vsmm" + ("_" + m.group(1)[:-1] if m.group(1) else "")
            + ("_reduce" if m.group(2) else "")}
     if m.group(3):
-        row["rt"] = int(m.group(3))
+        row["rows" if m.group(1) == "bf16_" else "rt"] = int(m.group(3))
     if m.group(4):
         row["split"] = m.group(4) == "1"
     return row
@@ -3599,10 +3674,11 @@ def main() -> int:
         print(f"built {r}")
     spilled = [r for r in vsmm_rows if r["spill_stores"]
                or r["spill_loads"] or r["spill_stores"] is None]
-    if len(vsmm_rows) != 13 or spilled:
+    if len(vsmm_rows) != 14 or spilled:
         print(f"chip_smoke: {len(vsmm_rows)} vsmm instantiations (expected "
-              f"13: f32 and bf16 phase 1 per RT 2/4/8 and phase 2 (shared), "
-              f"int8 phase 1 per RT unsplit and RT 2/4 split, and phase 2), "
+              f"14: f32 phase 1 per RT 2/4/8, bf16 per row tile 8/16/32/64, "
+              f"phase 2 (f32 and bf16), int8 phase 1 per RT unsplit and RT "
+              f"2/4 split, and phase 2), "
               f"spilling or unread: {spilled}",
               file=sys.stderr)
         return 1

@@ -15,11 +15,21 @@ tiles to a workspace (allocated here, no host sync), and a second launch
 combines the chunks in chunk order and applies the epilogue, so the
 output has the same bits from run to run.
 
-The kernel has an f32 branch, a bf16 one (bf16 x and tiles, the LM's
-vector-sparse FFN: each bf16 value widened to f32 at the MAC, so the
-products are exact and the sum is f32 in stored order, as the reference's
-`_mac_dot` on bf16) and an int8 one (int8 x and tiles, a per-column
-dequant scale; the reference's `_mac_dot` on int8): each
+The kernel has an f32 branch, a bf16 one and an int8 one.  The bf16 one
+(bf16 x and tiles, the LM's vector-sparse FFN; the reference's `_mac_dot`
+on bf16, ``jnp.dot(x, w, preferred_element_type=f32)``) runs on the tensor
+cores (``mma.sync`` m16n8k16, f32 accumulate), cut by `vsmm_bf16_plan`:
+at M <= 32 (a decode step) the swapped product W^T x^T, bound by the
+stored tiles' bytes, split where the strips do not fill the card; at
+M > 32 (a prefill) 64-row tiles of x, bound by the tensor cores.  Each
+bf16 product is exact in f32; a fresh mma chain per 32 k is added to f32
+accumulators, so the sum is f32 in stored order up to the tensor cores'
+rounding inside 32 products.  vk and vn are padded with zeros in shared
+memory to multiples of 16 (Qwen1.5-4B's merged ``wo`` has vk 27, its
+``wi`` vn 108); rows of x that are only 2-byte aligned (vk 27) are
+copied as the 16-byte units that span them and shifted in shared
+memory, not padded here.  The int8 branch (int8 x and tiles, a
+per-column dequant scale; the reference's `_mac_dot` on int8): each
 stored step's int8 x int8 partial is an exact integer, and the result is
 bit-equal to the reference's and to `vsmm_plain`, whose f32 accumulator
 takes the partials in stored order: the kernel adds them in that order
@@ -48,9 +58,11 @@ from repro_torch.core.vector_sparse import VectorSparse
 from repro_torch.kernels._build import launch
 
 __all__ = ["vsmm_kernel", "vsmm_plain", "vsmm_kernel_cost", "vsmm_plan",
-           "min_chunk", "chunk_bounds", "MAX_VN", "check_operands", "check_epilogue",
-           "entry_name", "SMS", "TARGET_BLOCKS", "SMALL_TARGET_BLOCKS",
-           "MIN_CHUNK", "ROW_TILES", "vsmm_x_index_map", "vsmm_w_index_map",
+           "vsmm_bf16_plan", "min_chunk", "chunk_bounds", "MAX_VN",
+           "check_operands", "check_epilogue", "entry_name", "SMS",
+           "TARGET_BLOCKS", "SMALL_TARGET_BLOCKS", "MIN_CHUNK", "ROW_TILES",
+           "BF16_ROW_TILES", "BF16_DECODE_ITEMS", "BF16_DECODE_MIN_CHUNK",
+           "BF16_PREFILL_MIN_CHUNK", "vsmm_x_index_map", "vsmm_w_index_map",
            "vsmm_out_index_map", "vsmm_bias_index_map"]
 
 MAX_VN = 128  # the kernel's thread layout covers at most 128 columns
@@ -111,6 +123,50 @@ def vsmm_plan(m: int, nb: int, s_steps: int, vk: int, vn: int,
     if int8 and (m > 32 or 128 * 128 * vk * s_steps >= 2 ** 31):
         splits = 1
     return rows, splits
+
+
+# The bf16 plan's constants (the tensor-core body): its row tiles (8, 16
+# and 32 rows on the decode tiling, 64 on the prefill one); the most
+# (strip, chunk) items a decode launch splits into: the blocks the card
+# holds at once at 8 rows (5 an SM; a step's copies, vote and MAC cost a
+# block more than its tile's bytes take to arrive, so the stored tiles
+# stream fastest with every block at work on chunks of few steps); the
+# fewest stored steps a decode chunk and a prefill chunk take.
+BF16_ROW_TILES = (8, 16, 32, 64)
+BF16_DECODE_ITEMS = 5 * SMS
+BF16_DECODE_MIN_CHUNK = 2
+BF16_PREFILL_MIN_CHUNK = 4
+
+
+def vsmm_bf16_plan(m: int, nb: int, s_steps: int, vk: int,
+                   vn: int) -> tuple[int, int]:
+    """(rows, splits) of the bf16 body for x (m, K) @ W with NB strips of
+    S stored (vk, vn) tiles: a pure function of the shapes.
+
+    m <= 32, the decode tiling (the swapped product W^T x^T: the strip's
+    columns on the mma's 16-row side, the rows on its 8-wide side): rows
+    8, 16 or 32, the least multiple of 8 (16 past 8) that holds m; splits,
+    as many chunks of at least BF16_DECODE_MIN_CHUNK steps as keep the
+    items NB x splits within BF16_DECODE_ITEMS (1 where NB alone comes
+    within a factor 2 of it: Nemotron-4's ``wi`` has 576 strips; Qwen1.5-
+    4B's 64 take 9).  m > 32, the prefill tiling
+    (x as the mma's A operand): 64 rows (on the H100 it beat 128-row tiles
+    at every FFN shape, the 128-row body needing more registers than two
+    blocks an SM leave); splits 1 where the row tiles x NB reach SMS, else
+    the fewest chunks of at least BF16_PREFILL_MIN_CHUNK steps that reach
+    TARGET_BLOCKS.  ``vk`` and ``vn`` (every vk, vn <= 128 works) do not
+    move the plan."""
+    del vk, vn
+    if m <= 32:
+        rows = 8 if m <= 8 else 16 if m <= 16 else 32
+        return rows, max(1, min(BF16_DECODE_ITEMS // nb,
+                                s_steps // BF16_DECODE_MIN_CHUNK))
+    rows = 64
+    items = _cdiv(m, rows) * nb
+    if items >= SMS:
+        return rows, 1
+    return rows, max(1, min(_cdiv(TARGET_BLOCKS, items),
+                            s_steps // BF16_PREFILL_MIN_CHUNK))
 
 
 def chunk_bounds(s_steps: int, splits: int) -> list[tuple[int, int]]:
@@ -301,8 +357,8 @@ def vsmm_kernel(
     """x (M, K) @ vector-sparse W (K, N) -> (M, N), epilogue fused.
 
     CUDA tensors launch ``csrc/vsmm.cu`` on the current stream (built at
-    first use), cut by `vsmm_plan` (two launches where it splits the
-    stored steps); CPU tensors run `vsmm_plain`.  ``bias``/``scale`` are (N,),
+    first use), cut by `vsmm_plan` (bf16: `vsmm_bf16_plan`; two launches
+    where it splits the stored steps); CPU tensors run `vsmm_plain`.  ``bias``/``scale`` are (N,),
     ``residual`` (M, N).  Any M works: the kernel masks the ragged tail.
     int8 ``x`` and ``vs.vals`` with a ``scale`` launch the int8 branch
     (counted on ``int8_launches`` too), bf16 ones the bf16 branch (on
@@ -335,7 +391,8 @@ def vsmm_kernel(
     out = torch.empty((m, n), dtype=dt, device=x.device)
     if m == 0:
         return out
-    rows, splits = vsmm_plan(m, nb, s_steps, vk, vn, int8)
+    rows, splits = (vsmm_bf16_plan(m, nb, s_steps, vk, vn) if bf16
+                    else vsmm_plan(m, nb, s_steps, vk, vn, int8))
     work = None
     if splits > 1:  # each chunk's partial: f32, or int8's (T_c, A_c) pair
         work = torch.empty((splits, m, n, 2) if int8 else (splits, m, n),

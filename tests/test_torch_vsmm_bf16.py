@@ -11,13 +11,18 @@ dtype (x's, f32 for int8) and its rounding; `check_operands` and
 `entry_name` for the three branches.
 
 GPU tests (marked ``gpu``; the ``cuda`` fixture skips without a card):
-the bf16 kernel at the sparse FFN's shapes of Qwen1.5-4B (``wi`` and the
-merged ``wo``, vk 27) and Phi-3-medium (vn 112) at M = 8 and 1024, and
-on pruned random weights (ids differing strip to strip), against
-`vsmm_plain` on the card (f32 out, relative 1e-5); a bf16 output equal
-to the kernel's f32 output rounded; skip off bit-equal to skip on (with
--0.0 tiles, which the vote counts as zero); the epilogue; a split plan;
-two launches bit-equal; the counters.  Run on the H100:
+the bf16 kernel (on the tensor cores, tiled by `vsmm_bf16_plan`) at the
+sparse FFN's shapes of Qwen1.5-4B (``wi`` and the merged ``wo``, vk 27)
+and Phi-3-medium (vn 112) at M = 8 and 1024, and on pruned random
+weights (ids differing strip to strip), against `vsmm_plain` on the card
+(f32 out, relative 1e-5); a bf16 output equal to the kernel's f32 output
+rounded; skip off bit-equal to skip on (with -0.0 tiles, which the vote
+counts as zero); the epilogue; a split plan; two launches bit-equal; the
+counters; a sweep of M over both tilings (1 to 4096) x vk (8 to 64, 27
+odd) x vn (10 to 128, 108 and 112 not multiples of 16), equal and
+distinct ids, the epilogue and zero tiles, each case held to all of
+those; a CUDA graph's replay bit-equal to the eager call, at a split
+and an unsplit plan.  Run on the H100:
 
     PYTHONPATH=src python -m pytest tests/test_torch_vsmm_bf16.py -q
 """
@@ -238,11 +243,10 @@ def test_skip_on_zero_and_negative_zero_tiles_is_bit_equal(cuda):
 def test_bf16_epilogue_and_split_plan(cuda, m):
     """Scale, bias, residual and ReLU fused (f32 operands) on the bf16
     branch, with a plan that splits the stored steps (few strips, many
-    steps) at M 8."""
+    steps) at M 8 and 300."""
     x, vs = _cuda_operands(cuda, 13, m, 4, 96, 32, 128, 120, distinct=True)
-    rows, splits = V.vsmm_plan(m, 4, 96, 32, 128)
-    if m == 8:
-        assert splits > 1
+    rows, splits = V.vsmm_bf16_plan(m, 4, 96, 32, 128)
+    assert splits > 1
     n = vs.shape[1]
     g = torch.Generator(device=cuda).manual_seed(0)
     bias = torch.randn(n, device=cuda, generator=g)
@@ -267,3 +271,71 @@ def test_mixed_dtypes_raise_on_the_card(cuda):
                                               device=cuda))
     with pytest.raises(ValueError, match="f32 or bf16"):
         V.vsmm_kernel(x, vs, out_dtype=torch.float16)
+
+
+# M, vk, vn, ids distinct across strips, epilogue and zero tiles: a
+# covering subset of M (both tilings) x vk x vn
+SWEEP = [
+    (1, 27, 10, True, False), (5, 8, 108, False, True),
+    (8, 16, 112, True, False), (8, 32, 64, False, True),
+    (8, 27, 108, False, True), (9, 40, 128, True, True),
+    (31, 64, 64, False, False), (31, 8, 10, True, True),
+    (33, 27, 112, True, True), (64, 32, 10, False, True),
+    (64, 27, 64, True, False), (100, 40, 108, True, False),
+    (100, 64, 128, False, True), (1024, 8, 64, True, True),
+    (1024, 64, 112, False, False), (1024, 32, 108, True, True),
+    (4096, 27, 128, False, True), (4096, 16, 108, True, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,vk,vn,distinct,epi", SWEEP)
+def test_sweep_of_m_vk_vn(cuda, m, vk, vn, distinct, epi):
+    """Each case against plain (relative 1e-5), two launches bit-equal,
+    skip off bit-equal to skip on, bf16 out the f32 out rounded."""
+    nb, s, kb = 3, 5, 12
+    x, vs = _cuda_operands(cuda, 100 + m + vk + vn, m, nb, s, vk, vn, kb,
+                           distinct=distinct)
+    kw = {}
+    if epi:  # zero K-tiles (some -0.0) and the fused epilogue
+        x3 = x.view(m, kb, vk)
+        x3[:, ::4] = 0.0
+        x3[:, 1::4] = -0.0
+        g = torch.Generator(device=cuda).manual_seed(m)
+        n = nb * vn
+        kw = dict(bias=torch.randn(n, device=cuda, generator=g),
+                  scale=torch.rand(n, device=cuda, generator=g) + 0.5,
+                  residual=torch.randn((m, n), device=cuda, generator=g),
+                  fuse_relu=True)
+    y = V.vsmm_kernel(x, vs, out_dtype=torch.float32, **kw)
+    ref = V.vsmm_plain(x, vs, out_dtype=torch.float32, **kw)
+    assert _rel(y.cpu(), ref.cpu()) <= RTOL
+    assert torch.equal(y, V.vsmm_kernel(x, vs, out_dtype=torch.float32,
+                                        **kw))
+    assert torch.equal(y, V.vsmm_kernel(x, vs, out_dtype=torch.float32,
+                                        skip_zero_inputs=False, **kw))
+    yb = V.vsmm_kernel(x, vs, out_dtype=torch.bfloat16, **kw)
+    assert torch.equal(yb, y.to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 1024])
+def test_captured_replay_is_bit_equal_to_eager(cuda, m):
+    """Qwen1.5-4B's merged wo shape (vk 27): split in two launches at M 8,
+    one at 1024; the graph's replays on new inputs equal eager calls."""
+    x, vs = _cuda_operands(cuda, 21, m, 20, 64, 27, 128, 256)
+    assert (V.vsmm_bf16_plan(m, 20, 64, 27, 128)[1] > 1) == (m == 8)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        V.vsmm_kernel(x, vs, out_dtype=torch.float32)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = V.vsmm_kernel(x, vs, out_dtype=torch.float32)
+    for seed in (22, 23):
+        x.copy_(_cuda_operands(cuda, seed, m, 20, 64, 27, 128, 256)[0])
+        graph.replay()
+        eager = V.vsmm_kernel(x, vs, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(y, eager)
