@@ -266,6 +266,29 @@ repository around it, or when any phase fails.  Phases:
    shape; logits through the kernels against their plain versions within
    the bf16 noise floor x 1.25 (or 2e-2) and, on the longest f32 prefix
    of layers that fits, within 1e-4; ms a forward.
+14. Training (`train_phase`).  The port's training step
+   (`launch.step_builders.build_train`) on Qwen1.5-4B at full width in
+   bf16 with its own config (8 x 512 tokens a step in 4 microbatches,
+   AdamW, remat per layer), weights drawn on the card from seed 0, whole
+   when 16 bytes a parameter fit in the card's free memory (else cut to
+   the most layers that fit, printed).  Steps 200-203 (lr > 0), counts
+   zeroed before and read after: the flash kernel (under autograd,
+   `flash_fwd_trainable`) launched exactly attention layers x
+   microbatches x 2 (forward and remat recompute) a step, 320 whole;
+   finite losses; every parameter's first-step gradient non-zero (its
+   AdamW first moment); the update non-zero.  Printed: ms a step,
+   tokens/s, MFU (`model_flops` over the step's time at the card's dense
+   bf16 peak), peak allocated memory; one more step profiled (device time
+   by kind, idle share).  Then `flash_grad_phase` (at Qwen's training
+   attention shape, BH 40, T 512, hd 128: the Function's dq, dk, dv
+   against autograd through `flash_fwd_plain`, f32 within 1e-5, bf16
+   within 2e-2; the plain backward's device ms), `train_check_phase`
+   (one full-width f32 layer: loss and gradient norm with the kernels
+   against `_plain_kernels`, within 1e-4) and `train_resume_phase` (a
+   reduced-config `TrainLoop` on the card: 4 steps, a checkpoint, a
+   fresh loop resumes and takes step 5, equal to an uninterrupted run
+   within 1e-5).  The ``kernels`` line's flash entry adds the steps'
+   launches (``launches_by_path["train"]``).
 
 ``kernel_ms``, ``plain_ms`` and ``library_ms`` are device time per call:
 a run of calls is captured in one CUDA graph and its replays are timed
@@ -295,6 +318,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import subprocess
 import sys
@@ -2009,6 +2033,7 @@ def _device_time(spans: list) -> tuple[float, dict]:
 
 PROFILE_SLACK_S = 0.05   # idle host time at each end of a profile window
 SERVE_RANGE = "chip_smoke_serve"   # the profiled serve's `record_function`
+PROFILE_TOP = 12   # the kernels of most device time a profile prints
 
 
 def profile_phase(path: str, serve, warm_s: float, int8: bool = False,
@@ -2103,6 +2128,7 @@ def _profile_once(path: str, serve, warm_s: float, int8: bool,
                 and e.device_type == DeviceType.CPU)
     margin = [spans[0][0] - host.start,
               host.end - max(end for _, end, _ in spans)]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:PROFILE_TOP]
     return {"phase": "profile", "path": path, "wall_ms": wall_ms,
            "device_events": len(spans), "graph_launches": graph_launches,
            "launches": launched, "kernel_events_by_kind": events_by_kind,
@@ -2110,7 +2136,8 @@ def _profile_once(path: str, serve, warm_s: float, int8: bool,
            "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
            "idle_share_est_two_serves": 1 - busy_us / 1e3 / (warm_s * 1e3),
            "device_ms_by_kind": by_kind, "unseen": unseen,
-           "device_margin_us": margin, "annotations_dropped": annotations}
+           "device_margin_us": margin, "annotations_dropped": annotations,
+           "top_device_ms": [[name[:120], ms, n] for name, (ms, n) in top]}
 
 
 LM_CONFIG = "qwen1.5-4b"
@@ -2227,8 +2254,9 @@ def lm_serve_phase(dev) -> dict:
 
 def _plain_kernels():
     """A context in which the LM's kernel calls take their plain versions:
-    the flash kernel (`models.attention`) and the sparse FFN's vsmm
-    (`models.sparse_lm`)."""
+    the flash kernel (`models.attention`; also its autograd Function, so
+    a training forward runs the plain version under autograd) and the
+    sparse FFN's vsmm (`models.sparse_lm`)."""
     import contextlib
     from unittest import mock
 
@@ -2237,8 +2265,9 @@ def _plain_kernels():
     from repro_torch.models import attention, sparse_lm
 
     stack = contextlib.ExitStack()
-    stack.enter_context(mock.patch.object(attention, "flash_fwd_kernel",
-                                          flash_fwd_plain))
+    for name in ("flash_fwd_kernel", "flash_fwd_trainable"):
+        stack.enter_context(mock.patch.object(attention, name,
+                                              flash_fwd_plain))
     stack.enter_context(mock.patch.object(sparse_lm, "vsmm_kernel",
                                           vsmm_plain))
     return stack
@@ -3124,6 +3153,312 @@ def frontend_phase(name: str, batch: int, t: int, steps: int, dev) -> dict:
     return out
 
 
+TRAIN_CONFIG = "qwen1.5-4b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 512   # the config's microbatches=4: 2 rows each
+TRAIN_STEP0 = 200                 # the schedule's peak lr (at 0 it is 0)
+TRAIN_STEPS = 4                   # timed steps of the main path
+TRAIN_BYTES_PER_PARAM = 16        # bf16 param and grad, f32 m, v, accumulator
+TRAIN_MARGIN = 12 << 30           # activations, CE logits, update temporaries
+TRAIN_RESUME = {"batch": 4, "seq": 32, "steps": 5, "ckpt_at": 4}
+FLASH_GRAD_DTYPES = (("float32", RTOL), ("bfloat16", 2e-2))
+TRAIN_CHECK_RTOL = 1e-4           # one f32 layer: kernels vs plain
+
+
+def _train_params(cfg, seed: int, dev):
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import init_params
+    return init_params(tfm.lm_schema(cfg), seed, dtype=cfg.dtype,
+                       device=dev, draw_on_device=True)
+
+
+def _train_batch(cfg, batch: int, seq: int, step: int, dev) -> dict:
+    import torch
+    from repro_torch.data.pipeline import LMBatchSpec, SyntheticLM
+    spec = LMBatchSpec(global_batch=batch, seq_len=seq, vocab=cfg.vocab)
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in SyntheticLM(spec, seed=0).batch_at(step).items()}
+
+
+def _train_depth(cfg) -> tuple:
+    """``cfg`` whole if 16 bytes a parameter and `TRAIN_MARGIN` fit in the
+    card's free memory, else cut to the most layers that fit (printed)."""
+    import torch
+    free, _ = torch.cuda.mem_get_info()
+    need = TRAIN_BYTES_PER_PARAM * cfg.param_count() + TRAIN_MARGIN
+    if need <= free:
+        return cfg, None
+    layers = cfg.total_layers
+    while layers > 1 and TRAIN_BYTES_PER_PARAM * _cut_depth(
+            cfg, layers).param_count() + TRAIN_MARGIN > free:
+        layers -= 1
+    print(json.dumps({"phase": "train_cut", "layers": layers,
+                      "of": cfg.total_layers, "free_bytes": free,
+                      "whole_needs_bytes": need}), flush=True)
+    return _cut_depth(cfg, layers), layers
+
+
+def flash_grad_phase(dev, peak_flops: float, peak_bw: float,
+                     bf16_peak: float) -> list:
+    """The flash kernel under autograd (`flash_fwd_trainable`) at Qwen's
+    training attention shape (a microbatch of 2 rows: BH 2 x 20, T 512,
+    hd 128, causal): dq, dk, dv against autograd through `flash_fwd_plain`
+    on the same inputs (f32 within 1e-5, bf16 within 2e-2 of max|grad|).
+    Timed: the forward (kernel, plain, SDPA; device ms by graph replay)
+    beside its bound, the plain backward (`flash_bwd_plain`, the
+    yardstick of a CUDA backward to come), and a forward and backward
+    under autograd (CUDA events over a host loop) against SDPA's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash import (flash_bwd_plain, flash_fwd_plain,
+                                           flash_fwd_trainable)
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for dtype, rtol in FLASH_GRAD_DTYPES:
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn(40, TRAIN_SEQ, 128, generator=gen,
+                                   device=dev).to(dt) for _ in range(4))
+        a = [t.clone().requires_grad_() for t in (q, k, v)]
+        g_plain = torch.autograd.grad(flash_fwd_plain(*a), a, do)
+        p = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = flash_fwd_trainable(*p)
+        g_fn = torch.autograd.grad(out, p, do)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, x, y in zip("qkv", g_fn, g_plain):
+            rel, _ = _rel_err(x.float(), y.float())
+            if not rel <= rtol or x.dtype != dt:
+                raise SystemExit(f"chip_smoke: flash grad {dtype} d{name}: "
+                                 f"Function vs plain relative error "
+                                 f"{rel:.3e} > {rtol} ({x.dtype})")
+            errs[f"d{name}_rel_err"] = rel
+        o = out.detach()
+        pairs = 40 * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+        flops_bound = 4 * 128 * pairs / (
+            bf16_peak if dt == torch.bfloat16 else peak_flops) * 1e3
+        bytes_bound = _nbytes(q, k, v, o) / peak_bw * 1e3
+        # (1, BH, T, hd) views: SDPA's fused backends take 4-D inputs
+        sdpa = lambda *a: F.scaled_dot_product_attention(
+            *(t[None] for t in a), is_causal=True)[0]
+
+        def fwd_bwd(fn):
+            xs = [t.detach().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(fn(*xs), xs, do)
+        row = {"phase": "flash_grad", "dtype": dtype, "shape": [40, TRAIN_SEQ,
+                                                              128],
+               "rtol": rtol, **errs,
+               "fwd_kernel_ms": _device_ms(
+                   lambda: flash_fwd_trainable(q, k, v), 5),
+               "fwd_plain_ms": _device_ms(lambda: flash_fwd_plain(q, k, v),
+                                          3),
+               "fwd_library_ms": _device_ms(lambda: sdpa(q, k, v), 5),
+               "fwd_bound_ms": max(flops_bound, bytes_bound),
+               "fwd_bound_by": ("operations" if flops_bound >= bytes_bound
+                                else "bytes"),
+               "bwd_plain_ms": _device_ms(
+                   lambda: flash_bwd_plain(q, k, v, o, do), 5),
+               "fwd_bwd_ms": _time_ms(lambda: fwd_bwd(flash_fwd_trainable),
+                                      5),
+               "fwd_bwd_library_ms": _time_ms(lambda: fwd_bwd(sdpa), 5)}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def train_check_phase(dev) -> dict:
+    """Qwen1.5-4B at full width cut to one layer, f32 weights from seed 0,
+    the first step's microbatch (2 x 512): the loss and every gradient
+    with the kernels (the flash kernel under autograd: 2 launches, the
+    forward and its remat recompute) against the same with the plain
+    versions (`_plain_kernels`: none), within 1e-4 relative (a gradient
+    leaf: of its max|g|)."""
+    import contextlib
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.step_builders import _grads_of
+    from repro_torch.optim.optimizers import global_norm
+    cfg = dataclasses.replace(_cut_depth(get_config(TRAIN_CONFIG), 1),
+                              param_dtype="float32")
+    params = _train_params(cfg, 0, dev)
+    n = TRAIN_BATCH // cfg.microbatches
+    batch = {k: v[:n] for k, v in _train_batch(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEP0, dev).items()}
+    counters = _counters()
+    runs = {}
+    for name in ("kernels", "plain"):
+        _zero_counters()
+        with _plain_kernels() if name == "plain" else contextlib.nullcontext():
+            loss, _, grads = _grads_of(params, batch, cfg)
+        torch.cuda.synchronize()
+        runs[name] = (float(loss), grads, float(global_norm(grads)),
+                      {k: c.launches for k, c in counters.items()
+                       if c.launches})
+    (loss_k, g_k, norm_k, n_k), (loss_p, g_p, norm_p, n_p) = \
+        runs["kernels"], runs["plain"]
+    grad_err = max(_rel_err(a, b)[0] for a, b in zip(g_k, g_p))
+    out = {"phase": "train_check", "layers": 1, "dtype": "float32",
+           "rows": n, "seq": TRAIN_SEQ, "loss": loss_k, "loss_plain": loss_p,
+           "grad_norm": norm_k, "grad_norm_plain": norm_p,
+           "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+           "grad_norm_rel_err": abs(norm_k - norm_p) / abs(norm_p),
+           "grad_rel_err": grad_err, "launches": n_k,
+           "launches_plain": n_p, "rtol": TRAIN_CHECK_RTOL}
+    print(json.dumps(out), flush=True)
+    if n_k != {"flash_fwd": 2} or n_p:
+        raise SystemExit(f"chip_smoke: train check: launches {n_k} with "
+                         f"the kernels (expected 2 flash), {n_p} plain")
+    if not max(out["loss_rel_err"], out["grad_norm_rel_err"],
+               grad_err) <= TRAIN_CHECK_RTOL:
+        raise SystemExit(f"chip_smoke: train check: kernels vs plain loss "
+                         f"{out['loss_rel_err']:.3e}, grad norm "
+                         f"{out['grad_norm_rel_err']:.3e}, gradients "
+                         f"{grad_err:.3e} > {TRAIN_CHECK_RTOL}")
+    del params, runs, g_k, g_p
+    _free_cuda()
+    return out
+
+
+def train_resume_phase(dev) -> dict:
+    """`TrainLoop` on the card at the reduced Qwen1.5-4B config: 4 steps
+    with a checkpoint at the end, a fresh loop that resumes from it and
+    takes step 5, against an uninterrupted 5-step run: losses and every
+    parameter and optimizer leaf within 1e-5 relative."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.utils.tree import leaves
+    cfg = get_config(TRAIN_CONFIG).reduce()
+    r = TRAIN_RESUME
+    kw = dict(batch=r["batch"], seq=r["seq"], device=dev)
+    whole = TrainLoop(cfg, ckpt_dir=None, **kw)
+    p_w, s_w, h_w = whole.run(r["steps"], log_every=10 ** 6)
+    with tempfile.TemporaryDirectory() as d:
+        TrainLoop(cfg, ckpt_dir=d, **kw).run(r["ckpt_at"],
+                                              log_every=10 ** 6)
+        resumed = TrainLoop(cfg, ckpt_dir=d, **kw)
+        p_r, s_r, h_r = resumed.run(r["steps"], log_every=10 ** 6)
+    worst = 0.0
+    for a, b in zip(leaves(p_r) + leaves(s_r), leaves(p_w) + leaves(s_w)):
+        worst = max(worst, _rel_err(a.float(), b.float())[0])
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(h_r, h_w[r["ckpt_at"]:]))
+    out = {"phase": "train_resume", "config": f"{TRAIN_CONFIG} reduced",
+           **r, "steps_after_resume": len(h_r), "losses": h_w,
+           "loss_rel_err": loss_err, "state_rel_err": worst}
+    print(json.dumps(out), flush=True)
+    if len(h_r) != r["steps"] - r["ckpt_at"] or not (
+            loss_err <= RTOL and worst <= RTOL):
+        raise SystemExit(f"chip_smoke: train resume: {len(h_r)} steps "
+                         f"after the resume, loss {loss_err:.3e}, state "
+                         f"{worst:.3e} vs an uninterrupted run (> {RTOL})")
+    return out
+
+
+def train_phase(dev, smi: str, peaks: tuple) -> dict:
+    """The port's training step (`step_builders.build_train`) on
+    Qwen1.5-4B at full width in bf16 (its config: 8 x 512 tokens a step
+    in 4 microbatches, AdamW, remat), weights drawn on the card from seed
+    0, whole if its 16 bytes a parameter fit (else cut, printed).  Steps
+    200-203 (lr > 0), each timed on its own; every launch count set to 0
+    just before them and read just after: the flash kernel launched
+    exactly attention layers x microbatches x 2 (forward and remat
+    recompute) a step, 320 whole.  Hard checks: finite losses, every
+    parameter's first-step gradient non-zero (its AdamW first moment, an
+    f32 (1 - b1) x the clipped gradient), the update non-zero.  Printed:
+    ms a step, tokens/s, MFU (`model_flops` over the step's seconds x the
+    card's dense bf16 peak), peak allocated memory, the card.  Then one
+    more step profiled (device time by kind, idle share), the flash
+    Function's gradients (`flash_grad_phase`), one f32 layer kernels vs
+    plain (`train_check_phase`) and the resume (`train_resume_phase`).
+    ``peaks``: the card's fp32, HBM and dense bf16 rates (`_peaks`)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import step_builders as sb
+    from repro_torch.utils.tree import leaves, leaves_with_path
+
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, cut = _train_depth(get_config(TRAIN_CONFIG))
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    params = _train_params(cfg, 0, dev)
+    opt_state = sb.make_optimizer(cfg).init(params)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    step_fn = sb.build_train(cfg, shape)
+    batches = [_train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEP0 + i,
+                            dev) for i in range(TRAIN_STEPS + 1)]
+    first = {path: x.clone() for path, x in leaves_with_path(params)
+             if x.numel() <= 1 << 24}  # norms and biases
+    counters = _counters()
+    _zero_counters()
+    times, metrics = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batches[i],
+                                       TRAIN_STEP0 + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:  # m = (1 - b1) x the first clipped gradient
+            dead = [path for path, x in leaves_with_path(opt_state["m"])
+                    if not bool(torch.any(x != 0))]
+            bad = [path for path, x in leaves_with_path(opt_state["m"])
+                   if not bool(torch.isfinite(x).all())]
+            if dead or bad:
+                raise SystemExit(f"chip_smoke: train: first-step gradient "
+                                 f"zero for {dead[:5]} ({len(dead)} "
+                                 f"leaves), not finite for {bad[:5]}")
+    launches = {n: k.launches for n, k in counters.items() if k.launches}
+    attn = _attention_layers(cfg)
+    expected = {"flash_fwd": attn * cfg.microbatches * 2 * TRAIN_STEPS}
+    if launches != expected:
+        raise SystemExit(f"chip_smoke: train: launches {launches}, expected "
+                         f"{expected} ({attn} attention layers x "
+                         f"{cfg.microbatches} microbatches x 2 x "
+                         f"{TRAIN_STEPS} steps)")
+    losses = [m["loss"] for m in metrics]
+    now = dict(leaves_with_path(params))
+    moved = min(float((x - now[path]).abs().max())
+                for path, x in first.items())
+    if not all(map(math.isfinite, losses)) or moved <= 0:
+        raise SystemExit(f"chip_smoke: train: losses {losses}, smallest "
+                         f"largest update {moved}")
+    peak_alloc = torch.cuda.max_memory_allocated()
+    warm_s = sum(times[1:]) / (len(times) - 1)
+    flops = sb.model_flops(cfg, shape)
+    bf16_peak = peaks[2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"phase": "train", "config": cfg.name, "layers": cfg.total_layers,
+           "cut": cut, "d_model": cfg.d_model, "params": cfg.param_count(),
+           "dtype": cfg.param_dtype, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "microbatches": cfg.microbatches, "optimizer": cfg.optimizer,
+           "remat": cfg.remat, "steps": [TRAIN_STEP0 + i
+                                         for i in range(TRAIN_STEPS)],
+           "setup_s": setup_s, "step_ms": [t * 1e3 for t in times],
+           "ms_per_step": warm_s * 1e3, "tokens_per_s": tokens / warm_s,
+           "model_flops": flops, "mfu": flops / (warm_s * bf16_peak),
+           "bound_ms": flops / bf16_peak * 1e3, "peak_allocated_gb":
+           peak_alloc / 1e9, "losses": losses,
+           "grad_norms": [m["grad_norm"] for m in metrics],
+           "launches": launches, "launches_per_step": {
+               k: v // TRAIN_STEPS for k, v in launches.items()},
+           "gpu": smi}
+    print(json.dumps(out), flush=True)
+    out["profile"] = profile_phase(
+        "train", lambda: step_fn(params, opt_state, batches[-1],
+                                 TRAIN_STEP0 + TRAIN_STEPS), warm_s)
+    del params, opt_state, batches, first
+    _free_cuda()
+    out["flash_grad"] = flash_grad_phase(dev, *peaks)
+    out["check"] = train_check_phase(dev)
+    out["resume"] = train_resume_phase(dev)
+    return out
+
+
 def _layer_inputs(net, params, sparse, x, impl: str) -> dict:
     """{layer name: its input} over one forward of ``x``: each conv's
     NHWC input (``net_apply``'s ``collect``) and each FC's (N, din) input
@@ -3779,6 +4114,8 @@ def main() -> int:
     frontends = {name: frontend_phase(name, b, t, steps, dev)
                  for name, b, t, steps in FRONTENDS}
     lap("frontend")
+    train = train_phase(dev, smi, (peak_flops, peak_bw, bf16_peak))
+    lap("train")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
 
     kernels = []
@@ -3821,7 +4158,8 @@ def main() -> int:
                      **{name: a["launches"].get("flash_fwd", 0)
                         for name, a in {**archs, **sparse}.items()},
                      **{name: f["launches"]["flash_fwd"]
-                        for name, f in frontends.items()}}
+                        for name, f in frontends.items()},
+                     "train": train["launches"]["flash_fwd"]}
     kernels.append({
         "name": "flash_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -3854,7 +4192,7 @@ def main() -> int:
                     "warm": lm_warm, "decode": lm_decode,
                     "prefill_breakdown": breakdown},
              "lm_flow": flow, "lm_archs": archs, "lm_sparse": sparse,
-             "frontend": frontends,
+             "frontend": frontends, "train": train,
              "profile": profiled, "dense_vs_sparse": dense_vs_sparse,
              "paper_model": paper_model, "calibration": calibration,
              "vscheck": vscheck, "seconds": seconds},

@@ -1,0 +1,2 @@
+"""Atomic async checkpoints in the reference's on-disk format
+(`manager`)."""

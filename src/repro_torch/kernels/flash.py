@@ -12,6 +12,12 @@ f32 inputs on the CUDA cores (f32 FMAs keep the 1e-5 f32 parity).
 and runs `flash_fwd_plain` for CPU tensors, and nothing else — a CUDA
 tensor that the kernel does not take raises, it never falls back.
 ``flash_fwd_kernel.launches`` counts kernel launches.
+
+Training: the kernel's output has no ``grad_fn``, so a loss through it
+would give q, k and v no gradient.  `flash_fwd_trainable` is the kernel
+under autograd (`FlashFwd`): its forward is `flash_fwd_kernel`, its
+backward `flash_bwd_plain`, the gradient that the reference's XLA derives
+for its jnp flash (it has no Pallas backward), in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -19,8 +25,9 @@ import torch
 
 from repro_torch.kernels._build import launch
 
-__all__ = ["flash_fwd_kernel", "flash_fwd_plain", "kernel_body",
-           "chunk_size", "MAX_HD", "NEG_INF"]
+__all__ = ["flash_fwd_kernel", "flash_fwd_plain", "flash_bwd_plain",
+           "flash_fwd_trainable", "FlashFwd", "kernel_body", "chunk_size",
+           "MAX_HD", "NEG_INF"]
 
 NEG_INF = -1e30
 MAX_HD = 256  # the f32 body's ceil(hd / 32) <= 8 slots; the bf16 body's
@@ -62,7 +69,6 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for q0 in range(0, tq, bq):
         qpos0 = q_offset + q0
         qf = q[:, q0:q0 + bq].float()
-        qpos = qpos0 + torch.arange(bq, device=q.device)
         m = torch.full((bh, bq), NEG_INF, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros((bh, bq), dtype=torch.float32, device=q.device)
@@ -74,13 +80,9 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 continue
             s = torch.einsum("bqd,bkd->bqk", qf,
                              k[:, k0:k0 + bk].float()) * scale
-            kpos = k0 + torch.arange(bk, device=q.device)
-            mask = torch.ones((bq, bk), dtype=torch.bool, device=q.device)
-            if causal:
-                mask &= qpos[:, None] >= kpos[None, :]
-            if window is not None:
-                mask &= qpos[:, None] - kpos[None, :] < window
-            s = torch.where(mask, s, NEG_INF)
+            mask = _mask(qpos0, bq, k0, bk, causal, window, q.device)
+            if mask is not None:
+                s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -92,6 +94,96 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         denom = torch.clamp_min(l, 1e-30)
         out[:, q0:q0 + bq] = (acc / denom[..., None]).to(q.dtype)
     return out
+
+
+def _mask(qpos0: int, bq: int, k0: int, bk: int, causal: bool,
+          window: int | None, device: torch.device) -> torch.Tensor | None:
+    """(bq, bk) bool: which keys at positions k0 + [0, bk) the queries at
+    positions qpos0 + [0, bq) see; None where they see every key."""
+    if not causal and window is None:
+        return None
+    qpos = qpos0 + torch.arange(bq, device=device)
+    kpos = k0 + torch.arange(bk, device=device)
+    mask = torch.ones((bq, bk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window is not None:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    return mask
+
+
+def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, dout: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of the attention forward: (dq, dk, dv) from the
+    forward's inputs, its output ``out`` and the output's gradient
+    ``dout``, all (BH, T, hd).
+
+    Per query block of ``chunk_size(Tq, 256)`` rows it recomputes the
+    masked scores (-1e30 where masked) and the row softmax P in f32, then
+    dV += P^T dO, dP = dO V^T, D = rowsum(dO * O), dS = P (dP - D),
+    dQ = dS K hd^-0.5, dK += dS^T Q hd^-0.5; sums in f32 and returns the
+    inputs' dtypes.  The bf16 forward's rounding of p before the PV
+    product is taken as the identity, as the reference's derivative of a
+    ``convert`` is.  Runs on any device.
+    """
+    bh, tq, hd = q.shape
+    tk = k.shape[1]
+    scale = hd ** -0.5
+    bq = chunk_size(tq, 256)
+    kf, vf = k.float(), v.float()
+    dq = torch.empty((bh, tq, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((bh, tk, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, tq, bq):
+        qf = q[:, q0:q0 + bq].float()
+        s = torch.bmm(qf, kf.transpose(1, 2)) * scale
+        mask = _mask(q_offset + q0, bq, 0, tk, causal, window, q.device)
+        if mask is not None:
+            s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        do = dout[:, q0:q0 + bq].float()
+        dv += torch.bmm(p.transpose(1, 2), do)
+        dp = torch.bmm(do, vf.transpose(1, 2))
+        d = (do * out[:, q0:q0 + bq].float()).sum(dim=-1, keepdim=True)
+        ds = p * (dp - d)
+        dq[:, q0:q0 + bq] = torch.bmm(ds, kf) * scale
+        dk += torch.bmm(ds.transpose(1, 2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashFwd(torch.autograd.Function):
+    """`flash_fwd_kernel` under autograd: the forward launches the kernel
+    (on the CPU its plain version) and saves q, k, v and the output; the
+    backward is `flash_bwd_plain`."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, window: int | None,
+                q_offset: int) -> torch.Tensor:
+        out = flash_fwd_kernel(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, q_offset = ctx.args
+        dq, dk, dv = flash_bwd_plain(q, k, v, out, dout, causal=causal,
+                                     window=window, q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
+def flash_fwd_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        q_offset: int = 0) -> torch.Tensor:
+    """`flash_fwd_kernel` with a gradient (`FlashFwd`): the training
+    forward's attention on the card."""
+    return FlashFwd.apply(q, k, v, causal, window, q_offset)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -9,8 +9,11 @@ to (B*H, T, hd), as the reference's `_flash_pallas` does, and calls
 hand-written kernel, on a CPU tensor it runs the plain version.  This
 holds for either ``cfg.attn_impl``: the port has no mesh, and in the
 reference ``"xla"`` only selects the GSPMD-partitionable form of the same
-function, so no CUDA path runs the plain version.  The reference's
-`logical` sharding constraints have no counterpart here.
+function, so no CUDA path runs the plain version.  A training forward on
+the card takes the kernel under autograd (`flash_fwd_trainable`), whose
+backward is plain torch: the reference trains through its jnp flash and
+lets XLA derive the backward.  The reference's `logical` sharding
+constraints have no counterpart here.
 
 Decode is plain torch, as in the reference (no Pallas kernel there): one
 query against the circular cache, grouped products, absolute positions
@@ -36,7 +39,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash import NEG_INF, flash_fwd_kernel
+from repro_torch.kernels.flash import (NEG_INF, flash_fwd_kernel,
+                                      flash_fwd_trainable)
 from .layers import P, rms_norm, rope
 
 __all__ = ["attn_schema", "attention_apply", "decode_position",
@@ -79,7 +83,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     at q_offset + [0, Tq) against key positions [0, Tk).
 
     Transposes to (B*H, T, hd) and calls `flash_fwd_kernel` (the CUDA
-    kernel on the card, its plain version on the CPU).
+    kernel on the card, its plain version on the CPU).  On the card, when
+    grad mode is on and an input requires grad (a training forward, or
+    its recompute under remat), the kernel runs under autograd
+    (`flash_fwd_trainable`); on the CPU the plain version runs under
+    autograd itself.
     """
     b, t, h, hd = q.shape
     tk = k.shape[1]
@@ -87,8 +95,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     def to_bh(a: torch.Tensor, n: int) -> torch.Tensor:
         return a.transpose(1, 2).reshape(b * h, n, hd).contiguous()
 
-    out = flash_fwd_kernel(to_bh(q, t), to_bh(k, tk), to_bh(v, tk),
-                           causal=causal, window=window, q_offset=q_offset)
+    fn = flash_fwd_kernel
+    if q.device.type == "cuda" and torch.is_grad_enabled() and \
+            (q.requires_grad or k.requires_grad or v.requires_grad):
+        fn = flash_fwd_trainable
+    out = fn(to_bh(q, t), to_bh(k, tk), to_bh(v, tk), causal=causal,
+             window=window, q_offset=q_offset)
     return out.reshape(b, h, t, hd).transpose(1, 2)
 
 

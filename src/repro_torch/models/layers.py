@@ -25,7 +25,9 @@ and `mlp_apply`, with its precision: norms, rotary angles and activations
 in f32, matmuls accumulated in f32 and returned in the input's dtype.
 `matmul_f32` and `dense_f32` keep a product's f32 sum as it is, for the
 reference's products that stay in f32 (``preferred_element_type=f32``
-without a cast back).
+without a cast back); on the card under autograd `matmul_f32` has a
+derivative of its own (`_MatmulF32`), since PyTorch has none for a
+product with an ``out_dtype``.
 
 Matmul output precision (the reference's ``bf16_flow`` knob): by default
 the activation products named by `matmul_out_dtype` emit f32 (f32-out);
@@ -217,17 +219,55 @@ def dense_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], *out)
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One ``mm`` / ``bmm`` of two low-precision operands, f32 out."""
+    if b.ndim == 3:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+    return y.reshape(*a.shape[:-1], b.shape[-1])
+
+
+class _MatmulF32(torch.autograd.Function):
+    """`matmul_f32` on the card's low-precision operands, with a
+    derivative: PyTorch registers none for ``mm`` / ``bmm`` with an
+    ``out_dtype``.  The f32 output's gradient g is taken against each
+    operand taken to f32 (a bf16 value is exact in f32), summed in f32
+    and rounded once to the operand's dtype, as the reference's
+    derivative of a product with ``preferred_element_type=f32`` rounds
+    it.  The f32 copy of an operand lives only for its product."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            if b.ndim == 3:
+                db = torch.bmm(a.float().transpose(1, 2), g)
+            else:
+                db = torch.mm(a.reshape(-1, a.shape[-1]).float().T,
+                              g.reshape(-1, g.shape[-1]))
+            db = db.to(b.dtype)
+        return da, db
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (..., K) @ b (K, N), or a batched (E, M, K) @ (E, K, N), summed
     in f32 and returned in f32.  On the card bf16 or f16 operands go into
     one ``mm`` / ``bmm`` with an f32 output (``out_dtype``), so no f32
-    copy of the weight is made; elsewhere both are taken to f32, the same
-    function."""
+    copy of the weight is made (under autograd through `_MatmulF32`,
+    whose backward sums in f32); elsewhere both are taken to f32, the
+    same function."""
     if a.device.type == "cuda" and a.dtype == b.dtype != torch.float32:
-        if b.ndim == 3:
-            return torch.bmm(a, b, out_dtype=torch.float32)
-        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
-        return y.reshape(*a.shape[:-1], b.shape[-1])
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _MatmulF32.apply(a, b)
+        return _mm_f32(a, b)
     return torch.matmul(a.float(), b.float())
 
 

@@ -24,6 +24,13 @@ taken in the config's dtype; such a tree has no ``embed`` and always an
 tree its served form (each sparse FFN's ``wo`` merged once,
 `sparse_lm.prepare_sparse_mlp`); the entries take either form.
 
+`loss_fn` is the training loss (the reference's): the chunked
+cross-entropy (`parallel.losses`) plus the MoE's ``aux_weight * aux``;
+with ``cfg.remat`` each repeat of a segment's layer group is
+checkpointed (`torch.utils.checkpoint`, as the reference checkpoints its
+scan body) and its recompute re-enters ``precision_flow`` itself, since
+the backward runs outside the entry's context.
+
 Modes:
   train   — full-sequence forward (no caches)
   prefill — forward + populated decode caches (attention K/V, the
@@ -37,6 +44,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.parallel.losses import chunked_cross_entropy
 
 from .attention import (attention_apply, attn_schema, decode_position,
                         init_kv_cache)
@@ -51,7 +61,7 @@ from .sparse_lm import (prepare_sparse_mlp, sparse_mlp_apply,
 
 __all__ = ["lm_schema", "layer_schema", "init_cache", "apply_layer",
            "forward_hidden", "embed_tokens", "unembed_matrix", "lm_apply",
-           "prefill", "decode_step", "prepare_params"]
+           "loss_fn", "prefill", "decode_step", "prepare_params"]
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +231,17 @@ def _index(tree, r: int):
     return {k: _index(v, r) for k, v in tree.items()}
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked param tree, each leaf unbound along
+    its stack axis (views).  Under autograd one ``unbind`` a leaf writes
+    the whole leaf's gradient once; indexing layer by layer would give
+    each layer's gradient a zero-filled copy of the whole stacked leaf."""
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    parts = {k: _unstack(v, n) for k, v in tree.items()}
+    return [{k: v[r] for k, v in parts.items()} for r in range(n)]
+
+
 def _store(dst: dict, src: dict, r: int) -> None:
     """Copy one layer's cache tree into slot ``r`` of a stacked tree."""
     for k, v in src.items():
@@ -230,15 +251,30 @@ def _store(dst: dict, src: dict, r: int) -> None:
             _store(dst[k], v, r)
 
 
+def _train_group(p_group: dict, h: torch.Tensor, seg, cfg
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One repeat of a segment's layer group in train mode -> (h, aux),
+    inside ``precision_flow(cfg.bf16_flow)``: a checkpointed group is
+    recomputed during the backward, outside the entry's context."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    with precision_flow(cfg.bf16_flow):
+        for i, sp in enumerate(seg.layers):
+            h, _, a = apply_layer(p_group[f"l{i}"], h, sp, cfg, mode="train")
+            aux = aux + a
+    return h, aux
+
+
 def forward_hidden(params: dict, x: torch.Tensor, cfg, *, mode: str = "train",
                    caches: list | None = None,
                    pos: torch.Tensor | int | None = None,
-                   capacity: int | None = None
+                   capacity: int | None = None, remat: bool = False
                    ) -> tuple[torch.Tensor, list, torch.Tensor]:
     """x (B, T, D) embeddings -> (h, caches, aux).  Prefill fills
     ``caches`` in place when given (caches the caller owns, as
     `init_cache` makes them; every slot is overwritten), else fresh ones;
-    decode updates ``caches`` in place."""
+    decode updates ``caches`` in place.  ``remat`` (train mode) keeps no
+    activation inside a repeat of a layer group for the backward: the
+    group is recomputed then."""
     h = x
     out_caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -247,8 +283,15 @@ def forward_hidden(params: dict, x: torch.Tensor, cfg, *, mode: str = "train",
     for si, seg in enumerate(cfg.segments):
         p_seg = params["segments"][si]
         c_seg = caches[si] if caches is not None else None
+        groups = _unstack(p_seg, seg.repeat)
         for r in range(seg.repeat):
-            p_group = _index(p_seg, r)
+            p_group = groups[r]
+            if remat and mode == "train":
+                h, a = checkpoint(_train_group, p_group, h, seg, cfg,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+                aux = aux + a
+                continue
             for i, sp in enumerate(seg.layers):
                 key = f"l{i}"
                 h, nc, a = apply_layer(
@@ -312,6 +355,35 @@ def _logits(h: torch.Tensor, params: dict, cfg) -> torch.Tensor:
     reference's ``preferred_element_type=f32`` (`matmul_f32`: on the card
     no f32 copy of the unembedding)."""
     return matmul_f32(h, unembed_matrix(params, cfg))
+
+
+def loss_fn(params: dict, batch: dict, cfg
+            ) -> tuple[torch.Tensor, dict]:
+    """Token-level CE (chunked) + MoE aux -> (loss, {"ce", "aux"}), 0-d
+    f32 tensors.  ``batch`` holds ``labels`` (B, T) and ``tokens`` (B, T)
+    or, with ``embed_inputs=False``, ``embeds`` (B, T, D).
+
+    A vector-sparse FFN config raises before any forward: its param tree
+    holds int32 K-tile ids, and the reference's ``value_and_grad`` refuses
+    integer inputs, so the sparse FFN does not train there either.
+    """
+    if _sparse_ffn(cfg):
+        raise ValueError(
+            f"{cfg.name}: the vector-sparse FFN (use_sparse_ffn) does not "
+            f"train: its param tree holds int32 K-tile ids (wi_idx, "
+            f"wo_idx), and the reference's value_and_grad refuses integer "
+            f"inputs, so it has no training step to hold this one to")
+    with precision_flow(cfg.bf16_flow):
+        x = _inputs_to_hidden(params, batch, cfg)
+        h, _, aux = forward_hidden(params, x, cfg, mode="train",
+                                   remat=cfg.remat)
+        ce = chunked_cross_entropy(
+            h, batch["labels"], unembed_matrix(params, cfg),
+            real_vocab=cfg.vocab, chunk=cfg.ce_chunk, z_weight=cfg.z_loss)
+        loss = ce
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.aux_weight * aux
+        return loss, {"ce": ce, "aux": aux}
 
 
 def lm_apply(params: dict, batch: dict, cfg) -> torch.Tensor:

@@ -1,0 +1,281 @@
+"""Optimizers: AdamW (f32 or low-precision moments), AdamW with int8
+block-quantized moments, and Adafactor (factored second moment).
+
+The port of `repro/optim/optimizers.py`.  State trees mirror the param
+tree and keep the reference's keys (``m``, ``v``, ``count``;
+``moments`` with ``mq`` / ``ms`` / ``vq`` / ``vs`` or ``vr`` / ``vc`` /
+``v``), so a checkpoint of either side restores into the other.
+
+Where the reference's ``update(grads, state, params, lr)`` returns the
+updates u and a new state (the step then adds ``p + u``), the port's
+``update_`` writes the new state and ``p + u`` into ``state`` and
+``params``, leaf by leaf, so a step holds one leaf's temporaries rather
+than a second copy of the state (a 4 B-parameter AdamW state is 32 GB);
+AdamW's elementwise update takes a large leaf in `pieces`.  The
+arithmetic keeps the reference's operation order (``b1 * m + (1 - b1) *
+g`` as a product, a product and a sum; u rounded to the param's dtype
+before the add), so the values are the reference's.  ``lr`` is a 0-d
+f32 tensor (a schedule's) or a float; the step count lives on the
+params' device.  `clip_by_global_norm_` likewise scales the grads in
+place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.utils.tree import leaves, tree_map
+
+__all__ = ["Optimizer", "adamw", "adamw8bit", "adafactor", "global_norm",
+           "clip_by_global_norm_", "pieces"]
+
+F32 = torch.float32
+PIECE = 1 << 26  # elements a piece of a large leaf's elementwise update
+
+
+def pieces(*tensors: torch.Tensor) -> Any:
+    """Flat views of contiguous tensors of one size, ``PIECE`` elements at
+    a time: an elementwise update of a large leaf (Qwen1.5-4B's stacked
+    FFN weight is 1.4 G values) in pieces holds its f32 temporaries for
+    one piece, not for the leaf."""
+    flats = [t.view(-1) for t in tensors]
+    for a in range(0, flats[0].numel(), PIECE):
+        yield [f[a:a + PIECE] for f in flats]
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[Any], Any]
+    # update_(grads, state, params, lr): state and params in place
+    update_: Callable[[Any, Any, Any, Any], None]
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in f32 (a 0-d tensor); a
+    leaf of more than ``PIECE`` values summed piece by piece."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for leaf in leaves(tree) for (x,) in pieces(leaf)))
+
+
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: Any, max_norm: float) -> torch.Tensor:
+    """Scale ``grads`` in place to a global norm of at most ``max_norm``
+    (each leaf times the f32 scale, cast back to its dtype); returns the
+    norm before."""
+    norm = global_norm(grads)
+    scale = _clip_scale(norm, max_norm)
+    for leaf in leaves(grads):
+        for (g,) in pieces(leaf):
+            if g.dtype == F32:
+                g.mul_(scale)
+            else:
+                g.copy_((g.float() * scale).to(g.dtype))
+    return norm
+
+
+def _count_powers(count: torch.Tensor, b1: float, b2: float
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """1 - b1^t and 1 - b2^t in f32, t the (new) step count."""
+    t = count.to(F32)
+    one = torch.ones((), dtype=F32, device=count.device)
+    return 1.0 - torch.pow(one * b1, t), 1.0 - torch.pow(one * b2, t)
+
+
+def _moment_(m: torch.Tensor, beta: float, x: torch.Tensor) -> torch.Tensor:
+    """m <- beta * m + (1 - beta) * x in f32, in place when m is f32;
+    returns the f32 value."""
+    m32 = m.float()  # m itself when it is f32
+    m32.mul_(beta).add_(x * (1 - beta))
+    if m32 is not m:
+        m.copy_(m32.to(m.dtype))
+    return m32
+
+
+def _adam_update(m32: torch.Tensor, v32: torch.Tensor, p: torch.Tensor,
+                 c1: torch.Tensor, c2: torch.Tensor, eps: float,
+                 weight_decay: float, lr: Any) -> torch.Tensor:
+    """(-lr * ((m / c1) / (sqrt(v / c2) + eps) + wd * p)) in p's dtype."""
+    den = torch.sqrt(v32 / c2).add_(eps)
+    upd = (m32 / c1).div_(den)
+    del den
+    upd.add_(p.float() * weight_decay)
+    return upd.mul_(-lr).to(p.dtype)
+
+
+def _make(init: Callable[[Any], Any], leaf_: Callable[..., torch.Tensor],
+          consts: Callable[[torch.Tensor], Any],
+          state_leaf: Callable[[Any], bool] | None) -> Optimizer:
+    """An `Optimizer` from ``init`` and the in-place per-leaf update
+    ``leaf_(g, st, p, lr, consts(count)) -> u`` (``st`` the leaf's state:
+    AdamW's (m, v) pair, in `pieces`; a dict of the ``moments`` tree
+    whose nodes ``state_leaf`` picks out, whole)."""
+
+    def update_(grads: Any, state: Any, params: Any, lr: Any) -> None:
+        with torch.no_grad():
+            state["count"].add_(1)
+            c = consts(state["count"])
+            if state_leaf is not None:
+                for g, st, p in zip(leaves(grads),
+                                    leaves(state["moments"], state_leaf),
+                                    leaves(params)):
+                    p.add_(leaf_(g, st, p, lr, c))
+                return
+            for g, m, v, p in zip(leaves(grads), leaves(state["m"]),
+                                  leaves(state["v"]), leaves(params)):
+                for gc, mc, vc, pc in pieces(g, m, v, p):
+                    pc.add_(leaf_(gc, (mc, vc), pc, lr, c))
+
+    return Optimizer(init, update_)
+
+
+def _count(params: Any) -> torch.Tensor:
+    first = leaves(params)[0]
+    return torch.zeros((), dtype=torch.int32, device=first.device)
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+
+def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.1,
+          moment_dtype: torch.dtype = F32) -> Optimizer:
+    def init(params: Any) -> dict:
+        def zeros(p: torch.Tensor) -> torch.Tensor:
+            return torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+                "count": _count(params)}
+
+    def leaf_(g, mv, p, lr, consts):
+        m, v = mv
+        c1, c2 = consts
+        g32 = g.float()
+        m32 = _moment_(m, b1, g32)
+        v32 = _moment_(v, b2, torch.square(g32))
+        return _adam_update(m32, v32, p, c1, c2, eps, weight_decay, lr)
+
+    return _make(init, leaf_, lambda count: _count_powers(count, b1, b2),
+                 None)
+
+
+# ---------------------------------------------------------------------------
+# int8 block-quantized AdamW (8-bit optimizer states, Dettmers-style)
+# ---------------------------------------------------------------------------
+
+_QBLOCK = 256
+
+
+def _q8(x32: torch.Tensor, block: int = _QBLOCK
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 -> (int8 codes (NB, block), f32 per-block scales (NB,)).
+    Linear symmetric; the tail block is zero-padded."""
+    flat = x32.reshape(-1)
+    pad = (-flat.shape[0]) % block
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    blocks = flat.reshape(-1, block)
+    scale = torch.clamp_min(blocks.abs().amax(dim=1), 1e-12) / 127.0
+    q = torch.clamp(torch.round(blocks / scale[:, None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dq8(q: torch.Tensor, scale: torch.Tensor, shape: tuple) -> torch.Tensor:
+    n = 1
+    for d in shape:
+        n *= d
+    flat = (q.float() * scale[:, None]).reshape(-1)
+    return flat[:n].reshape(shape)
+
+
+def adamw8bit(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+              weight_decay: float = 0.1) -> Optimizer:
+    """AdamW with int8 block-quantized moments: ~4.5 bits a parameter of
+    state per moment (int8 + an f32 scale per 256-block) instead of 32."""
+
+    def init(params: Any) -> dict:
+        def state_of(p: torch.Tensor) -> dict:
+            nb = -(-p.numel() // _QBLOCK)
+            z8 = torch.zeros((nb, _QBLOCK), dtype=torch.int8,
+                             device=p.device)
+            zs = torch.zeros((nb,), dtype=F32, device=p.device)
+            return {"mq": z8, "ms": zs, "vq": z8.clone(), "vs": zs.clone()}
+        return {"moments": tree_map(state_of, params),
+                "count": _count(params)}
+
+    def leaf_(g, mom, p, lr, consts):
+        c1, c2 = consts
+        g32 = g.float()
+        m = _dq8(mom["mq"], mom["ms"], tuple(p.shape))
+        v = _dq8(mom["vq"], mom["vs"], tuple(p.shape))
+        m = b1 * m + (1 - b1) * g32
+        v = b2 * v + (1 - b2) * torch.square(g32)
+        u = _adam_update(m, v, p, c1, c2, eps, weight_decay, lr)
+        for name, x in (("m", m), ("v", v)):
+            q, s = _q8(x)
+            mom[name + "q"].copy_(q)
+            mom[name + "s"].copy_(s)
+        return u
+
+    return _make(init, leaf_, lambda count: _count_powers(count, b1, b2),
+                 lambda x: isinstance(x, dict) and "mq" in x)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (Shazeer & Stern, 2018) — factored second moments
+# ---------------------------------------------------------------------------
+
+
+def adafactor(decay: float = 0.8, eps: float = 1e-30,
+              clip_threshold: float = 1.0, min_dim_factored: int = 128,
+              weight_decay: float = 0.0) -> Optimizer:
+    """Memory: O(rows + cols) a matrix instead of O(rows * cols).
+
+    Matrices with both trailing dims >= ``min_dim_factored`` factor over
+    the last two axes; everything else stores a full second moment.
+    """
+
+    def factored(shape: tuple) -> bool:
+        return len(shape) >= 2 and shape[-1] >= min_dim_factored and \
+            shape[-2] >= min_dim_factored
+
+    def init(params: Any) -> dict:
+        def leaf(p: torch.Tensor) -> dict:
+            z = lambda s: torch.zeros(s, dtype=F32, device=p.device)
+            if factored(p.shape):
+                return {"vr": z(p.shape[:-1]),
+                        "vc": z(p.shape[:-2] + p.shape[-1:])}
+            return {"v": z(p.shape)}
+        return {"moments": tree_map(leaf, params), "count": _count(params)}
+
+    def leaf_(g, mom, p, lr, beta):
+        g32 = g.float()
+        g2 = torch.square(g32).add_(eps)
+        if factored(p.shape):
+            vr = beta * mom["vr"] + (1 - beta) * g2.mean(dim=-1)
+            vc = beta * mom["vc"] + (1 - beta) * g2.mean(dim=-2)
+            r_factor = torch.rsqrt(vr / vr.mean(dim=-1, keepdim=True) + eps)
+            c_factor = torch.rsqrt(vc + eps)
+            upd = g32 * r_factor[..., None] * c_factor[..., None, :]
+            mom["vr"].copy_(vr)
+            mom["vc"].copy_(vc)
+        else:
+            v = beta * mom["v"] + (1 - beta) * g2
+            upd = g32 * torch.rsqrt(v + eps)
+            mom["v"].copy_(v)
+        # update clipping (RMS <= clip_threshold)
+        rms = torch.sqrt(torch.mean(torch.square(upd)) + 1e-30)
+        upd = upd / torch.clamp_min(rms / clip_threshold, 1.0)
+        if weight_decay:
+            upd = upd + weight_decay * p.float()
+        return (-lr * upd).to(p.dtype)
+
+    return _make(init, leaf_,
+                 lambda count: 1.0 - count.to(F32) ** -decay,  # t^-0.8
+                 lambda x: isinstance(x, dict) and ("v" in x or "vr" in x))
