@@ -289,6 +289,21 @@ repository around it, or when any phase fails.  Phases:
    fresh loop resumes and takes step 5, equal to an uninterrupted run
    within 1e-5).  The ``kernels`` line's flash entry adds the steps'
    launches (``launches_by_path["train"]``).
+15. Dry run (`dryrun_phase`).  (a) `launch.dryrun.run_cell` on meta for
+   Qwen1.5-4B at ``train_4k``, ``prefill_32k`` and ``decode_32k`` and
+   the sparse-FFN ``decode_32k`` cell, one line each (predictions for
+   the H100 row).  (b) Three steps the smoke runs, Qwen1.5-4B whole in
+   bf16: the training step (8 x 512, 4 microbatches), the batch-8 decode
+   step at capacity 552 (eager) and one batch-8 prefill of 512 tokens
+   into capacity 552, each counted on meta and then run on the card
+   under the same counter (`utils.cost`): FLOPs, bytes and kernel
+   launches by name must be equal, and the card's launch counters must
+   move by its count.  (c) For each: the card's peak allocated memory
+   against ``arg_bytes + temp_bytes`` of the meta count (within 15%),
+   and one more run profiled: its device-busy ms against ``compute_s``
+   and ``memory_s`` (busy must be at least ``compute_s``), and busy /
+   max of the two.  The kernels' launches in (b) join the ``kernels``
+   line's ``launches_by_path`` (``dryrun``).
 
 ``kernel_ms``, ``plain_ms`` and ``library_ms`` are device time per call:
 a run of calls is captured in one CUDA graph and its replays are timed
@@ -3459,6 +3474,161 @@ def train_phase(dev, smi: str, peaks: tuple) -> dict:
     return out
 
 
+DRYRUN_CELLS = [("train_4k", {}), ("prefill_32k", {}), ("decode_32k", {}),
+                ("decode_32k", {"use_sparse_ffn": True})]
+DRYRUN_MEMORY_RTOL = 0.15   # meta arg + temp bytes against the card's peak
+
+
+DRYRUN_STEPS = ("prefill", "decode", "train")
+
+
+def _dryrun_step(name: str, cfg, params, dev):
+    """One of the smoke's three Qwen steps on ``params`` (on ``dev``), a
+    `step_builders.Step` with its own arguments (the train step's
+    optimizer state fresh): token ids empty on meta, seeded on the
+    card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import step_builders as sb
+    from repro_torch.models import transformer as tfm
+
+    rng = np.random.default_rng(7)
+
+    def ids(*shape):
+        if dev.type == "meta":
+            return torch.empty(shape, dtype=torch.int64, device=dev)
+        return torch.from_numpy(rng.integers(0, cfg.vocab, shape)).to(dev)
+
+    if name == "prefill":   # as `prefill_breakdown_phase` runs it
+        return sb.Step(
+            lambda p, b: tfm.prefill(p, b, cfg, capacity=LM_CAPACITY),
+            (params, {"tokens": ids(LM_BATCH, 512)}))
+    if name == "decode":    # the served step, eager
+        return sb.Step(
+            lambda p, c, t, q: tfm.decode_step(p, c, t, q, cfg),
+            (params, tfm.init_cache(cfg, LM_BATCH, LM_CAPACITY, dev),
+             ids(LM_BATCH, 1),
+             torch.full((), 512, dtype=torch.int64, device=dev)))
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    return sb.Step(sb.build_train(cfg, shape), (
+        params, sb.make_optimizer(cfg).init(params),
+        {"tokens": ids(TRAIN_BATCH, TRAIN_SEQ).int(),
+         "labels": ids(TRAIN_BATCH, TRAIN_SEQ).int()}, TRAIN_STEP0))
+
+
+def _step_ms(step) -> float:
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step.fn(*step.args)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def dryrun_phase(dev, smi: str) -> dict:
+    """(a) `run_cell` on meta for `DRYRUN_CELLS`; (b) the smoke's three
+    Qwen1.5-4B steps counted on meta and on the card, equal in FLOPs,
+    bytes and kernel launches; (c) the card's peak memory and profiled
+    device-busy time against the meta count's roofline terms."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import step_builders as sb
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import init_params
+    from repro_torch.utils.cost import count
+    from repro_torch.utils.roofline import card_hw
+
+    cells = []
+    for shape, extra in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        row = dryrun.run_cell(LM_CONFIG, shape, verbose=False,
+                              overrides={"microbatches": 1, **extra})
+        row["host_s"] = time.perf_counter() - t0
+        print(json.dumps({"phase": "dryrun_cell", **row}), flush=True)
+        cells.append(row)
+
+    hw = card_hw()
+    cfg = get_config(LM_CONFIG)
+    meta_dev = torch.device("meta")
+    structs = sb.param_structs(cfg, meta_dev)
+    metas = {}
+    for name in DRYRUN_STEPS:
+        step = _dryrun_step(name, cfg, structs, meta_dev)
+        metas[name] = count(step.fn, *step.args)[1]
+    _free_cuda()
+    params = init_params(tfm.lm_schema(cfg), 0, dtype=cfg.dtype, device=dev,
+                         draw_on_device=True)
+    counters = _counters()
+    steps, launches = {}, {}
+    for name in DRYRUN_STEPS:
+        step = _dryrun_step(name, cfg, params, dev)
+        meta = metas[name]
+        warm_ms = _step_ms(step)   # first call: plans, cuBLAS set-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _zero_counters()
+        t0 = time.perf_counter()
+        card = count(step.fn, *step.args)[1]   # the outputs freed at once
+        torch.cuda.synchronize()
+        counted_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        moved = {n: k.launches for n, k in counters.items() if k.launches}
+        launches[name] = moved
+        step_ms = _step_ms(step)
+        prof = profile_phase(f"dryrun-{name}", lambda: step.fn(*step.args),
+                             step_ms / 1e3)
+        busy_ms = prof["device_busy_ms"]
+        compute_ms = meta.flops / hw.bf16_flops * 1e3
+        memory_ms = meta.bytes / hw.hbm_bw * 1e3
+        meta_mem = meta.arg_bytes + meta.temp_bytes
+        diff = {op: (meta.ops.get(op), card.ops.get(op))
+                for op in set(meta.ops) | set(card.ops)
+                if meta.ops.get(op) != card.ops.get(op)}
+        out = {"phase": "dryrun", "step": name, "config": cfg.name,
+               "meta": {"flops": meta.flops, "bytes": meta.bytes,
+                        "kernels": meta.kernels, "arg_bytes": meta.arg_bytes,
+                        "temp_bytes": meta.temp_bytes,
+                        "ops": sum(n for n, _, _ in meta.ops.values())},
+               "card": {"flops": card.flops, "bytes": card.bytes,
+                        "kernels": card.kernels, "arg_bytes": card.arg_bytes,
+                        "temp_bytes": card.temp_bytes,
+                        "launch_counters": moved,
+                        "ops": sum(n for n, _, _ in card.ops.values())},
+               "ops_differing": {k: v for k, v in list(diff.items())[:8]},
+               "allocated_before_bytes": base,
+               "peak_allocated_bytes": peak,
+               "meta_arg_plus_temp_bytes": meta_mem,
+               "memory_rel_err": abs(meta_mem - peak) / peak,
+               "first_ms": warm_ms, "counted_ms": counted_ms,
+               "step_ms": step_ms, "device_busy_ms": busy_ms,
+               "compute_ms": compute_ms, "memory_ms": memory_ms,
+               "busy_over_bound": busy_ms / max(compute_ms, memory_ms),
+               "hbm_bytes": hw.hbm_bytes, "gpu": smi}
+        print(json.dumps(out), flush=True)
+        steps[name] = out
+        if (meta.flops, meta.bytes, meta.kernels) != \
+                (card.flops, card.bytes, card.kernels) or \
+                moved != card.kernels:
+            raise SystemExit(f"chip_smoke: dryrun {name}: the meta count "
+                             f"is not the card's: {out}")
+        if out["memory_rel_err"] > DRYRUN_MEMORY_RTOL:
+            raise SystemExit(f"chip_smoke: dryrun {name}: meta arg + temp "
+                             f"{meta_mem} bytes against the card's peak "
+                             f"{peak} (beyond {DRYRUN_MEMORY_RTOL})")
+        if busy_ms < compute_ms:
+            raise SystemExit(f"chip_smoke: dryrun {name}: device busy "
+                             f"{busy_ms} ms under the count's compute term "
+                             f"{compute_ms} ms: the count is wrong")
+        del step, card
+        _free_cuda()
+    del params
+    _free_cuda()
+    return {"cells": cells, "steps": steps, "launches": launches}
+
+
 def _layer_inputs(net, params, sparse, x, impl: str) -> dict:
     """{layer name: its input} over one forward of ``x``: each conv's
     NHWC input (``net_apply``'s ``collect``) and each FC's (N, din) input
@@ -4116,6 +4286,8 @@ def main() -> int:
     lap("frontend")
     train = train_phase(dev, smi, (peak_flops, peak_bw, bf16_peak))
     lap("train")
+    dry = dryrun_phase(dev, smi)
+    lap("dryrun")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
 
     kernels = []
@@ -4159,7 +4331,9 @@ def main() -> int:
                         for name, a in {**archs, **sparse}.items()},
                      **{name: f["launches"]["flash_fwd"]
                         for name, f in frontends.items()},
-                     "train": train["launches"]["flash_fwd"]}
+                     "train": train["launches"]["flash_fwd"],
+                     "dryrun": sum(v.get("flash_fwd", 0)
+                                   for v in dry["launches"].values())}
     kernels.append({
         "name": "flash_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
@@ -4192,7 +4366,7 @@ def main() -> int:
                     "warm": lm_warm, "decode": lm_decode,
                     "prefill_breakdown": breakdown},
              "lm_flow": flow, "lm_archs": archs, "lm_sparse": sparse,
-             "frontend": frontends, "train": train,
+             "frontend": frontends, "train": train, "dryrun": dry,
              "profile": profiled, "dense_vs_sparse": dense_vs_sparse,
              "paper_model": paper_model, "calibration": calibration,
              "vscheck": vscheck, "seconds": seconds},

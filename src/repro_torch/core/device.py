@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "card_path"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -16,3 +16,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def card_path(t: torch.Tensor) -> bool:
+    """True where ``t`` takes the card's path: a CUDA tensor, or a meta
+    tensor (the dry run's abstract device, `utils.cost`), so that a count
+    taken on meta follows the ops the card runs.  CPU tensors take the
+    plain paths."""
+    return t.device.type in ("cuda", "meta")

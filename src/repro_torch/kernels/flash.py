@@ -11,7 +11,12 @@ f32 inputs on the CUDA cores (f32 FMAs keep the 1e-5 f32 parity).
 `flash_fwd_kernel` is the wrapper: it launches the kernel for CUDA tensors
 and runs `flash_fwd_plain` for CPU tensors, and nothing else — a CUDA
 tensor that the kernel does not take raises, it never falls back.
-``flash_fwd_kernel.launches`` counts kernel launches.
+``flash_fwd_kernel.launches`` counts kernel launches.  The kernel is the
+custom op ``repro_torch::flash_fwd`` (`torch.library`), so the dispatcher
+sees each launch as one op: its CUDA implementation launches the kernel,
+its CPU one is `flash_fwd_plain`, and its fake (meta) one states the
+output's shape and dtype, so that the dry run counts it on meta
+(`utils.cost`, with `flash_kernel_cost`).
 
 Training: the kernel's output has no ``grad_fn``, so a loss through it
 would give q, k and v no gradient.  `flash_fwd_trainable` is the kernel
@@ -23,11 +28,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.device import card_path
 from repro_torch.kernels._build import launch
+from repro_torch.utils.cost import register_kernel_cost
 
 __all__ = ["flash_fwd_kernel", "flash_fwd_plain", "flash_bwd_plain",
            "flash_fwd_trainable", "FlashFwd", "kernel_body", "chunk_size",
-           "MAX_HD", "NEG_INF"]
+           "query_tile", "flash_kernel_cost", "MAX_HD", "NEG_INF"]
 
 NEG_INF = -1e30
 MAX_HD = 256  # the f32 body's ceil(hd / 32) <= 8 slots; the bf16 body's
@@ -38,6 +45,27 @@ def kernel_body(dtype: torch.dtype) -> str:
     """The body of ``csrc/flash_fwd.cu`` that a launch on ``dtype`` runs:
     "mma" (bf16, tensor cores) or "simt" (f32, CUDA cores)."""
     return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def query_tile(dtype: torch.dtype, hd: int) -> int:
+    """Query rows a block of ``csrc/flash_fwd.cu`` takes: the bf16 body
+    16 a warp, 8 warps up to hd 128 (rounded up to 16) and 4 above; the
+    f32 body 64."""
+    if dtype != torch.bfloat16:
+        return 64
+    return 16 * (8 if -(-hd // 16) * 16 <= 128 else 4)
+
+
+def flash_kernel_cost(*, bh: int, tq: int, tk: int, hd: int, causal: bool,
+                      itemsize: int, block_q: int) -> dict[str, int]:
+    """The reference's ``pl.CostEstimate`` of the TPU kernel
+    (`repro/kernels/flash.py:135-142`): 4 BH Tq Tk hd FLOPs, halved when
+    causal; q and the output once, K and V once per query tile
+    (``block_q`` rows: the CUDA kernel's, `query_tile`)."""
+    nq = -(-tq // block_q)
+    return {"flops": int(4 * bh * tq * tk * hd * (0.5 if causal else 1.0)),
+            "bytes_accessed": (2 * bh * tq * hd + nq * 2 * bh * tk * hd)
+            * itemsize}
 
 
 def chunk_size(t: int, pref: int) -> int:
@@ -221,7 +249,9 @@ def flash_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (BH, Tq, hd), k/v (BH, Tk, hd) -> (BH, Tq, hd) in q's dtype.
 
     CUDA tensors launch ``csrc/flash_fwd.cu`` on the current stream (built
-    at first use); CPU tensors run `flash_fwd_plain`.  Any Tq and Tk;
+    at first use) through the custom op ``repro_torch::flash_fwd``, and
+    so do meta tensors, whose fake implementation launches nothing; CPU
+    tensors run `flash_fwd_plain`.  Any Tq and Tk;
     ``window`` None or >= 1; ``q_offset`` >= 0; any alignment of the
     inputs' storage.  In bf16 the kernel steps its online softmax over
     tiles of 64 keys (32 in f32), so it rounds p at another running max
@@ -231,9 +261,18 @@ def flash_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, window=window,
                                q_offset=q_offset)
-    if q.device.type != "cuda":
+    if not card_path(q):
         raise ValueError(f"flash_fwd_kernel runs on cuda or cpu, not "
                          f"{q.device}")
+    return _flash_fwd_op(q, k, v, causal, window, q_offset)
+
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: int | None,
+                  q_offset: int) -> torch.Tensor:
+    """One launch of the kernel (none for an empty output)."""
     _check(q, k, v, window, q_offset)
     bh, tq, hd = q.shape
     out = torch.empty_like(q)
@@ -247,4 +286,31 @@ def flash_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+@_flash_fwd_op.register_kernel("cpu")
+def _(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+      window: int | None, q_offset: int) -> torch.Tensor:
+    return flash_fwd_plain(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset)
+
+
+@_flash_fwd_op.register_fake
+def _(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+      window: int | None, q_offset: int) -> torch.Tensor:
+    _check(q, k, v, window, q_offset)
+    return torch.empty_like(q)
+
+
+def _op_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, window: int | None,
+             q_offset: int) -> tuple[int, int, int]:
+    bh, tq, hd = q.shape
+    if bh == 0 or tq == 0:
+        return 0, 0, 0
+    c = flash_kernel_cost(bh=bh, tq=tq, tk=k.shape[1], hd=hd, causal=causal,
+                          itemsize=q.element_size(),
+                          block_q=query_tile(q.dtype, hd))
+    return c["flops"], c["bytes_accessed"], 0
+
+
+register_kernel_cost(_flash_fwd_op._opoverload, "flash_fwd", _op_cost)
 flash_fwd_kernel.launches = 0  # type: ignore[attr-defined]

@@ -48,14 +48,24 @@ int8 operands and x's dtype otherwise; the kernel writes it (f32, or its
 f32 result rounded to bf16).
 ``vsmm_kernel.launches`` counts wrapper calls that launch the kernel (one
 a layer, whatever the split), ``int8_launches`` and ``bf16_launches``
-those of the int8 and the bf16 branch among them.
+those of the int8 and the bf16 branch among them.  The kernel is the
+custom op ``repro_torch::vsmm`` (`torch.library`), so the dispatcher sees
+each call as one op: its CUDA implementation plans, allocates the
+workspace and launches, its CPU one is `vsmm_plain`, and its fake (meta)
+one states the output's shape and dtype; the dry run counts it by
+`vsmm_kernel_cost`, with the workspace of a split plan live for the
+launch (`utils.cost`).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.core.device import card_path
 from repro_torch.core.vector_sparse import VectorSparse
 from repro_torch.kernels._build import launch
+from repro_torch.utils.cost import register_kernel_cost
 
 __all__ = ["vsmm_kernel", "vsmm_plain", "vsmm_kernel_cost", "vsmm_plan",
            "vsmm_bf16_plan", "min_chunk", "chunk_bounds", "MAX_VN",
@@ -358,7 +368,10 @@ def vsmm_kernel(
 
     CUDA tensors launch ``csrc/vsmm.cu`` on the current stream (built at
     first use), cut by `vsmm_plan` (bf16: `vsmm_bf16_plan`; two launches
-    where it splits the stored steps); CPU tensors run `vsmm_plain`.  ``bias``/``scale`` are (N,),
+    where it splits the stored steps), through the custom op
+    ``repro_torch::vsmm``, and so do meta tensors, whose fake
+    implementation launches nothing; CPU tensors run `vsmm_plain`.
+    ``bias``/``scale`` are (N,),
     ``residual`` (M, N).  Any M works: the kernel masks the ragged tail.
     int8 ``x`` and ``vs.vals`` with a ``scale`` launch the int8 branch
     (counted on ``int8_launches`` too), bf16 ones the bf16 branch (on
@@ -369,37 +382,69 @@ def vsmm_kernel(
     if x.device.type == "cpu":
         return vsmm_plain(x, vs, bias=bias, residual=residual, scale=scale,
                           fuse_relu=fuse_relu, out_dtype=out_dtype)
-    if x.device.type != "cuda":
+    if not card_path(x):
         raise ValueError(f"vsmm_kernel runs on cuda or cpu, not {x.device}")
-    m, k = x.shape
-    nb, s_steps, vk, vn = vs.vals.shape
-    n = nb * vn
-    if vs.shape != (k, n) or k % vk:
+    k = x.shape[1]
+    nb, _, vk, vn = vs.vals.shape
+    if vs.shape != (k, nb * vn) or k % vk:
         raise ValueError(f"x {tuple(x.shape)} does not match W {vs.shape} "
                          f"with tiles ({vk}, {vn})")
+    return _vsmm_op(x, vs.vals, vs.idx, bias, residual, scale, fuse_relu,
+                    skip_zero_inputs, out_dtype)
+
+
+def _check_call(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+                bias: torch.Tensor | None, residual: torch.Tensor | None,
+                scale: torch.Tensor | None, out_dtype: torch.dtype | None
+                ) -> tuple[bool, bool, torch.dtype]:
+    """Raise unless the kernel takes this call; (int8, bf16, out dtype)."""
+    m = x.shape[0]
+    nb, _, _, vn = vals.shape
     if vn > MAX_VN:
         raise ValueError(f"vsmm_kernel takes vn <= {MAX_VN}, got {vn}")
-    check_epilogue(bias=bias, scale=scale, residual=residual, cout=n,
-                   out_shape=(m, n))
-    int8 = check_operands({"x": x, "vals": vs.vals, "idx": vs.idx,
+    check_epilogue(bias=bias, scale=scale, residual=residual, cout=nb * vn,
+                   out_shape=(m, nb * vn))
+    int8 = check_operands({"x": x, "vals": vals, "idx": idx,
                            "bias": bias, "scale": scale,
                            "residual": residual}, x.device, bf16=True)
-    bf16 = x.dtype == torch.bfloat16
     dt = _out_dtype(x, out_dtype)
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"vsmm_kernel writes f32 or bf16, not {dt}")
-    out = torch.empty((m, n), dtype=dt, device=x.device)
-    if m == 0:
-        return out
+    return int8, x.dtype == torch.bfloat16, dt
+
+
+def _plan(x: torch.Tensor, vals: torch.Tensor, int8: bool, bf16: bool
+          ) -> tuple[int, int, tuple[int, ...], torch.dtype]:
+    """(rows, splits, workspace shape, workspace dtype): each chunk's
+    partial, f32 or int8's (T_c, A_c) pair; no workspace unsplit."""
+    m = x.shape[0]
+    nb, s_steps, vk, vn = vals.shape
     rows, splits = (vsmm_bf16_plan(m, nb, s_steps, vk, vn) if bf16
                     else vsmm_plan(m, nb, s_steps, vk, vn, int8))
-    work = None
-    if splits > 1:  # each chunk's partial: f32, or int8's (T_c, A_c) pair
-        work = torch.empty((splits, m, n, 2) if int8 else (splits, m, n),
-                           dtype=torch.int32 if int8 else torch.float32,
-                           device=x.device)
+    work = (((splits, m, nb * vn, 2) if int8 else (splits, m, nb * vn))
+            if splits > 1 else ())
+    return rows, splits, work, torch.int32 if int8 else torch.float32
+
+
+@torch.library.custom_op("repro_torch::vsmm", mutates_args=(),
+                         device_types="cuda")
+def _vsmm_op(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+             bias: torch.Tensor | None, residual: torch.Tensor | None,
+             scale: torch.Tensor | None, fuse_relu: bool,
+             skip_zero_inputs: bool,
+             out_dtype: torch.dtype | None) -> torch.Tensor:
+    """One kernel call (one or two launches; none for M = 0)."""
+    int8, bf16, dt = _check_call(x, vals, idx, bias, residual, scale,
+                                 out_dtype)
+    m, k = x.shape
+    nb, s_steps, vk, vn = vals.shape
+    out = torch.empty((m, nb * vn), dtype=dt, device=x.device)
+    if m == 0:
+        return out
+    rows, splits, shape, wdt = _plan(x, vals, int8, bf16)
+    work = torch.empty(shape, dtype=wdt, device=x.device) if shape else None
     launch("vsmm", entry_name("vsmm_launch", int8, bf16),
-           (x, vs.vals, vs.idx, scale, bias, residual, out, work),
+           (x, vals, idx, scale, bias, residual, out, work),
            (m, k, nb, s_steps, vk, vn, int(fuse_relu),
             int(skip_zero_inputs), splits, rows,
             int(dt == torch.bfloat16)), x.device)
@@ -409,6 +454,49 @@ def vsmm_kernel(
     return out
 
 
+@_vsmm_op.register_kernel("cpu")
+def _(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+      bias: torch.Tensor | None, residual: torch.Tensor | None,
+      scale: torch.Tensor | None, fuse_relu: bool, skip_zero_inputs: bool,
+      out_dtype: torch.dtype | None) -> torch.Tensor:
+    vs = VectorSparse(vals=vals, idx=idx,
+                      shape=(x.shape[1], vals.shape[0] * vals.shape[3]))
+    return vsmm_plain(x, vs, bias=bias, residual=residual, scale=scale,
+                      fuse_relu=fuse_relu, out_dtype=out_dtype)
+
+
+@_vsmm_op.register_fake
+def _(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+      bias: torch.Tensor | None, residual: torch.Tensor | None,
+      scale: torch.Tensor | None, fuse_relu: bool, skip_zero_inputs: bool,
+      out_dtype: torch.dtype | None) -> torch.Tensor:
+    _, _, dt = _check_call(x, vals, idx, bias, residual, scale, out_dtype)
+    return x.new_empty((x.shape[0], vals.shape[0] * vals.shape[3]),
+                       dtype=dt)
+
+
+def _op_cost(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+             bias: torch.Tensor | None, residual: torch.Tensor | None,
+             scale: torch.Tensor | None, fuse_relu: bool,
+             skip_zero_inputs: bool,
+             out_dtype: torch.dtype | None) -> tuple[int, int, int]:
+    m = x.shape[0]
+    if m == 0:
+        return 0, 0, 0
+    nb, s_steps, vk, vn = vals.shape
+    int8 = x.dtype == torch.int8
+    c = vsmm_kernel_cost(
+        m=m, nb=nb, s_steps=s_steps, vk=vk, vn=vn,
+        in_itemsize=x.element_size(), w_itemsize=vals.element_size(),
+        out_itemsize=_out_dtype(x, out_dtype).itemsize,
+        residual_bytes=0 if residual is None
+        else residual.numel() * residual.element_size())
+    _, _, shape, wdt = _plan(x, vals, int8, x.dtype == torch.bfloat16)
+    scratch = math.prod(shape) * wdt.itemsize if shape else 0
+    return c["flops"], c["bytes_accessed"], scratch
+
+
+register_kernel_cost(_vsmm_op._opoverload, "vsmm", _op_cost)
 vsmm_kernel.launches = 0  # type: ignore[attr-defined]
 vsmm_kernel.int8_launches = 0  # type: ignore[attr-defined]
 vsmm_kernel.bf16_launches = 0  # type: ignore[attr-defined]

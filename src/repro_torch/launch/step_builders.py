@@ -1,30 +1,70 @@
-"""The training step, its optimizer, and the useful-work FLOPs.
+"""The steps of an (arch, shape) cell, their inputs, and the useful-work
+FLOPs.
 
-The port of the one-device half of `repro/launch/step_builders.py`: its
-`build_train` (`:115`) without a mesh — the port has no sharding, so
-there are no ShapeDtypeStructs or shardings to build — `make_optimizer`
-and `model_flops`.  The prefill and decode builders' counterparts are
-`models.transformer.prefill` / `decode_step`, which the server calls.
+The port of the one-device half of `repro/launch/step_builders.py`:
+`make_optimizer`, `param_structs` (`:41`), `build_train` (`:115`),
+`build_prefill` (`:180`), `build_decode` (`:219`), `build` (`:248`) and
+`model_flops`, without a mesh — the port has no sharding, so there are
+no shardings to build.  Where the reference builds ShapeDtypeStructs,
+the port builds empty tensors on a device: on ``meta`` they allocate
+nothing, and the dry run (`launch.dryrun`) counts the step on them
+(`utils.cost`).  The server calls `models.transformer.prefill` /
+`decode_step` itself.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
 import torch
 
 from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import P
 from repro_torch.optim.optimizers import (Optimizer, adafactor, adamw,
                                           clip_by_global_norm_, pieces)
 from repro_torch.optim.schedules import warmup_cosine
-from repro_torch.utils.tree import leaves, tree_unflatten
+from repro_torch.utils.tree import leaves, tree_map, tree_unflatten
 
-__all__ = ["make_optimizer", "build_train", "model_flops"]
+__all__ = ["Step", "make_optimizer", "param_structs", "build_train",
+           "build_prefill", "build_decode", "build", "model_flops",
+           "TRAIN_STEP"]
+
+TRAIN_STEP = 200  # the step a built train step runs: the schedule's peak lr
+
+
+@dataclasses.dataclass
+class Step:
+    """A built step: ``fn(*args)`` runs it (the reference's
+    `StepArtifacts`, without shardings or donation)."""
+
+    fn: Callable[..., Any]
+    args: tuple
 
 
 def make_optimizer(cfg) -> Optimizer:
     if cfg.optimizer == "adafactor":
         return adafactor()
     return adamw()
+
+
+def param_structs(cfg, device: str | torch.device = "meta") -> Any:
+    """The param tree of ``cfg`` (`transformer.lm_schema`) as empty
+    tensors on ``device``, in each leaf's dtype: no draw, and on meta no
+    memory."""
+    return tree_map(
+        lambda p: torch.empty(p.shape, dtype=p.dtype or cfg.dtype,
+                              device=device),
+        tfm.lm_schema(cfg), is_leaf=lambda n: isinstance(n, P))
+
+
+def _inputs(cfg, b: int, t: int, device: str | torch.device) -> dict:
+    """A batch's model inputs, empty: ``tokens`` (b, t) int32, or
+    ``embeds`` (b, t, d_model) in the config's dtype."""
+    if cfg.embed_inputs:
+        return {"tokens": torch.empty((b, t), dtype=torch.int32,
+                                      device=device)}
+    return {"embeds": torch.empty((b, t, cfg.d_model), dtype=cfg.dtype,
+                                  device=device)}
 
 
 def _grads_of(params: Any, batch: dict, cfg
@@ -95,6 +135,65 @@ def build_train(cfg, shape, *, grad_clip: float = 1.0
         return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm)
 
     return train_step
+
+
+def build_prefill(cfg, shape, device: str | torch.device = "meta",
+                  params: Any = None) -> Step:
+    """``prefill(params, batch)`` of ``shape.global_batch`` prompts of
+    ``shape.seq_len`` tokens into fresh caches of that capacity -> (last
+    logits, caches); an encoder-only config gives per-position logits
+    and no cache, as the reference's does (`:194-217`).  ``params``
+    (default `param_structs`) in the served form (`prepare_params`)."""
+    b, t = shape.global_batch, shape.seq_len
+    params = tfm.prepare_params(
+        param_structs(cfg, device) if params is None else params, cfg)
+
+    def prefill(params: Any, batch: dict) -> Any:
+        if cfg.encoder_only:
+            return tfm.lm_apply(params, batch, cfg)
+        return tfm.prefill(params, batch, cfg, capacity=t)
+
+    return Step(prefill, (params, _inputs(cfg, b, t, device)))
+
+
+def build_decode(cfg, shape, device: str | torch.device = "meta",
+                 params: Any = None) -> Step:
+    """``decode_step(params, caches, tokens, pos)``: one token for each of
+    ``shape.global_batch`` sequences against caches of capacity
+    ``shape.seq_len``, at its last position (``pos`` a 0-d int64 tensor,
+    as the server's graphs take it).  ``params`` (default
+    `param_structs`) in the served form (`prepare_params`)."""
+    b, t = shape.global_batch, shape.seq_len
+    params = tfm.prepare_params(
+        param_structs(cfg, device) if params is None else params, cfg)
+    caches = tfm.init_cache(cfg, b, t, torch.device(device))
+    tokens = _inputs(cfg, b, 1, device)
+    tokens = tokens.get("tokens", tokens.get("embeds"))
+    pos = torch.full((), t - 1, dtype=torch.int64, device=device)
+
+    def decode(params: Any, caches: list, tokens: torch.Tensor,
+               pos: torch.Tensor) -> Any:
+        return tfm.decode_step(params, caches, tokens, pos, cfg)
+
+    return Step(decode, (params, caches, tokens, pos))
+
+
+def build(cfg, shape, device: str | torch.device = "meta",
+          params: Any = None) -> Step:
+    """The cell's step by ``shape.kind``: ``train`` is `build_train`'s
+    step on (params, a fresh optimizer state, a batch of ``tokens`` or
+    ``embeds`` and int32 ``labels``, `TRAIN_STEP`)."""
+    if shape.kind == "prefill":
+        return build_prefill(cfg, shape, device, params)
+    if shape.kind == "decode":
+        return build_decode(cfg, shape, device, params)
+    params = param_structs(cfg, device) if params is None else params
+    b, t = shape.global_batch, shape.seq_len
+    batch = dict(_inputs(cfg, b, t, device),
+                 labels=torch.empty((b, t), dtype=torch.int32, device=device))
+    return Step(build_train(cfg, shape),
+                (params, make_optimizer(cfg).init(params), batch,
+                 TRAIN_STEP))
 
 
 def model_flops(cfg, shape) -> float:

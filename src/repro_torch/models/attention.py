@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.device import card_path
 from repro_torch.kernels.flash import (NEG_INF, flash_fwd_kernel,
                                       flash_fwd_trainable)
 from .layers import P, rms_norm, rope
@@ -87,7 +88,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     grad mode is on and an input requires grad (a training forward, or
     its recompute under remat), the kernel runs under autograd
     (`flash_fwd_trainable`); on the CPU the plain version runs under
-    autograd itself.
+    autograd itself.  A meta tensor takes the card's path
+    (`core.device.card_path`).
     """
     b, t, h, hd = q.shape
     tk = k.shape[1]
@@ -96,7 +98,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return a.transpose(1, 2).reshape(b * h, n, hd).contiguous()
 
     fn = flash_fwd_kernel
-    if q.device.type == "cuda" and torch.is_grad_enabled() and \
+    if card_path(q) and torch.is_grad_enabled() and \
             (q.requires_grad or k.requires_grad or v.requires_grad):
         fn = flash_fwd_trainable
     out = fn(to_bh(q, t), to_bh(k, tk), to_bh(v, tk), causal=causal,
@@ -157,10 +159,11 @@ def _decode_scores(qg: torch.Tensor, k_cache: torch.Tensor
     G, cap) f32 dot products, summed in f32: the reference's
     ``preferred_element_type=f32``.  On the card a bf16 or f16 cache is
     read in place: one ``bmm`` a batch row over a strided view of the
-    cache, f32 out (``aten::bmm.dtype``), so no copy of it is made.
-    Elsewhere both operands are taken to f32, the same function (each
-    product of two bf16 values is exact in f32)."""
-    if k_cache.device.type != "cuda" or k_cache.dtype == torch.float32 \
+    cache, f32 out (``aten::bmm.dtype``), so no copy of it is made (and
+    so on meta, `core.device.card_path`).  On the CPU both operands are
+    taken to f32, the same function (each product of two bf16 values is
+    exact in f32)."""
+    if not card_path(k_cache) or k_cache.dtype == torch.float32 \
             or qg.dtype != k_cache.dtype:
         return torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float())
     kt = k_cache.permute(0, 2, 3, 1)  # (B, KV, hd, cap): a view

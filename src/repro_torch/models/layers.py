@@ -49,7 +49,7 @@ from typing import Any, Iterator
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import card_path, resolve_device
 
 __all__ = ["P", "init_params", "stack", "rms_norm", "dense", "dense_f32",
            "dense_out", "matmul_f32", "matmul_out", "matmul_out_dtype",
@@ -262,9 +262,9 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     in f32 and returned in f32.  On the card bf16 or f16 operands go into
     one ``mm`` / ``bmm`` with an f32 output (``out_dtype``), so no f32
     copy of the weight is made (under autograd through `_MatmulF32`,
-    whose backward sums in f32); elsewhere both are taken to f32, the
-    same function."""
-    if a.device.type == "cuda" and a.dtype == b.dtype != torch.float32:
+    whose backward sums in f32), and so on meta (`core.device.card_path`);
+    on the CPU both are taken to f32, the same function."""
+    if card_path(a) and a.dtype == b.dtype != torch.float32:
         if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
             return _MatmulF32.apply(a, b)
         return _mm_f32(a, b)

@@ -6,7 +6,9 @@ in/out projections sum in f32 and round to the activations' dtype; the
 conv output, dt, B, C, the state and the scan are f32, as in the
 reference.  Where the reference runs a chunked `lax.scan` over the
 sequence, the port runs a plain loop over T of the same step; no kernel
-computes this scan in the JAX package, so none is written here.
+computes this scan in the JAX package, so none is written here.  On meta
+the dry run runs one or two trips of that loop, counted as T
+(`utils.cost.scan`).
 
 Matmul output precision (`layers.matmul_out_dtype`; reference
 ``mamba.py:97`` and ``:147``): both projections are rounded to the
@@ -21,6 +23,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.utils.cost import scan
 
 from .layers import P, dense_out, matmul_f32
 
@@ -127,11 +131,9 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg, *,
         dt, b_ssm, c_ssm = _ssm_inputs(params, xc, cfg)
         h = torch.zeros((b, d_in, D_STATE), dtype=torch.float32,
                         device=x.device)
-        ys = []
-        for i in range(t):
-            h, y_i = _scan_step(a_neg, h, xc[:, i], dt[:, i], b_ssm[:, i],
-                                c_ssm[:, i])
-            ys.append(y_i)
+        h, ys = scan(lambda h, i: _scan_step(a_neg, h, xc[:, i], dt[:, i],
+                                             b_ssm[:, i], c_ssm[:, i]),
+                     h, t, x)
         y = torch.stack(ys, dim=1)                           # (B, T, d_in)
         new_cache = None
         if prefill:  # persist the conv tail and the final ssm state

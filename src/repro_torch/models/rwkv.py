@@ -14,7 +14,8 @@ recurrence, g stays f32 through its SiLU, the decay and the state are
 f32.  Where the reference runs a chunked `lax.scan` over the sequence,
 the port runs a plain loop over T of the same step (a handful of small
 kernels a token a layer); no kernel computes this scan in the JAX
-package, so none is written here.
+package, so none is written here.  On meta the dry run runs one or two
+trips of that loop, counted as T (`utils.cost.scan`).
 
 Matmul output precision (`layers.matmul_out_dtype`), site by site: the
 time mix's r, k, v (reference ``rwkv.py:124``) and its output
@@ -36,6 +37,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.utils.cost import scan
 
 from .layers import P, dense_out, matmul_f32, rms_norm
 
@@ -159,11 +162,9 @@ def rwkv_time_mix(params: dict, x: torch.Tensor, cfg, *,
     else:
         s = torch.zeros((b, h, hd, hd), dtype=torch.float32,
                         device=x.device)
-        ys = []
-        for i in range(t):
-            s, y_i = _tm_step(s, r32[:, i], k32[:, i], v32[:, i],
-                              w_dec[:, i], u)
-            ys.append(y_i)
+        s, ys = scan(lambda s, i: _tm_step(s, r32[:, i], k32[:, i],
+                                           v32[:, i], w_dec[:, i], u),
+                     s, t, x)
         y = torch.stack(ys, dim=1)                           # (B, T, H, hd)
         new_cache = None
         if prefill:

@@ -12,6 +12,8 @@ where the reference cases pick smaller ones, so only the order of the f32
 sums differs), 1e-2 in bf16 (p is rounded to bf16 at another running max
 when the blocks differ).
 """
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -160,6 +162,8 @@ def test_kernel_operand_checks_raise(bad, match):
 
 
 def test_kernel_refuses_other_devices():
-    q = torch.zeros(1, 4, 32, device="meta")
+    # meta is the dry run's abstract device (the kernel's fake
+    # implementation, `tests/test_torch_cost.py`); any other is refused
+    q = SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         TF.flash_fwd_kernel(q, q, q)

@@ -30,7 +30,8 @@ missing = {"repro_torch.analysis.diagnostics", "repro_torch.analysis.ir",
            "repro_torch.core.calibration", "repro_torch.kernels.plan",
            "repro_torch.analysis.contracts",
            "repro_torch.analysis.intervals", "repro_torch.analysis.lint",
-           "repro_torch.utils.roofline"} - set(names)
+           "repro_torch.utils.roofline", "repro_torch.utils.cost",
+           "repro_torch.launch.dryrun"} - set(names)
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 15 else 0)
 """
