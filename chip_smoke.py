@@ -304,6 +304,24 @@ repository around it, or when any phase fails.  Phases:
    and ``memory_s`` (busy must be at least ``compute_s``), and busy /
    max of the two.  The kernels' launches in (b) join the ``kernels``
    line's ``launches_by_path`` (``dryrun``).
+16. Mesh (`mesh_cnn_phase`, `mesh_kernel_cases`, `mesh_lm_phase`): the
+   smoke's own process joins a one-rank NCCL world (`launch.mesh`, a
+   ``file://`` store) and serves under a 1x1 ``("data", "model")`` mesh
+   (a ``("model",)`` one for the CNN heads) against the mesh-free
+   servers of the phases above, in this call: (d) ResNet-50 f32 and
+   int8 by `CNNServer(shard_fc=True)`, logits bit-equal, launches equal;
+   (e) flash and vsmm at the rank-local shapes of a 2x2 mesh and a
+   4-way model dim, each against its plain version (Qwen's ``sp`` query
+   slices at their ``q_offset``, Gemma-3's heads / 4, the sparse FFN's
+   ``wi`` strip shard and one rank's merged ``wo`` CSR, ResNet-50's head
+   a quarter of its strips, f32 and int8); (a) Qwen1.5-4B whole on the
+   ``lm`` phase's weights: streams, flash launches and shapes equal,
+   prefill logits bit-equal, one decode graph, and decode ms a step and
+   prefill s a run in alternating pairs; (b) the sparse-FFN Qwen (8
+   layers, full width): every vsmm launch bf16, 3 a layer a forward,
+   logits within `LOGITS_RTOL`; (c) Granite-MoE whole: streams equal,
+   prefill logits bit-equal.  Any failed check fails the run.  The mesh
+   serves' flash launches join ``launches_by_path`` (``mesh ...``).
 
 ``kernel_ms``, ``plain_ms`` and ``library_ms`` are device time per call:
 a run of calls is captured in one CUDA graph and its replays are timed
@@ -335,6 +353,7 @@ import argparse
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -3629,6 +3648,391 @@ def dryrun_phase(dev, smi: str) -> dict:
     return {"cells": cells, "steps": steps, "launches": launches}
 
 
+# the mesh phase (one-rank NCCL world; PR 29)
+MESH_PAIRS = 2          # alternating (mesh-free, mesh) timing pairs
+MESH_SPARSE_LAYERS = 8  # the sparse-FFN Qwen at full width, 8 of 40 layers
+MESH_MOE_REQUESTS = 8   # Granite-MoE whole: 8 requests of 113-128 tokens
+MESH_TP = 4             # the model dim whose rank-local shapes (e) runs
+
+
+def _mesh_world(dev):
+    """A one-rank NCCL world through `launch.mesh` (a file:// store in a
+    fresh temporary directory) -> the store's directory."""
+    import tempfile
+
+    from repro_torch.launch.mesh import init_process_group
+    store = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    init_process_group(f"{store}/store", rank=0, world_size=1, device=dev)
+    return store
+
+
+def _spy_flash(shapes: list):
+    """A stand-in for `models.attention.flash_fwd_kernel` that records
+    each call's shape and passes it on."""
+    from repro_torch.models import attention
+    real = attention.flash_fwd_kernel
+
+    def spy(q, k, v, *, causal=True, window=None, q_offset=0):
+        shapes.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                       causal, window, q_offset, str(q.dtype)))
+        return real(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return spy
+
+
+def _served_pair(srv0, srv1, traffic: list, path: str) -> dict:
+    """Serve ``traffic`` on the mesh-free ``srv0`` and the mesh ``srv1``
+    with every count set to 0 before each: equal streams (bit-equal
+    logits give equal greedy tokens), equal launch counts, flash at equal
+    shapes in equal order.  Returns the counts and shapes."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.models import attention
+
+    got = []
+    for srv in (srv0, srv1):
+        reqs = _lm_requests(traffic)
+        shapes: list = []
+        counters = _counters()
+        _zero_counters()
+        with mock.patch.object(attention, "flash_fwd_kernel",
+                               _spy_flash(shapes)):
+            stats = srv.serve(reqs)
+        torch.cuda.synchronize()
+        got.append({"streams": [r.out for r in reqs],
+                    "launches": {n: k.launches for n, k in counters.items()
+                                 if k.launches},
+                    "bf16": counters["vsmm"].bf16_launches,
+                    "shapes": shapes, "stats": _lm_stats(stats)})
+    a, b = got
+    if a["streams"] != b["streams"]:
+        raise SystemExit(f"chip_smoke: mesh {path}: streams differ from "
+                         f"the mesh-free server's")
+    if a["launches"] != b["launches"] or a["bf16"] != b["bf16"] or \
+            a["shapes"] != b["shapes"]:
+        raise SystemExit(f"chip_smoke: mesh {path}: launches {b['launches']}"
+                         f" (bf16 {b['bf16']}) against mesh-free "
+                         f"{a['launches']} (bf16 {a['bf16']}), flash shapes "
+                         f"equal: {a['shapes'] == b['shapes']}")
+    return {"streams_equal": True, "launches": b["launches"],
+            "vsmm_bf16_launches": b["bf16"],
+            "flash_shapes": sorted(set(map(str, b["shapes"]))),
+            "mesh_free": a["stats"], "mesh": b["stats"]}
+
+
+def _prefill_pair(srv0, srv1, cfg, tokens, mesh) -> tuple:
+    """One eager prefill of ``tokens`` on each server: (mesh-free logits,
+    mesh logits gathered whole)."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import sharding as shd
+
+    # no_grad, not inference_mode: DTensor's views of inference tensors
+    # fail (torch 2.11), and the served path runs without either
+    with torch.no_grad():
+        y0, _ = tfm.prefill(srv0.params, {"tokens": tokens}, cfg,
+                            capacity=srv0.capacity)
+        with shd.use_mesh(mesh, shd.SERVE_RULES):
+            y1, _ = tfm.prefill(srv1.params, {"tokens": shd.distribute(
+                tokens, ("batch", None))}, cfg, capacity=srv1.capacity)
+            y1 = y1.full_tensor()
+    torch.cuda.synchronize()
+    return y0, y1
+
+
+def _alternate(srv0, srv1, traffic: list) -> dict:
+    """Mesh-free then mesh, in `MESH_PAIRS` alternating pairs in this call:
+    a served run's ms a decode step (its wall clock over its steps, the
+    eager backfill prefills inside the run included), prefill s a run,
+    and the decode graph's replay (device ms, CUDA events over 10
+    replays): the host cost of DTensor dispatch (a prefill runs eagerly;
+    a decode step is a graph replay)."""
+    out = {"mesh_free": [], "mesh": []}
+    for _ in range(MESH_PAIRS):
+        for key, srv in (("mesh_free", srv0), ("mesh", srv1)):
+            st = _lm_stats(srv.serve(_lm_requests(traffic)))
+            g = next(iter(srv.backend.graphs.values())).graph
+            out[key].append({"decode_ms_per_step": st["ms_per_step_in_runs"],
+                             "prefill_s_per_run": st["prefill_s_per_run"],
+                             "backfills": st["backfills"],
+                             "replay_ms": _replay_ms(g, 10)})
+    return out
+
+
+def _replay_ms(graph, n: int) -> float:
+    """Device ms a replay of a captured graph: CUDA events around ``n``
+    replays, after one more."""
+    import torch
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def mesh_cnn_phase(served: dict, dev) -> dict:
+    """(d) ResNet-50, f32 and int8, served by `CNNServer(shard_fc=True)`
+    in the one-rank world (its FC head's strips on the ``("model",)``
+    mesh): the same 16 images as the mesh-free server of the serve
+    phase, served warm (graphs captured) by each: logits bit-equal, the
+    same launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import CNNServer, ImageRequest
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for path in FLEET_PATHS:
+        s = served[path]
+        cfg_name, impl, dtype = PATHS[path][:3]
+        srv_m = CNNServer(get_config(cfg_name), batch=BATCH, impl=impl,
+                          dtype=dtype, seed=0, shard_fc=True, device=dev)
+        fc = [e for e in srv_m.group.backends[0].apply.sparse.values()
+              if isinstance(e.vs.vals, DTensor)]
+        if len(fc) != 1 or srv_m.group.mesh.mesh_dim_names != ("model",):
+            raise SystemExit(f"chip_smoke: mesh {path}: {len(fc)} sharded "
+                             f"FC heads on {srv_m.group.mesh}")
+        runs = []
+        for srv in (s["srv"], srv_m):
+            srv.serve([ImageRequest(rid=i, image=im)  # graphs captured
+                       for i, im in enumerate(s["images"])])
+            reqs = [ImageRequest(rid=i, image=im)
+                    for i, im in enumerate(s["images"])]
+            counters = _counters()
+            _zero_counters()
+            srv.serve(reqs)
+            torch.cuda.synchronize()
+            runs.append(({n: (k.launches, getattr(k, "int8_launches", 0))
+                          for n, k in counters.items() if k.launches},
+                         np.stack([r.logits for r in reqs])))
+        (l0, y0), (l1, y1) = runs
+        if not np.array_equal(y0, y1) or l0 != l1:
+            raise SystemExit(f"chip_smoke: mesh {path}: logits bit-equal "
+                             f"{np.array_equal(y0, y1)} (max |d| "
+                             f"{float(np.abs(y0 - y1).max())}), launches "
+                             f"{l1} against {l0}")
+        out[path] = {"logits_bit_equal": True, "launches": l1,
+                     "requests": len(y1)}
+        del srv_m
+        _free_cuda()
+    print(json.dumps({"phase": "mesh_cnn", **out}), flush=True)
+    return out
+
+
+def mesh_lm_phase(lm: dict, dev) -> dict:
+    """(a)-(c): LM servers on `make_local_mesh()` (one rank, 1x1) against
+    the mesh-free ones, in this call.
+
+    (a) Qwen1.5-4B whole, bf16, on the `lm` phase's weights (the mesh
+    server's DTensors wrap the same storage) at batch 8, capacity 552:
+    streams and flash launches (number and shapes) equal, prefill logits
+    bit-equal, one decode graph per (batch, capacity), and decode ms a
+    step and prefill s a run in alternating pairs.  (b) the sparse-FFN
+    Qwen, full width, `MESH_SPARSE_LAYERS` layers: every vsmm launch
+    bf16, 3 a layer a forward (the rank's ``wo`` shards merged into one
+    CSR), logits within `LOGITS_RTOL` of the mesh-free path's.  (c)
+    Granite-MoE whole: streams equal, prefill logits bit-equal."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.layers import init_params
+    from repro_torch.models import transformer as tfm
+
+    mesh = make_local_mesh()
+    out = {"mesh": "data1xmodel1", "world": 1}
+    # (a) Qwen1.5-4B dense, whole
+    cfg = get_config(LM_CONFIG)
+    srv0 = lm["srv"]
+    srv1 = Server(cfg, batch=LM_BATCH, capacity=LM_CAPACITY,
+                  params=srv0.params, device=dev, mesh=mesh)
+    pair = _served_pair(srv0, srv1, lm["traffic"], LM_CONFIG)
+    graphs = list(srv1.backend.graphs)
+    if graphs != [(LM_BATCH, LM_CAPACITY)]:
+        raise SystemExit(f"chip_smoke: mesh {LM_CONFIG}: decode graphs "
+                         f"{graphs}")
+    gen = torch.Generator().manual_seed(5)
+    probe = torch.randint(0, cfg.vocab, (LM_BATCH, 512),
+                          generator=gen).to(dev)
+    y0, y1 = _prefill_pair(srv0, srv1, cfg, probe, mesh)
+    if not torch.equal(y0, y1):
+        raise SystemExit(f"chip_smoke: mesh {LM_CONFIG}: prefill logits "
+                         f"differ, max |d| {float((y0 - y1).abs().max())}")
+    out[LM_CONFIG] = {**pair, "prefill_logits_bit_equal": True,
+                      "decode_graphs": len(graphs),
+                      "timing": _alternate(srv0, srv1, lm["traffic"])}
+    del srv1, y0, y1
+    # (b) the sparse-FFN Qwen: the reference tree, served both ways
+    cfg_s = _cut_depth(dataclasses.replace(
+        get_config(LM_CONFIG), use_sparse_ffn=True), MESH_SPARSE_LAYERS)
+    raw = init_params(tfm.lm_schema(cfg_s), 0, dtype=cfg_s.dtype,
+                      device=dev, draw_on_device=True)
+    capacity = 128 + 2 * LM_ARCH_NEW + 8
+    srv0 = Server(cfg_s, batch=LM_BATCH, capacity=capacity, params=raw,
+                  device=dev)
+    srv1 = Server(cfg_s, batch=LM_BATCH, capacity=capacity, params=raw,
+                  device=dev, mesh=mesh)
+    traffic = [(r.rid, r.prompt, r.max_new) for r in _arch_traffic(
+        cfg_s.vocab, 8, (113, 129), seed=1)]
+    reqs = _lm_requests(traffic)
+    counters = _counters()
+    _zero_counters()
+    stats = _lm_stats(srv1.serve(reqs))
+    torch.cuda.synchronize()
+    prefills = stats["runs"] + stats["backfills"]
+    n_vsmm = _sparse_ffn_launches(cfg_s) * (
+        prefills + stats["decode_steps"] + len(srv1.backend.graphs))
+    vsmm = counters["vsmm"]
+    if vsmm.launches != n_vsmm or vsmm.bf16_launches != n_vsmm:
+        raise SystemExit(f"chip_smoke: mesh sparse FFN: vsmm {vsmm.launches}"
+                         f" (bf16 {vsmm.bf16_launches}), expected {n_vsmm}")
+    probe = torch.randint(0, cfg_s.vocab, (LM_BATCH, 128),
+                          generator=gen).to(dev)
+    y0, y1 = _prefill_pair(srv0, srv1, cfg_s, probe, mesh)
+    rel = float((y0 - y1).abs().max() / y0.abs().max())
+    if not rel <= LOGITS_RTOL:
+        raise SystemExit(f"chip_smoke: mesh sparse FFN: logits rel {rel} > "
+                         f"{LOGITS_RTOL}")
+    free = _lm_requests(traffic)
+    srv0.serve(free)
+    out["qwen1.5-4b-sparse"] = {
+        "layers": MESH_SPARSE_LAYERS, "vsmm_launches": n_vsmm,
+        "vsmm_per_layer_forward": 3, "all_bf16": True,
+        "prefill_logits_rel": rel,
+        "prefill_logits_bit_equal": bool(torch.equal(y0, y1)),
+        "streams_equal_mesh_free": [r.out for r in reqs] == [
+            r.out for r in free], **stats}
+    del srv0, srv1, raw, y0, y1
+    _free_cuda()
+    # (c) Granite-MoE whole
+    cfg_m = get_config("granite-moe-3b-a800m")
+    raw = init_params(tfm.lm_schema(cfg_m), 0, dtype=cfg_m.dtype,
+                      device=dev, draw_on_device=True)
+    capacity = 128 + 2 * LM_ARCH_NEW + 8
+    srv0 = Server(cfg_m, batch=LM_BATCH, capacity=capacity, params=raw,
+                  device=dev)
+    srv1 = Server(cfg_m, batch=LM_BATCH, capacity=capacity, params=raw,
+                  device=dev, mesh=mesh)
+    traffic = [(r.rid, r.prompt, r.max_new) for r in _arch_traffic(
+        cfg_m.vocab, MESH_MOE_REQUESTS, (113, 129), seed=1)]
+    pair = _served_pair(srv0, srv1, traffic, cfg_m.name)
+    probe = torch.randint(0, cfg_m.vocab, (LM_BATCH, 128),
+                          generator=gen).to(dev)
+    y0, y1 = _prefill_pair(srv0, srv1, cfg_m, probe, mesh)
+    if not torch.equal(y0, y1):
+        raise SystemExit(f"chip_smoke: mesh {cfg_m.name}: prefill logits "
+                         f"differ, max |d| {float((y0 - y1).abs().max())}")
+    out[cfg_m.name] = {**pair, "prefill_logits_bit_equal": True}
+    del srv0, srv1, raw, y0, y1
+    _free_cuda()
+    print(json.dumps({"phase": "mesh_lm", **{
+        k: ({kk: vv for kk, vv in v.items() if kk != "flash_shapes"}
+            if isinstance(v, dict) else v) for k, v in out.items()}}),
+        flush=True)
+    return out
+
+
+def mesh_kernel_cases(timer: Timer, dev, bf16_peak: float,
+                      served: dict) -> dict:
+    """(e) The two kernels whose shapes a mesh changes, at the rank-local
+    shapes of a 2x2 mesh and of a `MESH_TP`-way model dim, each against
+    its plain version on the card (`Timer.run`: bound, library time):
+
+    * flash, Qwen1.5-4B ``sp`` at batch 8, T 512: each rank's 512 / 4
+      queries at ``q_offset`` r x 128 against all 512 keys (BH 160, hd
+      128, bf16; r = 0..3), and Gemma-3-12B ``heads`` / 4 (BH 8 x 16 / 4,
+      T 1600, hd 240, global causal);
+    * vsmm bf16, Qwen1.5-4B's sparse FFN on a 4-way model dim: one rank's
+      ``wi`` gate strips (16 of 64) and its ``wo`` CSR (its 4 of 16
+      shards merged), at M 8 (decode) and 1024 (prefill);
+    * vsmm f32 and int8, ResNet-50's 1000-class head split 4 ways (2 of
+      8 strips a rank), at batch 8, the serve phase's weights."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.vector_sparse import VectorSparse
+    from repro_torch.kernels.flash import (flash_fwd_kernel,
+                                           flash_fwd_plain, kernel_body)
+    from repro_torch.models import sparse_lm
+    from repro_torch.models.layers import init_params
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(7)
+    rows = {}
+    bf = torch.bfloat16
+    cases = [(f"mesh flash Qwen sp rank {r}/4: BH 160 Tq 128 at q_offset "
+              f"{128 * r}, Tk 512, hd 128 bf16", 160, 128, 512, 128, True,
+              None, 128 * r) for r in range(MESH_TP)]
+    cases.append(("mesh flash Gemma-3 heads/4: BH 32 T 1600 hd 240 causal "
+                  "bf16", 32, 1600, 1600, 240, True, None, 0))
+    for label, bh, tq, tk, hd, causal, window, q_offset in cases:
+        q, k, v = (torch.randn(bh, t, hd, generator=gen).to(dev, bf)
+                   for t in (tq, tk, tk))
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        mask = _attn_mask(tq, tk, causal, window, q_offset, dev)
+        pairs = int(mask.sum())
+        lib = lambda q=q[None], k=k[None], v=v[None], m=mask: \
+            F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+        rows[label] = timer.run(
+            label, "flash_fwd",
+            lambda q=q, k=k, v=v, kw=kw: flash_fwd_kernel(q, k, v, **kw),
+            lambda q=q, k=k, v=v, kw=kw: flash_fwd_plain(q, k, v, **kw),
+            lib, flops=4 * bh * pairs * hd,
+            nbytes=_nbytes(q, k, v) + q.numel() * q.element_size(),
+            reps=10, rtol=BF16_RTOL, peak_flops=bf16_peak, body=kernel_body(bf),
+            mesh="2x2 sp" if "sp" in label else f"model {MESH_TP}")
+    # vsmm bf16 at one rank's shard of Qwen's sparse FFN (tp_hint 16)
+    cfg = get_config(LM_CONFIG)
+    ffn = init_params(sparse_lm.sparse_mlp_schema(cfg, cfg.sparsity), 0,
+                      dtype=bf, device=dev, draw_on_device=True)
+    nb_i = ffn["wi_vals"].shape[1] // MESH_TP
+    n_loc = cfg.tp_hint // MESH_TP
+    wo_v, wo_i = sparse_lm.merge_wo(ffn["wo_vals"][:n_loc],
+                                    ffn["wo_idx"][:n_loc],
+                                    cfg.d_ff // MESH_TP)
+    wi = VectorSparse(vals=ffn["wi_vals"][0, :nb_i].contiguous(),
+                      idx=ffn["wi_idx"][0, :nb_i].contiguous(),
+                      shape=(cfg.d_model, nb_i * ffn["wi_vals"].shape[-1]))
+    wo = VectorSparse(vals=wo_v, idx=wo_i,
+                      shape=(cfg.d_ff // MESH_TP, cfg.d_model))
+    for m in (8, 1024):
+        for name, vs in (("wi gate strips 16 of 64", wi),
+                         (f"wo CSR ({n_loc} of 16 shards merged)", wo)):
+            x = torch.randn(m, vs.shape[0], generator=gen).to(dev, bf)
+            label = f"mesh vsmm bf16 Qwen {name}, model {MESH_TP}, M {m}"
+            rows[label] = _bf16_case(timer, label, x, vs, bf16_peak, reps=10)
+    del ffn
+    # vsmm f32 / int8 at one rank's strips of ResNet-50's head
+    from repro_torch.models.graph import quantize_activations_int8
+    for path in FLEET_PATHS:
+        fc = served[path]["srv"].sparse["fc"]
+        int8 = fc.scale is not None
+        nb = fc.vs.vals.shape[0] // MESH_TP
+        vs = VectorSparse(vals=fc.vs.vals[:nb].contiguous(),
+                          idx=fc.vs.idx[:nb].contiguous(),
+                          shape=(fc.vs.shape[0], nb * fc.vs.vals.shape[-1]))
+        x = torch.relu(torch.randn(BATCH, vs.shape[0], generator=gen)).to(dev)
+        cols = slice(0, vs.shape[1])
+        bias = F.pad(fc.bias, (0, fc.vs.shape[1] - fc.bias.shape[0]))[cols]
+        quant = None
+        if int8:
+            x, sx = quantize_activations_int8(x)
+            quant = (sx, fc.scale[cols])
+        label = (f"mesh vsmm {'int8' if int8 else 'f32'} ResNet-50 head, "
+                 f"model {MESH_TP}: {nb} of {fc.vs.vals.shape[0]} strips, "
+                 f"M {BATCH}")
+        rows[label] = _mm_case(timer, label, x, vs, n_real=vs.shape[1],
+                               bias=bias, quant=quant)
+    _free_cuda()
+    return rows
+
+
 def _layer_inputs(net, params, sparse, x, impl: str) -> dict:
     """{layer name: its input} over one forward of ``x``: each conv's
     NHWC input (``net_apply``'s ``collect``) and each FC's (N, din) input
@@ -4251,6 +4655,12 @@ def main() -> int:
     lap("calibration")
     vscheck = vscheck_phase()
     lap("vscheck")
+    import torch.distributed as dist
+    mesh_store = _mesh_world(dev)
+    mesh_cnn = mesh_cnn_phase(served, dev)
+    lap("mesh_cnn")
+    mesh_rows = mesh_kernel_cases(timer, dev, bf16_peak, served)
+    lap("mesh_kernels")
     cnn_launches = {path: s["launches"] for path, s in served.items()}
     stem_launches = {path: s["stem_launches"] for path, s in served.items()}
     cnn_summaries = {path: s["summary"] for path, s in served.items()}
@@ -4272,8 +4682,14 @@ def main() -> int:
     flow = lm_flow_phase(lm["srv"], lm["traffic"],
                          max(spread["plain_vs_f32_attention"],
                              spread["plain_vs_sdpa"]), dev)
-    del lm["srv"]  # one model on the card at a time
     lap("lm_flow")
+    mesh_lm = mesh_lm_phase(lm, dev)
+    dist.destroy_process_group()
+    shutil.rmtree(mesh_store, ignore_errors=True)
+    lap("mesh_lm")
+    seconds["mesh"] = sum(seconds[k] for k in
+                          ("mesh_cnn", "mesh_kernels", "mesh_lm"))
+    del lm["srv"]  # one model on the card at a time
     archs = {name: lm_arch_phase(name, layers, n, lens, bucket, dev)
              for name, layers, n, lens, bucket in LM_ARCHS}
     lap("lm_archs")
@@ -4332,6 +4748,9 @@ def main() -> int:
                      **{name: f["launches"]["flash_fwd"]
                         for name, f in frontends.items()},
                      "train": train["launches"]["flash_fwd"],
+                     **{f"mesh {name}": m["launches"].get("flash_fwd", 0)
+                        for name, m in mesh_lm.items()
+                        if isinstance(m, dict) and "launches" in m},
                      "dryrun": sum(v.get("flash_fwd", 0)
                                    for v in dry["launches"].values())}
     kernels.append({
@@ -4369,7 +4788,9 @@ def main() -> int:
              "frontend": frontends, "train": train, "dryrun": dry,
              "profile": profiled, "dense_vs_sparse": dense_vs_sparse,
              "paper_model": paper_model, "calibration": calibration,
-             "vscheck": vscheck, "seconds": seconds},
+             "vscheck": vscheck, "seconds": seconds,
+             "mesh": {"cnn": mesh_cnn, "lm": mesh_lm,
+                      "local_shapes": mesh_rows}},
             indent=1))
     print(json.dumps({k: v for k, v in dense_vs_sparse.items()
                       if k != "per_layer_ms"}))

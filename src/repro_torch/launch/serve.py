@@ -57,6 +57,15 @@ replica in a `ChaosBackend` for replayable chaos runs.
 
 Every entry point runs on CUDA unless ``device="cpu"``.
 
+Under a mesh (a `torch.distributed` world, `launch.mesh`): `Server(mesh=)`
+shards its weights over a ``("data", "model")`` mesh and its `LMBackend`
+serves inside it (`LMBackend.context`); `CNNServer` / `ReplicaGroup`
+with ``shard_fc`` cout-shard the FC heads over the world's ranks.  Every
+rank runs the same scheduler on the same requests (SPMD); only wave
+counts drive its decisions.  The CLI joins a world with
+``--dist-store`` (``RANK`` / ``WORLD_SIZE`` from the environment) and
+serves an LM under ``--mesh DATAxMODEL``.
+
 Usage (the reduced configs; add ``--device cpu`` to run on the CPU):
   python -m repro_torch.launch.serve --arch qwen1.5-4b --requests 4 --tokens 8
   python -m repro_torch.launch.serve --cnn vscnn-resnet50 --replicas 2 \\
@@ -65,6 +74,7 @@ Usage (the reduced configs; add ``--device cpu`` to run on the CPU):
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import time
@@ -72,18 +82,24 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs import get_config
 from repro_torch.core import threefry
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.capture import Captured, capture
 from repro_torch.launch.faults import ChaosBackend, FaultPlan
+from repro_torch.launch.mesh import (init_process_group, make_local_mesh,
+                                     make_model_mesh)
 from repro_torch.launch.scheduler import FleetScheduler, LockstepScheduler
 from repro_torch.models.graph import (BatchedApply, SparseNet, input_refusal,
                                       output_finite, place_params,
                                       shard_sparse)
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import init_params
+from repro_torch.parallel import sharding as shd
 
 __all__ = ["Request", "ImageRequest", "LMBackend", "CNNBackend",
            "ReplicaGroup", "Server", "CNNServer", "validate_net",
@@ -171,6 +187,12 @@ def _tree_clone(tree: Any) -> Any:
     return {k: _tree_clone(v) for k, v in tree.items()}
 
 
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value on every rank (an all-gather); a plain
+    tensor as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _tree_copy(dst: Any, src: Any) -> None:
     """Copy every leaf of ``src`` into the same leaf of ``dst``."""
     if isinstance(dst, torch.Tensor):
@@ -185,8 +207,20 @@ def _tree_copy(dst: Any, src: Any) -> None:
 
 def _copy_rows(dst: Any, src: Any, j: int) -> None:
     """Copy batch row ``j`` of every cache leaf of ``src`` into ``dst`` in
-    place; leaves are (repeat, batch, ...)."""
-    if isinstance(dst, torch.Tensor):
+    place; leaves are (repeat, batch, ...).  A DTensor leaf (under a
+    mesh) is copied by the ranks that hold row ``j``."""
+    if isinstance(dst, DTensor):
+        if src.placements != dst.placements:
+            src = src.redistribute(dst.device_mesh, dst.placements)
+        dl, sl = dst.to_local(), src.to_local()
+        mesh, owner = dst.device_mesh, 0
+        for i, p in enumerate(dst.placements):
+            if isinstance(p, Shard) and p.dim == 1:
+                owner = owner * mesh.size(i) + mesh.get_coordinate()[i]
+        r = j - owner * dl.shape[1]
+        if 0 <= r < dl.shape[1]:
+            dl[:, r].copy_(sl[:, r])
+    elif isinstance(dst, torch.Tensor):
         dst[:, j].copy_(src[:, j])
     elif isinstance(dst, list):
         for d, s in zip(dst, src):
@@ -228,14 +262,25 @@ class LMBackend:
     caches at its first step, with the step's tokens and position copied
     into its static inputs; sampling reads its static logits.  Prefills
     run eagerly.  On the CPU a decode step runs eagerly.
+
+    Under a ``mesh`` (a `DeviceMesh` of the SPMD world; ``params`` then
+    DTensors, `transformer.shard_params`) every rank runs the same
+    scheduler on the same requests: `context` enters the mesh with the
+    serving rules, tokens are laid out on the batch dims, the caches are
+    DTensors (K/V sequence-sharded), and each forward's logits are
+    gathered whole on every rank before sampling, so every rank takes the
+    same tokens and the same branches.  A decode graph captures the
+    step's collectives with it.
     """
 
     def __init__(self, cfg: Any, params: dict, *, capacity: int,
                  eos_id: int | None = None, len_bucket: int = 16,
                  sample_seed: int = 0,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh: Any = None):
         self.cfg = cfg
         self.params = params
+        self.mesh = mesh
         self.capacity = capacity
         self.eos_id = eos_id
         self.len_bucket = max(1, len_bucket)
@@ -279,7 +324,22 @@ class LMBackend:
         return toks
 
     def _tokens(self, toks: np.ndarray) -> dict:
-        return {"tokens": torch.from_numpy(toks).to(self.device)}
+        return {"tokens": self._laid_out(torch.from_numpy(toks).to(
+            self.device))}
+
+    def _laid_out(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token ids (B, T) as the forward takes them: under a mesh a
+        DTensor on the batch dims (each rank's rows cut from its copy)."""
+        if self.mesh is None:
+            return tokens
+        return shd.distribute(tokens, ("batch", None))
+
+    def context(self) -> Any:
+        """Entered around each run: under a mesh, the mesh with the
+        serving rules (the reference's ``use_mesh(mesh, SERVE_RULES)``)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return shd.use_mesh(self.mesh, shd.SERVE_RULES)
 
     # -- scheduler protocol -------------------------------------------------
 
@@ -333,6 +393,7 @@ class LMBackend:
         logits, caches = tfm.prefill(self.params, self._tokens(toks),
                                      self.cfg, capacity=self.capacity,
                                      caches=self.caches[width])
+        logits = _full(logits)
         samp = [[r.temperature, r.top_k, r.rid, 0] for r in requests]
         samp += [self._greedy_lane() for _ in range(width - len(requests))]
         state = {"caches": caches, "nxt": None, "len": max_len, "i": 0,
@@ -360,8 +421,9 @@ class LMBackend:
             saved = _tree_clone(caches)
             tokens = state["nxt"].clone()
             p = torch.full((), pos, dtype=torch.int64, device=self.device)
-            graph, logits = capture(lambda: tfm.decode_step(
-                self.params, caches, tokens, p, self.cfg)[0])
+            graph, logits = capture(lambda: _full(tfm.decode_step(
+                self.params, caches, self._laid_out(tokens), p,
+                self.cfg)[0]))
             _tree_copy(caches, saved)
             del saved
             g = self.graphs[key] = _DecodeGraph(graph, tokens, p, logits)
@@ -377,7 +439,9 @@ class LMBackend:
             logits = self._decode(state, pos)
         else:
             logits, _ = tfm.decode_step(self.params, state["caches"],
-                                        state["nxt"], pos, self.cfg)
+                                        self._laid_out(state["nxt"]), pos,
+                                        self.cfg)
+            logits = _full(logits)
         for j, s in enumerate(slots):
             if s is None:                # retired lane: back to greedy
                 state["samp"][j] = self._greedy_lane()
@@ -403,6 +467,7 @@ class LMBackend:
         logits, caches1 = tfm.prefill(self.params, self._tokens(toks),
                                       self.cfg, capacity=self.capacity,
                                       logit_pos=cur - 1)
+        logits = _full(logits)
         state["samp"][slot] = [req.temperature, req.top_k, req.rid, 0]
         tok = int(self._emit_tokens(state, logits[slot][None], [slot])[0])
         _copy_rows(state["caches"], caches1, slot)
@@ -426,29 +491,38 @@ class Server:
     ``device`` (CUDA by default; on the card drawn there by a CUDA
     generator), or taken as given (``params``, e.g. the
     reference's through `repro_torch.params.params_from_numpy`), then put
-    in their served form (`transformer.prepare_params`).  An
-    embedding-input config raises ``ValueError``.
+    in their served form (`transformer.prepare_params`).  With a ``mesh``
+    (a `DeviceMesh` over ``("data", "model")``, `launch.mesh`) every rank
+    builds the same full tree and keeps its own shards of it
+    (`transformer.shard_params`, the serving rules) before that, and the
+    backend serves under the mesh; every rank must call `serve` with the
+    same requests.  An embedding-input config raises ``ValueError``.
     """
 
     def __init__(self, cfg: Any, *, batch: int, capacity: int, seed: int = 0,
                  eos_id: int | None = None, len_bucket: int = 16,
                  max_queue: int | None = None,
                  device: str | torch.device | None = None,
-                 params: dict | None = None):
+                 params: dict | None = None, mesh: Any = None):
         if not cfg.embed_inputs:
             raise ValueError(f"{cfg.name}: the LM server expects "
                              f"token-input archs (embed_inputs=False)")
         self.cfg = cfg
         self.batch = batch
         self.capacity = capacity
+        self.mesh = mesh
         self.device = resolve_device(device)
-        self.params = tfm.prepare_params(
-            params if params is not None else init_params(
-                tfm.lm_schema(cfg), seed, dtype=cfg.dtype,
-                device=self.device, draw_on_device=True), cfg)
+        if params is None:
+            params = init_params(tfm.lm_schema(cfg), seed, dtype=cfg.dtype,
+                                 device=self.device, draw_on_device=True)
+        with (shd.use_mesh(mesh, shd.SERVE_RULES) if mesh is not None
+              else contextlib.nullcontext()):
+            if mesh is not None:
+                params = tfm.shard_params(params, cfg)
+            self.params = tfm.prepare_params(params, cfg)
         self.backend = LMBackend(cfg, self.params, capacity=capacity,
                                  eos_id=eos_id, len_bucket=len_bucket,
-                                 device=self.device)
+                                 device=self.device, mesh=mesh)
         self.scheduler = LockstepScheduler(self.backend, batch=batch,
                                            max_queue=max_queue)
 
@@ -527,20 +601,23 @@ class CNNBackend:
     The forward runs where ``params`` lie (`BatchedApply`).  Each backend
     owns its `BatchedApply`, and so its graphs, memory pool and
     page-locked buffers: a fleet gives every replica a backend of its own
-    (`ReplicaGroup`).
+    (`ReplicaGroup`).  ``mesh`` and ``rules`` go to `BatchedApply` (FC
+    heads cout-sharded over the replica's ranks, `models.graph.shard_sparse`).
     """
 
     def __init__(self, net: SparseNet, params: dict, *,
                  sparse: dict | None = None, impl: str = "auto",
                  density: float | None = None, image_size: int | None = None,
                  pad_multiple: int = 8,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh: Any = None, rules: Any = None):
         self.device = resolve_device(device)
         self.image_size = image_size
         self.pad_multiple = pad_multiple
         self.channels = next((l.cin for l in net.conv_layers()), None)
+        self.mesh, self.rules = mesh, rules
         self.apply = BatchedApply(net, params, sparse=sparse, impl=impl,
-                                  key=(density,))
+                                  key=(density,), mesh=mesh, rules=rules)
 
     # -- scheduler protocol -------------------------------------------------
 
@@ -562,10 +639,15 @@ class CNNBackend:
 
     def context(self) -> Any:
         """Entered around each run: the weights' card as the current CUDA
-        device (a replica on another card captures and replays there)."""
+        device (a replica on another card captures and replays there),
+        and under a mesh the mesh with the backend's rules."""
+        stack = contextlib.ExitStack()
         if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
-        return contextlib.nullcontext()
+            stack.enter_context(torch.cuda.device(self.device))
+        if self.mesh is not None:
+            stack.enter_context(shd.use_mesh(
+                self.mesh, self.rules or shd.SERVE_RULES))
+        return stack
 
     def bucket_key(self, req: ImageRequest) -> tuple[int, int, int]:
         h, w, c = req.image.shape
@@ -642,14 +724,24 @@ class ReplicaGroup:
     so one card serves any number of replicas, each on its own copy of the
     weights), and with ``shard_fc`` a ``model`` axis of ``devices //
     replicas`` devices a replica, over which the reference shards the FC
-    heads' strips.  One device a replica (every replica of one card) only
-    places the tree; a wider ``model`` axis raises in `shard_sparse`.
-    Each replica holds ``params`` and ``sparse`` on its device and a
-    `CNNBackend` of its own, with its own `BatchedApply`.  Replica 0 uses
-    the caller's tensors wherever they already lie on its device and every
-    other replica gets a copy, so N replicas hold N weight trees.  The
-    caller owns the net's
-    check (`CNNServer` runs `validate_net` before it makes the weights).
+    heads' strips.  Each replica holds ``params`` and ``sparse`` on its
+    device and a `CNNBackend` of its own, with its own `BatchedApply`.
+    Replica 0 uses the caller's tensors wherever they already lie on its
+    device and every other replica gets a copy, so N replicas hold N
+    weight trees.  The caller owns the net's check (`CNNServer` runs
+    `validate_net` before it makes the weights).
+
+    ``shard_fc`` in a `torch.distributed` world (or with a ``mesh``): the
+    replica's ``("model",)`` mesh spans the world's ranks
+    (`launch.mesh.make_model_mesh`), every rank runs the same fleet on
+    the same requests, and each FC head's strips are cout-sharded over it
+    (`models.graph.shard_sparse`, ``rules`` the serving rules by
+    default); the logits are gathered on every rank.  Replicas beyond
+    the one group wrap onto it; a world of several groups (``model`` of
+    the world's size over ``replicas``, fewer ranks than the world) raises
+    `NotImplementedError`.  Without a world every replica has one device,
+    and ``shard_fc`` only places the tree, as the reference's grid does on
+    one device.
     """
 
     def __init__(self, net: SparseNet, params: dict, *,
@@ -657,12 +749,26 @@ class ReplicaGroup:
                  density: float | None = None, image_size: int | None = None,
                  pad_multiple: int = 8, replicas: int = 1,
                  shard_fc: bool = False,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh: Any = None, rules: Any = None):
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
         dev = resolve_device(device)
         self.replicas = replicas
         self.shard_fc = shard_fc
+        self.rules = rules or shd.SERVE_RULES
+        if mesh is None and shard_fc and dist.is_initialized():
+            world = dist.get_world_size()
+            if max(1, world // replicas) != world:
+                raise NotImplementedError(
+                    f"{replicas} shard_fc replicas over {world} ranks: "
+                    f"replica groups on disjoint ranks are not ported")
+            mesh = make_model_mesh()
+        self.mesh = mesh
+        if mesh is not None:
+            self._place_on_mesh(net, params, sparse, impl, density,
+                                image_size, pad_multiple, dev)
+            return
         devices = ([torch.device("cuda", i)
                     for i in range(torch.cuda.device_count())]
                    if dev.type == "cuda" else [dev])
@@ -683,6 +789,26 @@ class ReplicaGroup:
                 net, place_params(params, d_i, copy=i > 0), sparse=s_i,
                 impl=impl, density=density, image_size=image_size,
                 pad_multiple=pad_multiple, device=d_i))
+
+    def _place_on_mesh(self, net: SparseNet, params: dict,
+                       sparse: dict | None, impl: str,
+                       density: float | None, image_size: int | None,
+                       pad_multiple: int, dev: torch.device) -> None:
+        """Every replica on the one mesh: this rank's device, its copy of
+        the params, the sparse tree sharded under the mesh."""
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.devices, self.backends = [], []
+        for i in range(self.replicas):
+            with shd.use_mesh(self.mesh, self.rules):
+                s_i = (None if sparse is None
+                       else shard_sparse(sparse, dev, copy=i > 0))
+            self.devices.append(dev)
+            self.backends.append(CNNBackend(
+                net, place_params(params, dev, copy=i > 0), sparse=s_i,
+                impl=impl, density=density, image_size=image_size,
+                pad_multiple=pad_multiple, device=dev, mesh=self.mesh,
+                rules=self.rules))
 
 
 def validate_net(net: SparseNet, image_size: int, *,
@@ -716,7 +842,10 @@ class CNNServer:
     ``replicas > 1``, ``shard_fc``, a ``fault_plan`` or ``deadline_waves``
     serve a `ReplicaGroup` behind the `FleetScheduler` (a ``fault_plan``
     wraps each replica in a `ChaosBackend`); otherwise one `CNNBackend`
-    runs behind the `LockstepScheduler`.
+    runs behind the `LockstepScheduler`.  ``shard_fc`` in a
+    `torch.distributed` world (or with a ``mesh``) cout-shards the FC
+    heads over the world's ranks (`ReplicaGroup`); every rank must then
+    serve the same requests.
     """
 
     def __init__(self, cfg: Any, *, batch: int, impl: str = "auto",
@@ -727,7 +856,8 @@ class CNNServer:
                  fault_plan: FaultPlan | None = None,
                  max_queue: int | None = None,
                  deadline_waves: int | None = None, max_attempts: int = 3,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh: Any = None):
         self.cfg = cfg
         self.replicas = replicas
         self.fault_plan = fault_plan
@@ -760,7 +890,8 @@ class CNNServer:
                 self.net, self.params, sparse=self.sparse, impl=impl,
                 density=self.density if sparse else None,
                 image_size=image_size, pad_multiple=pad_multiple,
-                replicas=replicas, shard_fc=shard_fc, device=self.device)
+                replicas=replicas, shard_fc=shard_fc, device=self.device,
+                mesh=mesh)
             self.backends = list(self.group.backends)
             if fault_plan is not None:
                 self.backends = [ChaosBackend(b, fault_plan, replica=i)
@@ -837,9 +968,25 @@ def main(argv: list[str] | None = None) -> None:
                     help="CNN fleet: per-request deadline in fleet ticks")
     ap.add_argument("--device", default="cuda",
                     help="where to serve (cuda, or cpu for the plain path)")
+    ap.add_argument("--dist-store", default=None,
+                    help="join a torch.distributed world (RANK, WORLD_SIZE "
+                         "from the environment) through this file:// store "
+                         "path; every rank serves the same requests and "
+                         "rank 0 prints")
+    ap.add_argument("--mesh", default=None,
+                    help="LM: serve under a DATAxMODEL mesh over the world "
+                         "(needs --dist-store)")
     args = ap.parse_args(argv)
     if (args.arch is None) == (args.cnn is None):
         ap.error("choose exactly one of --arch (LM) or --cnn")
+    if args.mesh and not args.dist_store:
+        ap.error("--mesh needs --dist-store")
+    if args.dist_store:
+        init_process_group(args.dist_store, device=args.device)
+        atexit.register(dist.destroy_process_group)
+    # every rank serves; rank 0 reports
+    say = print if not dist.is_initialized() or dist.get_rank() == 0 \
+        else (lambda *a, **k: None)
 
     rng = np.random.default_rng(0)
     if args.cnn:
@@ -862,7 +1009,7 @@ def main(argv: list[str] | None = None) -> None:
         stats = srv.serve(reqs)
         wall = time.time() - t0
         tot = sum(st["images"] for st in stats)
-        print(f"served {tot} images in {len(stats)} lockstep runs, "
+        say(f"served {tot} images in {len(stats)} lockstep runs, "
               f"{tot / max(wall, 1e-9):.1f} img/s "
               f"(density {srv.density}, batch {args.batch}, "
               f"replicas {args.replicas}"
@@ -871,16 +1018,16 @@ def main(argv: list[str] | None = None) -> None:
         outcomes = list(srv.outcomes.values())
         refused = [o for o in outcomes if o.status == "refused"]
         if plan is not None or refused:
-            print(f"  outcomes: {len(outcomes) - len(refused)} delivered, "
+            say(f"  outcomes: {len(outcomes) - len(refused)} delivered, "
                   f"{len(refused)} refused "
                   f"{sorted({o.reason for o in refused})}")
             if plan is not None:
                 sch = srv.scheduler
-                print(f"  plan: {plan.describe()}")
-                print(f"  health: {sch.health}  "
+                say(f"  plan: {plan.describe()}")
+                say(f"  health: {sch.health}  "
                       f"faults fired: {len(sch.fault_events)}")
         for st in stats:
-            print("  ", _fmt(st))
+            say("  ", _fmt(st))
         return
 
     cfg = get_config(args.arch).reduce()
@@ -894,17 +1041,21 @@ def main(argv: list[str] | None = None) -> None:
                 top_k=args.top_k)
         for i in range(args.requests)
     ]
+    mesh = None
+    if args.mesh:
+        data, model = (int(v) for v in args.mesh.lower().split("x"))
+        mesh = make_local_mesh(data, model)
     srv = Server(cfg, batch=args.batch,
                  capacity=_round_up(args.prompt_len, 16) + args.tokens + 8,
-                 eos_id=args.eos_id, device=args.device)
+                 eos_id=args.eos_id, device=args.device, mesh=mesh)
     stats = srv.serve(reqs)
     tot_new = sum(s["new_tokens"] for s in stats)
     tot_dec = sum(s["decode_s"] for s in stats)
-    print(f"served {len(reqs)} requests in {len(stats)} lockstep runs: "
+    say(f"served {len(reqs)} requests in {len(stats)} lockstep runs: "
           f"{tot_new} tokens, {tot_new / max(tot_dec, 1e-9):.1f} tok/s "
           f"decode")
     for s in stats:
-        print("  ", _fmt(s))
+        say("  ", _fmt(s))
 
 
 if __name__ == "__main__":

@@ -4,8 +4,9 @@ FLOPs.
 The port of the one-device half of `repro/launch/step_builders.py`:
 `make_optimizer`, `param_structs` (`:41`), `build_train` (`:115`),
 `build_prefill` (`:180`), `build_decode` (`:219`), `build` (`:248`) and
-`model_flops`, without a mesh — the port has no sharding, so there are
-no shardings to build.  Where the reference builds ShapeDtypeStructs,
+`model_flops`, without a mesh: the port serves under a mesh
+(`parallel.sharding`, `launch.mesh`) but does not train under one yet,
+so there are no shardings to build.  Where the reference builds ShapeDtypeStructs,
 the port builds empty tensors on a device: on ``meta`` they allocate
 nothing, and the dry run (`launch.dryrun`) counts the step on them
 (`utils.cost`).  The server calls `models.transformer.prefill` /

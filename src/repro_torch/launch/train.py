@@ -1,7 +1,7 @@
 """Fault-tolerant training loop on one device (the card by default).
 
-The port of `repro/launch/train.py` without its mesh (the port has one
-device and no sharding): `TrainLoop` drives `step_builders.build_train`
+The port of `repro/launch/train.py` without its mesh (the port serves
+under a mesh, `launch.mesh`, but trains on one device): `TrainLoop` drives `step_builders.build_train`
 over the synthetic data pipeline with
 
   * auto-resume: a restart picks up the latest complete checkpoint, and

@@ -7,13 +7,23 @@ Prefill (and any full-sequence forward) transposes q and the repeated K/V
 to (B*H, T, hd), as the reference's `_flash_pallas` does, and calls
 `kernels.flash.flash_fwd_kernel`: on a CUDA tensor that launches the
 hand-written kernel, on a CPU tensor it runs the plain version.  This
-holds for either ``cfg.attn_impl``: the port has no mesh, and in the
+holds for either ``cfg.attn_impl`` and under a mesh too: in the
 reference ``"xla"`` only selects the GSPMD-partitionable form of the same
-function, so no CUDA path runs the plain version.  A training forward on
+function, which the port's mesh path feeds the kernel shard by shard
+(`_prefill_mesh`), so no CUDA path runs the plain version.  A training forward on
 the card takes the kernel under autograd (`flash_fwd_trainable`), whose
 backward is plain torch: the reference trains through its jnp flash and
-lets XLA derive the backward.  The reference's `logical` sharding
-constraints have no counterpart here.
+lets XLA derive the backward.
+
+Under a mesh (`parallel.sharding.use_mesh`; activations and weights
+DTensors) the reference's `logical` constraints are redistributes, and
+the products run on each rank's shards: the projections on its heads,
+the flash kernel on its heads (``heads``) or on its slice of the
+sequence at ``q_offset`` against the whole K/V (``sp``), the output
+product summed over the heads' mesh dims; decode writes the new K/V row
+on the rank that owns its slot of the sequence-sharded cache and
+combines the softmax over the model dim (`_prefill_mesh`,
+`_decode_mesh`).
 
 Decode is plain torch, as in the reference (no Pallas kernel there): one
 query against the circular cache, grouped products, absolute positions
@@ -42,10 +52,15 @@ import torch.nn.functional as F
 from repro_torch.core.device import card_path
 from repro_torch.kernels.flash import (NEG_INF, flash_fwd_kernel,
                                       flash_fwd_trainable)
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import logical
 from .layers import P, rms_norm, rope
 
 __all__ = ["attn_schema", "attention_apply", "decode_position",
-           "flash_attention", "init_kv_cache", "repeat_kv"]
+           "flash_attention", "init_kv_cache", "repeat_kv", "CACHE_AXES"]
+
+CACHE_AXES = {"k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+              "v": ("batch", "kv_seq", "kv_heads", "head_dim")}
 
 
 def attn_schema(cfg) -> dict:
@@ -123,22 +138,41 @@ def init_kv_cache(cfg, batch: int, capacity: int, dtype: torch.dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _persist_cache(k: torch.Tensor, v: torch.Tensor, t: int, cap: int,
-                   cfg) -> dict:
-    """Prefill K/V persistence: the first ``t`` slots hold positions
-    [0, t) when the cache holds them all; else the last ``cap`` positions,
-    circularly addressed (position p in slot p % cap)."""
+def _persist_rows(k: torch.Tensor, v: torch.Tensor, t: int, cap: int,
+                  cfg) -> tuple[torch.Tensor, torch.Tensor]:
     if cap >= t:
         pad = (0, 0, 0, 0, 0, cap - t)
         kc, vc = F.pad(k, pad), F.pad(v, pad)
     else:
         src = t - 1 - (t - 1 - torch.arange(cap, device=k.device)) % cap
         kc, vc = k[:, src], v[:, src]
-    return {"k": kc.to(cfg.cache_dtype), "v": vc.to(cfg.cache_dtype)}
+    return kc.to(cfg.cache_dtype), vc.to(cfg.cache_dtype)
+
+
+def _persist_cache(k: torch.Tensor, v: torch.Tensor, t: int, cap: int,
+                   cfg) -> dict:
+    """Prefill K/V persistence: the first ``t`` slots hold positions
+    [0, t) when the cache holds them all; else the last ``cap`` positions,
+    circularly addressed (position p in slot p % cap).  Under a mesh k and
+    v are DTensors: each rank pads or gathers its own batch rows, and the
+    cache comes back sequence-sharded (`CACHE_AXES`, reference
+    ``attention.py:187``)."""
+    if shd.current() is None:
+        kc, vc = _persist_rows(k, v, t, cap, cfg)
+        return {"k": kc, "v": vc}
+    axes = ("batch", None, None, None)
+    kc, vc = _persist_rows(shd.local(k, axes), shd.local(v, axes), t, cap,
+                           cfg)
+    shape = (k.shape[0], cap, *k.shape[2:])
+    return {"k": logical(shd.from_local(kc, axes, shape), CACHE_AXES["k"]),
+            "v": logical(shd.from_local(vc, axes, shape), CACHE_AXES["v"])}
 
 
 def _project_qkv(params: dict, x: torch.Tensor, cfg
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if shd.current() is not None:
+        return _project_qkv_mesh(params, x, cfg)
+
     def proj(w: torch.Tensor) -> torch.Tensor:
         return torch.einsum("btd,dhk->bthk", x, w).to(x.dtype)
 
@@ -151,6 +185,31 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
     return q, k, v
+
+
+def _project_qkv_mesh(params: dict, x: torch.Tensor, cfg
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The projections on each rank's shards: its batch rows of x against
+    its heads of wq / wk / wv (``fsdp`` gathered), q, k and v laid out
+    ``("batch", "seq", heads, "head_dim")``: no sum crosses a rank."""
+    b, t, d = x.shape
+    xl = shd.local(x, ("batch", None, None))
+    sub = {k: v for k, v in params.items() if k not in ("wq", "wk", "wv")}
+    heads = {"q": "heads", "k": "kv_heads", "v": "kv_heads"}
+    for name, ax in heads.items():
+        sub["w" + name] = shd.local(params["w" + name], (None, ax, None))
+        if cfg.qkv_bias:
+            sub["b" + name] = shd.local(params["b" + name], (ax, None))
+    for name in ("q_norm", "k_norm"):
+        if name in params:
+            sub[name] = shd.local(params[name], (None,))
+    with shd.use_mesh_free():
+        out = _project_qkv(sub, xl, cfg)
+    return tuple(
+        shd.from_local(o, ("batch", "seq", heads[n], "head_dim"),
+                       (b, t, cfg.n_heads if n == "q" else cfg.n_kv_heads,
+                        cfg.head_dim))
+        for n, o in zip("qkv", out))
 
 
 def _decode_scores(qg: torch.Tensor, k_cache: torch.Tensor
@@ -216,6 +275,8 @@ def attention_apply(params: dict, x: torch.Tensor, cfg, *,
         pos = decode_position(pos, x.device)
         q = rope(q, pos.reshape(1), theta=cfg.rope_theta)
         k = rope(k, pos.reshape(1), theta=cfg.rope_theta)
+        if shd.current() is not None:
+            return _decode_mesh(params, x, q, k, v, cache, pos, cfg, window)
         k_cache, v_cache = cache["k"], cache["v"]
         cap = k_cache.shape[1]
         slot = (pos % cap).reshape(1)
@@ -236,6 +297,9 @@ def attention_apply(params: dict, x: torch.Tensor, cfg, *,
         return _out_proj(out, params, x), {"k": k_cache, "v": v_cache}
 
     positions = torch.arange(t, device=x.device)
+    if shd.current() is not None:
+        return _prefill_mesh(params, x, q, k, v, positions, cfg, window,
+                             cache_capacity)
     q = rope(q, positions, theta=cfg.rope_theta)
     k = rope(k, positions, theta=cfg.rope_theta)
     out = flash_attention(q, repeat_kv(k, cfg.n_heads),
@@ -245,3 +309,130 @@ def attention_apply(params: dict, x: torch.Tensor, cfg, *,
     if cache_capacity is not None:
         new_cache = _persist_cache(k, v, t, cache_capacity, cfg)
     return _out_proj(out, params, x), new_cache
+
+
+# --------------------------------------------------------------------------
+# under a mesh (reference attention.py:230-340)
+# --------------------------------------------------------------------------
+
+
+def _prefill_mesh(params: dict, x: torch.Tensor, q: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+                  cfg, window: int | None, cache_capacity: int | None
+                  ) -> tuple[torch.Tensor, dict | None]:
+    """Full-sequence attention over DTensors: the reference's layout
+    constraints, then the flash kernel on each rank's shard.
+
+    ``attn_sharding="heads"``: q holds this rank's heads over the whole
+    sequence.  ``"sp"``: q holds the rank's slice of the sequence
+    (``seq_sp`` on the model dim) against the whole K/V, so the kernel
+    places its queries at ``q_offset`` = the slice's first position, the
+    same function the reference's jnp flash partitions into.  K and V
+    are gathered over the model dim, repeated to every head and cut to
+    q's heads.  A dim that does not divide over its mesh dims stays whole
+    (`sharding.spec_for`), and the kernel then takes it whole.  The
+    ``kv_sharded`` demotion is the reference's (``attention.py:273``).
+    """
+    b, t, _ = x.shape
+    seq_ax = "seq_sp" if cfg.attn_sharding == "sp" else "seq"
+    ctx = shd.current()
+    phys = ctx.rules.get("kv_heads")
+    tp = ctx.shape.get(phys, 1) if isinstance(phys, str) else 1
+    kv_sharded = cfg.n_kv_heads % max(tp, 1) == 0
+    kv_proj_axes = (("batch", seq_ax, "kv_heads", "head_dim") if kv_sharded
+                    else ("batch", "seq_sp", None, None))
+    q_axes = ("batch", seq_ax, "heads", "head_dim")
+    q = logical(q, q_axes)
+    k = logical(k, kv_proj_axes)
+    v = logical(v, kv_proj_axes)
+
+    # rotary on the shards (it is per position): q at its slice's positions
+    spec = shd.spec_for(q_axes, mesh=ctx.mesh, rules=ctx.rules,
+                        shape=tuple(q.shape))
+    ql = shd.local(q, q_axes)
+    q_offset = shd.axis_index(spec[1]) * ql.shape[1]
+    ql = rope(ql, positions[q_offset:q_offset + ql.shape[1]],
+              theta=cfg.rope_theta)
+    kv_axes = ("batch", None, None, None)
+    kl = rope(shd.local(k, kv_axes), positions, theta=cfg.rope_theta)
+    vl = shd.local(v, kv_axes)
+    kr = repeat_kv(kl, cfg.n_heads)
+    vr = repeat_kv(vl, cfg.n_heads)
+    h_l = ql.shape[2]
+    if h_l != cfg.n_heads:
+        h0 = shd.axis_index(spec[2]) * h_l
+        kr, vr = kr[:, :, h0:h0 + h_l], vr[:, :, h0:h0 + h_l]
+    out = flash_attention(ql, kr, vr, causal=cfg.causal, window=window,
+                          q_offset=q_offset)
+    new_cache = None
+    if cache_capacity is not None:
+        new_cache = _persist_cache(shd.from_local(kl, kv_axes, k.shape),
+                                   shd.from_local(vl, kv_axes, v.shape), t,
+                                   cache_capacity, cfg)
+    # the output product on the shard: this rank's heads (summed over the
+    # heads' mesh dims) of its rows
+    wo = shd.local_spec(params["wo"], shd.PartitionSpec(spec[2], None, None))
+    y = shd.all_reduce(_out_proj(out, {"wo": wo}, ql), spec[2])
+    y = shd.from_local_spec(y, shd.PartitionSpec(spec[0], spec[1], None),
+                            tuple(x.shape))
+    return logical(y, ("batch", seq_ax, "embed")), new_cache
+
+
+def _decode_mesh(params: dict, x: torch.Tensor, q: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor, cache: dict,
+                 pos: torch.Tensor, cfg, window: int | None
+                 ) -> tuple[torch.Tensor, dict]:
+    """One decode step (q and k already rotated) against the sequence-sharded cache (`CACHE_AXES`:
+    batch on the data dim, slots on the model dim).
+
+    Each rank writes the new K/V row only where it owns slot pos % cap
+    (a masked in-place write: no host sync, so a CUDA graph captures it),
+    scores its own slots, and the softmax's max and sum, then the values'
+    sum, are reduced over the model dim: the flash-decoding combine that
+    the reference leaves to GSPMD (``attention.py:257``).  Where the
+    slots are whole on every rank (one rank along the model dim) the
+    step is the mesh-free one, op for op."""
+    b = x.shape[0]
+    hd, kvh = cfg.head_dim, cfg.n_kv_heads
+    g = cfg.n_heads // kvh
+    ctx = shd.current()
+    k_cache, v_cache = cache["k"], cache["v"]
+    cap = k_cache.shape[1]
+    cspec = shd.spec_for(CACHE_AXES["k"], mesh=ctx.mesh, rules=ctx.rules,
+                         shape=tuple(k_cache.shape))
+    row_axes = ("batch", None, None, None)
+    ql, kl, vl = (shd.local(a, row_axes) for a in (q, k, v))
+    kc, vc = k_cache.to_local(), v_cache.to_local()
+    cap_l = kc.shape[1]
+    off = shd.axis_index(cspec[1]) * cap_l
+    slot = (pos % cap - off).reshape(1)
+    if cap_l == cap:
+        kc.index_copy_(1, slot, kl.to(kc.dtype))
+        vc.index_copy_(1, slot, vl.to(vc.dtype))
+    else:
+        own = (slot >= 0) & (slot < cap_l)
+        at = slot.clamp(0, cap_l - 1)
+        kc.index_copy_(1, at, torch.where(own, kl.to(kc.dtype),
+                                          kc.index_select(1, at)))
+        vc.index_copy_(1, at, torch.where(own, vl.to(vc.dtype),
+                                          vc.index_select(1, at)))
+    qg = ql.reshape(ql.shape[0], kvh, g, hd)
+    scores = _decode_scores(qg, kc) * (hd ** -0.5)
+    kpos = pos - (pos - (off + torch.arange(cap_l, device=kc.device))) % cap
+    valid = kpos >= 0
+    if window is not None:
+        valid &= pos - kpos < window
+    scores = torch.where(valid, scores, NEG_INF)
+    if shd.axis_size(cspec[1]) == 1:
+        out = _decode_values(torch.softmax(scores, dim=-1), vc)
+    else:
+        m = shd.all_reduce(scores.amax(-1, keepdim=True), cspec[1], "max")
+        e = torch.exp(scores - m)
+        l = shd.all_reduce(e.sum(-1, keepdim=True), cspec[1])
+        out = shd.all_reduce(_decode_values(e, vc), cspec[1]) / l
+    out = out.to(x.dtype).reshape(ql.shape[0], 1, cfg.n_heads, hd)
+    y = _out_proj(out, {"wo": shd.local(params["wo"], (None, None, None))},
+                  out)
+    y = shd.from_local(y, ("batch", None, None), (b, 1, x.shape[2]))
+    return logical(y, ("batch", None, "embed")), {"k": k_cache,
+                                                  "v": v_cache}

@@ -39,8 +39,11 @@ from repro_torch.core.sparse_ops import (dense_conv2d, same_pads, vs_conv2d,
                                          vs_matmul)
 from repro_torch.core.vector_sparse import (VectorSparse, conv_cin_major,
                                             from_mask)
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
 from repro_torch.kernels.capture import Captured, capture
 from repro_torch.models.layers import P
+from repro_torch.parallel import sharding as shd
 
 __all__ = [
     "Conv", "FC", "Classifier", "Pool", "ResidualAdd", "Save", "Flatten",
@@ -474,6 +477,9 @@ def apply_sparse_fc(x: torch.Tensor, entry: SparseFC | VectorSparse, *,
     columns sliced off after the kernel.  An int8 entry quantizes the
     input per tensor first, as `apply_sparse_conv` does."""
     spec = entry if isinstance(entry, SparseFC) else SparseFC(entry)
+    if isinstance(spec.vs.vals, DTensor):
+        return _sharded_fc(x, spec, bias=bias, fuse_relu=fuse_relu,
+                           residual=residual, impl=impl)
     n_enc = spec.vs.shape[1]
     dout = spec.dout or n_enc
     if bias is not None and bias.shape[-1] != n_enc:
@@ -486,6 +492,46 @@ def apply_sparse_fc(x: torch.Tensor, entry: SparseFC | VectorSparse, *,
         scale = sx * scale
     y = vs_matmul(x, spec.vs, bias=bias, residual=residual, scale=scale,
                   fuse_relu=fuse_relu, impl=impl)
+    return y[..., :dout] if dout != n_enc else y
+
+
+def _sharded_fc(x: torch.Tensor, spec: SparseFC, *,
+                bias: torch.Tensor | None, fuse_relu: bool,
+                residual: torch.Tensor | None, impl: str) -> torch.Tensor:
+    """An FC layer whose strips are cout-sharded over a mesh (`shard_sparse`):
+    each rank runs the kernel over its own strips, with its columns of the
+    bias, residual and dequant scale, and the outputs are gathered along
+    the last dim (the reference's GSPMD epilogue gather); the pad columns
+    go after the gather.  Every column is computed by one rank alone, so
+    f32 logits are the one-device ones, bit for bit."""
+    vals, idx = spec.vs.vals, spec.vs.idx
+    mesh, pls = vals.device_mesh, vals.placements
+    vl, il = vals.to_local(), idx.to_local()
+    n_enc, w_l = spec.vs.shape[1], vl.shape[0] * vl.shape[-1]
+    r = 0
+    for i, p in enumerate(pls):
+        if isinstance(p, Shard):
+            r = r * mesh.size(i) + mesh.get_coordinate()[i]
+    cols = slice(r * w_l, (r + 1) * w_l)
+
+    def mine(t: torch.Tensor | None) -> torch.Tensor | None:
+        if t is None:
+            return None
+        t = t.full_tensor() if isinstance(t, DTensor) else t
+        if t.shape[-1] != n_enc:
+            t = F.pad(t, (0, n_enc - t.shape[-1]))
+        return t[..., cols]
+
+    local = SparseFC(VectorSparse(vals=vl, idx=il,
+                                  shape=(spec.vs.shape[0], w_l)),
+                     scale=mine(spec.scale))
+    y = apply_sparse_fc(x, local, bias=mine(bias), fuse_relu=fuse_relu,
+                        residual=mine(residual), impl=impl)
+    if w_l != n_enc:
+        out = [Shard(y.ndim - 1) if isinstance(p, Shard) else Replicate()
+               for p in pls]
+        y = DTensor.from_local(y, mesh, out, run_check=False).full_tensor()
+    dout = spec.dout or n_enc
     return y[..., :dout] if dout != n_enc else y
 
 
@@ -731,6 +777,12 @@ class BatchedApply:
     instance, so read or clone it before that.  A failed capture or replay
     raises; there is no eager fallback on the card.  On the CPU each call
     runs `net_apply` eagerly and the entry is None.
+
+    With a ``mesh`` (and ``rules``, the serving rules by default) the
+    forward runs inside `parallel.sharding.use_mesh` and the key names the
+    mesh: a ``sparse`` tree from `shard_sparse` then runs each FC head's
+    strips on their own rank and gathers the logits (the reference's
+    sharded compile path); a captured graph holds that gather.
     """
 
     net: SparseNet
@@ -739,11 +791,13 @@ class BatchedApply:
     impl: str = "auto"
     key: tuple = ()
     buckets: dict = dataclasses.field(default_factory=dict)
+    mesh: Any = None
+    rules: Any = None
     pool: Any = dataclasses.field(default=None, init=False)
 
     def bucket_key(self, shape: tuple) -> tuple:
         return (self.net.name, id(self.params), id(self.sparse), self.key,
-                self.impl, tuple(shape))
+                self.impl, id(self.mesh), tuple(shape))
 
     @property
     def device(self) -> torch.device:
@@ -752,8 +806,12 @@ class BatchedApply:
                     for t in entry.values()).device
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        return net_apply(self.net, self.params, x, sparse=self.sparse,
-                         impl=self.impl)
+        if self.mesh is None:
+            return net_apply(self.net, self.params, x, sparse=self.sparse,
+                             impl=self.impl)
+        with shd.use_mesh(self.mesh, self.rules or shd.SERVE_RULES):
+            return net_apply(self.net, self.params, x, sparse=self.sparse,
+                             impl=self.impl)
 
     def __call__(self, shape: tuple, fill: Callable[[np.ndarray], Any]
                  ) -> torch.Tensor:
@@ -821,35 +879,55 @@ def shard_sparse(sparse: dict, device: str | torch.device, *,
     tensor of every entry on ``device`` (with ``copy=False`` the tensors
     already there stay as they are).
 
-    The reference cout-shards each FC head's strips over the replica's
-    ``model`` devices (GSPMD all-gathers the logits) and replicates the
-    convs.  With one device a replica (``model == 1``: every replica of
-    one card, and the reference's grid on one device) that only places the
-    tree, which is what this does.  ``model > 1`` needs a cross-device
-    gather of the FC strips; it raises `NotImplementedError` (ROADMAP
-    queue 1, "Waiting for a multi-card cell") rather than replicate the
-    heads silently.
-    """
-    if model != 1:
-        raise NotImplementedError(
-            f"shard_fc over {model} devices a replica needs a cross-device "
-            f"gather of the FC strips (ROADMAP queue 1, \"Waiting for a "
-            f"multi-card cell\")")
-    dev = torch.device(device)
+    Under a mesh (`parallel.sharding.use_mesh` over a `DeviceMesh`) the
+    reference's sharding (``graph.py:849``): each FC head's strips, the
+    leading NB dim of ``vals`` (NB, S, vk, vn) and ``idx`` (NB, S), are
+    cout-sharded by the ``ff`` rule (the model dim), a DTensor of which
+    each rank keeps its own strips; a strip count that does not divide
+    stays whole on every rank (`sharding.spec_for`).  Bias and scale stay
+    whole.  Convs follow the ``conv`` rule, replicated by default: they
+    stay plain tensors on ``device``.  A conv rule that shards them
+    raises `NotImplementedError`.
 
-    def place_vs(vs: VectorSparse) -> VectorSparse:
-        return VectorSparse(vals=_placed(vs.vals, dev, copy),
-                            idx=_placed(vs.idx, dev, copy), shape=vs.shape)
+    Without a mesh ``model`` must be 1 (one device a replica: every
+    replica of one card); a wider ``model`` axis needs the mesh's ranks
+    and raises `NotImplementedError` rather than replicate the heads.
+    """
+    dev = torch.device(device)
+    ctx = shd.current()
+    if ctx is None and model != 1:
+        raise NotImplementedError(
+            f"shard_fc over {model} devices a replica needs a mesh of "
+            f"{model} ranks (launch.mesh; ROADMAP queue 1, \"Waiting for a "
+            f"multi-card cell\")")
+
+    def place_vs(vs: VectorSparse, axis: str | None) -> VectorSparse:
+        vals, idx = _placed(vs.vals, dev, copy), _placed(vs.idx, dev, copy)
+        if axis is not None:
+            vals = shd.distribute(vals, (axis, None, None, None))
+            idx = shd.distribute(idx, (axis, None))
+        return VectorSparse(vals=vals, idx=idx, shape=vs.shape)
 
     out = {}
     for name, entry in sparse.items():
-        if isinstance(entry, (SparseConv, SparseFC)):
+        if isinstance(entry, SparseConv):
+            if ctx is not None and any(shd.spec_for(
+                    ("conv", None, None, None), mesh=ctx.mesh,
+                    rules=ctx.rules, shape=tuple(entry.vs.vals.shape))):
+                raise NotImplementedError(
+                    f"{name}: cout-sharded convs (a 'conv' rule on a mesh "
+                    f"dim) are not ported; serving replicates the convs")
             out[name] = dataclasses.replace(
-                entry, vs=place_vs(entry.vs),
+                entry, vs=place_vs(entry.vs, None),
+                bias=_placed(entry.bias, dev, copy),
+                scale=_placed(entry.scale, dev, copy))
+        elif isinstance(entry, SparseFC):
+            out[name] = dataclasses.replace(
+                entry, vs=place_vs(entry.vs, "ff" if ctx else None),
                 bias=_placed(entry.bias, dev, copy),
                 scale=_placed(entry.scale, dev, copy))
         else:  # a bare VectorSparse entry (FC-style)
-            out[name] = place_vs(entry)
+            out[name] = place_vs(entry, "ff" if ctx else None)
     return out
 
 

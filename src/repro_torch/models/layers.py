@@ -48,10 +48,13 @@ from typing import Any, Iterator
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.core.device import card_path, resolve_device
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import logical
 
-__all__ = ["P", "init_params", "stack", "rms_norm", "dense", "dense_f32",
+__all__ = ["P", "init_params", "axes_tree", "stack", "rms_norm", "dense", "dense_f32",
            "dense_out", "matmul_f32", "matmul_out", "matmul_out_dtype",
            "precision_flow", "rope", "mlp_schema", "mlp_apply"]
 
@@ -170,6 +173,16 @@ def init_params(schema: Any, seed: int = 0, *,
     return walk(schema, "")
 
 
+def axes_tree(schema: Any) -> Any:
+    """Schema -> the same nesting of logical-axes tuples (leaves are
+    tuples)."""
+    if isinstance(schema, P):
+        return schema.axes
+    if isinstance(schema, list):
+        return [axes_tree(v) for v in schema]
+    return {k: axes_tree(v) for k, v in schema.items()}
+
+
 def stack(schema: Any, n: int) -> Any:
     """Prepend a layer-group dim of size n (axis ``stack``) to every leaf."""
     if isinstance(schema, P):
@@ -185,6 +198,17 @@ def stack(schema: Any, n: int) -> Any:
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
              eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last dim.  A DTensor whose last dim is whole on
+    every rank (the residual stream under a mesh) is normed shard by
+    shard: one local op chain, not one DTensor dispatch per op."""
+    if isinstance(x, DTensor) and all(
+            p.is_replicate() or (isinstance(p, Shard)
+                                 and p.dim not in (-1, x.ndim - 1))
+            for p in x.placements):
+        scale = scale.full_tensor() if isinstance(scale, DTensor) else scale
+        return DTensor.from_local(
+            rms_norm(x.to_local(), scale, eps=eps), x.device_mesh,
+            x.placements, run_check=False, shape=x.shape, stride=x.stride())
     x32 = x.float()
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
@@ -325,13 +349,48 @@ def _act(h: torch.Tensor, kind: str) -> torch.Tensor:
 
 def mlp_apply(params: dict, x: torch.Tensor, *,
               activation: str) -> torch.Tensor:
+    if shd.current() is not None:
+        return _mlp_mesh(params, x, activation=activation)
     if activation in _GATED:
-        gate = dense(x, params["wi"][0])
-        up = dense(x, params["wi"][1])
+        gate = logical(dense(x, params["wi"][0]), ("batch", "seq", "ff"))
+        up = logical(dense(x, params["wi"][1]), ("batch", "seq", "ff"))
         act = F.silu if activation == "swiglu" else (
             lambda g: F.gelu(g, approximate="tanh"))
         h = act(gate.float()).to(x.dtype) * up
     else:
-        h = dense(x, params["wi"])
+        h = logical(dense(x, params["wi"]), ("batch", "seq", "ff"))
         h = _act(h.float(), activation).to(x.dtype)
-    return dense(h, params["wo"])
+    return logical(dense(h, params["wo"]), ("batch", "seq", "embed"))
+
+
+def _mlp_mesh(params: dict, x: torch.Tensor, *,
+              activation: str) -> torch.Tensor:
+    """The MLP on each rank's shards (Megatron's TP): its batch rows of x,
+    its F columns of ``wi`` and rows of ``wo`` (``fsdp`` gathered); the
+    down product's share summed over the mesh dims that split F, in f32
+    then rounded, as the reference's partitioned product sums (at one
+    rank along them, the mesh-free products, op for op)."""
+    b, t, d = x.shape
+    gated = activation in _GATED
+    wi_axes = (None, None, "ff") if gated else (None, "ff")
+    ctx = shd.current()
+    f_entry = shd.spec_for(wi_axes, mesh=ctx.mesh, rules=ctx.rules,
+                           shape=tuple(params["wi"].shape))[-1]
+    lp = {"wi": shd.local(params["wi"], wi_axes),
+          "wo": shd.local(params["wo"], ("ff", None))}
+    xl = shd.local(x, ("batch", None, None))
+    with shd.use_mesh_free():
+        if shd.axis_size(f_entry, ctx=ctx) == 1:
+            y = mlp_apply(lp, xl, activation=activation)
+        else:
+            if gated:
+                gate, up = dense(xl, lp["wi"][0]), dense(xl, lp["wi"][1])
+                act = F.silu if activation == "swiglu" else (
+                    lambda g: F.gelu(g, approximate="tanh"))
+                h = act(gate.float()).to(x.dtype) * up
+            else:
+                h = _act(dense(xl, lp["wi"]).float(), activation).to(x.dtype)
+            y = shd.all_reduce(dense_f32(h, lp["wo"]), f_entry,
+                               ctx=ctx).to(x.dtype)
+    return logical(shd.from_local(y, ("batch", None, None), (b, t, d)),
+                   ("batch", "seq", "embed"))

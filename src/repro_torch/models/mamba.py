@@ -18,17 +18,32 @@ activations' dtype at once, the same function in both settings; under
 Caches (per layer): ``conv`` (B, 3, d_inner), the last three conv
 inputs, in the cache dtype, and ``ssm`` (B, d_inner, 16) in f32.  Decode
 updates both in place and returns the same tensors.
+
+Under a mesh (`parallel.sharding.use_mesh`) the mixer is
+channel-parallel, as the reference lays it out: each rank holds its
+batch rows and its slice of d_inner (``ff`` on the model dim) of every
+channel-wise weight and of both caches, and the two products that sum
+over d_inner (``x_proj``, ``out_proj``) are summed over the model dim
+(`_mamba_mesh`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import logical
 from repro_torch.utils.cost import scan
 
 from .layers import P, dense_out, matmul_f32
 
-__all__ = ["mamba_schema", "mamba_apply", "init_mamba_cache"]
+__all__ = ["mamba_schema", "mamba_apply", "init_mamba_cache",
+           "MAMBA_CACHE_AXES"]
+
+MAMBA_CACHE_AXES = {
+    "conv": ("batch", None, "ff"),
+    "ssm": ("batch", "ff", None),
+}
 
 D_STATE = 16
 D_CONV = 4
@@ -72,11 +87,16 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _ssm_inputs(params: dict, xc: torch.Tensor, cfg
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _ssm_inputs(params: dict, xc: torch.Tensor, cfg, reduce=_same
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """xc (B, T, d_in) post-conv activations -> (dt, B_ssm, C_ssm), f32."""
+    """xc (B, T, d_in) post-conv activations -> (dt, B_ssm, C_ssm), f32;
+    ``reduce`` completes the sum over d_inner of a channel slice."""
     _, dt_rank = _dims(cfg)
-    proj = matmul_f32(xc, params["x_proj"])
+    proj = reduce(matmul_f32(xc, params["x_proj"]))
     dt_raw = proj[..., :dt_rank]
     b_ssm = proj[..., dt_rank:dt_rank + D_STATE]
     c_ssm = proj[..., dt_rank + D_STATE:]
@@ -101,8 +121,21 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg, *,
                 cache: dict | None = None, decode: bool = False,
                 prefill: bool = False) -> tuple[torch.Tensor, dict | None]:
     """x (B, T, D) -> (out (B, T, D), new_cache)."""
+    if shd.current() is not None:
+        return _mamba_mesh(params, x, cfg, cache=cache, decode=decode,
+                           prefill=prefill)
+    return _mamba(params, x, cfg, cache=cache, decode=decode,
+                  prefill=prefill)
+
+
+def _mamba(params: dict, x: torch.Tensor, cfg, *, cache: dict | None,
+           decode: bool, prefill: bool, reduce=_same
+           ) -> tuple[torch.Tensor, dict | None]:
+    """The mixer on plain tensors, over all of d_inner or a slice of it
+    (its width from ``a_log``); ``reduce`` sums a slice's share of the
+    products over d_inner."""
     b, t, _ = x.shape
-    d_in, _ = _dims(cfg)
+    d_in = params["a_log"].shape[0]
     x_in = dense_out(x, params["in_proj"][0]).to(x.dtype)
     z = dense_out(x, params["in_proj"][1]).to(x.dtype)
     a_neg = -torch.exp(params["a_log"].float())
@@ -116,7 +149,7 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg, *,
         xc = torch.einsum("bki,ki->bi", window.float(),
                           params["conv_w"].float())
         xc = F.silu(xc + conv_b)[:, None, :].to(x.dtype)      # (B, 1, d_in)
-        dt, b_ssm, c_ssm = _ssm_inputs(params, xc, cfg)
+        dt, b_ssm, c_ssm = _ssm_inputs(params, xc, cfg, reduce)
         h, y = _scan_step(a_neg, cache["ssm"], xc[:, 0], dt[:, 0],
                           b_ssm[:, 0], c_ssm[:, 0])
         cache["ssm"].copy_(h)
@@ -128,7 +161,7 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg, *,
         xc = F.conv1d(F.pad(x_in.transpose(1, 2), (D_CONV - 1, 0)), weight,
                       groups=d_in).transpose(1, 2)
         xc = F.silu(xc.float() + conv_b).to(x.dtype)
-        dt, b_ssm, c_ssm = _ssm_inputs(params, xc, cfg)
+        dt, b_ssm, c_ssm = _ssm_inputs(params, xc, cfg, reduce)
         h = torch.zeros((b, d_in, D_STATE), dtype=torch.float32,
                         device=x.device)
         h, ys = scan(lambda h, i: _scan_step(a_neg, h, xc[:, i], dt[:, i],
@@ -142,5 +175,35 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg, *,
 
     y = y.float() + params["d_skip"].float() * x_in.float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = dense_out(y, params["out_proj"]).to(x.dtype)
+    out = reduce(dense_out(y, params["out_proj"])).to(x.dtype)
     return out, new_cache
+
+
+def _mamba_mesh(params: dict, x: torch.Tensor, cfg, *, cache: dict | None,
+                decode: bool, prefill: bool
+                ) -> tuple[torch.Tensor, dict | None]:
+    """The mixer over DTensors: each rank runs `_mamba` on its batch rows
+    and its d_inner slice (the schema's ``ff``; ``fsdp`` dims gathered),
+    the two d_inner sums completed over the model dim."""
+    ctx = shd.current()
+    b, t, d = x.shape
+    d_in, _ = _dims(cfg)
+    schema = mamba_schema(cfg)
+    f_entry = shd.spec_for(("ff",), mesh=ctx.mesh, rules=ctx.rules,
+                           shape=(d_in,))[0]
+    lp = {k: shd.local(v, tuple(None if a == "fsdp" else a
+                                for a in schema[k].axes))
+          for k, v in params.items()}
+    xl = shd.local(x, ("batch", None, None))
+    cl = None if cache is None else {k: v.to_local()
+                                     for k, v in cache.items()}
+    out, nc = _mamba(lp, xl, cfg, cache=cl, decode=decode, prefill=prefill,
+                     reduce=lambda y: shd.all_reduce(y, f_entry))
+    out = shd.from_local(out, ("batch", None, None), (b, t, d))
+    if decode:
+        nc = cache
+    elif nc is not None:
+        shapes = {"conv": (b, D_CONV - 1, d_in), "ssm": (b, d_in, D_STATE)}
+        nc = {k: shd.from_local(v, MAMBA_CACHE_AXES[k], shapes[k])
+              for k, v in nc.items()}
+    return logical(out, ("batch", "seq", "embed")), nc

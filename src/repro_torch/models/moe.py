@@ -1,7 +1,8 @@
 """Mixture-of-experts FFN: top-k routing, capacity packing, the combine.
 
-The port of `repro/models/moe.py` for one device (the reference's
-``ctx is None`` path; the port has no mesh).  Every token's router
+The port of `repro/models/moe.py`: one device (the reference's
+``ctx is None`` path), or under a mesh its ``shard_map`` dispatch with
+both bodies (`_moe_mesh`).  Every token's router
 logits pick its ``top_k`` experts (dead padding experts never win: their
 logits are -1e30); the (token, expert) assignments are sorted by expert,
 stably, and each expert takes the first ``capacity`` of its own, so an
@@ -37,6 +38,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import PartitionSpec
 
 from .layers import P, matmul_out
 
@@ -96,12 +100,16 @@ class Routing:
 
 
 def route_and_pack(xf: torch.Tensor, router: torch.Tensor, moe: MoEConfig,
-                   cap: int) -> Routing:
+                   cap: int, *, e0: int = 0, e_loc: int | None = None
+                   ) -> Routing:
     """Top-k routing of xf (N, D) over the router's ep (padded) experts,
-    packed into ``cap`` slots per expert (the reference's
-    `_route_and_pack` with every expert local)."""
+    packed into ``cap`` slots for each of the ``e_loc`` local experts
+    ``e0 .. e0 + e_loc - 1`` (the reference's `_route_and_pack`; every
+    expert by default).  An assignment to another rank's expert gets the
+    spare slot, as a dropped one does."""
     n = xf.shape[0]
     ep = router.shape[1]
+    e_loc = ep if e_loc is None else e_loc
     k = moe.top_k
     dev = xf.device
     logits = xf.float() @ router.float()
@@ -120,8 +128,12 @@ def route_and_pack(xf: torch.Tensor, router: torch.Tensor, moe: MoEConfig,
     ids_s, order = torch.sort(ids, stable=True)
     starts = torch.searchsorted(ids_s, torch.arange(ep, device=dev))
     pos = torch.arange(nk, device=dev) - starts[ids_s]
-    spare = ep * cap
-    slot = torch.where(pos < cap, ids_s * cap + pos, spare)
+    spare = e_loc * cap
+    if e_loc == ep:
+        slot = torch.where(pos < cap, ids_s * cap + pos, spare)
+    else:
+        mine = (ids_s >= e0) & (ids_s < e0 + e_loc) & (pos < cap)
+        slot = torch.where(mine, (ids_s - e0) * cap + pos, spare)
     slot_tok = torch.zeros(spare + 1, dtype=torch.int64, device=dev)
     slot_tok.scatter_(0, slot, order // k)
     slot_w = torch.zeros(spare + 1, dtype=torch.float32, device=dev)
@@ -151,20 +163,146 @@ def _expert_ffn(xbuf: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor, *,
     return matmul_out(h, wo).to(dt)
 
 
+def _combine(xf: torch.Tensor, r: Routing, wi: torch.Tensor,
+             wo: torch.Tensor, moe: MoEConfig, cap: int, *, gated: bool,
+             activation_fn) -> torch.Tensor:
+    """The packed tokens through the local experts, weighted and summed
+    back per token in f32: (N, D) f32 (the local experts' share)."""
+    n, d = xf.shape
+    e_loc = r.slot_tok.shape[0] // cap
+    xbuf = xf[r.slot_tok].reshape(e_loc, cap, d)
+    ybuf = _expert_ffn(xbuf, wi, wo, gated=gated, activation_fn=activation_fn)
+    yflat = ybuf.reshape(e_loc * cap, d) * r.slot_w[:, None].to(ybuf.dtype)
+    ypad = torch.cat([yflat, yflat.new_zeros((1, d))])
+    return ypad[r.slot_of].reshape(n, moe.top_k, d).float().sum(1)
+
+
 def moe_apply(params: dict, x: torch.Tensor, moe: MoEConfig, *,
-              gated: bool, activation_fn=F.silu
+              gated: bool, activation_fn=F.silu,
+              dispatch: str = "gather_weights"
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, T, D) -> (y (B, T, D), aux), with capacity from the wave's
-    B * T tokens."""
+    B * T tokens.  Under a mesh (`parallel.sharding.use_mesh`) the
+    reference's sharded dispatch (`_moe_mesh`); ``dispatch`` picks its
+    body and means nothing without a mesh, as in the reference."""
+    if shd.current() is not None:
+        return _moe_mesh(params, x, moe, gated=gated,
+                         activation_fn=activation_fn, dispatch=dispatch)
     b, t, d = x.shape
     router, wi, wo = params["router"], params["wi"], params["wo"]
-    ep = router.shape[1]
     cap = capacity(b * t, moe)
     xf = x.reshape(b * t, d)
     r = route_and_pack(xf, router, moe, cap)
-    xbuf = xf[r.slot_tok].reshape(ep, cap, d)
-    ybuf = _expert_ffn(xbuf, wi, wo, gated=gated, activation_fn=activation_fn)
-    yflat = ybuf.reshape(ep * cap, d) * r.slot_w[:, None].to(ybuf.dtype)
-    ypad = torch.cat([yflat, yflat.new_zeros((1, d))])
-    y = ypad[r.slot_of].reshape(b * t, moe.top_k, d).float().sum(1)
+    y = _combine(xf, r, wi, wo, moe, cap, gated=gated,
+                 activation_fn=activation_fn)
     return y.to(x.dtype).reshape(b, t, d), r.aux
+
+
+def _entries(phys) -> tuple:
+    if phys is None:
+        return ()
+    return tuple(phys) if isinstance(phys, (tuple, list)) else (phys,)
+
+
+def _sharded(spec: tuple, axis: str | None) -> bool:
+    return axis is not None and any(
+        e == axis or (isinstance(e, tuple) and axis in e) for e in spec if e)
+
+
+def _without(spec: tuple, axis: str | None) -> PartitionSpec:
+    """``spec`` with mesh dim ``axis`` taken out of every entry: the
+    layout after a tiled all-gather over ``axis``."""
+    out = []
+    for e in spec:
+        if isinstance(e, tuple):
+            e = tuple(a for a in e if a != axis) or None
+            e = e[0] if e and len(e) == 1 else e
+        elif e == axis:
+            e = None
+        out.append(e)
+    return PartitionSpec(*out)
+
+
+def _moe_mesh(params: dict, x: torch.Tensor, moe: MoEConfig, *,
+              gated: bool, activation_fn, dispatch: str
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``shard_map`` dispatch (``moe.py:217-273``) over
+    DTensors: experts split over the ``expert`` dim (``e0`` = this rank's
+    index x ``e_loc``), expert weights' F split over ``fsdp``, tokens on
+    the batch dims (replicated where the batch does not divide them).
+
+    ``gather_weights``: each rank routes its own tokens with capacity
+    from its *local* token count, the fsdp shards of router, wi and wo
+    gathered, and the outputs summed over the expert dim.
+    ``resident``: tokens gathered over the batch dims, capacity from all
+    of them, each rank's partial expert outputs over its F shard summed
+    over the expert and fsdp dims, then each rank keeps its batch rows.
+    ``aux`` is averaged over the batch dims.  The routing is the
+    one-device port's (stable sort, spare-slot scatter, a gather
+    combine in f32)."""
+    ctx = shd.current()
+    mesh_dims = ctx.shape
+    rules = ctx.rules
+    model_axis = rules.get("expert")
+    model_axis = model_axis if model_axis in mesh_dims else None
+    fsdp_axis = rules.get("fsdp")
+    fsdp_axis = fsdp_axis if fsdp_axis in mesh_dims else None
+    batch_phys = tuple(p for p in _entries(rules.get("batch"))
+                       if p in mesh_dims) or None
+    router, wi, wo = params["router"], params["wi"], params["wo"]
+    tp = mesh_dims[model_axis] if model_axis else 1
+    ep = router.shape[1]
+    e_loc = ep // tp
+    b, t, d = x.shape
+    dp = math.prod(mesh_dims[p] for p in (batch_phys or ()))
+    if b % dp:  # batch too small to shard: replicate
+        batch_phys, dp = None, 1
+    bl = b // dp
+
+    def spec(axes: tuple, shape: torch.Size) -> PartitionSpec:
+        return shd.spec_for(axes, mesh=ctx.mesh, rules=rules,
+                            shape=tuple(shape))
+
+    wi_axes = ((None, "expert", None, "fsdp") if gated
+               else ("expert", None, "fsdp"))
+    x_spec = PartitionSpec(batch_phys, None, None)
+    r_spec = spec(("fsdp", None), router.shape)
+    wi_spec = spec(wi_axes, wi.shape)
+    wo_spec = spec(("expert", "fsdp", None), wo.shape)
+    e0 = shd.axis_index(model_axis) * e_loc
+    if dispatch == "resident":
+        fsdp_psum = fsdp_axis if _sharded(wi_spec, fsdp_axis) else None
+        xg = shd.local_spec(x, PartitionSpec(None, None, None))
+        router_l = shd.local_spec(router, _without(r_spec, fsdp_axis))
+        wi_l, wo_l = shd.local_spec(wi, wi_spec), shd.local_spec(wo, wo_spec)
+        ng = b * t
+        cap = capacity(ng, moe)
+        xf = xg.reshape(ng, d)
+        r = route_and_pack(xf, router_l, moe, cap, e0=e0, e_loc=e_loc)
+        y = _combine(xf, r, wi_l, wo_l, moe, cap, gated=gated,
+                     activation_fn=activation_fn)
+        shd.all_reduce(y, model_axis)
+        shd.all_reduce(y, fsdp_psum)
+        y = y.to(x.dtype)
+        if batch_phys:
+            my = shd.axis_index(batch_phys)
+            y = y[my * bl * t:(my + 1) * bl * t]
+    elif dispatch == "gather_weights":
+        xl = shd.local_spec(x, x_spec)
+        router_l = shd.local_spec(router, _without(r_spec, fsdp_axis))
+        wi_l = shd.local_spec(wi, _without(wi_spec, fsdp_axis))
+        wo_l = shd.local_spec(wo, _without(wo_spec, fsdp_axis))
+        cap = capacity(bl * t, moe)
+        xf = xl.reshape(bl * t, d)
+        r = route_and_pack(xf, router_l, moe, cap, e0=e0, e_loc=e_loc)
+        y = _combine(xf, r, wi_l, wo_l, moe, cap, gated=gated,
+                     activation_fn=activation_fn).to(x.dtype)
+        shd.all_reduce(y, model_axis)
+    else:
+        raise ValueError(f"unknown MoE dispatch {dispatch!r}")
+    aux = r.aux
+    if batch_phys:
+        aux = shd.all_reduce(aux.clone(), batch_phys) / dp
+    y = shd.from_local_spec(y.reshape(bl, t, d), x_spec, (b, t, d))
+    aux = shd.from_local_spec(aux, PartitionSpec(), ())
+    return y, aux

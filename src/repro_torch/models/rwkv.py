@@ -32,18 +32,33 @@ Caches (per layer): the time mix keeps ``x_prev`` (B, D) in the cache
 dtype and ``s`` (B, H, hd, hd) in f32; the channel mix keeps ``x_prev``.
 Decode updates them in place and returns the same tensors, so a CUDA
 graph over a decode step writes the backend's caches.
+
+Under a mesh (`parallel.sharding.use_mesh`) the time mix is
+head-parallel and the channel mix F-parallel, the reference's layout:
+each rank holds its batch rows, its heads (``heads`` on the model dim)
+of r, k, v, g, u, the group norm, the state and ``wo``, and its slice of
+F of the channel mix; the output products sum over the model dim.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import logical
 from repro_torch.utils.cost import scan
 
 from .layers import P, dense_out, matmul_f32, rms_norm
 
 __all__ = ["rwkv_tm_schema", "rwkv_cm_schema", "rwkv_time_mix",
-           "rwkv_channel_mix", "init_rwkv_tm_cache", "init_rwkv_cm_cache"]
+           "rwkv_channel_mix", "init_rwkv_tm_cache", "init_rwkv_cm_cache",
+           "RWKV_TM_CACHE_AXES", "RWKV_CM_CACHE_AXES"]
+
+RWKV_TM_CACHE_AXES = {
+    "x_prev": ("batch", None),
+    "s": ("batch", "heads", "head_dim", None),
+}
+RWKV_CM_CACHE_AXES = {"x_prev": ("batch", None)}
 
 W_LORA = 64
 
@@ -126,11 +141,73 @@ def _tm_step(s: torch.Tensor, r: torch.Tensor, k: torch.Tensor,
     return w[..., :, None] * s + kv, y
 
 
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _local_params(params: dict, schema: dict, drop: str) -> dict:
+    """Each DTensor param's shard under its schema axes with ``drop``
+    (the fsdp dim) gathered."""
+    return {k: shd.local(v, tuple(None if a == drop else a
+                                  for a in schema[k].axes))
+            for k, v in params.items()}
+
+
+def _mesh_mix(fn, params: dict, schema: dict, x: torch.Tensor, cache,
+              axes: dict, entry, decode: bool, prefill: bool, **kw):
+    """Run ``fn`` (a mixer on plain tensors) on this rank's batch rows
+    and shards, its output summed over ``entry`` (the model dim's
+    share), and lay the outputs back out as DTensors."""
+    b, t, d = x.shape
+    lp = _local_params(params, schema, "fsdp")
+    xl = shd.local(x, ("batch", None, None))
+    cl = None if cache is None else {k: v.to_local()
+                                     for k, v in cache.items()}
+    out, nc = fn(lp, xl, cache=cl, decode=decode, prefill=prefill,
+                 reduce=lambda y: shd.all_reduce(y, entry), **kw)
+    out = shd.from_local(out, ("batch", None, None), (b, t, d))
+    if decode:
+        nc = cache
+    elif nc is not None:
+        nc = {k: shd.from_local(v, axes[k], (b, *_global(v, k, kw)))
+              for k, v in nc.items()}
+    return logical(out, ("batch", "seq", "embed")), nc
+
+
+def _global(v: torch.Tensor, key: str, kw: dict) -> tuple:
+    """A local cache leaf's global shape past the batch dim."""
+    if key == "s":
+        return (kw["n_heads"], *v.shape[2:])
+    return tuple(v.shape[1:])
+
+
 def rwkv_time_mix(params: dict, x: torch.Tensor, cfg, *,
                   cache: dict | None = None, decode: bool = False,
                   prefill: bool = False) -> tuple[torch.Tensor, dict | None]:
+    h, _ = _heads(cfg)
+    if shd.current() is None:
+        return _time_mix(params, x, cfg, cache=cache, decode=decode,
+                         prefill=prefill)
+    ctx = shd.current()
+    entry = shd.spec_for(("heads",), mesh=ctx.mesh, rules=ctx.rules,
+                         shape=(h,))[0]
+    return _mesh_mix(
+        lambda p, xl, **k: _time_mix(p, xl, cfg, **k), params,
+        rwkv_tm_schema(cfg), x, cache, RWKV_TM_CACHE_AXES, entry, decode,
+        prefill, h0=shd.axis_index(entry) * (h // shd.axis_size(entry)),
+        n_heads=h)
+
+
+def _time_mix(params: dict, x: torch.Tensor, cfg, *, cache: dict | None,
+              decode: bool, prefill: bool, reduce=_same, h0: int = 0,
+              n_heads: int | None = None
+              ) -> tuple[torch.Tensor, dict | None]:
+    """The time mix on plain tensors, over all heads or this rank's
+    (``u``'s rows, from head ``h0``); ``reduce`` sums the output
+    product's share over the model dim."""
     b, t, d = x.shape
-    h, hd = _heads(cfg)
+    h_all, hd = _heads(cfg)
+    h = params["u"].shape[0]
     xs = _shifted(x, cache, decode)
     xr = _lerp(x, xs, params["mu_r"])
     xk = _lerp(x, xs, params["mu_k"])
@@ -147,7 +224,9 @@ def rwkv_time_mix(params: dict, x: torch.Tensor, cfg, *,
     lora = torch.tanh(matmul_f32(xw, params["w_lora_a"]))
     lora = lora @ params["w_lora_b"].float()
     w_dec = torch.exp(-torch.exp(params["w0"].float() + lora))
-    w_dec = w_dec.reshape(b, t, h, hd)
+    w_dec = w_dec.reshape(b, t, h_all, hd)
+    if h != h_all:
+        w_dec = w_dec[:, :, h0:h0 + h]
 
     r32, k32, v32 = r.float(), k.float(), v.float()
     u = params["u"].float()
@@ -172,8 +251,8 @@ def rwkv_time_mix(params: dict, x: torch.Tensor, cfg, *,
 
     y = rms_norm(y, params["ln_x"])  # per-head group norm
     y = (y * g).to(x.dtype)
-    out = dense_out(y.reshape(b, t, h * hd),
-                    params["wo"].reshape(h * hd, d)).to(x.dtype)
+    out = reduce(dense_out(y.reshape(b, t, h * hd),
+                           params["wo"].reshape(h * hd, d))).to(x.dtype)
     return out, new_cache
 
 
@@ -181,13 +260,29 @@ def rwkv_channel_mix(params: dict, x: torch.Tensor, cfg, *,
                      cache: dict | None = None, decode: bool = False,
                      prefill: bool = False
                      ) -> tuple[torch.Tensor, dict | None]:
+    if shd.current() is None:
+        return _channel_mix(params, x, cfg, cache=cache, decode=decode,
+                            prefill=prefill)
+    ctx = shd.current()
+    entry = shd.spec_for(("ff",), mesh=ctx.mesh, rules=ctx.rules,
+                         shape=(cfg.d_ff,))[0]
+    return _mesh_mix(lambda p, xl, **k: _channel_mix(p, xl, cfg, **k),
+                     params, rwkv_cm_schema(cfg), x, cache,
+                     RWKV_CM_CACHE_AXES, entry, decode, prefill)
+
+
+def _channel_mix(params: dict, x: torch.Tensor, cfg, *, cache: dict | None,
+                 decode: bool, prefill: bool, reduce=_same
+                 ) -> tuple[torch.Tensor, dict | None]:
+    """The channel mix on plain tensors, over all of F or a slice of it;
+    ``reduce`` sums the down product's share over the model dim."""
     xs = _shifted(x, cache, decode)
     xk = _lerp(x, xs, params["mu_k"])
     xr = _lerp(x, xs, params["mu_r"])
     r = torch.sigmoid(matmul_f32(xr, params["wr"]))
     k = dense_out(xk, params["wk"])
     hidden = torch.square(torch.relu(k))                     # squared ReLU
-    v = dense_out(hidden.to(x.dtype), params["wv"])
+    v = reduce(dense_out(hidden.to(x.dtype), params["wv"]))
     out = (r * v).to(x.dtype)
     new_cache = None
     if decode:

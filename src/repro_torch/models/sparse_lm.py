@@ -12,7 +12,7 @@ the reference's tensor-parallel layout:
                its own F/tp K-range: ``wo_vals`` (tp, NB_o, S_o, vk_o,
                vn_o), ``wo_idx`` (tp, NB_o, S_o).
 
-The port has no mesh: it runs the reference's ``ctx is None`` path, on
+Without a mesh the port runs the reference's ``ctx is None`` path, on
 which the reference sums the tp shards' f32 products one after the
 other.  `merge_wo` makes the tp shard CSRs one CSR over K = F: strip j
 stores shard 0's S_o tiles, then shard 1's, and so on, with shard r's
@@ -22,6 +22,23 @@ where the reference starts each shard from zero and adds the shards'
 sums: only the f32 rounding differs.  `prepare_sparse_mlp` merges once,
 when the weights are placed (`transformer.prepare_params`, the
 `Server`); `sparse_mlp_apply` takes the merged tree or the reference's.
+
+Under a mesh (`parallel.sharding.use_mesh`) the reference's TP body
+(``sparse_lm.py:104-189``): each rank multiplies by its own ``wi``
+strips (F split over the model dim) and by its own shard CSRs of ``wo``
+(K = its F range), and the partial outputs are summed over the model
+dim.  The tp shards are *not* merged across ranks: `prepare_sparse_mlp`
+merges only the shards one rank holds (tp_hint / model of them), into
+a leading rank dim of the model dim's size, so each rank launches one
+``wo`` product.  Where tp_hint equals the model dim's size that is the
+reference's tree as it is (its body reads shard ``[0]`` of the rank's
+one); where a rank holds several shards the reference's body reads only
+the first of them, and the port sums them all (the mesh-free function).
+The partial outputs are summed only over the mesh dims that split F:
+where neither ``wi``'s strips nor ``wo``'s shards divide over the model
+dim, every rank computes the whole product and nothing is summed (the
+reference's body sums such replicated outputs over the model dim all
+the same).
 
 Each CSR product (`_vs_mm`) is one `kernels.vsmm.vsmm_kernel` call: on
 CUDA tensors one launch of ``csrc/vsmm.cu`` (its bf16 branch for the
@@ -37,8 +54,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.core.vector_sparse import VectorSparse
 from repro_torch.kernels.vsmm import vsmm_kernel
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import PartitionSpec
 from .layers import P
 
 __all__ = ["sparse_mlp_schema", "sparse_mlp_apply", "merge_wo",
@@ -106,13 +127,49 @@ def merge_wo(wo_vals: torch.Tensor, wo_idx: torch.Tensor, d_ff: int
 def prepare_sparse_mlp(params: dict, cfg) -> dict:
     """A sparse FFN's tree (the reference's) in the served form: ``wi_*``
     as they are, ``wo_vals`` / ``wo_idx`` replaced by the merged CSR
-    ``wo_csr_vals`` / ``wo_csr_idx`` (`merge_wo`).  A tree already in
-    that form is returned as it is."""
+    ``wo_csr_vals`` / ``wo_csr_idx`` (`merge_wo`).  Under a mesh (DTensor
+    leaves) each rank merges only its own shards (`_merge_local`).  A
+    tree already in that form is returned as it is."""
     if "wo_csr_vals" in params:
         return params
-    vals, idx = merge_wo(params["wo_vals"], params["wo_idx"], cfg.d_ff)
+    if isinstance(params["wo_vals"], DTensor):
+        vals, idx = _merge_local(params["wo_vals"], params["wo_idx"], cfg)
+    else:
+        vals, idx = merge_wo(params["wo_vals"], params["wo_idx"], cfg.d_ff)
     return {"wi_vals": params["wi_vals"], "wi_idx": params["wi_idx"],
             "wo_csr_vals": vals, "wo_csr_idx": idx}
+
+
+def _wo_axes(ndim: int, rank_dim: int) -> tuple:
+    """``wo``'s logical axes: ``ff`` on the shard (or rank) dim, which
+    follows any leading layer-stack dim."""
+    return ("stack",) * rank_dim + ("ff",) + (None,) * (ndim - rank_dim - 1)
+
+
+def _merge_local(wo_vals: DTensor, wo_idx: DTensor, cfg
+                 ) -> tuple[DTensor, DTensor]:
+    """The tp shard CSRs of ``wo`` (DTensors, the shard dim on the model
+    dim) as one CSR a rank: vals (..., n, NB, tp/n*S, vk, vn), idx (...,
+    n, NB, tp/n*S), with n the ranks that split the shard dim (1 where
+    it is whole); rank r's entry merges its tp/n shards over its F/n
+    range (`merge_wo`)."""
+    rank_dim = wo_vals.ndim - 5
+    spec = shd.spec_for(_wo_axes(wo_vals.ndim, rank_dim),
+                        mesh=wo_vals.device_mesh, rules=shd.current().rules,
+                        shape=tuple(wo_vals.shape))
+    n = shd.axis_size(spec[rank_dim])
+    vals, idx = merge_wo(wo_vals.to_local(), wo_idx.to_local(),
+                         cfg.d_ff // n)
+    vals, idx = vals.unsqueeze(rank_dim), idx.unsqueeze(rank_dim)
+    lead = tuple(wo_vals.shape[:rank_dim])
+
+    def place(t: torch.Tensor) -> DTensor:
+        shape = (*lead, n, *t.shape[rank_dim + 1:])
+        sp = PartitionSpec(*spec[:rank_dim + 1],
+                           *(None,) * (len(shape) - rank_dim - 1))
+        return shd.from_local_spec(t, sp, shape)
+
+    return place(vals), place(idx)
 
 
 def _vs_mm(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor
@@ -139,6 +196,8 @@ def _act(h: torch.Tensor, kind: str) -> torch.Tensor:
 def sparse_mlp_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     """x (B, T, D) -> (B, T, D) in x's dtype; ``params`` the reference's
     tree or `prepare_sparse_mlp`'s."""
+    if shd.current() is not None:
+        return _sparse_mesh(params, x, cfg)
     b, t, d = x.shape
     x2 = x.reshape(b * t, d)
     if params["wi_vals"].ndim == 5:  # gated: (gate, up)
@@ -151,3 +210,49 @@ def sparse_mlp_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     wo = prepare_sparse_mlp(params, cfg)
     y = _vs_mm(h, wo["wo_csr_vals"], wo["wo_csr_idx"])
     return y.reshape(b, t, d).to(x.dtype)
+
+
+def _sparse_mesh(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The reference's TP body under a mesh: x's batch rows on the batch
+    dims (whole where they do not divide), ``wi``'s strips and ``wo``'s
+    rank CSR on the model dim; the rank's partial output rounded to x's
+    dtype and summed over the mesh dims that split F (reference
+    ``sparse_lm.py:104-124``)."""
+    ctx = shd.current()
+    wo = prepare_sparse_mlp(params, cfg)
+    b, t, d = x.shape
+    batch = tuple(p for p in ((ctx.rules.get("batch"),)
+                              if isinstance(ctx.rules.get("batch"), str)
+                              else ctx.rules.get("batch") or ())
+                  if p in ctx.shape) or None
+    if batch and b % shd.axis_size(batch):
+        batch = None
+    x_spec = PartitionSpec(batch, None, None)
+    gated = params["wi_vals"].ndim == 5
+    lead = (None,) if gated else ()
+    wi_spec = shd.spec_for((*lead, "ff", None, None, None), mesh=ctx.mesh,
+                           rules=ctx.rules,
+                           shape=tuple(params["wi_vals"].shape))
+    wo_spec = shd.spec_for(_wo_axes(5, 0), mesh=ctx.mesh, rules=ctx.rules,
+                           shape=tuple(wo["wo_csr_vals"].shape))
+    f_entry = wi_spec[len(lead)]
+    if f_entry != wo_spec[0]:
+        raise ValueError(
+            f"{cfg.name}: wi's strips split over {f_entry!r} but wo's "
+            f"shards over {wo_spec[0]!r}; the sparse FFN needs one layout")
+    xl = shd.local_spec(x, x_spec)
+    x2 = xl.reshape(-1, d)
+    wi_vals = shd.local_spec(params["wi_vals"], wi_spec)
+    wi_idx = shd.local_spec(params["wi_idx"], PartitionSpec(*wi_spec[:-2]))
+    if gated:
+        gate = _vs_mm(x2, wi_vals[0], wi_idx[0])
+        up = _vs_mm(x2, wi_vals[1], wi_idx[1])
+        h = (_act(gate, cfg.activation) * up).to(x.dtype)
+    else:
+        h = _act(_vs_mm(x2, wi_vals, wi_idx), cfg.activation).to(x.dtype)
+    wo_vals = shd.local_spec(wo["wo_csr_vals"], wo_spec)[0]
+    wo_idx = shd.local_spec(wo["wo_csr_idx"],
+                            PartitionSpec(*wo_spec[:3]))[0]
+    y = _vs_mm(h, wo_vals, wo_idx).to(x.dtype)
+    shd.all_reduce(y, f_entry)
+    return shd.from_local_spec(y.reshape(xl.shape), x_spec, (b, t, d))

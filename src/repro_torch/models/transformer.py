@@ -31,6 +31,14 @@ checkpointed (`torch.utils.checkpoint`, as the reference checkpoints its
 scan body) and its recompute re-enters ``precision_flow`` itself, since
 the backward runs outside the entry's context.
 
+Under a mesh (`parallel.sharding.use_mesh`, the `Server`'s ``mesh``) the
+params are DTensors (`shard_params`: the schema's logical axes), the
+entries lay the inputs and residual stream out as the reference's
+`logical` sites do, the caches are DTensors (`cache_axes`), and the
+products run on each rank's shards (the embedding, the logits, and the
+modules' own mesh paths); plain tensors made inside meet DTensors as
+replicated ones (`sharding.mesh_ops`).
+
 Modes:
   train   — full-sequence forward (no caches)
   prefill — forward + populated decode caches (attention K/V, the
@@ -46,22 +54,29 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.parallel.losses import chunked_cross_entropy
+from torch.distributed.tensor import DTensor, Shard
 
-from .attention import (attention_apply, attn_schema, decode_position,
-                        init_kv_cache)
-from .layers import (P, matmul_f32, mlp_apply, mlp_schema, precision_flow,
-                     rms_norm, stack)
-from .mamba import init_mamba_cache, mamba_apply, mamba_schema
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.losses import chunked_cross_entropy
+from repro_torch.parallel.sharding import logical
+
+from .attention import (CACHE_AXES, attention_apply, attn_schema,
+                        decode_position, init_kv_cache)
+from .layers import (P, axes_tree, matmul_f32, mlp_apply, mlp_schema,
+                     precision_flow, rms_norm, stack)
+from .mamba import (MAMBA_CACHE_AXES, init_mamba_cache, mamba_apply,
+                    mamba_schema)
 from .moe import moe_apply, moe_schema
-from .rwkv import (init_rwkv_cm_cache, init_rwkv_tm_cache, rwkv_channel_mix,
+from .rwkv import (RWKV_CM_CACHE_AXES, RWKV_TM_CACHE_AXES,
+                   init_rwkv_cm_cache, init_rwkv_tm_cache, rwkv_channel_mix,
                    rwkv_cm_schema, rwkv_time_mix, rwkv_tm_schema)
 from .sparse_lm import (prepare_sparse_mlp, sparse_mlp_apply,
                         sparse_mlp_schema)
 
-__all__ = ["lm_schema", "layer_schema", "init_cache", "apply_layer",
-           "forward_hidden", "embed_tokens", "unembed_matrix", "lm_apply",
-           "loss_fn", "prefill", "decode_step", "prepare_params"]
+__all__ = ["lm_schema", "layer_schema", "init_cache", "cache_axes",
+           "apply_layer", "forward_hidden", "embed_tokens", "unembed_matrix",
+           "lm_apply", "loss_fn", "prefill", "decode_step", "prepare_params",
+           "shard_params"]
 
 
 # ---------------------------------------------------------------------------
@@ -155,19 +170,68 @@ def _slot_cache(spec, cfg, batch: int, capacity: int, dtype: torch.dtype,
     return slot
 
 
-def init_cache(cfg, batch: int, capacity: int, device: torch.device,
-               dtype: torch.dtype | None = None) -> list:
-    """Decode caches: one stacked tree per segment (leading dim = repeat)."""
-    dtype = dtype or cfg.cache_dtype
+_CACHE_AXES_BY_MIXER = {"attn": CACHE_AXES, "mamba": MAMBA_CACHE_AXES,
+                        "rwkv_tm": RWKV_TM_CACHE_AXES}
+
+
+def cache_axes(cfg) -> list:
+    """The logical axes of `init_cache`'s tree (the reference's
+    ``cache_axes``), with the leading ``stack`` dim."""
+    out = []
+    for seg in cfg.segments:
+        group = {}
+        for i, sp in enumerate(seg.layers):
+            slot = {}
+            if sp.mixer in _CACHE_AXES_BY_MIXER:
+                slot["mix"] = {k: ("stack", *v) for k, v in
+                               _CACHE_AXES_BY_MIXER[sp.mixer].items()}
+            if sp.ffn == "rwkv_cm":
+                slot["ffn"] = {k: ("stack", *v)
+                               for k, v in RWKV_CM_CACHE_AXES.items()}
+            group[f"l{i}"] = slot
+        out.append(group)
+    return out
+
+
+def _sharded_zeros(tree, axes, device: torch.device):
+    if isinstance(tree, torch.Tensor):
+        return shd.zeros(tuple(tree.shape), axes, dtype=tree.dtype,
+                         device=device)
+    if isinstance(tree, list):
+        return [_sharded_zeros(t, a, device) for t, a in zip(tree, axes)]
+    return {k: _sharded_zeros(tree[k], axes[k], device) for k in tree}
+
+
+def _plain_cache(cfg, batch: int, capacity: int, dtype: torch.dtype,
+                 device: torch.device) -> list:
     return [_stacked({f"l{i}": _slot_cache(sp, cfg, batch, capacity, dtype,
                                            device)
                       for i, sp in enumerate(seg.layers)}, seg.repeat)
             for seg in cfg.segments]
 
 
+def init_cache(cfg, batch: int, capacity: int, device: torch.device,
+               dtype: torch.dtype | None = None) -> list:
+    """Decode caches: one stacked tree per segment (leading dim = repeat).
+    Under a mesh each leaf is a DTensor laid out by `cache_axes` (the
+    attention K/V sequence-sharded over the model dim), each rank
+    holding only its own shard."""
+    dtype = dtype or cfg.cache_dtype
+    if shd.current() is None:
+        return _plain_cache(cfg, batch, capacity, dtype, device)
+    shapes = _plain_cache(cfg, batch, capacity, dtype, torch.device("meta"))
+    return _sharded_zeros(shapes, cache_axes(cfg), device)
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+
+
+def _residual_axes(cfg, mode: str) -> tuple:
+    if cfg.seq_shard_residual and mode != "decode":
+        return ("batch", "seq_sp", "embed")
+    return ("batch", "seq", "embed")
 
 
 def apply_layer(p: dict, h: torch.Tensor, spec, cfg, *, mode: str,
@@ -181,6 +245,8 @@ def apply_layer(p: dict, h: torch.Tensor, spec, cfg, *, mode: str,
     cache = cache or {}
     decode = mode == "decode"
     prefill = mode == "prefill"
+    if cfg.seq_shard_residual:  # Megatron-SP stream (the reference's knob)
+        h = logical(h, _residual_axes(cfg, mode))
     if spec.mixer != "none":
         inp = rms_norm(h, p["ln1"])
         if spec.mixer == "attn":
@@ -210,7 +276,8 @@ def apply_layer(p: dict, h: torch.Tensor, spec, cfg, *, mode: str,
                 out = mlp_apply(p["ffn"], inp, activation=cfg.activation)
         elif spec.ffn == "moe":
             out, aux = moe_apply(p["ffn"], inp, cfg.moe, gated=_gated(cfg),
-                                 activation_fn=_act_fn(cfg))
+                                 activation_fn=_act_fn(cfg),
+                                 dispatch=cfg.moe_dispatch)
             if cfg.moe.n_shared:
                 out = out + mlp_apply(p["ffn_shared"], inp,
                                       activation=cfg.activation)
@@ -235,7 +302,11 @@ def _unstack(tree, n: int) -> list:
     """The ``n`` layers of a stacked param tree, each leaf unbound along
     its stack axis (views).  Under autograd one ``unbind`` a leaf writes
     the whole leaf's gradient once; indexing layer by layer would give
-    each layer's gradient a zero-filled copy of the whole stacked leaf."""
+    each layer's gradient a zero-filled copy of the whole stacked leaf.
+    A DTensor leaf (under a mesh; the stack dim is never sharded) is
+    indexed layer by layer."""
+    if isinstance(tree, DTensor):
+        return [tree[r] for r in range(n)]
     if isinstance(tree, torch.Tensor):
         return list(tree.unbind(0))
     parts = {k: _unstack(v, n) for k, v in tree.items()}
@@ -243,9 +314,17 @@ def _unstack(tree, n: int) -> list:
 
 
 def _store(dst: dict, src: dict, r: int) -> None:
-    """Copy one layer's cache tree into slot ``r`` of a stacked tree."""
+    """Copy one layer's cache tree into slot ``r`` of a stacked tree.  A
+    DTensor leaf (under a mesh) is copied shard by shard: ``src`` is
+    first laid out as slot ``r`` of ``dst`` is."""
     for k, v in src.items():
-        if isinstance(v, torch.Tensor):
+        if isinstance(v, DTensor):
+            want = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+                    for p in dst[k].placements]
+            if list(v.placements) != want:
+                v = v.redistribute(v.device_mesh, want)
+            dst[k].to_local()[r].copy_(v.to_local())
+        elif isinstance(v, torch.Tensor):
             dst[k][r].copy_(v)
         else:
             _store(dst[k], v, r)
@@ -275,7 +354,7 @@ def forward_hidden(params: dict, x: torch.Tensor, cfg, *, mode: str = "train",
     decode updates ``caches`` in place.  ``remat`` (train mode) keeps no
     activation inside a repeat of a layer group for the backward: the
     group is recomputed then."""
-    h = x
+    h = logical(x, _residual_axes(cfg, mode))
     out_caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "prefill" and caches is None:
@@ -312,11 +391,41 @@ def forward_hidden(params: dict, x: torch.Tensor, cfg, *, mode: str = "train",
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    if shd.current() is not None:
+        return _embed_mesh(params, tokens, cfg)
     h = params["embed"][tokens]
     # the scale rounded to h's dtype first, as the reference's asarray;
     # made on the device (a fill, not a blocking host-to-device copy)
-    return h * torch.full((), cfg.d_model ** 0.5, dtype=h.dtype,
-                          device=h.device)
+    h = h * torch.full((), cfg.d_model ** 0.5, dtype=h.dtype,
+                       device=h.device)
+    return logical(h, ("batch", "seq", "embed"))
+
+
+def _embed_mesh(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    """The lookup on each rank's shards: its batch rows of ids against its
+    vocab rows of the table (``fsdp`` gathered); an id outside the rank's
+    rows reads zeros, and the rows are summed over the vocab's mesh dims
+    (each id is in one rank's rows, so the sum is exact)."""
+    ctx = shd.current()
+    embed = params["embed"]
+    v_entry = shd.spec_for(("vocab", None), mesh=ctx.mesh, rules=ctx.rules,
+                           shape=tuple(embed.shape))[0]
+    table = shd.local(embed, ("vocab", None))
+    ids = shd.local(tokens, ("batch", None))
+    with shd.use_mesh_free():
+        if shd.axis_size(v_entry, ctx=ctx) == 1:
+            h = embed_tokens({"embed": table}, ids, cfg)
+        else:
+            v0 = shd.axis_index(v_entry, ctx=ctx) * table.shape[0]
+            at = ids - v0
+            mine = (at >= 0) & (at < table.shape[0])
+            h = table[at.clamp(0, table.shape[0] - 1)] * \
+                mine[..., None].to(table.dtype)
+            h = shd.all_reduce(h, v_entry, ctx=ctx) * torch.full(
+                (), cfg.d_model ** 0.5, dtype=h.dtype, device=h.device)
+    h = shd.from_local(h, ("batch", None, None),
+                       (*tokens.shape, embed.shape[1]))
+    return logical(h, ("batch", "seq", "embed"))
 
 
 def unembed_matrix(params: dict, cfg) -> torch.Tensor:
@@ -328,7 +437,7 @@ def unembed_matrix(params: dict, cfg) -> torch.Tensor:
 def _inputs_to_hidden(params: dict, batch: dict, cfg) -> torch.Tensor:
     if cfg.embed_inputs:
         return embed_tokens(params, batch["tokens"], cfg)
-    return batch["embeds"].to(cfg.dtype)
+    return logical(batch["embeds"].to(cfg.dtype), ("batch", "seq", "embed"))
 
 
 def prepare_params(params: dict, cfg) -> dict:
@@ -350,11 +459,34 @@ def prepare_params(params: dict, cfg) -> dict:
     return {**params, "segments": segs}
 
 
+def _distribute(tree, axes):
+    if isinstance(tree, torch.Tensor):
+        return shd.distribute(tree, axes)
+    if isinstance(tree, list):
+        return [_distribute(t, a) for t, a in zip(tree, axes)]
+    return {k: _distribute(tree[k], axes[k]) for k in tree}
+
+
+def shard_params(params: dict, cfg) -> dict:
+    """The full param tree of ``cfg`` (the same on every rank) as DTensors
+    laid out by the schema's logical axes under the active mesh
+    (`parallel.sharding.distribute`): each rank keeps its own shards.
+    Pass the reference's tree, before `prepare_params`."""
+    return _distribute(params, axes_tree(lm_schema(cfg)))
+
+
 def _logits(h: torch.Tensor, params: dict, cfg) -> torch.Tensor:
     """(B, T, D) -> (B, T, Vp) f32 logits, summed in f32 as the
     reference's ``preferred_element_type=f32`` (`matmul_f32`: on the card
-    no f32 copy of the unembedding)."""
-    return matmul_f32(h, unembed_matrix(params, cfg))
+    no f32 copy of the unembedding).  Under a mesh each rank multiplies
+    its batch rows by its vocab columns (``("batch", "vocab")``)."""
+    w = unembed_matrix(params, cfg)
+    if shd.current() is None:
+        return matmul_f32(h, w)
+    y = matmul_f32(shd.local(h, ("batch", None, None)),
+                   shd.local(w, (None, "vocab")))
+    return shd.from_local(y, ("batch", None, "vocab"),
+                          (*h.shape[:2], w.shape[1]))
 
 
 def loss_fn(params: dict, batch: dict, cfg
@@ -388,7 +520,7 @@ def loss_fn(params: dict, batch: dict, cfg
 
 def lm_apply(params: dict, batch: dict, cfg) -> torch.Tensor:
     """Plain forward to all-position logits (B, T, Vp)."""
-    with precision_flow(cfg.bf16_flow):
+    with precision_flow(cfg.bf16_flow), shd.mesh_ops():
         x = _inputs_to_hidden(params, batch, cfg)
         h, _, _ = forward_hidden(params, x, cfg, mode="train")
         return _logits(h, params, cfg)
@@ -409,12 +541,13 @@ def prefill(params: dict, batch: dict, cfg, *, capacity: int,
     rows are overwritten by later decode steps before any query attends
     them.
     """
-    with precision_flow(cfg.bf16_flow):
+    with precision_flow(cfg.bf16_flow), shd.mesh_ops():
         x = _inputs_to_hidden(params, batch, cfg)
         h, caches, _ = forward_hidden(params, x, cfg, mode="prefill",
                                       caches=caches, capacity=capacity)
         t = h.shape[1] - 1 if logit_pos is None else logit_pos
-        return _logits(h[:, t:t + 1], params, cfg)[:, 0], caches
+        logits = _logits(h[:, t:t + 1], params, cfg)[:, 0]
+        return logical(logits, ("batch", "vocab")), caches
 
 
 def decode_step(params: dict, caches: list, tokens: torch.Tensor,
@@ -428,9 +561,10 @@ def decode_step(params: dict, caches: list, tokens: torch.Tensor,
     graph can capture it.
     """
     pos = decode_position(pos, tokens.device)
-    with precision_flow(cfg.bf16_flow):
+    with precision_flow(cfg.bf16_flow), shd.mesh_ops():
         x = embed_tokens(params, tokens, cfg) if cfg.embed_inputs \
-            else tokens
+            else logical(tokens, ("batch", "seq", "embed"))
         h, caches, _ = forward_hidden(params, x, cfg, mode="decode",
                                       caches=caches, pos=pos)
-        return _logits(h, params, cfg)[:, 0], caches
+        logits = _logits(h, params, cfg)[:, 0]
+        return logical(logits, ("batch", "vocab")), caches

@@ -1,7 +1,8 @@
 """Chunked cross-entropy over the padded vocabulary.
 
 The port of `repro/parallel/losses.py` on one device (its `logical`
-sharding constraints have no counterpart here).  Never materializes the
+sharding constraints, which only its training under a mesh reads, are
+not ported yet).  Never materializes the
 whole (batch, seq, vocab) logits: the sequence is taken in ``chunk``-sized
 slices, each projected onto the (embed, vocab) output matrix.  Padded
 vocab entries (vocab rounded up for even sharding) are masked out.

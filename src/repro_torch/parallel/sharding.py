@@ -1,0 +1,465 @@
+"""Logical-axis sharding: one rules table maps model-code axis names to mesh
+axes.
+
+The port of `repro/parallel/sharding.py`, on `torch.distributed`.  Model
+code never names a mesh axis.  It annotates tensors with *logical* axis
+names (``('batch', 'seq', 'embed')``); the active `MeshRules` maps each
+name to a mesh dim (or None = replicated).  A shape-divisibility guard
+demotes any dim that does not divide evenly over its mesh dims to
+replicated, so 8 KV heads on a 16-way model axis degrade gracefully.
+
+The reference's constructs, and what stands for them here:
+
+* a ``Mesh`` over ``("data", "model")`` -> a
+  `torch.distributed.device_mesh.DeviceMesh` with the same dim names
+  (`launch.mesh.make_local_mesh`), or the shape-only `AbstractMesh`
+  (sizes, no ranks: `spec_for` at 16x16 without 256 processes);
+* a ``PartitionSpec`` -> `PartitionSpec`, the same per-tensor-dim tuple
+  of mesh dim names (a tuple of names where a dim shards over several);
+* a ``NamedSharding`` -> `NamedSharding` (mesh, spec) and its DTensor
+  `placements`: per mesh dim ``Shard(d)`` where tensor dim d is on it,
+  else ``Replicate()``.  A dim on ``("pod", "data")`` shards on both, the
+  first named the major one, as DTensor splits in mesh-dim order;
+* ``device_put(x, named_sharding(...))`` -> `distribute` (each rank
+  cuts its shard from its own full copy, as ``distribute_tensor`` lays
+  it out, with no communication);
+* a ``shard_map`` body -> `local` (a DTensor's shard under an in-spec),
+  plain tensor code, `from_local` (the out-spec); ``psum`` / ``pmax`` ->
+  `all_reduce`, ``axis_index`` -> `axis_index`;
+* ``with_sharding_constraint`` in `logical` -> ``DTensor.redistribute``
+  to `spec_for`'s placements.  Outside `use_mesh` `logical` returns its
+  input, so every mesh-free path keeps its bits.
+
+Used three ways, as in the reference: activation constraints inside model
+code (`logical`), param shardings (`sharding_tree`, `distribute`) and
+input and output shardings (`named_sharding`).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Any, Iterator
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
+
+__all__ = [
+    "MeshRules",
+    "MeshContext",
+    "AbstractMesh",
+    "PartitionSpec",
+    "NamedSharding",
+    "use_mesh",
+    "current",
+    "logical",
+    "spec_for",
+    "placements",
+    "mesh_shape",
+    "named_sharding",
+    "sharding_tree",
+    "distribute",
+    "local",
+    "local_spec",
+    "from_local",
+    "from_local_spec",
+    "zeros",
+    "axis_index",
+    "axis_size",
+    "all_reduce",
+    "mesh_ops",
+    "use_mesh_free",
+    "TRAIN_RULES",
+    "SERVE_RULES",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshRules:
+    """logical axis name -> mesh axis name(s) or None (replicated).
+
+    The default tables (the reference's posture):
+      batch   -> ('pod', 'data')      DP across pods and the in-pod data axis
+      heads   -> 'model'              TP attention (when divisible)
+      ff/vocab/expert -> 'model'      TP FFN / vocab-sharded logits / EP
+      fsdp    -> 'data'               ZeRO-3 param+state sharding dim
+      kv_seq  -> 'model'              sequence-sharded KV cache (decode)
+      seq_sp  -> 'model'              sequence-parallel attention activations
+    """
+
+    rules: tuple[tuple[str, object], ...]
+
+    def get(self, name: str) -> Any:
+        for k, v in self.rules:
+            if k == name:
+                return v
+        return None
+
+    def replace(self, **updates: Any) -> "MeshRules":
+        d = dict(self.rules)
+        d.update(updates)
+        return MeshRules(tuple(d.items()))
+
+
+def _mk(**kw: Any) -> MeshRules:
+    return MeshRules(tuple(kw.items()))
+
+
+# Training posture: DP(+pod) x TP, FSDP over data.
+TRAIN_RULES = _mk(
+    batch=("pod", "data"),
+    seq=None,
+    seq_sp="model",
+    embed=None,
+    heads="model",
+    kv_heads="model",
+    head_dim=None,
+    ff="model",
+    vocab="model",
+    expert="model",
+    fsdp="data",
+    kv_seq="model",
+    stack=None,
+    conv=None,
+)
+
+# Serving posture: params stay sharded (TP + fsdp dim over data so 1T fits),
+# KV cache sequence-sharded over the model axis (flash-decoding layout).
+SERVE_RULES = TRAIN_RULES
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh of named dims with sizes and no ranks: what `spec_for` and
+    the dry run need of a production mesh (16x16, 2x16x16) that no
+    process group here has."""
+
+    axis_sizes: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+
+def mesh_shape(mesh: DeviceMesh | AbstractMesh) -> dict[str, int]:
+    """{dim name: size} of a `DeviceMesh` or an `AbstractMesh`, in mesh
+    order (the reference's ``mesh.shape``)."""
+    if isinstance(mesh, AbstractMesh):
+        return mesh.shape
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+class PartitionSpec(tuple):
+    """Per tensor dim: a mesh dim name, a tuple of them, or None."""
+
+    def __new__(cls, *entries: Any) -> "PartitionSpec":
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+_local = threading.local()
+
+
+@dataclasses.dataclass
+class MeshContext:
+    mesh: DeviceMesh | AbstractMesh
+    rules: MeshRules
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return mesh_shape(self.mesh)
+
+
+def current() -> MeshContext | None:
+    return getattr(_local, "ctx", None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: DeviceMesh | AbstractMesh,
+             rules: MeshRules = TRAIN_RULES) -> Iterator[MeshContext]:
+    """Activate (mesh, rules) for `logical` constraints and the sharded
+    model paths, for this thread."""
+    prev = current()
+    _local.ctx = MeshContext(mesh, rules)
+    try:
+        yield _local.ctx
+    finally:
+        _local.ctx = prev
+
+
+@contextlib.contextmanager
+def use_mesh_free() -> Iterator[None]:
+    """No mesh within the block: a shard's plain-tensor code runs the
+    mesh-free paths."""
+    prev = current()
+    _local.ctx = None
+    try:
+        yield
+    finally:
+        _local.ctx = prev
+
+
+def _axis_size(shape: dict[str, int], phys: Any) -> int:
+    if phys is None:
+        return 1
+    if isinstance(phys, (tuple, list)):
+        n = 1
+        for p in phys:
+            n *= shape[p]
+        return n
+    return shape[phys]
+
+
+def spec_for(axes: tuple, *, mesh: DeviceMesh | AbstractMesh,
+             rules: MeshRules, shape: tuple | None = None) -> PartitionSpec:
+    """Logical axes -> PartitionSpec, demoting non-divisible dims to None.
+
+    ``axes`` may contain None entries (explicitly replicated dims).  If
+    ``shape`` is given, any dim whose size does not divide over its mapped
+    mesh axes is replicated instead (graceful GQA/odd-head degradation).
+    Mesh axes absent from this mesh are dropped; mesh axes must not
+    repeat within one spec, and later occurrences demote.
+    """
+    sizes = mesh_shape(mesh)
+    used: set[str] = set()
+    out = []
+    for i, name in enumerate(axes):
+        phys = rules.get(name) if name is not None else None
+        if phys is not None:
+            flat = tuple(phys) if isinstance(phys, (tuple, list)) else (phys,)
+            # drop axes absent from this mesh (e.g. 'pod' on one pod)
+            flat = tuple(p for p in flat if p in sizes)
+            if not flat or any(p in used for p in flat):
+                phys = None
+            elif shape is not None and shape[i] % _axis_size(sizes, flat):
+                phys = None
+            else:
+                used.update(flat)
+                phys = flat if len(flat) > 1 else flat[0]
+        out.append(phys)
+    return PartitionSpec(*out)
+
+
+def placements(spec: tuple, mesh: DeviceMesh | AbstractMesh
+               ) -> tuple[Placement, ...]:
+    """DTensor placements of ``spec`` on ``mesh``, one per mesh dim:
+    ``Shard(d)`` where tensor dim d is on that mesh dim, else
+    ``Replicate()``."""
+    out: list[Placement] = []
+    for name in mesh_shape(mesh):
+        dims = [d for d, e in enumerate(spec)
+                if e == name or (isinstance(e, tuple) and name in e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh: the reference's ``NamedSharding``."""
+
+    mesh: DeviceMesh | AbstractMesh
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> tuple[Placement, ...]:
+        return placements(self.spec, self.mesh)
+
+
+def named_sharding(axes: tuple, *, shape: tuple | None = None,
+                   ctx: MeshContext | None = None) -> NamedSharding:
+    ctx = ctx or current()
+    if ctx is None:
+        raise RuntimeError("named_sharding requires an active use_mesh()")
+    return NamedSharding(ctx.mesh, spec_for(axes, mesh=ctx.mesh,
+                                            rules=ctx.rules, shape=shape))
+
+
+def logical(x: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """Constrain an activation's sharding by logical axes: under
+    `use_mesh` a DTensor redistributed to `spec_for`'s placements (a
+    plain tensor there raises: the sharded paths carry DTensors); outside
+    it ``x`` as it is."""
+    ctx = current()
+    if ctx is None:
+        return x
+    if not isinstance(x, DTensor):
+        raise TypeError(f"logical{tuple(axes)} under a mesh needs a DTensor, "
+                        f"got a plain {type(x).__name__}")
+    want = placements(spec_for(axes, mesh=ctx.mesh, rules=ctx.rules,
+                               shape=tuple(x.shape)), ctx.mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(ctx.mesh, want)
+
+
+def _ctx(ctx: MeshContext | None) -> MeshContext:
+    ctx = ctx or current()
+    if ctx is None or not isinstance(ctx.mesh, DeviceMesh):
+        raise RuntimeError("needs an active use_mesh() over a DeviceMesh")
+    return ctx
+
+
+def _contiguous_stride(shape: tuple) -> tuple:
+    out, n = [], 1
+    for d in reversed(shape):
+        out.append(n)
+        n *= d
+    return tuple(reversed(out))
+
+
+def distribute(x: torch.Tensor, axes: tuple, *,
+               ctx: MeshContext | None = None) -> DTensor:
+    """The full tensor ``x`` (the same on every rank, as SPMD code makes
+    it) as a DTensor sharded by its logical ``axes`` (the reference's
+    ``device_put`` with `named_sharding`): each rank keeps its own shard,
+    cut from its own copy, with no communication.  A dim on several mesh
+    dims is cut in mesh order, the first the major one, as DTensor cuts
+    it."""
+    ctx = _ctx(ctx)
+    spec = spec_for(axes, mesh=ctx.mesh, rules=ctx.rules,
+                    shape=tuple(x.shape))
+    pls = placements(spec, ctx.mesh)
+    piece = x
+    coord = ctx.mesh.get_coordinate()
+    for i, p in enumerate(pls):
+        if isinstance(p, Shard):
+            piece = torch.tensor_split(piece, ctx.mesh.size(i),
+                                       dim=p.dim)[coord[i]]
+    return DTensor.from_local(piece.contiguous(), ctx.mesh, pls,
+                              run_check=False, shape=x.shape,
+                              stride=_contiguous_stride(tuple(x.shape)))
+
+
+def zeros(shape: tuple, axes: tuple, *, dtype: torch.dtype,
+          device: torch.device, ctx: MeshContext | None = None) -> DTensor:
+    """A DTensor of zeros of global ``shape`` laid out by logical
+    ``axes``: each rank makes only its own shard."""
+    ctx = _ctx(ctx)
+    spec = spec_for(axes, mesh=ctx.mesh, rules=ctx.rules, shape=shape)
+    pls = placements(spec, ctx.mesh)
+    piece = list(shape)
+    for i, p in enumerate(pls):
+        if isinstance(p, Shard):
+            piece[p.dim] //= ctx.mesh.size(i)
+    return DTensor.from_local(
+        torch.zeros(piece, dtype=dtype, device=device), ctx.mesh, pls,
+        run_check=False, shape=torch.Size(shape),
+        stride=_contiguous_stride(tuple(shape)))
+
+
+def local(x: DTensor, axes: tuple, *,
+          ctx: MeshContext | None = None) -> torch.Tensor:
+    """This rank's shard of ``x`` laid out by logical ``axes``: ``x``
+    redistributed to `spec_for`'s placements, then its local tensor (the
+    inside of a ``shard_map`` with that in-spec)."""
+    ctx = _ctx(ctx)
+    return local_spec(x, spec_for(axes, mesh=ctx.mesh, rules=ctx.rules,
+                                  shape=tuple(x.shape)), ctx=ctx)
+
+
+def local_spec(x: DTensor, spec: tuple, *,
+               ctx: MeshContext | None = None) -> torch.Tensor:
+    """This rank's shard of ``x`` laid out by a `PartitionSpec`."""
+    ctx = _ctx(ctx)
+    want = placements(spec, ctx.mesh)
+    if tuple(x.placements) != want:
+        x = x.redistribute(ctx.mesh, want)
+    return x.to_local()
+
+
+def from_local(t: torch.Tensor, axes: tuple, shape: tuple, *,
+               ctx: MeshContext | None = None) -> DTensor:
+    """This rank's shard ``t`` of a global tensor of ``shape`` laid out
+    by logical ``axes`` (a ``shard_map`` out-spec) as a DTensor."""
+    ctx = _ctx(ctx)
+    return from_local_spec(t, spec_for(axes, mesh=ctx.mesh, rules=ctx.rules,
+                                       shape=tuple(shape)), shape, ctx=ctx)
+
+
+def from_local_spec(t: torch.Tensor, spec: tuple, shape: tuple, *,
+                    ctx: MeshContext | None = None) -> DTensor:
+    """This rank's shard ``t`` of a global tensor of ``shape`` laid out
+    by a `PartitionSpec`, as a DTensor."""
+    ctx = _ctx(ctx)
+    return DTensor.from_local(t.contiguous(), ctx.mesh,
+                              placements(spec, ctx.mesh),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_stride(tuple(shape)))
+
+
+def _flat(entry: Any) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def axis_size(entry: Any, *, ctx: MeshContext | None = None) -> int:
+    """Ranks along a spec entry (a mesh dim name, a tuple of them, or
+    None): the product of their sizes."""
+    return _axis_size(_ctx(ctx).shape, _flat(entry) or None)
+
+
+def axis_index(entry: Any, *, ctx: MeshContext | None = None) -> int:
+    """This rank's index along a spec entry, the first dim the major one
+    (``lax.axis_index`` over those axes); 0 for None."""
+    ctx = _ctx(ctx)
+    idx = 0
+    for name in _flat(entry):
+        idx = idx * ctx.mesh.size(ctx.mesh.mesh_dim_names.index(name)) \
+            + ctx.mesh.get_local_rank(name)
+    return idx
+
+
+def all_reduce(t: torch.Tensor, entry: Any, op: str = "sum", *,
+               ctx: MeshContext | None = None) -> torch.Tensor:
+    """``t`` reduced in place over the ranks along a spec entry (``psum``
+    / ``pmax`` over those axes; nothing for None or a dim of one rank)."""
+    ctx = _ctx(ctx)
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    for name in _flat(entry):
+        if ctx.mesh.size(ctx.mesh.mesh_dim_names.index(name)) > 1:
+            dist.all_reduce(t, op=red, group=ctx.mesh.get_group(name))
+    return t
+
+
+@contextlib.contextmanager
+def mesh_ops() -> Iterator[None]:
+    """Around a model entry: under a `DeviceMesh` context, plain tensors
+    made inside (positions, masks, constants) meet DTensors as replicated
+    ones (``implicit_replication``); otherwise nothing."""
+    ctx = current()
+    if ctx is None or not isinstance(ctx.mesh, DeviceMesh):
+        yield
+        return
+    with implicit_replication():
+        yield
+
+
+def _is_axes(t: Any) -> bool:
+    return isinstance(t, tuple)
+
+
+def sharding_tree(axes_tree: Any, shape_tree: Any = None, *,
+                  ctx: MeshContext | None = None) -> Any:
+    """Tree of logical-axes tuples (+ optional matching shapes) ->
+    NamedShardings, with the tree's nesting (dicts and lists)."""
+    ctx = ctx or current()
+    if ctx is None:
+        raise RuntimeError("sharding_tree requires an active use_mesh()")
+
+    def walk(a: Any, s: Any) -> Any:
+        if _is_axes(a):
+            return named_sharding(a, shape=s, ctx=ctx)
+        if isinstance(a, list):
+            return [walk(v, None if s is None else s[i])
+                    for i, v in enumerate(a)]
+        return {k: walk(v, None if s is None else s[k])
+                for k, v in a.items()}
+
+    return walk(axes_tree, shape_tree)
