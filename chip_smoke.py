@@ -322,6 +322,27 @@ repository around it, or when any phase fails.  Phases:
    logits within `LOGITS_RTOL`; (c) Granite-MoE whole: streams equal,
    prefill logits bit-equal.  Any failed check fails the run.  The mesh
    serves' flash launches join ``launches_by_path`` (``mesh ...``).
+17. Training under the mesh (`mesh_train_phase`, after `train`, in the
+   same one-rank world): Qwen1.5-4B whole in bf16, 8 x 512 tokens a step
+   in 4 microbatches, on the 1x1 mesh (params, AdamW state and batch
+   DTensors; `build_train` with the mesh's context) against the
+   mesh-free step, in two alternating passes of steps 200-201 each
+   (`_mesh_train_pass`, the card freed between passes): step 1's loss,
+   ce, aux and grad norm bit-equal, the params' fingerprints equal after
+   step 2 (every pass the same), 320 flash launches a step on both
+   sides (every count set to 0 before a step and read after it); ms a
+   step and peak GB on each side.  Then a reduced `TrainLoop(mesh=)`
+   saved at step 4 and resumed to 5, bit-equal to an uninterrupted run
+   (`mesh_train_resume`); `FlashFwd` at the rank-local shapes of the
+   same step on a 2x2 mesh (``sp``: BH 20, 256 queries at q_offset 0
+   and 256 against 512 keys; ``heads``: BH 10, T 512; the kernel
+   forward against the plain one with bound and SDPA time, dq / dk / dv
+   against autograd through plain within 2e-2); `compressed_psum` and
+   `pipeline_apply` on the one rank (`mesh_collectives_phase`).  The
+   steps' flash launches join ``launches_by_path`` (``mesh_train``).
+   Before the mesh phases `cnn_shim_phase` runs `models.cnn.vgg16_apply`
+   on the served VGG-16 against `graph.net_apply`, bit-equal with the
+   path's launches (``launches_by_path["cnn.vgg16_apply"]``).
 
 ``kernel_ms``, ``plain_ms`` and ``library_ms`` are device time per call:
 a run of calls is captured in one CUDA graph and its replays are timed
@@ -2719,11 +2740,15 @@ def prefill_breakdown_phase(srv, flash_row: dict, dev) -> dict:
 # name, layers served (None: every layer), requests, prompt lengths
 # [lo, hi), length bucket.  Every prompt of an arch falls in one bucket,
 # so 10 requests at batch 8 make one lockstep run with 2 backfills.
+# Phi-3, Gemma-3, Granite and RWKV-6 are served at full width cut to a
+# quarter of their depth (whole, RWKV-6's profiled serve alone took 103 s
+# on an H100), so that the smoke keeps its time limit with the mesh
+# training phase.
 LM_ARCHS = [
-    ("phi3-medium-14b", None, 10, (113, 129), 16),
-    ("gemma3-12b", None, 10, (1100, 1601), 800),
-    ("granite-moe-3b-a800m", None, 10, (113, 129), 16),
-    ("rwkv6-3b", None, 10, (113, 129), 16),
+    ("phi3-medium-14b", 10, 10, (113, 129), 16),
+    ("gemma3-12b", 12, 10, (1100, 1601), 800),
+    ("granite-moe-3b-a800m", 8, 10, (113, 129), 16),
+    ("rwkv6-3b", 8, 10, (113, 129), 16),
     ("jamba-v0.1-52b", 8, 8, (113, 129), 16),
     ("kimi-k2-1t-a32b", 2, 8, (113, 129), 16),
     ("nemotron-4-340b", 2, 8, (113, 129), 16),
@@ -3490,6 +3515,344 @@ def train_phase(dev, smi: str, peaks: tuple) -> dict:
     out["flash_grad"] = flash_grad_phase(dev, *peaks)
     out["check"] = train_check_phase(dev)
     out["resume"] = train_resume_phase(dev)
+    return out
+
+
+MESH_TRAIN_STEPS = 2    # steps 200 and 201 of each pass
+MESH_TRAIN_PAIRS = 2    # alternating (mesh-free, 1x1 mesh) passes
+MESH_TRAIN_CHUNK = 1 << 26   # values a fingerprint sums at a time
+# Qwen1.5-4B's rank-local flash shapes of 8 x 512 training on a 2x2 mesh
+# (4 microbatches of 2 rows, 1 a data rank): ``sp`` a model rank's 256
+# queries at q_offset 0 or 256 against all 512 keys, 20 heads; ``heads``
+# a model rank's 10 heads over 512
+MESH_TRAIN_FLASH = [("sp q_offset 0", 20, 256, 512, 0),
+                    ("sp q_offset 256", 20, 256, 512, 256),
+                    ("heads", 10, 512, 512, 0)]
+
+
+def _fingerprint(tree) -> list:
+    """Per leaf of ``tree`` (DTensors: the local shard) two int64 sums of
+    its bits (plain, and weighted by the index mod 8191 plus 1), summed
+    ``MESH_TRAIN_CHUNK`` values at a time on the card: equal trees give
+    equal prints, compared on the host."""
+    import torch
+    from repro_torch.utils.tree import leaves
+    out = []
+    for x in leaves(tree):
+        x = x.to_local() if hasattr(x, "to_local") else x
+        flat = x.detach().contiguous().view(-1)
+        bits = flat.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                          8: torch.int64}[flat.element_size()])
+        s = w = 0
+        for a in range(0, bits.numel(), MESH_TRAIN_CHUNK):
+            c = bits[a:a + MESH_TRAIN_CHUNK].to(torch.int64)
+            idx = torch.arange(a, a + c.numel(), device=c.device) % 8191 + 1
+            s += int(c.sum())
+            w += int((c * idx).sum())
+        out.append((s, w))
+    return out
+
+
+def _mesh_train_pass(cfg, ctx, dev) -> dict:
+    """One pass of `mesh_train_phase`: ``cfg``'s weights drawn on the card
+    from seed 0 (under the 1x1 mesh ``ctx``, DTensors), a fresh
+    optimizer state, steps 200-201 of `build_train` (every count set to
+    0 just before a step and read just after), then the params'
+    fingerprints; the card is freed at the end."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import step_builders as sb
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import sharding as shd
+
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    params = _train_params(cfg, 0, dev)
+    if ctx is not None:
+        with shd.use_mesh(ctx.mesh, ctx.rules):
+            params = tfm.shard_params(params, cfg)
+    state = sb.init_opt_state(cfg, params, ctx)
+    step_fn = sb.build_train(cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH,
+                                            "train"), ctx)
+    counters = _counters()
+    times, metrics, launches = [], [], []
+    for i in range(MESH_TRAIN_STEPS):
+        batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEP0 + i,
+                             dev)
+        if ctx is not None:
+            batch = sb.shard_batch(cfg, batch, ctx)
+        torch.cuda.synchronize()
+        _zero_counters()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch, TRAIN_STEP0 + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches.append({n: k.launches for n, k in counters.items()
+                         if k.launches})
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    del state, batch, m
+    _free_cuda()
+    prints = _fingerprint(params)
+    del params
+    _free_cuda()
+    return {"step_ms": [t * 1e3 for t in times], "metrics": metrics,
+            "launches": launches, "peak_allocated_gb": peak / 1e9,
+            "fingerprints": prints}
+
+
+def mesh_train_resume(dev) -> dict:
+    """`TrainLoop(mesh=)` on the card under the 1x1 mesh at the reduced
+    Qwen1.5-4B config: 4 steps and a checkpoint (each leaf gathered, then
+    written), a fresh loop that resumes from it and takes step 5, against
+    an uninterrupted 5-step run on the same mesh: losses and every
+    parameter and optimizer leaf bit-equal."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.utils.tree import leaves
+    cfg = get_config(TRAIN_CONFIG).reduce()
+    r = TRAIN_RESUME
+    mesh = make_local_mesh(1, 1)
+    kw = dict(batch=r["batch"], seq=r["seq"], device=dev, mesh=mesh)
+    p_w, s_w, h_w = TrainLoop(cfg, ckpt_dir=None, **kw).run(
+        r["steps"], log_every=10 ** 6)
+    with tempfile.TemporaryDirectory() as d:
+        TrainLoop(cfg, ckpt_dir=d, **kw).run(r["ckpt_at"], log_every=10 ** 6)
+        p_r, s_r, h_r = TrainLoop(cfg, ckpt_dir=d, **kw).run(
+            r["steps"], log_every=10 ** 6)
+    equal = all(torch.equal(a.to_local(), b.to_local()) for a, b in
+                zip(leaves(p_r) + leaves(s_r), leaves(p_w) + leaves(s_w)))
+    out = {"phase": "mesh_train_resume", "mesh": "1x1",
+           "config": f"{TRAIN_CONFIG} reduced", **r,
+           "steps_after_resume": len(h_r), "losses": h_w,
+           "losses_equal": h_r == h_w[r["ckpt_at"]:], "state_equal": equal}
+    print(json.dumps(out), flush=True)
+    if len(h_r) != r["steps"] - r["ckpt_at"] or not (
+            out["losses_equal"] and equal):
+        raise SystemExit(f"chip_smoke: mesh train resume: {len(h_r)} steps "
+                         f"after the resume, losses equal "
+                         f"{out['losses_equal']}, state equal {equal}")
+    return out
+
+
+def mesh_flash_grad_cases(timer: Timer, dev, bf16_peak: float) -> list:
+    """`FlashFwd` at the rank-local shapes of `MESH_TRAIN_FLASH` in bf16:
+    the kernel forward against the plain one (`Timer.run`: device ms,
+    bound, SDPA with the offset's mask), and dq, dk, dv of
+    `flash_fwd_trainable` against autograd through `flash_fwd_plain` in
+    f32 on the same inputs, within 2e-2 of max|grad|."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash import (flash_fwd_kernel,
+                                           flash_fwd_plain,
+                                           flash_fwd_trainable, kernel_body)
+    gen = torch.Generator().manual_seed(11)
+    bf = torch.bfloat16
+    rows = []
+    for name, bh, tq, tk, off in MESH_TRAIN_FLASH:
+        q, do = (torch.randn(bh, tq, 128, generator=gen).to(dev, bf)
+                 for _ in range(2))
+        k, v = (torch.randn(bh, tk, 128, generator=gen).to(dev, bf)
+                for _ in range(2))
+        mask = _attn_mask(tq, tk, True, None, off, dev)
+        label = (f"mesh train flash Qwen {name} (2x2): BH {bh} Tq {tq} at "
+                 f"q_offset {off}, Tk {tk}, hd 128 bf16")
+        row = timer.run(
+            label, "flash_fwd",
+            lambda: flash_fwd_kernel(q, k, v, q_offset=off),
+            lambda: flash_fwd_plain(q, k, v, q_offset=off),
+            lambda: F.scaled_dot_product_attention(q[None], k[None],
+                                                   v[None],
+                                                   attn_mask=mask)[0],
+            flops=4 * bh * int(mask.sum()) * 128,
+            nbytes=_nbytes(q, k, v) + q.numel() * q.element_size(),
+            reps=10, rtol=BF16_RTOL, peak_flops=bf16_peak,
+            body=kernel_body(bf), mesh="2x2 train")
+        a = [t.clone().requires_grad_() for t in (q, k, v)]
+        g_fn = torch.autograd.grad(flash_fwd_trainable(*a, q_offset=off),
+                                   a, do)
+        p = [t.float().requires_grad_() for t in (q, k, v)]
+        g_plain = torch.autograd.grad(flash_fwd_plain(*p, q_offset=off), p,
+                                      do.float())
+        for n, x, y in zip("qkv", g_fn, g_plain):
+            rel, _ = _rel_err(x.float(), y)
+            if not rel <= 2e-2:
+                raise SystemExit(f"chip_smoke: {label}: d{n} of the "
+                                 f"Function vs autograd through plain "
+                                 f"{rel:.3e} > 2e-2")
+            row[f"d{n}_rel_err"] = rel
+        print(json.dumps({"phase": "mesh_flash_grad", "case": label,
+                          **{f"d{n}_rel_err": row[f"d{n}_rel_err"]
+                             for n in "qkv"}}), flush=True)
+        rows.append(row)
+    return rows
+
+
+def mesh_collectives_phase(dev) -> dict:
+    """`compressed_psum` and `pipeline_apply` on the one-rank world: the
+    fp8 sum of 4 M f32 values is this rank's own dequantized blocks and
+    its error the residual, bit for bit, its codes those of the CPU and
+    its scales (the amax over 448) within 1e-6 of the CPU's (the card
+    rounds that quotient otherwise in some blocks); a 4-microbatch
+    pipeline over a pod dim of one rank (a tanh-linear stage, D 1024)
+    equals the sequential stage, gradients included, within 1e-5 (f32,
+    TF32 off: the stage's products at another batch shape)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.parallel import compression as C
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.pipeline import pipeline_apply
+    t0 = time.perf_counter()
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(4 << 20, generator=gen)
+    err = 1e-3 * torch.randn(4 << 20, generator=gen)
+    xd, ed = x.to(dev), err.to(dev)
+    with shd.use_mesh(mesh):
+        tot, new = C.compressed_psum(xd, "pod", ed)
+    qd, sd, pad = C.quantize_fp8_block(xd + ed)
+    own = C.dequantize_fp8_block(qd, sd, pad, tuple(x.shape))
+    q, sc, _ = C.quantize_fp8_block(x + err)
+    comp = {"sum_equal": torch.equal(tot, own),
+            "err_equal": torch.equal(new, (xd + ed) - own),
+            "codes_equal_cpu": torch.equal(qd.view(torch.uint8).cpu(),
+                                           q.view(torch.uint8)),
+            "scales_rel_err_cpu": _rel_err(sd.cpu(), sc)[0],
+            "rel_err_vs_exact": float((tot.cpu() - (x + err)).abs().max()
+                                      / (x + err).abs().max())}
+    w = (torch.randn(1, 1024, 1024, generator=gen) / 32).to(dev)
+    b = (0.1 * torch.randn(1, 1024, generator=gen)).to(dev)
+    xs = torch.randn(4, 2, 128, 1024, generator=gen).to(dev)
+    params = {"w": shd.place(w, mesh, (Shard(0),)).requires_grad_(),
+              "b": shd.place(b, mesh, (Shard(0),)).requires_grad_()}
+    xd = shd.place(xs, mesh, (Replicate(),)).requires_grad_()
+    stage = lambda sp, xi: torch.tanh(xi @ sp["w"] + sp["b"])  # noqa: E731
+    y = pipeline_apply(mesh, stage, params, xd)
+    gw, gx = torch.autograd.grad((y ** 2).sum(), [params["w"], xd])
+    wt, xt = w.clone().requires_grad_(), xs.clone().requires_grad_()
+    ref = torch.tanh(xt @ wt[0] + b[0])
+    rw, rx = torch.autograd.grad((ref ** 2).sum(), [wt, xt])
+    pipe = {"out_rel_err": _rel_err(y.full_tensor(), ref)[0],
+            "dw_rel_err": _rel_err(gw.full_tensor(), rw)[0],
+            "dx_rel_err": _rel_err(gx.full_tensor(), rx)[0]}
+    out = {"phase": "mesh_collectives", "compressed_psum": comp,
+           "pipeline_apply": pipe, "seconds": time.perf_counter() - t0}
+    print(json.dumps(out), flush=True)
+    if not (comp["sum_equal"] and comp["err_equal"]
+            and comp["codes_equal_cpu"] and comp["scales_rel_err_cpu"] <= 1e-6
+            and max(pipe.values()) <= 1e-5):
+        raise SystemExit(f"chip_smoke: mesh collectives: {out}")
+    del params, xd, y, gw, gx
+    _free_cuda()
+    return out
+
+
+def mesh_train_phase(timer: Timer, dev, smi: str, bf16_peak: float) -> dict:
+    """The port's training under a mesh on the card: Qwen1.5-4B whole (or
+    cut as `_train_depth` cuts it) in bf16, 8 x 512 tokens a step in 4
+    microbatches, AdamW, remat, on the one-rank NCCL world's 1x1 mesh
+    (params, state and batch DTensors; `build_train` with ``ctx``)
+    against the mesh-free step in the same call, in `MESH_TRAIN_PAIRS`
+    alternating passes (`_mesh_train_pass`, the card freed between
+    them).  Required: after step 1 loss, ce, aux and grad norm bit-equal;
+    the params' fingerprints equal after step 2 (every pass the same);
+    320 flash launches a step on both sides (attention layers x
+    microbatches x 2); a save and resume on the mesh equal to an
+    uninterrupted run (`mesh_train_resume`).  Reported: ms a step (each
+    pass's second step) and peak GB on each side.  Then `FlashFwd` at the
+    2x2 mesh's rank-local shapes (`mesh_flash_grad_cases`) and the
+    collectives on one rank (`mesh_collectives_phase`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import sharding as shd
+
+    t0 = time.perf_counter()
+    _free_cuda()
+    cfg, cut = _train_depth(get_config(TRAIN_CONFIG))
+    ctx = shd.MeshContext(make_local_mesh(1, 1), shd.TRAIN_RULES)
+    passes = {"mesh_free": [], "mesh_1x1": []}
+    for _ in range(MESH_TRAIN_PAIRS):
+        passes["mesh_free"].append(_mesh_train_pass(cfg, None, dev))
+        passes["mesh_1x1"].append(_mesh_train_pass(cfg, ctx, dev))
+    expected = {"flash_fwd": _attention_layers(cfg) * cfg.microbatches * 2}
+    first = {side: p[0] for side, p in passes.items()}
+    out = {"phase": "mesh_train", "config": cfg.name,
+           "layers": cfg.total_layers, "cut": cut, "dtype": cfg.param_dtype,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "microbatches": cfg.microbatches, "mesh": "1x1 (one-rank NCCL)",
+           "steps": [TRAIN_STEP0 + i for i in range(MESH_TRAIN_STEPS)],
+           "step1_metrics": {side: p["metrics"][0]
+                             for side, p in first.items()},
+           "step1_bit_equal": first["mesh_free"]["metrics"][0]
+           == first["mesh_1x1"]["metrics"][0],
+           "fingerprints_equal": all(
+               p["fingerprints"] == first["mesh_free"]["fingerprints"]
+               for ps in passes.values() for p in ps),
+           "launches_per_step": {side: [p["launches"] for p in ps]
+                                 for side, ps in passes.items()},
+           "expected_launches_per_step": expected,
+           "step_ms": {side: [p["step_ms"] for p in ps]
+                       for side, ps in passes.items()},
+           "ms_per_step": {side: sum(p["step_ms"][-1] for p in ps) / len(ps)
+                           for side, ps in passes.items()},
+           "peak_allocated_gb": {side: max(p["peak_allocated_gb"]
+                                           for p in ps)
+                                 for side, ps in passes.items()},
+           "gpu": smi}
+    launches_ok = all(step == expected for ps in passes.values()
+                      for p in ps for step in p["launches"])
+    print(json.dumps(out), flush=True)
+    if not (out["step1_bit_equal"] and out["fingerprints_equal"]
+            and launches_ok):
+        raise SystemExit(
+            f"chip_smoke: mesh train: step 1 bit-equal "
+            f"{out['step1_bit_equal']} ({out['step1_metrics']}), "
+            f"fingerprints equal {out['fingerprints_equal']}, launches "
+            f"{out['launches_per_step']} (expected {expected} a step)")
+    out["launches"] = {"flash_fwd": sum(
+        step.get("flash_fwd", 0) for ps in passes.values() for p in ps
+        for step in p["launches"])}
+    out["resume"] = mesh_train_resume(dev)
+    out["flash"] = mesh_flash_grad_cases(timer, dev, bf16_peak)
+    out["collectives"] = mesh_collectives_phase(dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def cnn_shim_phase(vgg: dict, dev) -> dict:
+    """`models.cnn.vgg16_apply` (the reference's PR-1-era entry point) on
+    the served VGG-16 (`vgg16-halo`: its weights and sparse tree, its
+    impl) against `graph.net_apply` on the same batch of 8: bit-equal,
+    with the path's launches (13 conv, 3 vsmm), every count set to 0
+    just before and read just after."""
+    import numpy as np
+    import torch
+    from repro_torch.models import cnn, graph
+
+    srv = vgg["srv"]
+    impl = srv.backend.apply.impl
+    x = torch.from_numpy(np.stack(vgg["images"][:BATCH])).to(dev)
+    counters = _counters()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        _zero_counters()
+        y = cnn.vgg16_apply(srv.params, x, sparse=srv.sparse, impl=impl)
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in counters.items() if k.launches}
+        ref = graph.net_apply(srv.net, srv.params, x, sparse=srv.sparse,
+                              impl=impl)
+    out = {"phase": "cnn_shim", "path": "vgg16-halo", "impl": impl,
+           "bit_equal": bool(torch.equal(y, ref)), "launches": launches,
+           "expected_launches": PATHS["vgg16-halo"][4]}
+    print(json.dumps(out), flush=True)
+    if not out["bit_equal"] or launches != out["expected_launches"]:
+        raise SystemExit(f"chip_smoke: cnn shim: {out}")
     return out
 
 
@@ -4655,6 +5018,8 @@ def main() -> int:
     lap("calibration")
     vscheck = vscheck_phase()
     lap("vscheck")
+    cnn_shim = cnn_shim_phase(served["vgg16-halo"], dev)
+    lap("cnn_shim")
     import torch.distributed as dist
     mesh_store = _mesh_world(dev)
     mesh_cnn = mesh_cnn_phase(served, dev)
@@ -4662,6 +5027,7 @@ def main() -> int:
     mesh_rows = mesh_kernel_cases(timer, dev, bf16_peak, served)
     lap("mesh_kernels")
     cnn_launches = {path: s["launches"] for path, s in served.items()}
+    cnn_launches["cnn.vgg16_apply"] = cnn_shim["launches"]
     stem_launches = {path: s["stem_launches"] for path, s in served.items()}
     cnn_summaries = {path: s["summary"] for path, s in served.items()}
     served.clear()  # free the CNN servers before the 4 B-parameter model
@@ -4684,8 +5050,6 @@ def main() -> int:
                              spread["plain_vs_sdpa"]), dev)
     lap("lm_flow")
     mesh_lm = mesh_lm_phase(lm, dev)
-    dist.destroy_process_group()
-    shutil.rmtree(mesh_store, ignore_errors=True)
     lap("mesh_lm")
     seconds["mesh"] = sum(seconds[k] for k in
                           ("mesh_cnn", "mesh_kernels", "mesh_lm"))
@@ -4702,6 +5066,10 @@ def main() -> int:
     lap("frontend")
     train = train_phase(dev, smi, (peak_flops, peak_bw, bf16_peak))
     lap("train")
+    mesh_train = mesh_train_phase(timer, dev, smi, bf16_peak)
+    dist.destroy_process_group()
+    shutil.rmtree(mesh_store, ignore_errors=True)
+    lap("mesh_train")
     dry = dryrun_phase(dev, smi)
     lap("dryrun")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
@@ -4748,6 +5116,7 @@ def main() -> int:
                      **{name: f["launches"]["flash_fwd"]
                         for name, f in frontends.items()},
                      "train": train["launches"]["flash_fwd"],
+                     "mesh_train": mesh_train["launches"]["flash_fwd"],
                      **{f"mesh {name}": m["launches"].get("flash_fwd", 0)
                         for name, m in mesh_lm.items()
                         if isinstance(m, dict) and "launches" in m},
@@ -4790,7 +5159,8 @@ def main() -> int:
              "paper_model": paper_model, "calibration": calibration,
              "vscheck": vscheck, "seconds": seconds,
              "mesh": {"cnn": mesh_cnn, "lm": mesh_lm,
-                      "local_shapes": mesh_rows}},
+                      "local_shapes": mesh_rows, "train": mesh_train},
+             "cnn_shim": cnn_shim},
             indent=1))
     print(json.dumps({k: v for k, v in dense_vs_sparse.items()
                       if k != "per_layer_ms"}))

@@ -21,8 +21,19 @@ numpy has no bfloat16: a bf16 leaf goes to disk as its uint16 bits with
 `save` copies every leaf from the device to the host at once (the tree
 may change right after), then writes in a thread unless ``block``;
 `wait` joins it.  `restore` places each leaf on the device and in the
-dtype of the matching leaf of ``target``.  (The reference's elastic
-re-sharding has no counterpart: the port has one device.)
+dtype of the matching leaf of ``target``.
+
+Sharded trees (training under a mesh: DTensor leaves).  `save` gathers
+each leaf whole (``full_tensor()``) on the calling thread, leaf by leaf,
+on every rank, and only rank 0 keeps the host copies and writes them, in
+the same format; the writer thread issues no collective (gloo and NCCL
+calls from a second thread can deadlock against the main one).  `wait`
+then holds every rank at a barrier until rank 0's write is published.
+`restore` reads every leaf on every rank and lays it out by
+``shardings`` (a matching tree of `parallel.sharding.NamedSharding`s,
+the reference's elastic re-placement) or, without it, as the target's
+DTensor leaf is laid out: a checkpoint of a 2x2 mesh restores on 1x4,
+on 4x1 or with no mesh.
 """
 from __future__ import annotations
 
@@ -36,8 +47,11 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
-from repro_torch.utils.tree import leaves_with_path, tree_unflatten
+from repro_torch.parallel import sharding as shd
+from repro_torch.utils.tree import leaves, leaves_with_path, tree_unflatten
 
 __all__ = ["CheckpointManager", "CheckpointError"]
 
@@ -79,6 +93,7 @@ class CheckpointManager:
         self.keep = keep
         self.async_save = async_save
         self._thread: threading.Thread | None = None
+        self._sharded = False  # the last save gathered DTensors
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
@@ -86,9 +101,17 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, *, metadata: dict | None = None,
              block: bool = False) -> None:
         """Snapshot ``tree`` at ``step``. Async by default; join with
-        `wait`."""
-        host = [(path, *_to_host(leaf))
-                for path, leaf in leaves_with_path(tree)]
+        `wait`.  A tree of DTensors is gathered here, on every rank, and
+        rank 0 writes it."""
+        self.wait()
+        sharded = any(isinstance(x, DTensor) for x in leaves(tree))
+        writer = not sharded or dist.get_rank() == 0
+        host = []
+        for path, leaf in leaves_with_path(tree):
+            if isinstance(leaf, DTensor):
+                leaf = leaf.full_tensor()
+            if writer:
+                host.append((path, *_to_host(leaf)))
 
         def _write() -> None:
             tmp = os.path.join(self.dir, f".tmp_step_{step}")
@@ -110,17 +133,25 @@ class CheckpointManager:
             os.rename(tmp, final)  # atomic publish
             self._gc()
 
-        self.wait()
-        if self.async_save and not block:
+        if writer and self.async_save and not block:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
-        else:
+        elif writer:
             _write()
+        self._sharded = sharded
+        if block:
+            self.wait()
 
     def wait(self) -> None:
+        """Join the writer; after a sharded save every rank meets at a
+        barrier, so none reads the directory before rank 0 has published
+        the step."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            self._sharded = False
+            dist.barrier()
 
     def _gc(self) -> None:
         for s in self.all_steps()[: -self.keep]:
@@ -170,10 +201,13 @@ class CheckpointManager:
                 f"manifest recorded {entry['shape']}")
         return _from_disk(arr, entry["dtype"])
 
-    def restore(self, target: Any, step: int | None = None
-                ) -> tuple[Any, int, dict]:
+    def restore(self, target: Any, step: int | None = None, *,
+                shardings: Any = None) -> tuple[Any, int, dict]:
         """Load into the structure of ``target`` (a tree of tensors), each
-        leaf on its target's device and in its dtype.  Every leaf is
+        leaf on its target's device and in its dtype.  ``shardings``: an
+        optional matching tree of `NamedSharding`s, each leaf laid out by
+        its own on the current mesh (elastic re-placement); without it a
+        DTensor target leaf gives its mesh and placements.  Every leaf is
         integrity-checked first (see `CheckpointError`).  Returns (tree,
         step, metadata)."""
         step = step if step is not None else self.latest_step()
@@ -188,8 +222,11 @@ class CheckpointManager:
                 f"manifest of {d} is not valid JSON (torn write?): {e}"
             ) from e
         by_path = {leaf["path"]: leaf for leaf in manifest["leaves"]}
+        tgts = leaves_with_path(target)
+        places = ([None] * len(tgts) if shardings is None else leaves(
+            shardings, is_leaf=lambda n: isinstance(n, shd.NamedSharding)))
         out = []
-        for key, tgt in leaves_with_path(target):
+        for (key, tgt), place in zip(tgts, places):
             if key not in by_path:
                 raise KeyError(f"checkpoint missing leaf {key}")
             t = self._load_leaf(d, by_path[key])
@@ -197,5 +234,10 @@ class CheckpointManager:
                 raise ValueError(f"shape mismatch for {key}: ckpt "
                                  f"{tuple(t.shape)} vs target "
                                  f"{tuple(tgt.shape)}")
-            out.append(t.to(device=tgt.device, dtype=tgt.dtype))
+            t = t.to(device=tgt.device, dtype=tgt.dtype)
+            if place is not None:
+                t = shd.place(t, place.mesh, place.placements)
+            elif isinstance(tgt, DTensor):
+                t = shd.place(t, tgt.device_mesh, tuple(tgt.placements))
+            out.append(t)
         return tree_unflatten(target, out), step, manifest["metadata"]

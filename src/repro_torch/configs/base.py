@@ -90,7 +90,7 @@ class ArchConfig:
     embed_inputs: bool = True         # False => stub frontend (embeds input)
     tie_embeddings: bool = False
     rope_theta: float = 1e4
-    attn_sharding: str = "heads"      # 'heads' | 'sp' (no mesh in the port)
+    attn_sharding: str = "heads"      # 'heads' | 'sp' (read under a mesh)
     attn_impl: str = "xla"            # 'xla' | 'pallas': one kernel path here
     sparsity: SparsityConfig | None = SparsityConfig()
     param_dtype: str = "bfloat16"

@@ -59,8 +59,11 @@ OPTIMIZED_FLAGS = {
     "decode": {"moe_dispatch": "resident", "bf16_flow": True},
 }
 
-# read only under a mesh of more than one device (the reference's
-# flash_attention and MoE shard_map paths): one card runs without them
+# read only under a mesh (the reference's flash_attention and MoE
+# shard_map paths; the port's MoE reads moe_dispatch in its mesh body,
+# and has no flash_remat: its flash backward recomputes the scores in
+# any case).  The port trains and serves under a mesh, but the dry run
+# counts one card's whole step with no mesh, so they change nothing here
 MESH_ONLY = ("flash_remat", "moe_dispatch")
 
 # cells beyond the reference's grid: (arch, shape, overrides)

@@ -1,34 +1,41 @@
-"""The steps of an (arch, shape) cell, their inputs, and the useful-work
-FLOPs.
+"""The steps of an (arch, shape) cell, their inputs and shardings, and the
+useful-work FLOPs.
 
-The port of the one-device half of `repro/launch/step_builders.py`:
-`make_optimizer`, `param_structs` (`:41`), `build_train` (`:115`),
-`build_prefill` (`:180`), `build_decode` (`:219`), `build` (`:248`) and
-`model_flops`, without a mesh: the port serves under a mesh
-(`parallel.sharding`, `launch.mesh`) but does not train under one yet,
-so there are no shardings to build.  Where the reference builds ShapeDtypeStructs,
-the port builds empty tensors on a device: on ``meta`` they allocate
-nothing, and the dry run (`launch.dryrun`) counts the step on them
-(`utils.cost`).  The server calls `models.transformer.prefill` /
+The port of `repro/launch/step_builders.py`: `make_optimizer`,
+`param_structs` (`:41`), the shardings (`_shard`, `tree_shardings`,
+`param_shardings`, `opt_state_axes`, `:47-98`; the batch's by
+`shard_batch`), `build_train` (`:115`), `build_prefill` (`:180`),
+`build_decode` (`:219`), `build` (`:248`) and `model_flops`.  Where the reference
+builds ShapeDtypeStructs, the port builds empty tensors on a device: on
+``meta`` they allocate nothing, and the dry run (`launch.dryrun`) counts
+the step on them (`utils.cost`).  A sharding is a
+`parallel.sharding.NamedSharding` (a mesh and a spec); `build_train`
+with a mesh ``ctx`` takes params, optimizer state and batch as DTensors
+laid out by them, under the context's rules (`launch.train.TrainLoop`
+with ``mesh=``).  The server calls `models.transformer.prefill` /
 `decode_step` itself.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import P
+from repro_torch.models.layers import P, axes_tree
 from repro_torch.optim.optimizers import (Optimizer, adafactor, adamw,
                                           clip_by_global_norm_, pieces)
 from repro_torch.optim.schedules import warmup_cosine
+from repro_torch.parallel import sharding as shd
 from repro_torch.utils.tree import leaves, tree_map, tree_unflatten
 
-__all__ = ["Step", "make_optimizer", "param_structs", "build_train",
-           "build_prefill", "build_decode", "build", "model_flops",
-           "TRAIN_STEP"]
+__all__ = ["Step", "make_optimizer", "param_structs", "tree_shardings",
+           "param_shardings", "opt_state_axes", "init_opt_state",
+           "shard_batch", "build_train", "build_prefill", "build_decode",
+           "build", "model_flops", "TRAIN_STEP"]
 
 TRAIN_STEP = 200  # the step a built train step runs: the schedule's peak lr
 
@@ -58,6 +65,84 @@ def param_structs(cfg, device: str | torch.device = "meta") -> Any:
         tfm.lm_schema(cfg), is_leaf=lambda n: isinstance(n, P))
 
 
+# ---------------------------------------------------------------------------
+# shardings (reference :47-98)
+# ---------------------------------------------------------------------------
+
+
+def _shard(axes: tuple, shape: tuple, ctx: shd.MeshContext
+           ) -> shd.NamedSharding:
+    return shd.NamedSharding(ctx.mesh, shd.spec_for(
+        axes, mesh=ctx.mesh, rules=ctx.rules, shape=tuple(shape)))
+
+
+def _is_axes(t: Any) -> bool:
+    return isinstance(t, tuple)
+
+
+def tree_shardings(axes_tr: Any, struct_tr: Any, ctx: shd.MeshContext
+                   ) -> Any:
+    """A tree of logical-axes tuples and the matching tree of tensors ->
+    the tree of their `NamedSharding`s."""
+    return tree_map(lambda a, s: _shard(a, s.shape, ctx), axes_tr,
+                    struct_tr, is_leaf=_is_axes)
+
+
+def param_shardings(cfg, ctx: shd.MeshContext, schema: Any = None
+                    ) -> tuple[Any, Any]:
+    """(the param tree's shardings, its `param_structs` on meta)."""
+    schema = schema or tfm.lm_schema(cfg)
+    structs = param_structs(cfg)
+    return tree_shardings(axes_tree(schema), structs, ctx), structs
+
+
+def opt_state_axes(cfg, schema: Any) -> dict:
+    """The logical-axes tree of the optimizer state: AdamW's moments laid
+    out as their params, Adafactor's by its ``state_axes``; the count
+    replicated."""
+    p_axes = axes_tree(schema)
+    if cfg.optimizer == "adafactor":
+        opt = make_optimizer(cfg)
+        return {"moments": tree_map(lambda p: opt.state_axes(p.axes,
+                                                             p.shape),
+                                    schema,
+                                    is_leaf=lambda n: isinstance(n, P)),
+                "count": ()}
+    return {"m": p_axes, "v": p_axes, "count": ()}
+
+
+def init_opt_state(cfg, params: Any, ctx: shd.MeshContext | None = None
+                   ) -> Any:
+    """A fresh optimizer state for ``params``; under a mesh ``ctx`` each
+    leaf a DTensor of zeros laid out by `opt_state_axes` (each rank makes
+    its own shard)."""
+    opt = make_optimizer(cfg)
+    if ctx is None:
+        return opt.init(params)
+    structs = opt.init(tree_map(
+        lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"),
+        params))
+    device = leaves(params)[0].device
+    axes = opt_state_axes(cfg, tfm.lm_schema(cfg))
+    return tree_map(
+        lambda a, s: shd.zeros(tuple(s.shape), a, dtype=s.dtype,
+                               device=device, ctx=ctx),
+        axes, structs, is_leaf=_is_axes)
+
+
+def _batch_axes(cfg) -> dict:
+    if cfg.embed_inputs:
+        return {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+    return {"embeds": ("batch", "seq", None), "labels": ("batch", "seq")}
+
+
+def shard_batch(cfg, batch: dict, ctx: shd.MeshContext) -> dict:
+    """The global batch (the same on every rank) as DTensors on
+    ``("batch", "seq")``: each rank keeps its rows."""
+    axes = _batch_axes(cfg)
+    return {k: shd.distribute(v, axes[k], ctx=ctx) for k, v in batch.items()}
+
+
 def _inputs(cfg, b: int, t: int, device: str | torch.device) -> dict:
     """A batch's model inputs, empty: ``tokens`` (b, t) int32, or
     ``embeds`` (b, t, d_model) in the config's dtype."""
@@ -68,21 +153,49 @@ def _inputs(cfg, b: int, t: int, device: str | torch.device) -> dict:
                                   device=device)}
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def _grads_of(params: Any, batch: dict, cfg
               ) -> tuple[torch.Tensor, dict, list]:
     """(loss, metrics, grads): the grads a list in `leaves` order, each in
     its parameter's dtype and contiguous (zeros for a leaf the loss does
-    not reach)."""
+    not reach).  Under a mesh each grad is a DTensor in its parameter's
+    placements (a partial sum reduced to them), and loss and metrics are
+    this rank's copies of the replicated values."""
     flat = leaves(params)
     req = [p.detach().requires_grad_() for p in flat]
     loss, metrics = tfm.loss_fn(tree_unflatten(params, req), batch, cfg)
     grads = torch.autograd.grad(loss, req, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g.contiguous()
-             for p, g in zip(flat, grads)]
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+    out = []
+    for p, g in zip(flat, grads):
+        if g is None:
+            g = torch.zeros_like(p)
+        elif isinstance(p, DTensor):
+            if tuple(g.placements) != tuple(p.placements):
+                g = g.redistribute(p.device_mesh, p.placements)
+            g = DTensor.from_local(g.to_local().contiguous(), p.device_mesh,
+                                   p.placements, run_check=False,
+                                   shape=p.shape, stride=p.stride())
+        else:
+            g = g.contiguous()
+        out.append(g)
+    return (_local(loss).detach(),
+            {k: _local(v).detach() for k, v in metrics.items()}, out)
 
 
-def build_train(cfg, shape, *, grad_clip: float = 1.0
+def _microbatch(batch: dict, i: int, n: int, cfg,
+                ctx: shd.MeshContext | None) -> dict:
+    """Rows [i*n, (i+1)*n) of the global batch, laid out as a batch."""
+    if ctx is None:
+        return {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+    return shard_batch(cfg, {k: v.full_tensor()[i * n:(i + 1) * n]
+                             for k, v in batch.items()}, ctx)
+
+
+def build_train(cfg, shape, ctx: shd.MeshContext | None = None, *,
+                grad_clip: float = 1.0
                 ) -> Callable[..., tuple[Any, Any, dict]]:
     """``train_step(params, opt_state, batch, step) -> (params, opt_state,
     metrics)``: the reference's step.
@@ -98,6 +211,14 @@ def build_train(cfg, shape, *, grad_clip: float = 1.0
     place (`optim.optimizers`: the reference's values), so ``params`` and
     ``opt_state`` come back as the same trees.  Metrics:
     ``loss``, ``ce``, ``aux`` and ``grad_norm``, 0-d f32 tensors.
+
+    With a mesh ``ctx`` (`parallel.sharding.MeshContext`) the step runs
+    under it: params and state are DTensors laid out by
+    `param_shardings` and `opt_state_axes`, the batch by `shard_batch`
+    (a microbatch is rows of the *global* batch, laid out again), the
+    grads come in their params' placements, and accumulation, clip and
+    update run on the local shards.  The metrics are this rank's copies
+    of replicated values.
     """
     opt = make_optimizer(cfg)
     lr_fn = warmup_cosine(3e-4, 200, 10_000)
@@ -107,32 +228,38 @@ def build_train(cfg, shape, *, grad_clip: float = 1.0
                          f"{mb} microbatches")
     acc_dtype = getattr(torch, cfg.grad_accum_dtype)
 
+    def context():
+        if ctx is None:
+            return contextlib.nullcontext()
+        return shd.use_mesh(ctx.mesh, ctx.rules)
+
     def train_step(params: Any, opt_state: Any, batch: dict,
                    step: int | torch.Tensor) -> tuple[Any, Any, dict]:
-        if mb <= 1:
-            loss, metrics, grads = _grads_of(params, batch, cfg)
-        else:
-            n = next(iter(batch.values())).shape[0] // mb
-            grads = [torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
-                     for p in leaves(params)]
-            z = torch.zeros((), dtype=torch.float32,
-                            device=grads[0].device)
-            loss, ce, aux = z, z, z
-            for i in range(mb):
-                b_i = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                l_i, m_i, g_i = _grads_of(params, b_i, cfg)
-                with torch.no_grad():
-                    for acc, g in zip(grads, g_i):
-                        for a, b in pieces(acc, g):
-                            a.add_((b.float() / mb).to(a.dtype))
-                del g_i
-                loss = loss + l_i / mb
-                ce = ce + m_i["ce"] / mb
-                aux = aux + m_i["aux"] / mb
-            metrics = {"ce": ce, "aux": aux}
-        gnorm = clip_by_global_norm_(grads, grad_clip)
-        opt.update_(tree_unflatten(params, grads), opt_state, params,
-                    lr_fn(step))
+        with context():
+            if mb <= 1:
+                loss, metrics, grads = _grads_of(params, batch, cfg)
+            else:
+                n = next(iter(batch.values())).shape[0] // mb
+                grads = [torch.zeros_like(p, dtype=acc_dtype)
+                         for p in leaves(params)]
+                z = torch.zeros((), dtype=torch.float32,
+                                device=_local(grads[0]).device)
+                loss, ce, aux = z, z, z
+                for i in range(mb):
+                    l_i, m_i, g_i = _grads_of(
+                        params, _microbatch(batch, i, n, cfg, ctx), cfg)
+                    with torch.no_grad():
+                        for acc, g in zip(grads, g_i):
+                            for a, b in pieces(_local(acc), _local(g)):
+                                a.add_((b.float() / mb).to(a.dtype))
+                    del g_i
+                    loss = loss + l_i / mb
+                    ce = ce + m_i["ce"] / mb
+                    aux = aux + m_i["aux"] / mb
+                metrics = {"ce": ce, "aux": aux}
+            gnorm = clip_by_global_norm_(grads, grad_clip)
+            opt.update_(tree_unflatten(params, grads), opt_state, params,
+                        lr_fn(step))
         return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm)
 
     return train_step

@@ -23,7 +23,10 @@ sequence at ``q_offset`` against the whole K/V (``sp``), the output
 product summed over the heads' mesh dims; decode writes the new K/V row
 on the rank that owns its slot of the sequence-sharded cache and
 combines the softmax over the model dim (`_prefill_mesh`,
-`_decode_mesh`).
+`_decode_mesh`).  A training forward under a mesh takes the same path
+(`_prefill_mesh`): on the card the kernel runs under autograd on each
+rank's shard, at the shard's ``q_offset`` for ``sp``, and its backward
+(`kernels.flash.flash_bwd_plain`) takes the same offset.
 
 Decode is plain torch, as in the reference (no Pallas kernel there): one
 query against the circular cache, grouped products, absolute positions

@@ -48,7 +48,7 @@ from typing import Any, Iterator
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.device import card_path, resolve_device
 from repro_torch.parallel import sharding as shd
@@ -200,15 +200,28 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
              eps: float = 1e-6) -> torch.Tensor:
     """RMS norm over the last dim.  A DTensor whose last dim is whole on
     every rank (the residual stream under a mesh) is normed shard by
-    shard: one local op chain, not one DTensor dispatch per op."""
+    shard: one local op chain, not one DTensor dispatch per op, with the
+    gradients of `sharding.shard_of` and `sharding.wrap` (the scale's
+    summed over every rank's rows)."""
     if isinstance(x, DTensor) and all(
             p.is_replicate() or (isinstance(p, Shard)
                                  and p.dim not in (-1, x.ndim - 1))
             for p in x.placements):
-        scale = scale.full_tensor() if isinstance(scale, DTensor) else scale
-        return DTensor.from_local(
-            rms_norm(x.to_local(), scale, eps=eps), x.device_mesh,
-            x.placements, run_check=False, shape=x.shape, stride=x.stride())
+        if isinstance(scale, DTensor):
+            scale = shd.shard_of(scale.redistribute(
+                scale.device_mesh, (Replicate(),) * len(scale.placements)))
+        if x.dtype != torch.float32:
+            return shd.wrap(rms_norm(shd.shard_of(x), scale, eps=eps),
+                            x.device_mesh, x.placements, x.shape)
+        # in f32 ``x.float()`` is x itself: the mesh-free norm's two uses
+        # of x sum into x's own gradient after the residual's, the square
+        # last.  Two shard views, the product's made after the square's,
+        # sum in that order (a one-rank mesh gives the mesh-free bits).
+        var = torch.mean(torch.square(shd.shard_of(x)), dim=-1,
+                         keepdim=True)
+        y = shd.shard_of(x) * torch.rsqrt(var + eps)
+        return shd.wrap(y * (1.0 + scale.float()), x.device_mesh,
+                        x.placements, x.shape)
     x32 = x.float()
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)

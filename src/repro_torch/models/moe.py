@@ -281,8 +281,8 @@ def _moe_mesh(params: dict, x: torch.Tensor, moe: MoEConfig, *,
         r = route_and_pack(xf, router_l, moe, cap, e0=e0, e_loc=e_loc)
         y = _combine(xf, r, wi_l, wo_l, moe, cap, gated=gated,
                      activation_fn=activation_fn)
-        shd.all_reduce(y, model_axis)
-        shd.all_reduce(y, fsdp_psum)
+        y = shd.all_reduce(y, model_axis)
+        y = shd.all_reduce(y, fsdp_psum)
         y = y.to(x.dtype)
         if batch_phys:
             my = shd.axis_index(batch_phys)
@@ -297,7 +297,7 @@ def _moe_mesh(params: dict, x: torch.Tensor, moe: MoEConfig, *,
         r = route_and_pack(xf, router_l, moe, cap, e0=e0, e_loc=e_loc)
         y = _combine(xf, r, wi_l, wo_l, moe, cap, gated=gated,
                      activation_fn=activation_fn).to(x.dtype)
-        shd.all_reduce(y, model_axis)
+        y = shd.all_reduce(y, model_axis)
     else:
         raise ValueError(f"unknown MoE dispatch {dispatch!r}")
     aux = r.aux

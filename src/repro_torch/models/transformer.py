@@ -37,7 +37,11 @@ entries lay the inputs and residual stream out as the reference's
 `logical` sites do, the caches are DTensors (`cache_axes`), and the
 products run on each rank's shards (the embedding, the logits, and the
 modules' own mesh paths); plain tensors made inside meet DTensors as
-replicated ones (`sharding.mesh_ops`).
+replicated ones (`sharding.mesh_ops`).  `loss_fn` trains under a mesh
+the same way (the vocab-sharded loss, `parallel.losses`): each layer's
+params are the stack's local shard unbound and wrapped back
+(`_unstack`), and the gradients follow `parallel.sharding`'s convention,
+so each param's gradient is the global one.
 
 Modes:
   train   — full-sequence forward (no caches)
@@ -49,6 +53,8 @@ Modes:
             same tree
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -303,10 +309,21 @@ def _unstack(tree, n: int) -> list:
     its stack axis (views).  Under autograd one ``unbind`` a leaf writes
     the whole leaf's gradient once; indexing layer by layer would give
     each layer's gradient a zero-filled copy of the whole stacked leaf.
-    A DTensor leaf (under a mesh; the stack dim is never sharded) is
-    indexed layer by layer."""
+    A DTensor leaf (under a mesh) unbinds its local shard (the stack dim
+    is never sharded) and wraps each layer back with the stack's
+    placements, one dim down: a pure relayout, whose gradient is the
+    layer's in those placements."""
     if isinstance(tree, DTensor):
-        return [tree[r] for r in range(n)]
+        if any(isinstance(p, Shard) and p.dim == 0 for p in tree.placements):
+            raise ValueError("a stacked leaf sharded on its stack dim")
+        pls = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+               for p in tree.placements]
+        shape = tuple(tree.shape[1:])
+        stride = shd._contiguous_stride(shape)
+        return [DTensor.from_local(t, tree.device_mesh, pls,
+                                   run_check=False, shape=shape,
+                                   stride=stride)
+                for t in tree.to_local().unbind(0)]
     if isinstance(tree, torch.Tensor):
         return list(tree.unbind(0))
     parts = {k: _unstack(v, n) for k, v in tree.items()}
@@ -330,13 +347,18 @@ def _store(dst: dict, src: dict, r: int) -> None:
             _store(dst[k], v, r)
 
 
-def _train_group(p_group: dict, h: torch.Tensor, seg, cfg
+def _train_group(p_group: dict, h: torch.Tensor, seg, cfg,
+                 ctx: shd.MeshContext | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """One repeat of a segment's layer group in train mode -> (h, aux),
-    inside ``precision_flow(cfg.bf16_flow)``: a checkpointed group is
-    recomputed during the backward, outside the entry's context."""
+    inside ``precision_flow(cfg.bf16_flow)`` and, under a mesh, the
+    forward's mesh ``ctx``: a checkpointed group is recomputed during the
+    backward, outside the entry's context (on the card in the autograd
+    engine's own thread)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    with precision_flow(cfg.bf16_flow):
+    mesh = (contextlib.nullcontext() if ctx is None
+            else shd.use_mesh(ctx.mesh, ctx.rules))
+    with precision_flow(cfg.bf16_flow), mesh, shd.mesh_ops():
         for i, sp in enumerate(seg.layers):
             h, _, a = apply_layer(p_group[f"l{i}"], h, sp, cfg, mode="train")
             aux = aux + a
@@ -367,7 +389,7 @@ def forward_hidden(params: dict, x: torch.Tensor, cfg, *, mode: str = "train",
             p_group = groups[r]
             if remat and mode == "train":
                 h, a = checkpoint(_train_group, p_group, h, seg, cfg,
-                                  use_reentrant=False,
+                                  shd.current(), use_reentrant=False,
                                   preserve_rng_state=False)
                 aux = aux + a
                 continue
@@ -493,7 +515,11 @@ def loss_fn(params: dict, batch: dict, cfg
             ) -> tuple[torch.Tensor, dict]:
     """Token-level CE (chunked) + MoE aux -> (loss, {"ce", "aux"}), 0-d
     f32 tensors.  ``batch`` holds ``labels`` (B, T) and ``tokens`` (B, T)
-    or, with ``embed_inputs=False``, ``embeds`` (B, T, D).
+    or, with ``embed_inputs=False``, ``embeds`` (B, T, D).  Under a mesh
+    the params and the batch are DTensors, and so are the loss and ce
+    (replicated; aux too where the config has a MoE): the vocab-sharded
+    loss (`parallel.losses`), its gradient the global one
+    (`parallel.sharding`'s convention).
 
     A vector-sparse FFN config raises before any forward: its param tree
     holds int32 K-tile ids, and the reference's ``value_and_grad`` refuses
@@ -505,7 +531,7 @@ def loss_fn(params: dict, batch: dict, cfg
             f"train: its param tree holds int32 K-tile ids (wi_idx, "
             f"wo_idx), and the reference's value_and_grad refuses integer "
             f"inputs, so it has no training step to hold this one to")
-    with precision_flow(cfg.bf16_flow):
+    with precision_flow(cfg.bf16_flow), shd.mesh_ops():
         x = _inputs_to_hidden(params, batch, cfg)
         h, _, aux = forward_hidden(params, x, cfg, mode="train",
                                    remat=cfg.remat)

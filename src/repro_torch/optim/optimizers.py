@@ -18,14 +18,31 @@ before the add), so the values are the reference's.  ``lr`` is a 0-d
 f32 tensor (a schedule's) or a float; the step count lives on the
 params' device.  `clip_by_global_norm_` likewise scales the grads in
 place.
+
+Under a mesh (training with `launch.step_builders.build_train`'s
+``ctx``) params, grads and state are DTensors: every update runs on the
+local shards, grads and AdamW's moments in their parameter's placements.
+Where a value needs the whole leaf, the local sums are summed over the
+mesh dims that *shard* it, never over a dim that replicates it: the
+clip's squares (`global_norm`), and Adafactor's row and column means and
+its update RMS, divided by the *global* sizes.  Adafactor's factored
+moments are laid out by `Optimizer.state_axes` (the reference's
+``state_axes``); a moment laid out otherwise than its gradient's rows or
+columns is redistributed to them for the update and back.  Where no dim
+of more than one rank shards a leaf the update is the mesh-free one, op
+for op.  `adamw8bit` quantizes blocks of the whole leaf and takes no
+DTensor.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.parallel import sharding as shd
 from repro_torch.utils.tree import leaves, tree_map
 
 __all__ = ["Optimizer", "adamw", "adamw8bit", "adafactor", "global_norm",
@@ -50,13 +67,40 @@ class Optimizer:
     init: Callable[[Any], Any]
     # update_(grads, state, params, lr): state and params in place
     update_: Callable[[Any, Any, Any, Any], None]
+    # state_axes(param axes, param shape) -> the logical axes of its
+    # per-parameter state (Adafactor's moments); None: the param's own
+    state_axes: Callable[[tuple, tuple], Any] | None = None
+
+
+def _loc(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _shard_dims(t: torch.Tensor) -> list[int]:
+    """The mesh dims of more than one rank that shard DTensor ``t``."""
+    if not isinstance(t, DTensor):
+        return []
+    mesh = t.device_mesh
+    return [i for i, p in enumerate(t.placements)
+            if isinstance(p, Shard) and mesh.size(i) > 1]
 
 
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32 (a 0-d tensor); a
-    leaf of more than ``PIECE`` values summed piece by piece."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for leaf in leaves(tree) for (x,) in pieces(leaf)))
+    leaf of more than ``PIECE`` values summed piece by piece.  A DTensor
+    leaf sums its local shard, then over the mesh dims that shard it (a
+    replica is counted once)."""
+    total = 0
+    for leaf in leaves(tree):
+        sq = (torch.sum(torch.square(x.float()))
+              for (x,) in pieces(_loc(leaf)))
+        dims = _shard_dims(leaf)
+        if dims:
+            total = total + shd.sum_over(sum(sq), leaf.device_mesh, dims)
+        else:
+            for v in sq:
+                total = total + v
+    return torch.sqrt(total)
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -71,7 +115,7 @@ def clip_by_global_norm_(grads: Any, max_norm: float) -> torch.Tensor:
     norm = global_norm(grads)
     scale = _clip_scale(norm, max_norm)
     for leaf in leaves(grads):
-        for (g,) in pieces(leaf):
+        for (g,) in pieces(_loc(leaf)):
             if g.dtype == F32:
                 g.mul_(scale)
             else:
@@ -110,28 +154,33 @@ def _adam_update(m32: torch.Tensor, v32: torch.Tensor, p: torch.Tensor,
 
 def _make(init: Callable[[Any], Any], leaf_: Callable[..., torch.Tensor],
           consts: Callable[[torch.Tensor], Any],
-          state_leaf: Callable[[Any], bool] | None) -> Optimizer:
+          state_leaf: Callable[[Any], bool] | None,
+          state_axes: Callable[[tuple, tuple], Any] | None = None
+          ) -> Optimizer:
     """An `Optimizer` from ``init`` and the in-place per-leaf update
     ``leaf_(g, st, p, lr, consts(count)) -> u`` (``st`` the leaf's state:
     AdamW's (m, v) pair, in `pieces`; a dict of the ``moments`` tree
-    whose nodes ``state_leaf`` picks out, whole)."""
+    whose nodes ``state_leaf`` picks out, whole, with ``p`` and ``g`` as
+    given: DTensors under a mesh).  AdamW's pieces are local shards."""
 
     def update_(grads: Any, state: Any, params: Any, lr: Any) -> None:
         with torch.no_grad():
-            state["count"].add_(1)
-            c = consts(state["count"])
+            count = _loc(state["count"])
+            count.add_(1)
+            c = consts(count)
             if state_leaf is not None:
                 for g, st, p in zip(leaves(grads),
                                     leaves(state["moments"], state_leaf),
                                     leaves(params)):
-                    p.add_(leaf_(g, st, p, lr, c))
+                    _loc(p).add_(leaf_(g, st, p, lr, c))
                 return
             for g, m, v, p in zip(leaves(grads), leaves(state["m"]),
                                   leaves(state["v"]), leaves(params)):
-                for gc, mc, vc, pc in pieces(g, m, v, p):
+                for gc, mc, vc, pc in pieces(_loc(g), _loc(m), _loc(v),
+                                             _loc(p)):
                     pc.add_(leaf_(gc, (mc, vc), pc, lr, c))
 
-    return Optimizer(init, update_)
+    return Optimizer(init, update_, state_axes)
 
 
 def _count(params: Any) -> torch.Tensor:
@@ -210,6 +259,10 @@ def adamw8bit(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 "count": _count(params)}
 
     def leaf_(g, mom, p, lr, consts):
+        if isinstance(p, DTensor):
+            raise NotImplementedError(
+                "adamw8bit quantizes blocks of the whole leaf: it takes no "
+                "DTensor (no config trains with it)")
         c1, c2 = consts
         g32 = g.float()
         m = _dq8(mom["mq"], mom["ms"], tuple(p.shape))
@@ -255,27 +308,106 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30,
         return {"moments": tree_map(leaf, params), "count": _count(params)}
 
     def leaf_(g, mom, p, lr, beta):
-        g32 = g.float()
+        lay = _Layout(p)
+        g32 = _loc(g).float()
         g2 = torch.square(g32).add_(eps)
+        nd = g32.ndim
         if factored(p.shape):
-            vr = beta * mom["vr"] + (1 - beta) * g2.mean(dim=-1)
-            vc = beta * mom["vc"] + (1 - beta) * g2.mean(dim=-2)
-            r_factor = torch.rsqrt(vr / vr.mean(dim=-1, keepdim=True) + eps)
+            vr_old = lay.get(mom["vr"], nd - 1)
+            vc_old = lay.get(mom["vc"], nd - 2)
+            vr = beta * vr_old + (1 - beta) * lay.mean(g2, -1, nd - 1)
+            vc = beta * vc_old + (1 - beta) * lay.mean(g2, -2, nd - 2)
+            r_factor = torch.rsqrt(
+                vr / lay.mean(vr, -1, nd - 2, keepdim=True) + eps)
             c_factor = torch.rsqrt(vc + eps)
             upd = g32 * r_factor[..., None] * c_factor[..., None, :]
-            mom["vr"].copy_(vr)
-            mom["vc"].copy_(vc)
+            lay.put(mom["vr"], vr, nd - 1)
+            lay.put(mom["vc"], vc, nd - 2)
         else:
-            v = beta * mom["v"] + (1 - beta) * g2
+            v = beta * _loc(mom["v"]) + (1 - beta) * g2
             upd = g32 * torch.rsqrt(v + eps)
-            mom["v"].copy_(v)
+            _loc(mom["v"]).copy_(v)
         # update clipping (RMS <= clip_threshold)
-        rms = torch.sqrt(torch.mean(torch.square(upd)) + 1e-30)
+        rms = torch.sqrt(lay.mean_all(torch.square(upd)) + 1e-30)
         upd = upd / torch.clamp_min(rms / clip_threshold, 1.0)
         if weight_decay:
-            upd = upd + weight_decay * p.float()
+            upd = upd + weight_decay * _loc(p).float()
         return (-lr * upd).to(p.dtype)
+
+    def state_axes(axes: tuple, shape: tuple) -> dict:
+        if factored(shape):
+            return {"vr": axes[:-1], "vc": axes[:-2] + axes[-1:]}
+        return {"v": axes}
 
     return _make(init, leaf_,
                  lambda count: 1.0 - count.to(F32) ** -decay,  # t^-0.8
-                 lambda x: isinstance(x, dict) and ("v" in x or "vr" in x))
+                 lambda x: isinstance(x, dict) and ("v" in x or "vr" in x),
+                 state_axes)
+
+
+class _Layout:
+    """Adafactor's reductions over a leaf ``p`` (a DTensor under a mesh,
+    else a plain tensor): a mean over a dim of the gradient sums the
+    local shard, then over the mesh dims of more than one rank that
+    shard that dim, and divides by its global size; where none does, it
+    is the plain mean.  A factored moment is read and written in the
+    layout of the gradient with one dim taken out (`get` / `put`)."""
+
+    def __init__(self, p: torch.Tensor):
+        self.dt = isinstance(p, DTensor)
+        if self.dt:
+            self.mesh, self.pls = p.device_mesh, tuple(p.placements)
+            self.shape = tuple(p.shape)
+
+    def _dims(self, gdim: int) -> list[int]:
+        """Mesh dims of more than one rank that shard gradient dim gdim."""
+        if not self.dt:
+            return []
+        return [i for i, p in enumerate(self.pls) if isinstance(p, Shard)
+                and p.dim == gdim and self.mesh.size(i) > 1]
+
+    def mean(self, x: torch.Tensor, dim: int, gdim: int,
+             keepdim: bool = False) -> torch.Tensor:
+        """Mean of local ``x`` over its ``dim``, which lies along the
+        gradient's dim ``gdim``."""
+        dims = self._dims(gdim)
+        if not dims:
+            return x.mean(dim=dim, keepdim=keepdim)
+        s = shd.sum_over(x.sum(dim=dim, keepdim=keepdim), self.mesh, dims)
+        return s / self.shape[gdim]
+
+    def mean_all(self, x: torch.Tensor) -> torch.Tensor:
+        dims = [i for d in range(len(self.shape)) for i in self._dims(d)] \
+            if self.dt else []
+        if not dims:
+            return torch.mean(x)
+        return shd.sum_over(torch.sum(x), self.mesh, dims) / math.prod(
+            self.shape)
+
+    def _without(self, gdim: int) -> tuple:
+        """The gradient's placements with its dim ``gdim`` taken out."""
+        return tuple(
+            Replicate() if isinstance(p, Shard) and p.dim == gdim else
+            Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > gdim else p
+            for p in self.pls)
+
+    def get(self, m: torch.Tensor, gdim: int) -> torch.Tensor:
+        """Moment ``m`` (the gradient without dim ``gdim``) as the local
+        shard that lines up with the gradient's."""
+        if not self.dt:
+            return m
+        want = self._without(gdim)
+        if tuple(m.placements) != want:
+            m = m.redistribute(m.device_mesh, want)
+        return m.to_local()
+
+    def put(self, m: torch.Tensor, value: torch.Tensor, gdim: int) -> None:
+        """Write ``value`` (laid out as `get` gives it) into moment m."""
+        if not self.dt or tuple(m.placements) == self._without(gdim):
+            _loc(m).copy_(value)
+            return
+        full = DTensor.from_local(value, self.mesh, self._without(gdim),
+                                  run_check=False, shape=m.shape,
+                                  stride=m.stride())
+        m.to_local().copy_(full.redistribute(m.device_mesh,
+                                             m.placements).to_local())

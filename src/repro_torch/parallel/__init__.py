@@ -1,15 +1,17 @@
-"""Distribution: logical-axis sharding (`sharding`) and the chunked
-cross-entropy (`losses`).  `compression` and `pipeline`, which only the
-reference's training uses, are not ported yet."""
+"""Distribution: logical-axis sharding (`sharding`), the vocab-sharded
+chunked cross-entropy (`losses`), fp8-block gradient compression
+(`compression`) and the GPipe pipeline over the pod dim (`pipeline`)."""
 from typing import Any
 
 from .sharding import (MeshRules, use_mesh, current, logical, spec_for,
                        named_sharding, sharding_tree, TRAIN_RULES,
                        SERVE_RULES)
+from . import compression, pipeline  # noqa: E402
 
 __all__ = ["MeshRules", "use_mesh", "current", "logical", "spec_for",
            "named_sharding", "sharding_tree", "TRAIN_RULES", "SERVE_RULES",
-           "chunked_cross_entropy", "cross_entropy_dense"]
+           "chunked_cross_entropy", "cross_entropy_dense", "compression",
+           "pipeline"]
 
 
 def __getattr__(name: str) -> Any:

@@ -33,18 +33,41 @@ The reference's constructs, and what stands for them here:
 Used three ways, as in the reference: activation constraints inside model
 code (`logical`), param shardings (`sharding_tree`, `distribute`) and
 input and output shardings (`named_sharding`).
+
+Gradients (training under a mesh) follow ``shard_map``'s transpose, so
+that any body of plain tensor code between `local` and `from_local`
+yields the true gradient of the one global loss, which every rank holds
+a copy of:
+
+* `local` / `shard_of`: a shard's gradient is *partial* (``Partial()``)
+  over every mesh dim of more than one rank along which the input is
+  replicated (each rank used its copy for its own rows, heads or vocab
+  columns), and summed over those dims where it meets the input's
+  layout;
+* `from_local` / `wrap`: an output replicated over a mesh dim of more
+  than one rank divides its gradient by that dim's size (each rank's
+  copy stands for one share of the replicated value);
+* `all_reduce` (``psum``): its gradient is the ``psum`` of the
+  incoming one.
+
+So a body whose work is duplicated along a dim (every rank computes the
+same value) still sums to the true gradient, and a body split along a
+dim completes each rank's partial sum.  Without grad (serving) all three
+are the plain ops, in place where they were.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from typing import Any, Iterator
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
+from torch.distributed.tensor import (DTensor, Partial, Placement,
+                                      Replicate, Shard)
 from torch.distributed.tensor.experimental import implicit_replication
 
 __all__ = [
@@ -62,7 +85,11 @@ __all__ = [
     "named_sharding",
     "sharding_tree",
     "distribute",
+    "place",
     "local",
+    "shard_of",
+    "wrap",
+    "sum_over",
     "local_spec",
     "from_local",
     "from_local_spec",
@@ -147,10 +174,13 @@ class AbstractMesh:
 
 def mesh_shape(mesh: DeviceMesh | AbstractMesh) -> dict[str, int]:
     """{dim name: size} of a `DeviceMesh` or an `AbstractMesh`, in mesh
-    order (the reference's ``mesh.shape``)."""
+    order (the reference's ``mesh.shape``).  A `DeviceMesh`'s is read
+    from ``mesh.shape``, not ``mesh.mesh``, which builds a tensor of the
+    ranks on every call (the sharded paths ask a few hundred times a
+    layer)."""
     if isinstance(mesh, AbstractMesh):
         return mesh.shape
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 class PartitionSpec(tuple):
@@ -293,9 +323,19 @@ def logical(x: torch.Tensor, axes: tuple) -> torch.Tensor:
                         f"got a plain {type(x).__name__}")
     want = placements(spec_for(axes, mesh=ctx.mesh, rules=ctx.rules,
                                shape=tuple(x.shape)), ctx.mesh)
-    if tuple(x.placements) == want:
+    if _same_layout(x.placements, want, ctx.mesh):
         return x
     return x.redistribute(ctx.mesh, want)
+
+
+def _same_layout(a: tuple, b: tuple, mesh: DeviceMesh) -> bool:
+    """Whether placements ``a`` and ``b`` put the same values on every
+    rank: equal on every mesh dim of more than one rank (on a dim of one
+    rank ``Shard`` and ``Replicate`` are the same layout, and a
+    redistribute between them moves nothing but costs a DTensor
+    dispatch, and an autograd node, each time)."""
+    return all(p == q or mesh.size(i) == 1
+               for i, (p, q) in enumerate(zip(a, b)))
 
 
 def _ctx(ctx: MeshContext | None) -> MeshContext:
@@ -322,16 +362,22 @@ def distribute(x: torch.Tensor, axes: tuple, *,
     dims is cut in mesh order, the first the major one, as DTensor cuts
     it."""
     ctx = _ctx(ctx)
-    spec = spec_for(axes, mesh=ctx.mesh, rules=ctx.rules,
-                    shape=tuple(x.shape))
-    pls = placements(spec, ctx.mesh)
+    return place(x, ctx.mesh, placements(spec_for(
+        axes, mesh=ctx.mesh, rules=ctx.rules, shape=tuple(x.shape)),
+        ctx.mesh))
+
+
+def place(x: torch.Tensor, mesh: DeviceMesh, pls: tuple) -> DTensor:
+    """The full tensor ``x`` as a DTensor of placements ``pls`` on
+    ``mesh``: each rank cuts its shard (`distribute`; a checkpoint's
+    leaf laid out elastically on the current mesh)."""
     piece = x
-    coord = ctx.mesh.get_coordinate()
+    coord = mesh.get_coordinate()
     for i, p in enumerate(pls):
         if isinstance(p, Shard):
-            piece = torch.tensor_split(piece, ctx.mesh.size(i),
+            piece = torch.tensor_split(piece, mesh.size(i),
                                        dim=p.dim)[coord[i]]
-    return DTensor.from_local(piece.contiguous(), ctx.mesh, pls,
+    return DTensor.from_local(piece.contiguous(), mesh, pls,
                               run_check=False, shape=x.shape,
                               stride=_contiguous_stride(tuple(x.shape)))
 
@@ -365,12 +411,58 @@ def local(x: DTensor, axes: tuple, *,
 
 def local_spec(x: DTensor, spec: tuple, *,
                ctx: MeshContext | None = None) -> torch.Tensor:
-    """This rank's shard of ``x`` laid out by a `PartitionSpec`."""
+    """This rank's shard of ``x`` laid out by a `PartitionSpec`
+    (`shard_of` after the redistribute)."""
     ctx = _ctx(ctx)
     want = placements(spec, ctx.mesh)
-    if tuple(x.placements) != want:
+    if not _same_layout(x.placements, want, ctx.mesh):
         x = x.redistribute(ctx.mesh, want)
-    return x.to_local()
+    return shard_of(x)
+
+
+def _grad_on(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def shard_of(x: DTensor) -> torch.Tensor:
+    """``x``'s local tensor, whose gradient is partial over every mesh dim
+    of more than one rank that ``x`` is replicated on (the module's
+    gradient convention); ``to_local()`` where no gradient flows."""
+    if not _grad_on(x):
+        return x.to_local()
+    mesh = x.device_mesh
+    grad = tuple(Partial() if p.is_replicate() and mesh.size(i) > 1 else p
+                 for i, p in enumerate(x.placements))
+    return x.to_local(grad_placements=grad)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, its gradient times ``s``."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, s: float) -> torch.Tensor:
+        ctx.s = s
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g * ctx.s, None
+
+
+def wrap(t: torch.Tensor, mesh: DeviceMesh, pls: tuple, shape: tuple
+         ) -> DTensor:
+    """The shard ``t`` as a DTensor of global ``shape`` with placements
+    ``pls``; its gradient divided by the ranks of the mesh dims of more
+    than one rank that it is replicated on (the module's gradient
+    convention)."""
+    if _grad_on(t):
+        n = math.prod(mesh.size(i) for i, p in enumerate(pls)
+                      if p.is_replicate() and mesh.size(i) > 1)
+        if n > 1:
+            t = _ScaleGrad.apply(t, 1.0 / n)
+    return DTensor.from_local(t.contiguous(), mesh, tuple(pls),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_stride(tuple(shape)))
 
 
 def from_local(t: torch.Tensor, axes: tuple, shape: tuple, *,
@@ -385,12 +477,9 @@ def from_local(t: torch.Tensor, axes: tuple, shape: tuple, *,
 def from_local_spec(t: torch.Tensor, spec: tuple, shape: tuple, *,
                     ctx: MeshContext | None = None) -> DTensor:
     """This rank's shard ``t`` of a global tensor of ``shape`` laid out
-    by a `PartitionSpec`, as a DTensor."""
+    by a `PartitionSpec`, as a DTensor (`wrap`)."""
     ctx = _ctx(ctx)
-    return DTensor.from_local(t.contiguous(), ctx.mesh,
-                              placements(spec, ctx.mesh),
-                              run_check=False, shape=torch.Size(shape),
-                              stride=_contiguous_stride(tuple(shape)))
+    return wrap(t, ctx.mesh, placements(spec, ctx.mesh), shape)
 
 
 def _flat(entry: Any) -> tuple[str, ...]:
@@ -416,15 +505,58 @@ def axis_index(entry: Any, *, ctx: MeshContext | None = None) -> int:
     return idx
 
 
+def _groups(entry: Any, ctx: MeshContext) -> list:
+    return [ctx.mesh.get_group(name) for name in _flat(entry)
+            if ctx.mesh.size(ctx.mesh.mesh_dim_names.index(name)) > 1]
+
+
+class _PSum(torch.autograd.Function):
+    """``psum`` out of place, its gradient the ``psum`` of the incoming
+    one (`all_reduce` under grad)."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, groups: list) -> torch.Tensor:
+        ctx.groups = groups
+        out = t.clone(memory_format=torch.contiguous_format)
+        for g in groups:
+            dist.all_reduce(out, group=g)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        g = g.clone(memory_format=torch.contiguous_format)
+        for grp in ctx.groups:
+            dist.all_reduce(g, group=grp)
+        return g, None
+
+
 def all_reduce(t: torch.Tensor, entry: Any, op: str = "sum", *,
                ctx: MeshContext | None = None) -> torch.Tensor:
-    """``t`` reduced in place over the ranks along a spec entry (``psum``
-    / ``pmax`` over those axes; nothing for None or a dim of one rank)."""
+    """``t`` reduced over the ranks along a spec entry (``psum`` / ``pmax``
+    over those axes; nothing for None or a dim of one rank).  Without a
+    gradient in place (``t`` itself comes back); under grad a sum is the
+    autograd op `_PSum`, a new tensor, and a max raises (the models take
+    it only outside the gradient)."""
     ctx = _ctx(ctx)
+    groups = _groups(entry, ctx)
+    if _grad_on(t):
+        if op != "sum":
+            raise ValueError(f"all_reduce({op!r}) has no gradient: detach "
+                             f"its input")
+        return _PSum.apply(t, groups) if groups else t
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    for name in _flat(entry):
-        if ctx.mesh.size(ctx.mesh.mesh_dim_names.index(name)) > 1:
-            dist.all_reduce(t, op=red, group=ctx.mesh.get_group(name))
+    for g in groups:
+        dist.all_reduce(t, op=red, group=g)
+    return t
+
+
+def sum_over(t: torch.Tensor, mesh: DeviceMesh, dims: Any) -> torch.Tensor:
+    """``t`` summed in place, with no gradient, over the mesh dims
+    ``dims`` (indices) of more than one rank: the optimizer's and the
+    clip's reductions over the dims that shard a leaf."""
+    for i in dims:
+        if mesh.size(i) > 1:
+            dist.all_reduce(t, group=mesh.get_group(i))
     return t
 
 

@@ -1,7 +1,8 @@
 """The port stands alone: it never imports JAX or the JAX package.
 
 Importing every module of `repro_torch` (`repro_torch.analysis` among
-them), `chip_smoke.py` and `calibrate_torch.py` in a fresh interpreter
+them), `chip_smoke.py`, `calibrate_torch.py` and `serve_ab.py` in a fresh
+interpreter
 must leave ``jax`` and ``repro`` out of ``sys.modules``, and no source
 under ``src/repro_torch/`` may even name them.
 """
@@ -23,6 +24,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 import calibrate_torch
+import serve_ab
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 missing = {"repro_torch.analysis.diagnostics", "repro_torch.analysis.ir",
@@ -31,7 +33,9 @@ missing = {"repro_torch.analysis.diagnostics", "repro_torch.analysis.ir",
            "repro_torch.analysis.contracts",
            "repro_torch.analysis.intervals", "repro_torch.analysis.lint",
            "repro_torch.utils.roofline", "repro_torch.utils.cost",
-           "repro_torch.launch.dryrun"} - set(names)
+           "repro_torch.launch.dryrun", "repro_torch.parallel.compression",
+           "repro_torch.parallel.pipeline", "repro_torch.models.cnn"} - \
+    set(names)
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 15 else 0)
 """
@@ -53,7 +57,7 @@ def test_no_port_source_names_jax_or_the_reference():
             for n, line in enumerate(path.read_text().splitlines(), 1):
                 if pattern.search(line):
                     offenders.append(f"{path.relative_to(ROOT)}:{n}: {line}")
-    for script in ("chip_smoke.py", "calibrate_torch.py"):
+    for script in ("chip_smoke.py", "calibrate_torch.py", "serve_ab.py"):
         text = (ROOT / script).read_text()
         if re.search(r"^\s*(import|from)\s+(jax|repro)\b", text, re.M):
             offenders.append(f"{script} imports jax or repro")
