@@ -302,8 +302,15 @@ repository around it, or when any phase fails.  Phases:
    against ``arg_bytes + temp_bytes`` of the meta count (within 15%),
    and one more run profiled: its device-busy ms against ``compute_s``
    and ``memory_s`` (busy must be at least ``compute_s``), and busy /
-   max of the two.  The kernels' launches in (b) join the ``kernels``
-   line's ``launches_by_path`` (``dryrun``).
+   max of the two.  (d) The same three steps as rank 0 of a one-rank
+   1x1 mesh (`dryrun_mesh_phase`): counted on meta in a fake world
+   (`launch.mesh.fake_world`) and on the card in a one-rank NCCL world,
+   with equal FLOPs, bytes and launches by name and no wire byte on
+   either side (``dryrun_mesh`` lines).  (e) A reduced Qwen1.5-4B train
+   cell as rank 0 of a fake 2x2 world, its wire bytes by kind and by
+   mesh dim (a ``dryrun_fake_world`` line).  The kernels' launches in
+   (b) and (d) join the ``kernels`` line's ``launches_by_path``
+   (``dryrun``).
 16. Mesh (`mesh_cnn_phase`, `mesh_kernel_cases`, `mesh_lm_phase`): the
    smoke's own process joins a one-rank NCCL world (`launch.mesh`, a
    ``file://`` store) and serves under a 1x1 ``("data", "model")`` mesh
@@ -337,7 +344,8 @@ repository around it, or when any phase fails.  Phases:
    same step on a 2x2 mesh (``sp``: BH 20, 256 queries at q_offset 0
    and 256 against 512 keys; ``heads``: BH 10, T 512; the kernel
    forward against the plain one with bound and SDPA time, dq / dk / dv
-   against autograd through plain within 2e-2); `compressed_psum` and
+   against autograd through plain within 2e-2); `compressed_psum`
+   bit-equal to the CPU's (sum, error, codes, scales) and
    `pipeline_apply` on the one rank (`mesh_collectives_phase`).  The
    steps' flash launches join ``launches_by_path`` (``mesh_train``).
    Before the mesh phases `cnn_shim_phase` runs `models.cnn.vgg16_apply`
@@ -3694,10 +3702,9 @@ def mesh_flash_grad_cases(timer: Timer, dev, bf16_peak: float) -> list:
 
 def mesh_collectives_phase(dev) -> dict:
     """`compressed_psum` and `pipeline_apply` on the one-rank world: the
-    fp8 sum of 4 M f32 values is this rank's own dequantized blocks and
-    its error the residual, bit for bit, its codes those of the CPU and
-    its scales (the amax over 448) within 1e-6 of the CPU's (the card
-    rounds that quotient otherwise in some blocks); a 4-microbatch
+    fp8 sum of 4 M f32 values, its new error, its codes and its scales
+    (the amax over 448, a true division on both devices) bit-equal to
+    the same computed on the CPU; a 4-microbatch
     pipeline over a pod dim of one rank (a tanh-linear stage, D 1024)
     equals the sequential stage, gradients included, within 1e-5 (f32,
     TF32 off: the stage's products at another batch shape)."""
@@ -3716,13 +3723,14 @@ def mesh_collectives_phase(dev) -> dict:
     xd, ed = x.to(dev), err.to(dev)
     with shd.use_mesh(mesh):
         tot, new = C.compressed_psum(xd, "pod", ed)
-    qd, sd, pad = C.quantize_fp8_block(xd + ed)
-    own = C.dequantize_fp8_block(qd, sd, pad, tuple(x.shape))
-    q, sc, _ = C.quantize_fp8_block(x + err)
-    comp = {"sum_equal": torch.equal(tot, own),
-            "err_equal": torch.equal(new, (xd + ed) - own),
+    qd, sd, _ = C.quantize_fp8_block(xd + ed)
+    q, sc, pad = C.quantize_fp8_block(x + err)
+    own = C.dequantize_fp8_block(q, sc, pad, tuple(x.shape))   # on the CPU
+    comp = {"sum_equal_cpu": torch.equal(tot.cpu(), own),
+            "err_equal_cpu": torch.equal(new.cpu(), (x + err) - own),
             "codes_equal_cpu": torch.equal(qd.view(torch.uint8).cpu(),
                                            q.view(torch.uint8)),
+            "scales_equal_cpu": torch.equal(sd.cpu(), sc),
             "scales_rel_err_cpu": _rel_err(sd.cpu(), sc)[0],
             "rel_err_vs_exact": float((tot.cpu() - (x + err)).abs().max()
                                       / (x + err).abs().max())}
@@ -3744,8 +3752,8 @@ def mesh_collectives_phase(dev) -> dict:
     out = {"phase": "mesh_collectives", "compressed_psum": comp,
            "pipeline_apply": pipe, "seconds": time.perf_counter() - t0}
     print(json.dumps(out), flush=True)
-    if not (comp["sum_equal"] and comp["err_equal"]
-            and comp["codes_equal_cpu"] and comp["scales_rel_err_cpu"] <= 1e-6
+    if not (comp["sum_equal_cpu"] and comp["err_equal_cpu"]
+            and comp["codes_equal_cpu"] and comp["scales_equal_cpu"]
             and max(pipe.values()) <= 1e-5):
         raise SystemExit(f"chip_smoke: mesh collectives: {out}")
     del params, xd, y, gw, gx
@@ -3912,7 +3920,9 @@ def dryrun_phase(dev, smi: str) -> dict:
     """(a) `run_cell` on meta for `DRYRUN_CELLS`; (b) the smoke's three
     Qwen1.5-4B steps counted on meta and on the card, equal in FLOPs,
     bytes and kernel launches; (c) the card's peak memory and profiled
-    device-busy time against the meta count's roofline terms."""
+    device-busy time against the meta count's roofline terms; (d) and
+    (e) the same steps as rank 0 of a one-rank mesh, and a reduced cell
+    as rank 0 of a fake 2x2 world (`dryrun_mesh_phase`)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
@@ -4006,9 +4016,172 @@ def dryrun_phase(dev, smi: str) -> dict:
                              f"{compute_ms} ms: the count is wrong")
         del step, card
         _free_cuda()
+    mesh = dryrun_mesh_phase(dev, cfg, params, smi)
+    launches.update({f"mesh {k}": v for k, v in mesh["launches"].items()})
     del params
     _free_cuda()
-    return {"cells": cells, "steps": steps, "launches": launches}
+    return {"cells": cells, "steps": steps, "launches": launches,
+            "mesh": mesh}
+
+
+DRYRUN_FAKE_MESH = "2x2"   # (e): a reduced cell as rank 0 of this world
+
+
+def _dryrun_mesh_step(name: str, cfg, params, dev, ctx):
+    """`_dryrun_step`'s step under the mesh ``ctx`` (the training rules),
+    as `step_builders.build` lays a step out under a mesh: the params by
+    the schema (`transformer.shard_params`), the prefill and decode
+    tokens on the batch dims, the decode caches by
+    `transformer.cache_axes`, the train step's optimizer state and batch
+    by `step_builders.init_opt_state` and `shard_batch`; the step run
+    under the mesh."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import step_builders as sb
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import sharding as shd
+
+    rng = np.random.default_rng(7)
+
+    def ids(*shape):
+        if dev.type == "meta":
+            return torch.empty(shape, dtype=torch.int64, device=dev)
+        return torch.from_numpy(rng.integers(0, cfg.vocab, shape)).to(dev)
+
+    with shd.use_mesh(ctx.mesh, ctx.rules):
+        sharded = tfm.shard_params(params, cfg)
+        if name == "prefill":
+            fn = lambda p, b: tfm.prefill(
+                p, b, cfg, capacity=LM_CAPACITY)
+            args = (sharded, {"tokens": shd.distribute(
+                ids(LM_BATCH, 512), ("batch", None))})
+        elif name == "decode":
+            fn = lambda p, c, t, q: tfm.decode_step(
+                p, c, t, q, cfg)
+            args = (sharded, tfm.init_cache(cfg, LM_BATCH, LM_CAPACITY, dev),
+                    shd.distribute(ids(LM_BATCH, 1), ("batch", None)),
+                    torch.full((), 512, dtype=torch.int64, device=dev))
+        else:
+            shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+            fn = sb.build_train(cfg, shape, ctx)
+            args = (sharded, sb.init_opt_state(cfg, sharded, ctx),
+                    sb.shard_batch(cfg, {
+                        "tokens": ids(TRAIN_BATCH, TRAIN_SEQ).int(),
+                        "labels": ids(TRAIN_BATCH, TRAIN_SEQ).int()}, ctx),
+                    TRAIN_STEP0)
+
+    def run(*a):
+        with shd.use_mesh(ctx.mesh, ctx.rules):
+            return fn(*a)
+    return sb.Step(run, args)
+
+
+def dryrun_mesh_phase(dev, cfg, params, smi: str) -> dict:
+    """The dry run of a mesh's rank on the card.  (d) The smoke's three
+    Qwen1.5-4B steps (`_dryrun_mesh_step`) as rank 0 of a one-rank 1x1
+    mesh: counted on meta in a fake world (`launch.mesh.fake_world`) and
+    on the card in a one-rank NCCL world (`_mesh_world`), equal in FLOPs,
+    bytes and kernel launches by name, with no wire byte on either side
+    (a dim of one rank moves nothing).  (e) A reduced Qwen1.5-4B train
+    cell counted by `launch.dryrun.run_cell` as rank 0 of a fake 2x2
+    world: its wire bytes by kind and by mesh dim, printed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import step_builders as sb
+    from repro_torch.launch.mesh import fake_world, make_local_mesh
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.utils.cost import CostCounter
+
+    meta_dev = torch.device("meta")
+    metas, meta_s = {}, {}
+    structs = sb.param_structs(cfg, meta_dev)
+    with fake_world("1x1") as fake:
+        ctx = shd.MeshContext(fake, shd.TRAIN_RULES)
+        for name in DRYRUN_STEPS:
+            t0 = time.perf_counter()
+            step = _dryrun_mesh_step(name, cfg, structs, meta_dev, ctx)
+            with CostCounter(step.args, meta_dev, mesh=fake) as counter:
+                step.fn(*step.args)
+            metas[name] = counter.cost
+            meta_s[name] = time.perf_counter() - t0
+    counters = _counters()
+    steps, launches = {}, {}
+    store = _mesh_world(dev)
+    try:
+        mesh = make_local_mesh(1, 1)
+        ctx = shd.MeshContext(mesh, shd.TRAIN_RULES)
+        for name in DRYRUN_STEPS:
+            meta = metas[name]
+            step = _dryrun_mesh_step(name, cfg, params, dev, ctx)
+            torch.cuda.synchronize()
+            _zero_counters()
+            t0 = time.perf_counter()
+            with CostCounter(step.args, dev, mesh=mesh) as counter:
+                step.fn(*step.args)
+            torch.cuda.synchronize()
+            counted_ms = (time.perf_counter() - t0) * 1e3
+            card = counter.cost
+            moved = {n: k.launches for n, k in counters.items()
+                     if k.launches}
+            launches[name] = moved
+            diff = {op: (meta.ops.get(op), card.ops.get(op))
+                    for op in set(meta.ops) | set(card.ops)
+                    if meta.ops.get(op) != card.ops.get(op)}
+            out = {"phase": "dryrun_mesh", "step": name,
+                   "config": cfg.name, "mesh": "data1xmodel1", "rank": 0,
+                   "meta": {"flops": meta.flops, "bytes": meta.bytes,
+                            "coll_bytes": meta.coll_bytes,
+                            "kernels": meta.kernels,
+                            "arg_bytes": meta.arg_bytes,
+                            "temp_bytes": meta.temp_bytes,
+                            "ops": sum(n for n, _, _ in meta.ops.values()),
+                            "host_s": meta_s[name]},
+                   "card": {"flops": card.flops, "bytes": card.bytes,
+                            "coll_bytes": card.coll_bytes,
+                            "kernels": card.kernels,
+                            "arg_bytes": card.arg_bytes,
+                            "temp_bytes": card.temp_bytes,
+                            "launch_counters": moved,
+                            "ops": sum(n for n, _, _ in card.ops.values()),
+                            "counted_ms": counted_ms},
+                   "ops_differing": {k: v for k, v in
+                                     list(diff.items())[:8]},
+                   "gpu": smi}
+            print(json.dumps(out), flush=True)
+            steps[name] = out
+            if (meta.flops, meta.bytes, meta.kernels) != \
+                    (card.flops, card.bytes, card.kernels) or \
+                    moved != card.kernels or meta.coll_bytes or \
+                    card.coll_bytes:
+                raise SystemExit(f"chip_smoke: dryrun mesh {name}: the "
+                                 f"meta count of the 1x1 mesh is not the "
+                                 f"card's: {out}")
+            del step, counter, card
+            _free_cuda()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    t0 = time.perf_counter()
+    small = ShapeSpec("train_4k", 32, 4, "train")
+    row = dryrun.run_cell(LM_CONFIG, "train_4k", cfg=cfg.reduce(),
+                          shape=small, overrides={"microbatches": 1},
+                          mesh=DRYRUN_FAKE_MESH, verbose=False)
+    fake = {"phase": "dryrun_fake_world", "mesh": DRYRUN_FAKE_MESH,
+            "rank": row["rank"], "config": f"{cfg.name} reduced",
+            "shape": [small.global_batch, small.seq_len],
+            "coll_by_kind": row["coll_by_kind"],
+            "coll_by_dim": row["coll_by_dim"],
+            "device_coll_bytes": row["device_coll_bytes"],
+            "collective_ms": row["collective_ms"],
+            "device_flops": row["device_flops"],
+            "host_s": time.perf_counter() - t0}
+    print(json.dumps(fake), flush=True)
+    if row["status"] != "ok" or not row["device_coll_bytes"]:
+        raise SystemExit(f"chip_smoke: dryrun fake world: {row}")
+    return {"steps": steps, "launches": launches, "fake_world": fake}
 
 
 # the mesh phase (one-rank NCCL world; PR 29)

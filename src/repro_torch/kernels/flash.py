@@ -57,13 +57,19 @@ def query_tile(dtype: torch.dtype, hd: int) -> int:
 
 
 def flash_kernel_cost(*, bh: int, tq: int, tk: int, hd: int, causal: bool,
-                      itemsize: int, block_q: int) -> dict[str, int]:
+                      itemsize: int, block_q: int, q_offset: int = 0
+                      ) -> dict[str, int]:
     """The reference's ``pl.CostEstimate`` of the TPU kernel
     (`repro/kernels/flash.py:135-142`): 4 BH Tq Tk hd FLOPs, halved when
     causal; q and the output once, K and V once per query tile
-    (``block_q`` rows: the CUDA kernel's, `query_tile`)."""
+    (``block_q`` rows: the CUDA kernel's, `query_tile`).  Causal, the
+    keys a query sees are taken as ``q_offset`` + Tq / 2 on average
+    (capped at Tk), which is the reference's half where Tq = Tk at
+    offset 0: a sequence-parallel rank's block at ``q_offset`` (`sp`
+    attention under a mesh) sees more keys the later its block."""
     nq = -(-tq // block_q)
-    return {"flops": int(4 * bh * tq * tk * hd * (0.5 if causal else 1.0)),
+    keys = min(tk, q_offset + tq / 2) if causal else tk
+    return {"flops": int(4 * bh * tq * keys * hd),
             "bytes_accessed": (2 * bh * tq * hd + nq * 2 * bh * tk * hd)
             * itemsize}
 
@@ -308,7 +314,7 @@ def _op_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return 0, 0, 0
     c = flash_kernel_cost(bh=bh, tq=tq, tk=k.shape[1], hd=hd, causal=causal,
                           itemsize=q.element_size(),
-                          block_q=query_tile(q.dtype, hd))
+                          block_q=query_tile(q.dtype, hd), q_offset=q_offset)
     return c["flops"], c["bytes_accessed"], 0
 
 

@@ -12,8 +12,12 @@ the step on them (`utils.cost`).  A sharding is a
 `parallel.sharding.NamedSharding` (a mesh and a spec); `build_train`
 with a mesh ``ctx`` takes params, optimizer state and batch as DTensors
 laid out by them, under the context's rules (`launch.train.TrainLoop`
-with ``mesh=``).  The server calls `models.transformer.prefill` /
-`decode_step` itself.
+with ``mesh=``).  `build` with a mesh ``ctx`` builds every kind of step
+under it, its arguments each rank's shards (the dry run of the
+production mesh counts one rank's step, `launch.dryrun`); `build_prefill`
+and `build_decode` lay the caches out by `transformer.cache_axes`, as
+the reference's out- and in-shardings do (`:180-246`).  The server calls
+`models.transformer.prefill` / `decode_step` itself.
 """
 from __future__ import annotations
 
@@ -153,6 +157,29 @@ def _inputs(cfg, b: int, t: int, device: str | torch.device) -> dict:
                                   device=device)}
 
 
+def _in_mesh(fn: Callable[..., Any], ctx: shd.MeshContext | None
+             ) -> Callable[..., Any]:
+    """``fn`` run under the mesh ``ctx`` (itself without one)."""
+    if ctx is None:
+        return fn
+
+    def run(*args: Any) -> Any:
+        with shd.use_mesh(ctx.mesh, ctx.rules):
+            return fn(*args)
+    return run
+
+
+def _sharded_params(cfg, device, params: Any, ctx: shd.MeshContext | None
+                    ) -> Any:
+    """``params`` (default `param_structs` on ``device``), under a mesh
+    ``ctx`` laid out by the schema (`transformer.shard_params`)."""
+    params = param_structs(cfg, device) if params is None else params
+    if ctx is None:
+        return params
+    with shd.use_mesh(ctx.mesh, ctx.rules):
+        return tfm.shard_params(params, cfg)
+
+
 def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
@@ -266,62 +293,88 @@ def build_train(cfg, shape, ctx: shd.MeshContext | None = None, *,
 
 
 def build_prefill(cfg, shape, device: str | torch.device = "meta",
-                  params: Any = None) -> Step:
+                  params: Any = None, ctx: shd.MeshContext | None = None
+                  ) -> Step:
     """``prefill(params, batch)`` of ``shape.global_batch`` prompts of
     ``shape.seq_len`` tokens into fresh caches of that capacity -> (last
     logits, caches); an encoder-only config gives per-position logits
     and no cache, as the reference's does (`:194-217`).  ``params``
-    (default `param_structs`) in the served form (`prepare_params`)."""
+    (default `param_structs`) in the served form (`prepare_params`).
+    Under a mesh ``ctx`` the params are laid out by the schema, the
+    batch on ``("batch", "seq")``, and the step runs under the mesh (its
+    fresh caches laid out by `transformer.cache_axes`)."""
     b, t = shape.global_batch, shape.seq_len
-    params = tfm.prepare_params(
-        param_structs(cfg, device) if params is None else params, cfg)
+    params = _sharded_params(cfg, device, params, ctx)
+    batch = _inputs(cfg, b, t, device)
+    with (shd.use_mesh(ctx.mesh, ctx.rules) if ctx is not None
+          else contextlib.nullcontext()):
+        params = tfm.prepare_params(params, cfg)
+        if ctx is not None:
+            batch = {k: shd.distribute(v, _batch_axes(cfg)[k], ctx=ctx)
+                     for k, v in batch.items()}
 
     def prefill(params: Any, batch: dict) -> Any:
         if cfg.encoder_only:
             return tfm.lm_apply(params, batch, cfg)
         return tfm.prefill(params, batch, cfg, capacity=t)
 
-    return Step(prefill, (params, _inputs(cfg, b, t, device)))
+    return Step(_in_mesh(prefill, ctx), (params, batch))
 
 
 def build_decode(cfg, shape, device: str | torch.device = "meta",
-                 params: Any = None) -> Step:
+                 params: Any = None, ctx: shd.MeshContext | None = None
+                 ) -> Step:
     """``decode_step(params, caches, tokens, pos)``: one token for each of
     ``shape.global_batch`` sequences against caches of capacity
     ``shape.seq_len``, at its last position (``pos`` a 0-d int64 tensor,
     as the server's graphs take it).  ``params`` (default
-    `param_structs`) in the served form (`prepare_params`)."""
+    `param_structs`) in the served form (`prepare_params`).  Under a mesh
+    ``ctx`` the params are laid out by the schema, the caches by
+    `transformer.cache_axes`, the tokens on ``("batch", None)``, ``pos``
+    replicated, and the step runs under the mesh."""
     b, t = shape.global_batch, shape.seq_len
-    params = tfm.prepare_params(
-        param_structs(cfg, device) if params is None else params, cfg)
-    caches = tfm.init_cache(cfg, b, t, torch.device(device))
+    params = _sharded_params(cfg, device, params, ctx)
     tokens = _inputs(cfg, b, 1, device)
     tokens = tokens.get("tokens", tokens.get("embeds"))
     pos = torch.full((), t - 1, dtype=torch.int64, device=device)
+    with (shd.use_mesh(ctx.mesh, ctx.rules) if ctx is not None
+          else contextlib.nullcontext()):
+        params = tfm.prepare_params(params, cfg)
+        caches = tfm.init_cache(cfg, b, t, torch.device(device))
+        if ctx is not None:
+            tokens = shd.distribute(tokens, ("batch",) + (None,) * (
+                tokens.ndim - 1), ctx=ctx)
 
     def decode(params: Any, caches: list, tokens: torch.Tensor,
                pos: torch.Tensor) -> Any:
         return tfm.decode_step(params, caches, tokens, pos, cfg)
 
-    return Step(decode, (params, caches, tokens, pos))
+    return Step(_in_mesh(decode, ctx), (params, caches, tokens, pos))
 
 
 def build(cfg, shape, device: str | torch.device = "meta",
-          params: Any = None) -> Step:
+          params: Any = None, ctx: shd.MeshContext | None = None) -> Step:
     """The cell's step by ``shape.kind``: ``train`` is `build_train`'s
     step on (params, a fresh optimizer state, a batch of ``tokens`` or
-    ``embeds`` and int32 ``labels``, `TRAIN_STEP`)."""
+    ``embeds`` and int32 ``labels``, `TRAIN_STEP`).  Under a mesh
+    ``ctx`` each argument is this rank's shards: the params laid out by
+    `param_shardings`, the optimizer state by `opt_state_axes`
+    (`init_opt_state`), the batch by `shard_batch`."""
     if shape.kind == "prefill":
-        return build_prefill(cfg, shape, device, params)
+        return build_prefill(cfg, shape, device, params, ctx)
     if shape.kind == "decode":
-        return build_decode(cfg, shape, device, params)
-    params = param_structs(cfg, device) if params is None else params
+        return build_decode(cfg, shape, device, params, ctx)
+    params = _sharded_params(cfg, device, params, ctx)
     b, t = shape.global_batch, shape.seq_len
     batch = dict(_inputs(cfg, b, t, device),
                  labels=torch.empty((b, t), dtype=torch.int32, device=device))
-    return Step(build_train(cfg, shape),
-                (params, make_optimizer(cfg).init(params), batch,
-                 TRAIN_STEP))
+    if ctx is None:
+        state = make_optimizer(cfg).init(params)
+    else:
+        state = init_opt_state(cfg, params, ctx)
+        batch = shard_batch(cfg, batch, ctx)
+    return Step(build_train(cfg, shape, ctx), (params, state, batch,
+                                               TRAIN_STEP))
 
 
 def model_flops(cfg, shape) -> float:

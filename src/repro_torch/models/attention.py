@@ -392,7 +392,9 @@ def _decode_mesh(params: dict, x: torch.Tensor, q: torch.Tensor,
     (a masked in-place write: no host sync, so a CUDA graph captures it),
     scores its own slots, and the softmax's max and sum, then the values'
     sum, are reduced over the model dim: the flash-decoding combine that
-    the reference leaves to GSPMD (``attention.py:257``).  Where the
+    the reference leaves to GSPMD (``attention.py:257``).  The output
+    projection takes the rank's heads (on the heads' mesh dims) and sums
+    their partial products, as the prefill's does.  Where the
     slots are whole on every rank (one rank along the model dim) the
     step is the mesh-free one, op for op."""
     b = x.shape[0]
@@ -433,9 +435,17 @@ def _decode_mesh(params: dict, x: torch.Tensor, q: torch.Tensor,
         e = torch.exp(scores - m)
         l = shd.all_reduce(e.sum(-1, keepdim=True), cspec[1])
         out = shd.all_reduce(_decode_values(e, vc), cspec[1]) / l
+    # the out-projection split over the heads' mesh dims, its partial
+    # sums reduced (as the prefill's), not repeated on every rank
+    hspec = shd.spec_for(("heads",), mesh=ctx.mesh, rules=ctx.rules,
+                         shape=(cfg.n_heads,))[0]
+    h_l = cfg.n_heads // shd.axis_size(hspec)
+    h0 = shd.axis_index(hspec) * h_l
     out = out.to(x.dtype).reshape(ql.shape[0], 1, cfg.n_heads, hd)
-    y = _out_proj(out, {"wo": shd.local(params["wo"], (None, None, None))},
-                  out)
+    if h_l != cfg.n_heads:
+        out = out[:, :, h0:h0 + h_l]
+    wo = shd.local_spec(params["wo"], shd.PartitionSpec(hspec, None, None))
+    y = shd.all_reduce(_out_proj(out, {"wo": wo}, out), hspec)
     y = shd.from_local(y, ("batch", None, None), (b, 1, x.shape[2]))
     return logical(y, ("batch", None, "embed")), {"k": k_cache,
                                                   "v": v_cache}

@@ -65,6 +65,7 @@ from torch.distributed.tensor import DTensor, Shard
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.losses import chunked_cross_entropy
 from repro_torch.parallel.sharding import logical
+from repro_torch.utils.cost import uncounted
 
 from .attention import (CACHE_AXES, attention_apply, attn_schema,
                         decode_position, init_kv_cache)
@@ -225,7 +226,9 @@ def init_cache(cfg, batch: int, capacity: int, device: torch.device,
     dtype = dtype or cfg.cache_dtype
     if shd.current() is None:
         return _plain_cache(cfg, batch, capacity, dtype, device)
-    shapes = _plain_cache(cfg, batch, capacity, dtype, torch.device("meta"))
+    with uncounted():   # the global shapes, on meta: not work
+        shapes = _plain_cache(cfg, batch, capacity, dtype,
+                              torch.device("meta"))
     return _sharded_zeros(shapes, cache_axes(cfg), device)
 
 

@@ -47,11 +47,15 @@ def _pad_to(x: torch.Tensor, m: int) -> tuple[torch.Tensor, int]:
 def quantize_fp8_block(x: torch.Tensor, block: int = BLOCK
                        ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """x -> (fp8 codes (Nb, block), f32 scales (Nb,), pad): each block
-    divided by its amax / 448 (at least 1e-12) and rounded to fp8."""
+    divided by its amax / 448 (at least 1e-12) and rounded to fp8.  The
+    quotient is a true division on every device: 448 is a 0-d tensor on
+    x's device, since CUDA divides by a Python number as a multiply by
+    its reciprocal, and 1/448 is not exact in f32."""
     flat, pad = _pad_to(x.float(), block)
     blocks = flat.reshape(-1, block)
     amax = blocks.abs().amax(dim=1, keepdim=True)
-    scale = torch.clamp_min(amax / FP8_MAX, 1e-12)
+    fp8_max = torch.full((), FP8_MAX, dtype=amax.dtype, device=amax.device)
+    scale = torch.clamp_min(amax / fp8_max, 1e-12)
     return (blocks / scale).to(FP8), scale[:, 0], pad
 
 

@@ -370,14 +370,20 @@ def distribute(x: torch.Tensor, axes: tuple, *,
 def place(x: torch.Tensor, mesh: DeviceMesh, pls: tuple) -> DTensor:
     """The full tensor ``x`` as a DTensor of placements ``pls`` on
     ``mesh``: each rank cuts its shard (`distribute`; a checkpoint's
-    leaf laid out elastically on the current mesh)."""
+    leaf laid out elastically on the current mesh).  A shard that is
+    part of ``x``'s storage is copied out, so that the rank holds only
+    its shard, not all of ``x``; a whole ``x`` (one rank) is kept."""
     piece = x
     coord = mesh.get_coordinate()
     for i, p in enumerate(pls):
         if isinstance(p, Shard):
             piece = torch.tensor_split(piece, mesh.size(i),
                                        dim=p.dim)[coord[i]]
-    return DTensor.from_local(piece.contiguous(), mesh, pls,
+    piece = piece.contiguous()
+    if piece.untyped_storage().nbytes() > piece.numel() * \
+            piece.element_size():
+        piece = piece.clone()   # a view would hold all of x alive
+    return DTensor.from_local(piece, mesh, pls,
                               run_check=False, shape=x.shape,
                               stride=_contiguous_stride(tuple(x.shape)))
 

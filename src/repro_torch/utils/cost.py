@@ -35,11 +35,34 @@ counter counts the real step, and the two must agree (``chip_smoke.py``'s
   one trip stands for all of them, and under autograd one stands for
   all but the first and the last two, its backward scaled alike (so the
   sums of gradients across trips are counted too), with the same count.
-- Collectives: none on one card (``coll_bytes`` 0).
+- Collectives.  Each collective counts its wire bytes by `hlo.py`'s
+  ring factors (`hlo.py:342-364`), over its group of n ranks:
+  all-reduce 2 x size x (n-1)/n, all-gather result x (n-1)/n,
+  reduce-scatter operand x (n-1)/n, all-to-all size x (n-1)/n, a
+  broadcast its size; and 2 x its result of HBM bytes.  Caught are
+  `torch.distributed`'s functional ops (``_c10d_functional``: DTensor's
+  redistributes), its in-place ops (``c10d``: ``dist.all_reduce`` and
+  friends, whose group is a ``ProcessGroup`` argument) and DTensor's
+  ``_dtensor.shard_dim_alltoall``; ``wait_tensor`` and
+  ``_wrap_tensor_autograd`` count nothing.  ``coll_by_kind`` sums the
+  wire bytes by kind (`hlo.py`'s names), ``coll_by_dim`` by the mesh dim
+  whose group ran them (the ``mesh`` given, else the active one's),
+  ``coll_ops`` keeps each (kind, wire bytes, shape) for
+  `collective_report`.  What is counted is what an NCCL mesh runs: on a
+  mesh whose device type is ``cpu`` DTensor stands an all-gather and a
+  chunk in for each all-to-all (gloo has none), so the dry run builds
+  its meshes with the device type ``cuda``, on which DTensor takes the
+  NCCL path with no card present (`launch.mesh.fake_world`).
+- DTensors.  An op on DTensors is passed on to DTensor (the counter
+  returns ``NotImplemented``), so that what is counted is what each rank
+  runs: the ops on its local shards and the collectives of the
+  redistributes.  The ops that DTensor's sharding propagation runs on
+  fake tensors are not work and count nothing.
 - Memory.  Every allocation is keyed on its storage (a
   `StorageWeakRef`, which follows the storage and not the Python
   wrapper), so `StepCost` gives ``arg_bytes`` (the step's arguments:
-  parameters, optimizer state, batch, caches) and the peak of live bytes,
+  parameters, optimizer state, batch, caches; of a DTensor its local
+  shard) and the peak of live bytes,
   and ``temp_bytes`` the peak less the arguments: XLA's
   ``memory_analysis()`` figures.  A kernel's workspace (its cost
   function's scratch) is live for its launch; what a scan's standing-in
@@ -56,13 +79,17 @@ import dataclasses
 from typing import Any, Callable, Iterator
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed import ProcessGroup
+from torch.distributed.tensor import DTensor
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _disable_current_modes)
 from torch.utils.flop_counter import flop_registry
 
 __all__ = ["StepCost", "CostCounter", "count", "repeat", "scan",
-           "register_kernel_cost", "KERNEL_COSTS"]
+           "uncounted", "register_kernel_cost", "KERNEL_COSTS",
+           "collective_report", "wire_bytes"]
 
 # op -> (kernel name, cost(*args, **kwargs) -> (flops, bytes, scratch))
 KERNEL_COSTS: dict[Any, tuple[str, Callable[..., tuple[int, int, int]]]] = {}
@@ -84,6 +111,69 @@ _SCATTER = {_aten.index_copy_, _aten.index_put_, _aten._index_put_impl_,
             _aten.scatter_, _aten.index_add_, _aten.scatter_add_}
 _NOT_WORK = {_aten.record_stream}
 
+# collectives by schema name: (kind, the argument holding the result
+# (None: the op's return), the argument holding the operand)
+_COLLECTIVES = {
+    "_c10d_functional::all_reduce": ("all-reduce", None, "input"),
+    "_c10d_functional::all_reduce_": ("all-reduce", None, "input"),
+    "_c10d_functional::all_reduce_coalesced": ("all-reduce", None,
+                                               "inputs"),
+    "_c10d_functional::all_gather_into_tensor": ("all-gather", None,
+                                                 "input"),
+    "_c10d_functional::all_gather_into_tensor_out": ("all-gather", None,
+                                                     "input"),
+    "_c10d_functional::all_gather_into_tensor_coalesced": (
+        "all-gather", None, "inputs"),
+    "_c10d_functional::reduce_scatter_tensor": ("reduce-scatter", None,
+                                                "input"),
+    "_c10d_functional::reduce_scatter_tensor_coalesced": (
+        "reduce-scatter", None, "inputs"),
+    "_c10d_functional::all_to_all_single": ("all-to-all", None, "input"),
+    "_c10d_functional::broadcast": ("collective-broadcast", None, "input"),
+    "_dtensor::shard_dim_alltoall": ("all-to-all", None, "input"),
+    "c10d::allreduce_": ("all-reduce", "tensors", "tensors"),
+    "c10d::allreduce_coalesced_": ("all-reduce", "tensors", "tensors"),
+    "c10d::allgather_": ("all-gather", "output_tensors", "input_tensors"),
+    "c10d::_allgather_base_": ("all-gather", "output_tensor",
+                               "input_tensor"),
+    "c10d::allgather_into_tensor_coalesced_": ("all-gather", "outputs",
+                                               "inputs"),
+    "c10d::reduce_scatter_": ("reduce-scatter", "output_tensors",
+                              "input_tensors"),
+    "c10d::_reduce_scatter_base_": ("reduce-scatter", "output_tensor",
+                                    "input_tensor"),
+    "c10d::alltoall_base_": ("all-to-all", "output", "input"),
+    "c10d::alltoall_": ("all-to-all", "output_tensors", "input_tensors"),
+    "c10d::broadcast_": ("collective-broadcast", "tensors", "tensors"),
+}
+# no work: waits, autograd wrappers, a barrier
+_NO_COST = {"_c10d_functional::wait_tensor",
+            "_c10d_functional::_wrap_tensor_autograd", "c10d::barrier"}
+
+
+def wire_bytes(kind: str, n: int, size: float, operand: float) -> float:
+    """The bytes each rank sends for one collective over ``n`` ranks
+    (`hlo.py:342-364`'s ring factors): ``size`` its result's bytes,
+    ``operand`` its operand's."""
+    if kind == "all-reduce":
+        return 2.0 * size * (n - 1) / max(n, 1)
+    if kind == "reduce-scatter":
+        return operand * (n - 1) / max(n, 1)
+    if kind in ("all-gather", "all-to-all"):
+        return size * (n - 1) / max(n, 1)
+    return size   # permute / broadcast
+
+
+def _group(value: Any) -> Any:
+    """The process group of a collective's group argument: a
+    ``ProcessGroup``, or the name of one."""
+    if isinstance(value, str):
+        from torch._C._distributed_c10d import _resolve_process_group
+        return _resolve_process_group(value)
+    if isinstance(value, torch.ScriptObject):   # a ``c10d`` op's argument
+        return ProcessGroup.unbox(value)
+    return value
+
 
 def register_kernel_cost(op: Any, name: str,
                          cost: Callable[..., tuple[int, int, int]]) -> None:
@@ -91,6 +181,15 @@ def register_kernel_cost(op: Any, name: str,
     kernel ``name``: ``cost(*args, **kwargs)`` gives its (FLOPs, bytes,
     scratch bytes live for the launch)."""
     KERNEL_COSTS[op] = (name, cost)
+
+
+@contextlib.contextmanager
+def uncounted() -> Iterator[None]:
+    """Run the block outside any counter: ops that build only shapes
+    (templates on meta that a step reads the sizes of), which the card
+    does not run as work.  Without a counter it changes nothing."""
+    with _disable_current_modes():
+        yield
 
 
 @contextlib.contextmanager
@@ -165,12 +264,16 @@ def scan(step: Callable[[Any, int], tuple[Any, torch.Tensor]], carry: Any,
 class StepCost:
     """One step's count.  ``ops``: {op: [calls, flops, bytes]};
     ``kernels``: {kernel: launches}; bytes of memory on the counted
-    device."""
+    device.  Wire bytes: ``coll_bytes`` in all, ``coll_by_kind`` {kind:
+    bytes}, ``coll_by_dim`` {mesh dim: bytes} (``"?"`` for a group of no
+    mesh dim), ``coll_ops`` [(kind, bytes, shape)]."""
 
     flops: float = 0.0
     bytes: float = 0.0
     coll_bytes: float = 0.0
     coll_by_kind: dict = dataclasses.field(default_factory=dict)
+    coll_by_dim: dict = dataclasses.field(default_factory=dict)
+    coll_ops: list = dataclasses.field(default_factory=list)
     ops: dict = dataclasses.field(default_factory=dict)
     kernels: dict = dataclasses.field(default_factory=dict)
     arg_bytes: int = 0
@@ -191,9 +294,12 @@ class StepCost:
 
 
 def _tensors(tree: Any, out: list | None = None) -> list[torch.Tensor]:
-    """The tensors of a tree of lists, tuples and dicts, in order."""
+    """The tensors of a tree of lists, tuples and dicts, in order (of a
+    DTensor its local shard)."""
     out = [] if out is None else out
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, DTensor):
+        out.append(tree.to_local())
+    elif isinstance(tree, torch.Tensor):
         out.append(tree)
     elif isinstance(tree, (list, tuple)):
         for x in tree:
@@ -209,15 +315,17 @@ class CostCounter(TorchDispatchMode):
     ``self.cost`` (`StepCost`).  ``args``: the step's arguments (any tree
     of tensors), whose storages make ``arg_bytes``; ``device``: the
     device whose bytes count (default: that of the first argument
-    tensor)."""
+    tensor); ``mesh``: the `DeviceMesh` whose dims ``coll_by_dim`` names
+    (default: the active `parallel.sharding.use_mesh`'s, if any)."""
 
     def __init__(self, args: Any = (), device: str | torch.device |
-                 None = None) -> None:
+                 None = None, mesh: Any = None) -> None:
         super().__init__()
         flat = _tensors(args)
         if device is None:
             device = flat[0].device if flat else "meta"
         self.device_type = torch.device(device).type
+        self._dims = _mesh_groups(mesh)
         self.cost = StepCost()
         self._live: dict[int, tuple[StorageWeakRef, int]] = {}
         self._cur = 0
@@ -337,15 +445,48 @@ class CostCounter(TorchDispatchMode):
         return flops, float(sum(map(self._nbytes, ins)) +
                             sum(map(self._nbytes, outs)))
 
+    def _collective(self, func: Any, kind: str, result: str | None,
+                    operand: str, args: tuple, kwargs: dict, out: Any,
+                    scale: int) -> None:
+        named = dict(zip((a.name for a in func._schema.arguments), args))
+        named.update(kwargs)
+        group = _group(named.get("group_name", named.get("process_group")))
+        n = group.size()
+        size = sum(map(self._nbytes, _tensors(
+            out if result is None else named[result])))
+        wire = scale * wire_bytes(kind, n, size, sum(map(
+            self._nbytes, _tensors(named[operand]))))
+        dim = self._dims.get(group.group_name, "?")
+        c = self.cost
+        c.coll_bytes += wire
+        c.coll_by_kind[kind] = c.coll_by_kind.get(kind, 0.0) + wire
+        c.coll_by_dim[dim] = c.coll_by_dim.get(dim, 0.0) + wire
+        shapes = [tuple(t.shape) for t in _tensors(named[operand])][:2]
+        c.coll_ops.append((kind, wire, f"{dim} x{n} {shapes}"))
+        nbytes = scale * 2.0 * size
+        c.bytes += nbytes
+        tally = c.ops.setdefault(str(func), [0, 0.0, 0.0])
+        tally[0] += scale
+        tally[2] += nbytes
+
     def __torch_dispatch__(self, func: Any, types: Any, args: tuple = (),
                            kwargs: dict | None = None) -> Any:
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented   # counted as the local ops it runs
         out = func(*args, **kwargs)
-        if func.overloadpacket in _NOT_WORK:
+        if func.overloadpacket in _NOT_WORK or _fake(args, kwargs, out):
+            return out
+        name = func._schema.name
+        if name in _NO_COST:
             return out
         for t in _tensors(out):
             self._allocated(t)
         scale = self._scale()
+        coll = _COLLECTIVES.get(name)
+        if coll is not None:
+            self._collective(func, *coll, args, kwargs, out, scale)
+            return out
         kernel = KERNEL_COSTS.get(func)
         if kernel is not None:  # its workspace lives beside its output
             name, cost = kernel
@@ -363,6 +504,38 @@ class CostCounter(TorchDispatchMode):
         tally[1] += flops
         tally[2] += nbytes
         return out
+
+
+def _fake(args: tuple, kwargs: dict, out: Any) -> bool:
+    """Whether an op ran on fake tensors (DTensor's sharding
+    propagation): shapes only, no work of the step."""
+    return any(isinstance(t, FakeTensor)
+               for t in _tensors((args, kwargs, out)))
+
+
+def _mesh_groups(mesh: Any) -> dict[str, str]:
+    """{process group name: mesh dim name} of a `DeviceMesh` (``mesh``,
+    else the active mesh's); {} without one."""
+    if mesh is None:
+        from repro_torch.parallel import sharding as shd
+        ctx = shd.current()
+        mesh = None if ctx is None else ctx.mesh
+    names = getattr(mesh, "mesh_dim_names", None)
+    if not names:
+        return {}
+    return {mesh.get_group(i).group_name: name
+            for i, name in enumerate(names)}
+
+
+def collective_report(cost: StepCost, top: int = 12) -> str:
+    """The wire bytes by kind and the largest collectives
+    (`hlo.collective_report`)."""
+    lines = [f"collective wire bytes/device: {cost.coll_bytes / 1e9:.3f} GB"]
+    for k, v in sorted(cost.coll_by_kind.items(), key=lambda kv: -kv[1]):
+        lines.append(f"  {k:24s} {v / 1e9:9.3f} GB")
+    for kind, b, shape in sorted(cost.coll_ops, key=lambda t: -t[1])[:top]:
+        lines.append(f"    {kind:22s} {b / 1e6:10.1f} MB  {shape}")
+    return "\n".join(lines)
 
 
 def count(fn: Callable[..., Any], *args: Any, **kwargs: Any

@@ -11,12 +11,23 @@ properties and `row()` keys, read from a step counted by `utils.cost`
 
     compute term    = FLOPs / the card's dense bf16 peak
     memory term     = bytes / the card's HBM rate
-    collective term = 0 (one card: no wire)
+    collective term = sum over the mesh dims of that dim's wire bytes /
+                      the rate of the slowest link its groups cross
+
+The per-device step of a mesh (`launch.dryrun` with a mesh) prices each
+mesh dim at its own link (`dim_links`): ranks are laid out with the last
+dim (``model``) fastest, `HW.node_gpus` to a node; a dim whose groups
+stay inside a node rides NVLink, any other the network.  So at 16x16 a
+``model`` group of 16 spans two nodes, and ``data`` and ``pod`` groups
+always leave the node.  The rates are the datasheets' (each way, per
+GPU): predictions, not measurements.  One card moves no byte over a
+wire: its collective term is 0.
 
 Stated differences: ``mfu`` divides by the `HW` row's bf16 peak where
 the reference divides by v5e's 197e12 (`repro/utils/roofline.py:84`),
-and the report adds ``fits``: the step's arguments and temporaries
-within the card's memory.
+the reference prices every collective at one ICI link rate, and the
+report adds ``fits``: the step's arguments and temporaries within the
+card's memory.
 """
 from __future__ import annotations
 
@@ -26,14 +37,16 @@ import subprocess
 from typing import Any
 
 __all__ = ["HW", "CARDS", "card", "card_hw", "smi_name_and_power",
-           "RooflineReport", "report", "save_rows"]
+           "RooflineReport", "report", "save_rows", "dim_links",
+           "collective_seconds", "LINK_NOTE"]
 
 
 @dataclasses.dataclass(frozen=True)
 class HW:
     """One SKU's peaks, from NVIDIA's datasheet (dense rates, the
     sparsity figures halved).  ``name`` is matched against the name the
-    card reports (`torch.cuda.get_device_name`, ``nvidia-smi``)."""
+    card reports (`torch.cuda.get_device_name`, ``nvidia-smi``).  The
+    link rates are per GPU, each way; 0 where the row has none."""
 
     name: str
     f32_flops: float    # FLOP/s on the CUDA cores, no tensor cores
@@ -41,6 +54,9 @@ class HW:
     bf16_flops: float   # dense bf16 tensor-core FLOP/s
     int8_ops: float     # dense int8 tensor-core OP/s
     hbm_bytes: float    # device memory (the datasheet's GB, 1e9 bytes)
+    nvlink_bw: float = 0.0   # bytes/s to a GPU of the same node
+    node_gpus: int = 1       # GPUs a node joins by NVLink
+    net_bw: float = 0.0      # bytes/s to a GPU of another node
 
     @property
     def hbm_gbps(self) -> float:
@@ -48,12 +64,55 @@ class HW:
 
 
 # First match wins, so the longer names come before "H100".
+# The SXM rows' links: NVLink 4 inside an 8-GPU HGX/DGX node, 900 GB/s
+# a GPU both ways together, 450 GB/s each way (NVIDIA H100 / H200
+# datasheets); between nodes one 400 Gb/s ConnectX-7 port a GPU, 50 GB/s
+# each way (NVIDIA DGX H100 user guide).  The NVL and PCIe rows carry no
+# link figures: a mesh of more than one of them is not priced.
+_NVLINK4, _NODE, _CX7 = 450e9, 8, 50e9
 CARDS = (
     HW("H100 NVL", 60e12, 3.9e12, 835e12, 1670e12, 94e9),
     HW("H100 PCIe", 51e12, 2.0e12, 756e12, 1513e12, 80e9),
-    HW("H100", 67e12, 3.35e12, 989e12, 1979e12, 80e9),  # SXM5 80GB HBM3
-    HW("H200", 67e12, 4.8e12, 989e12, 1979e12, 141e9),
+    HW("H100", 67e12, 3.35e12, 989e12, 1979e12, 80e9,    # SXM5 80GB HBM3
+       _NVLINK4, _NODE, _CX7),
+    HW("H200", 67e12, 4.8e12, 989e12, 1979e12, 141e9, _NVLINK4, _NODE, _CX7),
 )
+
+LINK_NOTE = ("collective term priced at datasheet link rates (NVLink "
+             "450 GB/s inside an 8-GPU node, 50 GB/s between nodes, each "
+             "way): a prediction")
+
+
+def dim_links(mesh_shape: dict[str, int], hw: HW) -> dict[str, float]:
+    """{mesh dim: the rate (bytes/s each way) of the slowest link its
+    groups cross}.  Ranks are laid out with the last dim fastest and
+    ``hw.node_gpus`` to a node, so the groups of a dim stay inside a
+    node when the dims from it to the last span a divisor of the node;
+    otherwise they cross the network."""
+    out, span = {}, 1
+    for name, size in reversed(list(mesh_shape.items())):
+        span *= size
+        inside = span <= hw.node_gpus and hw.node_gpus % span == 0
+        out[name] = hw.nvlink_bw if inside else hw.net_bw
+    return dict(reversed(list(out.items())))
+
+
+def collective_seconds(coll_by_dim: dict[str, float],
+                       mesh_shape: dict[str, int], hw: HW) -> float:
+    """The collective term: each mesh dim's wire bytes over its link
+    (`dim_links`), summed; bytes of a group of no mesh dim (``"?"``) at
+    the slowest link.  Raises where bytes meet a link of no rate."""
+    links = dim_links(mesh_shape, hw)
+    slowest = min(links.values(), default=0.0)
+    total = 0.0
+    for dim, nbytes in coll_by_dim.items():
+        if not nbytes:
+            continue
+        bw = links.get(dim, slowest)
+        if bw <= 0:
+            raise ValueError(f"{hw.name}: no link rate for mesh dim {dim!r}")
+        total += nbytes / bw
+    return total
 
 
 def card(device_name: str) -> HW:
@@ -183,19 +242,27 @@ class RooflineReport:
 
 def report(*, arch: str, shape: str, mesh_name: str, chips: int, cost: Any,
            model_flops: float, mem_stats: Any = None, hw: HW,
-           notes: str = "") -> RooflineReport:
+           notes: str = "", mesh_shape: dict | None = None
+           ) -> RooflineReport:
     """The reference's `report` over a counted step: ``cost`` has
-    ``flops``, ``bytes``, ``coll_bytes`` and ``coll_by_kind``
-    (`utils.cost.StepCost`); ``mem_stats`` ``argument_size_in_bytes``
-    and ``temp_size_in_bytes`` (a `StepCost` has both).  The collective
-    term is 0: one card has no wire."""
+    ``flops``, ``bytes``, ``coll_bytes`` and ``coll_by_kind``, and under
+    a mesh ``coll_by_dim`` (`utils.cost.StepCost`); ``mem_stats``
+    ``argument_size_in_bytes`` and ``temp_size_in_bytes`` (a `StepCost`
+    has both).  ``mesh_shape`` ({dim: size}) prices the collective term
+    per mesh dim (`collective_seconds`); without it the step is one
+    card's, whose term is 0."""
     arg_b = getattr(mem_stats, "argument_size_in_bytes", 0) if mem_stats else 0
     tmp_b = getattr(mem_stats, "temp_size_in_bytes", 0) if mem_stats else 0
+    coll_s = 0.0
+    if mesh_shape is not None:
+        coll_s = collective_seconds(cost.coll_by_dim, mesh_shape, hw)
+    elif cost.coll_bytes:
+        raise ValueError("wire bytes without a mesh to price them on")
     return RooflineReport(
         arch=arch, shape=shape, mesh=mesh_name, chips=chips,
         compute_s=cost.flops / hw.bf16_flops,
         memory_s=cost.bytes / hw.hbm_bw,
-        collective_s=0.0,
+        collective_s=coll_s,
         device_flops=cost.flops,
         device_bytes=cost.bytes,
         device_coll_bytes=cost.coll_bytes,

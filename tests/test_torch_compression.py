@@ -138,3 +138,33 @@ def test_apply_to_grads_is_per_leaf_with_error_feedback(both):
     # round 2 carries round 1's error: the same as one psum with it
     np.testing.assert_array_equal(port["tree2_a"], port["one_a"])
     np.testing.assert_array_equal(port["err2_a"], port["one_err_a"])
+
+
+def test_scale_is_a_true_division_by_a_tensor():
+    """The scale's quotient amax / 448 is a true division on every
+    device: the divisor a 0-d tensor on the codes' device (CUDA divides
+    by a Python number as a multiply by its reciprocal).  The data make
+    the two differ in most blocks, and the scales equal numpy's f32
+    quotient bit for bit."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    divisors = []
+
+    class Divisions(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket is torch.ops.aten.div:
+                divisors.append(args[1])
+            return func(*args, **(kwargs or {}))
+
+    rng = np.random.default_rng(3)
+    x = (100 * rng.standard_normal((64, BLOCK))).astype(np.float32)
+    with Divisions():
+        _, s, _ = TC.quantize_fp8_block(torch.from_numpy(x), BLOCK)
+    assert divisors and all(isinstance(d, torch.Tensor) for d in divisors)
+    (fp8_max,) = [d for d in divisors if d.ndim == 0]
+    assert fp8_max.item() == TC.FP8_MAX and fp8_max.device == s.device
+    amax = np.abs(x).max(axis=1)
+    true = amax / np.float32(TC.FP8_MAX)
+    by_reciprocal = amax * (np.float32(1) / np.float32(TC.FP8_MAX))
+    assert (true != by_reciprocal).sum() >= 8
+    np.testing.assert_array_equal(s.numpy(), true)

@@ -227,11 +227,13 @@ def test_a_storage_that_only_autograd_holds_stays_live():
                                               (F32, 64, True)])
 def test_flash_op_on_meta_counts_its_cost_function(dtype, hd, causal):
     q, k = _meta(12, 300, hd, dtype=dtype), _meta(12, 320, hd, dtype=dtype)
-    out, c = C.count(TF.flash_fwd_kernel, q, k, k, causal=causal)
+    out, c = C.count(TF.flash_fwd_kernel, q, k, k, causal=causal,
+                     q_offset=20)
     assert out.shape == q.shape and out.dtype == dtype
     want = TF.flash_kernel_cost(bh=12, tq=300, tk=320, hd=hd, causal=causal,
                                 itemsize=dtype.itemsize,
-                                block_q=TF.query_tile(dtype, hd))
+                                block_q=TF.query_tile(dtype, hd),
+                                q_offset=20)
     assert (c.flops, c.bytes) == (want["flops"], want["bytes_accessed"])
     assert c.kernels == {"flash_fwd": 1}
     assert list(c.ops) == ["repro_torch.flash_fwd.default"]
@@ -239,7 +241,12 @@ def test_flash_op_on_meta_counts_its_cost_function(dtype, hd, causal):
     bq = TF.query_tile(dtype, hd)
     assert want["bytes_accessed"] == dtype.itemsize * (
         2 * 12 * 300 * hd + -(-300 // bq) * 2 * 12 * 320 * hd)
-    assert want["flops"] == 4 * 12 * 300 * 320 * hd // (2 if causal else 1)
+    # causal: the mean keys a query sees, q_offset + Tq / 2 = 170 of 320
+    assert want["flops"] == 4 * 12 * 300 * (170 if causal else 320) * hd
+    square = TF.flash_kernel_cost(bh=12, tq=320, tk=320, hd=hd,
+                                  causal=causal, itemsize=dtype.itemsize,
+                                  block_q=TF.query_tile(dtype, hd))
+    assert square["flops"] == 4 * 12 * 320 * 320 * hd // (2 if causal else 1)
 
 
 def test_flash_wrapper_checks_operands_on_meta():

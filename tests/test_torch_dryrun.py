@@ -10,7 +10,8 @@
 - `run_cell` rows for every reduced arch at each supported kind (small
   shapes): the reference's row keys with ``fits``, ``trace_s``, the
   kernels' launches; skipped shapes with the reference's reasons; the
-  sparse-FFN cells; the CLI (``--multipod`` refused, one cell written).
+  sparse-FFN cells; the CLI (one cell written; ``--multipod`` writes
+  ``*_multipod.json``, its skip rows the reference's ``pod2x16x16``).
 - The builders: `param_structs` on meta matches the schema; the train,
   prefill and decode steps' arguments.
 """
@@ -174,9 +175,13 @@ def test_optimized_flags_are_the_references():
 
 
 def test_cli(tmp_path, capsys):
-    assert D.main(["--multipod", "--all"]) == 2
-    assert "one card" in capsys.readouterr().err
     out = tmp_path / "rows.json"
+    assert D.main(["--multipod", "--arch", "qwen1.5-4b", "--shape",
+                   "long_500k", "--out", str(out)]) == 0
+    (row,) = json.loads((tmp_path / "rows_multipod.json").read_text())
+    assert row["status"] == "skip" and row["mesh"] == "pod2x16x16"
+    assert not out.exists()
+    assert "2x16x16" in capsys.readouterr().out
     assert D.main(["--arch", "rwkv6-3b", "--shape", "decode_32k",
                    "--out", str(out)]) == 0
     (row,) = json.loads(out.read_text())

@@ -87,3 +87,50 @@ def test_save_rows(tmp_path):
     out = tmp_path / "rows.json"
     R.save_rows(str(out), [{"arch": "a", "fits": True}])
     assert out.read_text().startswith("[")
+
+
+def test_link_rates_are_the_datasheets():
+    assert (H100.nvlink_bw, H100.node_gpus, H100.net_bw) == (450e9, 8, 50e9)
+    for name in ("H100 NVL", "H100 PCIe"):
+        assert R.card(name).nvlink_bw == R.card(name).net_bw == 0
+
+
+@pytest.mark.parametrize("mesh,links", [
+    ({"data": 32, "model": 8}, {"data": 50e9, "model": 450e9}),
+    ({"data": 16, "model": 16}, {"data": 50e9, "model": 50e9}),
+    ({"pod": 2, "data": 16, "model": 16},
+     {"pod": 50e9, "data": 50e9, "model": 50e9}),
+    ({"data": 2, "model": 4}, {"data": 450e9, "model": 450e9}),
+    ({"data": 4, "model": 4}, {"data": 50e9, "model": 450e9}),
+])
+def test_each_mesh_dim_rides_the_slowest_link_it_crosses(mesh, links):
+    """``model`` fastest, 8 GPUs a node: a model dim of 8 stays on
+    NVLink, one of 16 spans two nodes, and ``data`` and ``pod`` leave
+    the node unless the whole mesh fits in one."""
+    assert R.dim_links(mesh, H100) == links
+
+
+def test_collective_term_prices_each_dim_at_its_link():
+    mesh = {"data": 32, "model": 8}
+    wire = {"data": 5e9, "model": 9e9, "?": 1e9}
+    assert R.collective_seconds(wire, mesh, H100) == pytest.approx(
+        5e9 / 50e9 + 9e9 / 450e9 + 1e9 / 50e9)
+    with pytest.raises(ValueError, match="no link rate"):
+        R.collective_seconds({"data": 1.0}, {"data": 2, "model": 1},
+                             R.card("H100 PCIe"))
+
+
+def test_dominant_can_be_the_collective_term():
+    cost = StepCost(flops=1e12, bytes=1e9, coll_bytes=8e9,
+                    coll_by_kind={"all-gather": 8e9},
+                    coll_by_dim={"data": 8e9}, arg_bytes=1, peak_bytes=2)
+    rep = R.report(arch="a", shape="s", mesh_name="data16xmodel16",
+                   chips=256, cost=cost, model_flops=1e14, mem_stats=cost,
+                   hw=H100, mesh_shape={"data": 16, "model": 16})
+    assert rep.collective_s == pytest.approx(8e9 / 50e9)
+    assert rep.dominant == "collective"
+    assert rep.row()["collective_ms"] == pytest.approx(160.0)
+    assert rep.step_time_s == rep.collective_s
+    with pytest.raises(ValueError, match="without a mesh"):
+        R.report(arch="a", shape="s", mesh_name="m", chips=1, cost=cost,
+                 model_flops=1.0, mem_stats=cost, hw=H100)
