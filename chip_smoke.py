@@ -351,6 +351,26 @@ repository around it, or when any phase fails.  Phases:
    Before the mesh phases `cnn_shim_phase` runs `models.cnn.vgg16_apply`
    on the served VGG-16 against `graph.net_apply`, bit-equal with the
    path's launches (``launches_by_path["cnn.vgg16_apply"]``).
+18. The last reference paths (`mesh_conv_phase`, `mesh_conv_cases`,
+   `adamw8bit_phase`, `chunked_scan_phase`).  (a) ResNet-50 f32 and
+   int8 and MobileNetV1 f32 (halo) served by `CNNServer(shard_fc=True)`
+   in the one-rank world with the ``conv`` rule on ``model``: every conv
+   entry a DTensor (`graph._sharded_conv` runs them), the same 16
+   images as the mesh-free server, logits bit-equal and the same
+   launches by kernel (counts set to 0 before the serve and read after:
+   ``launches_by_path["mesh-conv ..."]``).  (b) `optim.adamw8bit`: three
+   updates of one Qwen1.5-4B layer group's params (full width, bf16) by
+   seeded gradients on the 1x1 mesh, against mesh-free on the card and
+   against the CPU: codes, scales and params bit-equal.  (c) RWKV-6-3B
+   and Jamba at full width, 8 of 32 layers, one training step's loss and
+   gradients at T 2048, batch 1, chunked (``scan_chunk`` 256) against
+   one chunk of 2048 (``scan_chunk`` 2048) where its meta peak fits:
+   loss and gradients bit-equal (fingerprints), ``max_memory_allocated``
+   of each, and the dry run's meta peak (arguments + temporaries) within
+   15% of the card's.  (d) The rank-local conv rows: ResNet-50's
+   sharded 3x3 convs (layer4's, 4 strips) with a quarter of their
+   strips, f32 and int8, each against its plain version with its bound
+   and cuDNN's time (rows labelled ``mesh conv``).
 
 ``kernel_ms``, ``plain_ms`` and ``library_ms`` are device time per call:
 a run of calls is captured in one CUDA graph and its replays are timed
@@ -4569,6 +4589,272 @@ def mesh_kernel_cases(timer: Timer, dev, bf16_peak: float,
     return rows
 
 
+MESH_CONV_PATHS = ("resnet50-halo", "resnet50-int8-halo",
+                   "mobilenet_v1-halo")
+MESH_CONV_LAYERS = ("layer4_0_conv2", "layer4_1_conv2")   # (d): 4 strips
+
+
+def mesh_conv_phase(served: dict, dev) -> dict:
+    """(a) `MESH_CONV_PATHS` served by `CNNServer(shard_fc=True)` in the
+    one-rank world with ``conv`` on ``model``: every conv entry a
+    DTensor, the same images as the mesh-free server (both warm),
+    logits bit-equal and the same launches by kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import CNNServer, ImageRequest
+    from repro_torch.models.graph import SparseConv
+    from repro_torch.parallel import sharding as shd
+    from torch.distributed.tensor import DTensor
+
+    rules = shd.SERVE_RULES.replace(conv="model")
+    out = {}
+    for path in MESH_CONV_PATHS:
+        s = served[path]
+        cfg_name, impl, dtype = PATHS[path][:3]
+        srv_m = CNNServer(get_config(cfg_name), batch=BATCH, impl=impl,
+                          dtype=dtype, seed=0, shard_fc=True, device=dev,
+                          rules=rules)
+        convs = [e for e in srv_m.group.backends[0].apply.sparse.values()
+                 if isinstance(e, SparseConv)]
+        n_dt = sum(isinstance(e.vs.vals, DTensor) for e in convs)
+        if not convs or n_dt != len(convs):
+            raise SystemExit(f"chip_smoke: mesh conv {path}: {n_dt} of "
+                             f"{len(convs)} conv entries are DTensors")
+        runs = []
+        for srv in (s["srv"], srv_m):
+            srv.serve([ImageRequest(rid=i, image=im)  # graphs captured
+                       for i, im in enumerate(s["images"])])
+            reqs = [ImageRequest(rid=i, image=im)
+                    for i, im in enumerate(s["images"])]
+            counters = _counters()
+            _zero_counters()
+            srv.serve(reqs)
+            torch.cuda.synchronize()
+            suffix = "_int8" if dtype == "int8" else ""
+            runs.append(({n + suffix: k.launches for n, k in counters.items()
+                          if k.launches},
+                         np.stack([r.logits for r in reqs])))
+        (l0, y0), (l1, y1) = runs
+        if not np.array_equal(y0, y1) or l0 != l1:
+            raise SystemExit(f"chip_smoke: mesh conv {path}: logits "
+                             f"bit-equal {np.array_equal(y0, y1)} (max |d| "
+                             f"{float(np.abs(y0 - y1).max())}), launches "
+                             f"{l1} against {l0}")
+        out[path] = {"logits_bit_equal": True, "launches": l1,
+                     "conv_dtensors": len(convs), "requests": len(y1)}
+        del srv_m
+        _free_cuda()
+    print(json.dumps({"phase": "mesh_conv", **out}), flush=True)
+    return out
+
+
+def mesh_conv_cases(timer: Timer, dev, served: dict) -> dict:
+    """(d) ResNet-50's 3x3 convs that a `MESH_TP`-way ``conv`` rule
+    shards (`MESH_CONV_LAYERS`, 4 strips each), one rank's quarter of
+    their strips at their real input shapes (batch 8, 224 px), f32 and
+    int8, against their plain versions (`_conv_case`: bound, cuDNN)."""
+    import torch
+    from repro_torch.core.vector_sparse import VectorSparse
+    from repro_torch.models.graph import quantize_activations_int8
+
+    gen = torch.Generator().manual_seed(11)
+    hw = {"layer4_0_conv2": (14, 2), "layer4_1_conv2": (7, 1)}
+    rows = {}
+    for path in FLEET_PATHS:
+        sparse = served[path]["srv"].sparse
+        for name in MESH_CONV_LAYERS:
+            spec = sparse[name]
+            nb = spec.vs.vals.shape[0]
+            if nb % MESH_TP:
+                raise SystemExit(f"chip_smoke: {name}: {nb} strips do not "
+                                 f"split {MESH_TP} ways")
+            n_l = nb // MESH_TP
+            vs = VectorSparse(vals=spec.vs.vals[:n_l].contiguous(),
+                              idx=spec.vs.idx[:n_l].contiguous(),
+                              shape=(spec.vs.shape[0],
+                                     n_l * spec.vs.vals.shape[-1]))
+            size, stride = hw[name]
+            cin = spec.vs.shape[0] // 9
+            x = torch.relu(torch.randn(BATCH, size, size, cin,
+                                       generator=gen)).to(dev)
+            cols = slice(0, vs.shape[1])
+            quant = None
+            if spec.scale is not None:
+                x, sx = quantize_activations_int8(x)
+                quant = (sx, spec.scale[cols].contiguous())
+            label = (f"mesh conv ResNet-50 {name} "
+                     f"{'int8' if quant else 'f32'}, model {MESH_TP}: "
+                     f"{n_l} of {nb} strips, {size}px s{stride}")
+            rows[label] = _conv_case(
+                timer, label, x, vs, kh=3, stride=stride, cin_real=cin,
+                bias=spec.bias[cols].contiguous(), relu=True, quant=quant,
+                reps=10)
+    _free_cuda()
+    return rows
+
+
+ADAM8_STEPS = 3
+
+
+def adamw8bit_phase(dev) -> dict:
+    """(b) `optim.adamw8bit`: `ADAM8_STEPS` updates of one Qwen1.5-4B
+    layer group's params (full width, bf16) by seeded gradients at lr
+    1e-3, three ways: laid out on the one-rank world's 1x1 mesh
+    (DTensors; moments replicated), mesh-free on the card, mesh-free on
+    the CPU.  Codes, scales and params bit-equal across all three."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import axes_tree, init_params
+    from repro_torch.optim.optimizers import adamw8bit
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.utils.tree import leaves, tree_map
+
+    t0 = time.perf_counter()
+    cfg = get_config(LM_CONFIG)
+    cfg = dataclasses.replace(cfg, segments=(dataclasses.replace(
+        cfg.segments[0], repeat=1),), n_layers=len(cfg.segments[0].layers))
+    schema = tfm.lm_schema(cfg)["segments"][0]
+    host = init_params(schema, 0, dtype=cfg.dtype, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    grads = [tree_map(lambda p: (0.01 * torch.randn(
+        p.shape, generator=gen)).to(p.dtype), host)
+        for _ in range(ADAM8_STEPS)]
+    ctx = shd.MeshContext(make_local_mesh(1, 1), shd.TRAIN_RULES)
+    axes = axes_tree(schema)
+
+    def run(device, mesh: bool) -> list:
+        def lay(tree):
+            tree = tree_map(lambda t: t.to(device, copy=True), tree)
+            if not mesh:
+                return tree
+            return tree_map(lambda a, t: shd.distribute(t, a, ctx=ctx),
+                            axes, tree, is_leaf=lambda n: isinstance(n, tuple))
+        params = lay(host)
+        opt = adamw8bit()
+        state = opt.init(params)
+        for g in grads:
+            opt.update_(lay(g), state, params, 1e-3)
+        whole = [x.full_tensor() if hasattr(x, "full_tensor") else x
+                 for x in leaves(params) + leaves(state["moments"])]
+        return [x.cpu() for x in whole]
+
+    sides = {"mesh_1x1": run(dev, True), "card": run(dev, False),
+             "cpu": run(torch.device("cpu"), False)}
+    equal = {side: all(torch.equal(a, b) for a, b in
+                       zip(vals, sides["cpu"]))
+             for side, vals in sides.items() if side != "cpu"}
+    n = sum(x.numel() for x in leaves(host))
+    out = {"phase": "adamw8bit", "config": cfg.name,
+           "params": n, "leaves": len(leaves(host)), "steps": ADAM8_STEPS,
+           "dtype": cfg.param_dtype, "bit_equal_to_cpu": equal,
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps(out), flush=True)
+    if not all(equal.values()):
+        raise SystemExit(f"chip_smoke: adamw8bit: codes, scales and params "
+                         f"bit-equal to the CPU: {equal}")
+    return out
+
+
+CHUNK_ARCHS = ("rwkv6-3b", "jamba-v0.1-52b")
+CHUNK_LAYERS = 8
+CHUNK_SEQ = 2048
+
+
+def chunked_scan_phase(dev, smi: str) -> dict:
+    """(c) One training step's loss and gradients (`step_builders.
+    _grads_of`) of `CHUNK_ARCHS` at full width, `CHUNK_LAYERS` layers, T
+    `CHUNK_SEQ`, batch 1: chunked (the config's ``scan_chunk``) and one
+    chunk of T (``scan_chunk`` T) where its meta peak fits the free card.
+    Loss and gradient fingerprints bit-equal; ``max_memory_allocated``
+    of each (less what earlier phases left allocated: the card's
+    allocation before the step beyond the step's arguments); the
+    chunked step's meta count, arguments + temporaries, within
+    `DRYRUN_MEMORY_RTOL` of that peak (one chunk's error reported)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import step_builders as sb
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import init_params
+    from repro_torch.utils.cost import count
+
+    out = {}
+    for name in CHUNK_ARCHS:
+        t0 = time.perf_counter()
+        base = dataclasses.replace(_cut_depth(get_config(name), CHUNK_LAYERS),
+                                   microbatches=1)
+        _free_cuda()
+        params = init_params(tfm.lm_schema(base), 0, dtype=base.dtype,
+                             device=dev, draw_on_device=True)
+        rng = np.random.default_rng(3)
+        batch = {k: torch.from_numpy(rng.integers(
+            0, base.vocab, (1, CHUNK_SEQ), dtype=np.int32)).to(dev)
+            for k in ("tokens", "labels")}
+        meta_p = sb.param_structs(base)
+        meta_b = {k: torch.empty((1, CHUNK_SEQ), dtype=torch.int32,
+                                 device="meta") for k in batch}
+        sides = {}
+        for chunk in (base.scan_chunk, CHUNK_SEQ):
+            cfg = dataclasses.replace(base, scan_chunk=chunk)
+            meta = count(sb._grads_of, meta_p, meta_b, cfg)[1]
+            meta_peak = meta.arg_bytes + meta.temp_bytes
+            side = {"scan_chunk": chunk, "meta_peak_gb": meta_peak / 1e9,
+                    "meta_temp_gb": meta.temp_bytes / 1e9}
+            sides["chunked" if chunk < CHUNK_SEQ else "one_chunk"] = side
+            free, _ = torch.cuda.mem_get_info()
+            side["fits"] = meta.temp_bytes <= 0.9 * free
+            if not side["fits"]:
+                continue
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # what earlier phases left allocated is not this step's
+            other = torch.cuda.memory_allocated() - meta.arg_bytes
+            t1 = time.perf_counter()
+            try:
+                loss, _, grads = sb._grads_of(params, batch, cfg)
+                torch.cuda.synchronize()
+            except torch.cuda.OutOfMemoryError:
+                if chunk < CHUNK_SEQ:
+                    raise
+                side["fits"] = False   # one chunk of T only
+                _free_cuda()
+                continue
+            side.update(
+                fits=True, step_s=time.perf_counter() - t1,
+                loss=float(loss), other_allocated_gb=other / 1e9,
+                peak_allocated_gb=(torch.cuda.max_memory_allocated()
+                                   - other) / 1e9,
+                fingerprints=_fingerprint(grads) + _fingerprint([loss]))
+            side["memory_rel_err"] = abs(
+                meta_peak / 1e9 - side["peak_allocated_gb"]) / \
+                side["peak_allocated_gb"]
+            del loss, grads
+            _free_cuda()
+        c, p = sides["chunked"], sides["one_chunk"]
+        row = {"phase": "chunked_scan", "config": name,
+               "layers": CHUNK_LAYERS, "seq": CHUNK_SEQ, "batch": 1,
+               **{k: {kk: vv for kk, vv in v.items() if kk != "fingerprints"}
+                  for k, v in sides.items()},
+               "bit_equal": (None if not p["fits"] else
+                             c["fingerprints"] == p["fingerprints"]),
+               "seconds": time.perf_counter() - t0, "gpu": smi}
+        print(json.dumps(row), flush=True)
+        if not c["fits"] or row["bit_equal"] is False or \
+                c["memory_rel_err"] > DRYRUN_MEMORY_RTOL:
+            raise SystemExit(f"chip_smoke: chunked scan {name}: {row}")
+        out[name] = row
+        del params
+        _free_cuda()
+    return out
+
+
 def _layer_inputs(net, params, sparse, x, impl: str) -> dict:
     """{layer name: its input} over one forward of ``x``: each conv's
     NHWC input (``net_apply``'s ``collect``) and each FC's (N, din) input
@@ -5199,7 +5485,12 @@ def main() -> int:
     lap("mesh_cnn")
     mesh_rows = mesh_kernel_cases(timer, dev, bf16_peak, served)
     lap("mesh_kernels")
+    mesh_conv = mesh_conv_phase(served, dev)
+    mesh_rows.update(mesh_conv_cases(timer, dev, served))
+    lap("mesh_conv")
     cnn_launches = {path: s["launches"] for path, s in served.items()}
+    cnn_launches.update({f"mesh-conv {path}": m["launches"]
+                         for path, m in mesh_conv.items()})
     cnn_launches["cnn.vgg16_apply"] = cnn_shim["launches"]
     stem_launches = {path: s["stem_launches"] for path, s in served.items()}
     cnn_summaries = {path: s["summary"] for path, s in served.items()}
@@ -5240,9 +5531,13 @@ def main() -> int:
     train = train_phase(dev, smi, (peak_flops, peak_bw, bf16_peak))
     lap("train")
     mesh_train = mesh_train_phase(timer, dev, smi, bf16_peak)
+    lap("mesh_train")
+    adam8 = adamw8bit_phase(dev)
     dist.destroy_process_group()
     shutil.rmtree(mesh_store, ignore_errors=True)
-    lap("mesh_train")
+    lap("adamw8bit")
+    chunked = chunked_scan_phase(dev, smi)
+    lap("chunked_scan")
     dry = dryrun_phase(dev, smi)
     lap("dryrun")
     print(json.dumps({"phase": "seconds", **seconds}), flush=True)
@@ -5332,7 +5627,9 @@ def main() -> int:
              "paper_model": paper_model, "calibration": calibration,
              "vscheck": vscheck, "seconds": seconds,
              "mesh": {"cnn": mesh_cnn, "lm": mesh_lm,
-                      "local_shapes": mesh_rows, "train": mesh_train},
+                      "local_shapes": mesh_rows, "train": mesh_train,
+                      "conv": mesh_conv, "adamw8bit": adam8},
+             "chunked_scan": chunked,
              "cnn_shim": cnn_shim},
             indent=1))
     print(json.dumps({k: v for k, v in dense_vs_sparse.items()

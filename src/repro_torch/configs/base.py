@@ -23,7 +23,7 @@ from typing import Any
 import torch
 
 __all__ = ["LayerSpec", "Segment", "ShapeSpec", "SparsityConfig",
-           "ArchConfig", "SHAPES"]
+           "ArchConfig", "SHAPES", "uniform_segments"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,3 +227,8 @@ class ArchConfig:
             param_dtype="float32",
             cache_dtype_str="float32",
         )
+
+
+def uniform_segments(n_layers: int, spec: LayerSpec) -> tuple[Segment, ...]:
+    """``n_layers`` repeats of one layer spec, as one segment."""
+    return (Segment(repeat=n_layers, layers=(spec,)),)

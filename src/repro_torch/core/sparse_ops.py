@@ -27,7 +27,7 @@ from repro_torch.kernels.vsmm import _epilogue, vsmm_plain
 __all__ = [
     "same_pads", "im2col", "tap_patches", "vs_matmul", "vs_conv2d",
     "dense_conv2d", "conv_weight_to_matrix", "is_depthwise", "patch_conv",
-    "tap_matrix_width",
+    "tap_matrix_width", "im2col_3x3", "vs_conv2d_3x3", "dense_conv2d_3x3",
 ]
 
 
@@ -265,6 +265,23 @@ def vs_conv2d(
                    bias=bias, residual=residual, scale=scale,
                    fuse_relu=fuse_relu)
     return y if x.dtype == torch.int8 else y.to(x.dtype)  # int8 -> f32
+
+
+def im2col_3x3(x: torch.Tensor) -> torch.Tensor:
+    """3x3/s1 SAME patches (the reference's back-compat alias)."""
+    return im2col(x, kh=3, kw=3, stride=1)
+
+
+def vs_conv2d_3x3(x: torch.Tensor, w_vs: VectorSparse, *,
+                  impl: str = "plain") -> torch.Tensor:
+    """3x3/s1 SAME conv with vector-sparse weights (the reference's
+    back-compat alias)."""
+    return vs_conv2d(x, w_vs, kh=3, kw=3, stride=1, impl=impl)
+
+
+def dense_conv2d_3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Dense 3x3/s1 oracle (the reference's back-compat alias)."""
+    return dense_conv2d(x, w, stride=1)
 
 
 def dense_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,

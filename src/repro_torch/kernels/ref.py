@@ -11,7 +11,7 @@ import torch
 from repro_torch.core.sparse_ops import dense_conv2d
 from repro_torch.core.vector_sparse import VectorSparse, decode
 
-__all__ = ["vsmm_ref", "vsconv_ref"]
+__all__ = ["vsmm_ref", "vsconv_ref", "conv_ref", "conv3x3_ref"]
 
 
 def _epilogue(y: torch.Tensor, bias: torch.Tensor | None,
@@ -36,6 +36,20 @@ def vsmm_ref(
     """x (M, K) @ densify(vs) (K, N) -> (M, N) in f32, epilogue after."""
     y = x.float() @ decode(vs).float()
     return _epilogue(y, bias, residual, fuse_relu).to(x.dtype)
+
+
+def conv_ref(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+             groups: int = 1, dilation: int = 1) -> torch.Tensor:
+    """Dense kh x kw / stride / dilation / SAME conv oracle in f32, cast
+    back to x's dtype: x NHWC, w (kh, kw, Cin/groups, Cout)."""
+    return dense_conv2d(x.float(), w.float(), stride=stride, groups=groups,
+                        dilation=dilation).to(x.dtype)
+
+
+def conv3x3_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Dense 3x3/s1 SAME conv oracle (the reference's back-compat
+    alias)."""
+    return conv_ref(x, w, stride=1)
 
 
 def vsconv_ref(

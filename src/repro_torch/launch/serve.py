@@ -60,9 +60,11 @@ Every entry point runs on CUDA unless ``device="cpu"``.
 Under a mesh (a `torch.distributed` world, `launch.mesh`): `Server(mesh=)`
 shards its weights over a ``("data", "model")`` mesh and its `LMBackend`
 serves inside it (`LMBackend.context`); `CNNServer` / `ReplicaGroup`
-with ``shard_fc`` cout-shard the FC heads over the world's ranks.  Every
-rank runs the same scheduler on the same requests (SPMD); only wave
-counts drive its decisions.  The CLI joins a world with
+with ``shard_fc`` cout-shard the FC heads over each replica's ranks: the
+world laid out as the reference's (data, model) grid, one ``("model",)``
+group of ranks a replica, the logits of each wave sent from its group to
+every rank.  Every rank runs the same scheduler on the same requests
+(SPMD); only wave counts drive its decisions.  The CLI joins a world with
 ``--dist-store`` (``RANK`` / ``WORLD_SIZE`` from the environment) and
 serves an LM under ``--mesh DATAxMODEL``.
 
@@ -84,6 +86,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs import get_config
@@ -94,9 +97,9 @@ from repro_torch.launch.faults import ChaosBackend, FaultPlan
 from repro_torch.launch.mesh import (init_process_group, make_local_mesh,
                                      make_model_mesh)
 from repro_torch.launch.scheduler import FleetScheduler, LockstepScheduler
-from repro_torch.models.graph import (BatchedApply, SparseNet, input_refusal,
-                                      output_finite, place_params,
-                                      shard_sparse)
+from repro_torch.models.graph import (FC, BatchedApply, SparseNet,
+                                      input_refusal, output_finite,
+                                      place_params, shard_sparse)
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import init_params
 from repro_torch.parallel import sharding as shd
@@ -681,12 +684,17 @@ class CNNBackend:
         each replica's backend has its own `BatchedApply`, so one
         replica's replay never touches another's output.  One backend
         shared by several replicas would break it."""
-        hb, wb, c = state["bucket"]
+        occ, shape = self._wave(state, slots)
+        images = [slots[j].image for j in occ]
+        return occ, self.apply(shape, lambda out: _pad_batch(out, images))
+
+    @staticmethod
+    def _wave(state: dict, slots: list) -> tuple[list[int], tuple]:
+        """The occupied slots and the wave's batch shape: the occupied
+        count rounded up to a power of two, at most the width."""
         occ = [j for j, r in enumerate(slots) if r is not None]
         nb = min(state["width"], 1 << max(len(occ) - 1, 0).bit_length())
-        images = [slots[j].image for j in occ]
-        return occ, self.apply((nb, hb, wb, c),
-                               lambda out: _pad_batch(out, images))
+        return occ, (nb, *state["bucket"])
 
     def collect(self, state: dict, handle: tuple[list[int], torch.Tensor],
                 slots: list) -> tuple[dict, list]:
@@ -731,16 +739,21 @@ class ReplicaGroup:
     weight trees.  The caller owns the net's check (`CNNServer` runs
     `validate_net` before it makes the weights).
 
-    ``shard_fc`` in a `torch.distributed` world (or with a ``mesh``): the
-    replica's ``("model",)`` mesh spans the world's ranks
-    (`launch.mesh.make_model_mesh`), every rank runs the same fleet on
-    the same requests, and each FC head's strips are cout-sharded over it
-    (`models.graph.shard_sparse`, ``rules`` the serving rules by
-    default); the logits are gathered on every rank.  Replicas beyond
-    the one group wrap onto it; a world of several groups (``model`` of
-    the world's size over ``replicas``, fewer ranks than the world) raises
-    `NotImplementedError`.  Without a world every replica has one device,
-    and ``shard_fc`` only places the tree, as the reference's grid does on
+    ``shard_fc`` in a `torch.distributed` world of W ranks (or with a
+    ``mesh``): every rank runs the same fleet on the same requests, and
+    each FC head's strips are cout-sharded over a replica's ``("model",)``
+    mesh (`models.graph.shard_sparse`, ``rules`` the serving rules by
+    default; a ``conv`` rule on ``model`` cout-shards the convs too).
+    The ranks form the reference's grid: ``model = max(1, W // replicas)``
+    ranks a group, ``data = max(1, W // model)`` groups, replica i on
+    group ``i % data`` (replicas beyond the grid wrap; ranks past ``data
+    * model`` hold no replica).  One group (``replicas`` 1) spans the
+    world (`launch.mesh.make_model_mesh`); over several
+    (`_place_on_groups`) only a replica's own ranks hold its weights and
+    run its waves, and the logits of each wave are broadcast from its
+    group to every rank (`_GroupReplica`).  A ``mesh`` given puts every
+    replica on it.  Without a world every replica has one device, and
+    ``shard_fc`` only places the tree, as the reference's grid does on
     one device.
     """
 
@@ -759,10 +772,13 @@ class ReplicaGroup:
         self.rules = rules or shd.SERVE_RULES
         if mesh is None and shard_fc and dist.is_initialized():
             world = dist.get_world_size()
-            if max(1, world // replicas) != world:
-                raise NotImplementedError(
-                    f"{replicas} shard_fc replicas over {world} ranks: "
-                    f"replica groups on disjoint ranks are not ported")
+            model = max(1, world // replicas)
+            data = max(1, world // model)
+            if data > 1:
+                self._place_on_groups(net, params, sparse, impl, density,
+                                      image_size, pad_multiple, dev, data,
+                                      model)
+                return
             mesh = make_model_mesh()
         self.mesh = mesh
         if mesh is not None:
@@ -810,6 +826,112 @@ class ReplicaGroup:
                 pad_multiple=pad_multiple, device=dev, mesh=self.mesh,
                 rules=self.rules))
 
+    def _place_on_groups(self, net: SparseNet, params: dict,
+                         sparse: dict | None, impl: str,
+                         density: float | None, image_size: int | None,
+                         pad_multiple: int, dev: torch.device, data: int,
+                         model: int) -> None:
+        """The fleet over ``data`` groups of ``model`` ranks (the
+        reference's grid, ``serve.py:555``): this rank's group is a
+        ``("model",)`` slice of a ``("data", "model")`` `DeviceMesh` over
+        the first ``data * model`` ranks (``self.mesh``; None on a rank
+        past them), replica i lives on group ``i % data``.  On the ranks
+        of its group a replica holds the weights, the sparse tree sharded
+        over the group; everywhere else it holds none (`_GroupReplica`)."""
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        rank = dist.get_rank()
+        grid = DeviceMesh(dev.type,
+                          torch.arange(data * model).reshape(data, model),
+                          mesh_dim_names=("data", "model"))
+        mine = rank // model if rank < data * model else None
+        self.mesh = None if mine is None else grid["model"]
+        width = _logits_width(net)
+        self.devices, self.backends = [], []
+        for i in range(self.replicas):
+            g = i % data
+            kw = dict(src=g * model, width=width, impl=impl,
+                      density=density, image_size=image_size,
+                      pad_multiple=pad_multiple, device=dev)
+            if g == mine:
+                with shd.use_mesh(self.mesh, self.rules):
+                    s_i = (None if sparse is None
+                           else shard_sparse(sparse, dev, copy=i > 0))
+                be = _GroupReplica(net, place_params(params, dev,
+                                                     copy=i > 0),
+                                   sparse=s_i, mesh=self.mesh,
+                                   rules=self.rules, **kw)
+            else:
+                be = _GroupReplica(net, None, **kw)
+            self.devices.append(dev)
+            self.backends.append(be)
+
+
+def _logits_width(net: SparseNet) -> int:
+    """The width of a classifier net's output (its last layer, an FC)."""
+    last = net.layers[-1]
+    if not isinstance(last, FC):
+        raise ValueError(f"{net.name}: a fleet over rank groups serves a "
+                         f"net whose last layer is an FC head")
+    return last.dout
+
+
+class _GroupReplica(CNNBackend):
+    """One replica of a fleet laid over several rank groups
+    (`ReplicaGroup._place_on_groups`), as one rank sees it.
+
+    On the ranks of the replica's group (``params`` given) it is the
+    `CNNBackend` over the group's ``("model",)`` mesh; elsewhere it holds
+    no weights and runs nothing (``params`` None).  ``collect`` sends the
+    wave's logits (N, ``width``) f32 from the group's first rank ``src``
+    to every rank of the world (one broadcast a wave), so every rank's
+    scheduler sees the same emissions and makes the same decisions.  A
+    collect that the scheduler skips (a fault) is skipped on every rank
+    alike, so each rank enters the same broadcasts in the same order.
+    The group's ranks send a copy of the logits, not the graph's static
+    buffer that the next wave rewrites."""
+
+    def __init__(self, net: SparseNet, params: dict | None, *, src: int,
+                 width: int, sparse: dict | None = None, impl: str = "auto",
+                 density: float | None = None, image_size: int | None = None,
+                 pad_multiple: int = 8,
+                 device: str | torch.device | None = None,
+                 mesh: Any = None, rules: Any = None):
+        self.src, self.width, self.shapes = src, width, set()
+        if params is not None:
+            super().__init__(net, params, sparse=sparse, impl=impl,
+                             density=density, image_size=image_size,
+                             pad_multiple=pad_multiple, device=device,
+                             mesh=mesh, rules=rules)
+            return
+        self.device = resolve_device(device)
+        self.image_size = image_size
+        self.pad_multiple = pad_multiple
+        self.channels = next((l.cin for l in net.conv_layers()), None)
+        self.mesh = self.rules = self.apply = None
+
+    def dispatch(self, state: dict, slots: list
+                 ) -> tuple[list[int], tuple]:
+        occ, shape = self._wave(state, slots)
+        self.shapes.add(shape)
+        y = None if self.apply is None else \
+            super().dispatch(state, slots)[1]
+        return occ, (shape[0], y)
+
+    def collect(self, state: dict, handle: tuple, slots: list
+                ) -> tuple[dict, list]:
+        occ, (nb, y) = handle
+        out = (y.clone() if y is not None else
+               torch.empty((nb, self.width), dtype=torch.float32,
+                           device=self.device))
+        dist.broadcast(out, src=self.src)
+        return super().collect(state, (occ, out), slots)
+
+    def finish(self, state: dict) -> dict:
+        """The shape buckets this replica served (the same count on every
+        rank)."""
+        return {"compiles": len(self.shapes)}
+
 
 def validate_net(net: SparseNet, image_size: int, *,
                  density: float | None = None, vk: int = 32,
@@ -844,8 +966,9 @@ class CNNServer:
     wraps each replica in a `ChaosBackend`); otherwise one `CNNBackend`
     runs behind the `LockstepScheduler`.  ``shard_fc`` in a
     `torch.distributed` world (or with a ``mesh``) cout-shards the FC
-    heads over the world's ranks (`ReplicaGroup`); every rank must then
-    serve the same requests.
+    heads over each replica's group of ranks (`ReplicaGroup`), and the
+    convs too where ``rules`` map ``conv`` to ``model``; every rank must
+    then serve the same requests.
     """
 
     def __init__(self, cfg: Any, *, batch: int, impl: str = "auto",
@@ -857,7 +980,7 @@ class CNNServer:
                  max_queue: int | None = None,
                  deadline_waves: int | None = None, max_attempts: int = 3,
                  device: str | torch.device | None = None,
-                 mesh: Any = None):
+                 mesh: Any = None, rules: Any = None):
         self.cfg = cfg
         self.replicas = replicas
         self.fault_plan = fault_plan
@@ -891,7 +1014,7 @@ class CNNServer:
                 density=self.density if sparse else None,
                 image_size=image_size, pad_multiple=pad_multiple,
                 replicas=replicas, shard_fc=shard_fc, device=self.device,
-                mesh=mesh)
+                mesh=mesh, rules=rules)
             self.backends = list(self.group.backends)
             if fault_plan is not None:
                 self.backends = [ChaosBackend(b, fault_plan, replica=i)

@@ -102,11 +102,11 @@ def param_shardings(cfg, ctx: shd.MeshContext, schema: Any = None
 
 def opt_state_axes(cfg, schema: Any) -> dict:
     """The logical-axes tree of the optimizer state: AdamW's moments laid
-    out as their params, Adafactor's by its ``state_axes``; the count
-    replicated."""
+    out as their params, an optimizer's with ``state_axes`` (Adafactor's,
+    `optim.adamw8bit`'s) by them; the count replicated."""
     p_axes = axes_tree(schema)
-    if cfg.optimizer == "adafactor":
-        opt = make_optimizer(cfg)
+    opt = make_optimizer(cfg)
+    if opt.state_axes is not None:
         return {"moments": tree_map(lambda p: opt.state_axes(p.axes,
                                                              p.shape),
                                     schema,

@@ -194,9 +194,17 @@ def _project_qkv_mesh(params: dict, x: torch.Tensor, cfg
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The projections on each rank's shards: its batch rows of x against
     its heads of wq / wk / wv (``fsdp`` gathered), q, k and v laid out
-    ``("batch", "seq", heads, "head_dim")``: no sum crosses a rank."""
+    ``("batch", "seq", heads, "head_dim")``: no sum crosses a rank.
+
+    Under ``attn_sharding="sp"`` where the heads do not divide their mesh
+    dim (`sharding.spec_for` leaves them whole: Qwen1.5-4B's 20 heads on
+    a model dim of 16), each rank projects only its block of the
+    sequence (``seq_sp``), all heads of it, so that no two ranks project
+    the same rows; `_prefill_mesh` gathers k and v over the model dim
+    from there.  Where the heads divide, the sequence stays whole."""
     b, t, d = x.shape
-    xl = shd.local(x, ("batch", None, None))
+    seq = _project_seq_axis(cfg)
+    xl = shd.local(x, ("batch", seq, None))
     sub = {k: v for k, v in params.items() if k not in ("wq", "wk", "wv")}
     heads = {"q": "heads", "k": "kv_heads", "v": "kv_heads"}
     for name, ax in heads.items():
@@ -209,10 +217,22 @@ def _project_qkv_mesh(params: dict, x: torch.Tensor, cfg
     with shd.use_mesh_free():
         out = _project_qkv(sub, xl, cfg)
     return tuple(
-        shd.from_local(o, ("batch", "seq", heads[n], "head_dim"),
+        shd.from_local(o, ("batch", seq, heads[n], "head_dim"),
                        (b, t, cfg.n_heads if n == "q" else cfg.n_kv_heads,
                         cfg.head_dim))
         for n, o in zip("qkv", out))
+
+
+def _project_seq_axis(cfg) -> str:
+    """The logical axis of the sequence for the projections: ``seq_sp``
+    under ``sp`` where the heads stay whole on every rank, else ``seq``
+    (whole)."""
+    if cfg.attn_sharding != "sp":
+        return "seq"
+    ctx = shd.current()
+    heads = shd.spec_for(("heads",), mesh=ctx.mesh, rules=ctx.rules,
+                         shape=(cfg.n_heads,))[0]
+    return "seq_sp" if heads is None else "seq"
 
 
 def _decode_scores(qg: torch.Tensor, k_cache: torch.Tensor

@@ -456,6 +456,9 @@ def apply_sparse_conv(x: torch.Tensor, entry: SparseConv | VectorSparse, *,
     int8 by int8 exactly and the combined scale ``sx * s_w`` (a power of
     two) dequantizes in the fused epilogue, before the bias."""
     spec = entry if isinstance(entry, SparseConv) else SparseConv(entry)
+    if isinstance(spec.vs.vals, DTensor):
+        return _sharded_conv(x, spec, bias=bias, fuse_relu=fuse_relu,
+                             residual=residual, impl=impl)
     scale = spec.scale
     if scale is not None:
         x, sx = quantize_activations_int8(x)
@@ -505,14 +508,82 @@ def _sharded_fc(x: torch.Tensor, spec: SparseFC, *,
     go after the gather.  Every column is computed by one rank alone, so
     f32 logits are the one-device ones, bit for bit."""
     vals, idx = spec.vs.vals, spec.vs.idx
-    mesh, pls = vals.device_mesh, vals.placements
     vl, il = vals.to_local(), idx.to_local()
     n_enc, w_l = spec.vs.shape[1], vl.shape[0] * vl.shape[-1]
-    r = 0
-    for i, p in enumerate(pls):
+    mine = _my_columns(_strip_rank(vals), w_l, n_enc)
+    local = SparseFC(VectorSparse(vals=vl, idx=il,
+                                  shape=(spec.vs.shape[0], w_l)),
+                     scale=mine(spec.scale))
+    y = apply_sparse_fc(x, local, bias=mine(bias), fuse_relu=fuse_relu,
+                        residual=mine(residual), impl=impl)
+    y = _gather_columns(y, vals, w_l, n_enc)
+    dout = spec.dout or n_enc
+    return y[..., :dout] if dout != n_enc else y
+
+
+def _sharded_conv(x: torch.Tensor, spec: SparseConv, *,
+                  bias: torch.Tensor | None, fuse_relu: bool,
+                  residual: torch.Tensor | None, impl: str) -> torch.Tensor:
+    """A conv whose cout strips are sharded over a mesh (`shard_sparse`
+    under a ``conv`` rule on a mesh dim), `_sharded_fc`'s counterpart:
+    each rank runs the conv kernels over its own strips, a local
+    `VectorSparse`, with its columns of the bias, residual and dequant
+    scale, and the output channels are gathered.  A grouped or depthwise
+    conv also takes only its groups' input channels (its strips cover
+    whole groups, or lie inside one).  An int8 layer quantizes the
+    *whole* input first (its per-tensor scale is the whole tensor's
+    amax), then cuts it.  Every output column is computed by one rank
+    alone, by the kernels' one-device plan for its strips."""
+    vals, idx = spec.vs.vals, spec.vs.idx
+    vl, il = vals.to_local(), idx.to_local()
+    k_rows, n_enc = spec.vs.shape
+    w_l = vl.shape[0] * vl.shape[-1]
+    rank = _strip_rank(vals)
+    mine = _my_columns(rank, w_l, n_enc)
+    scale = spec.scale
+    if scale is not None:
+        x, sx = quantize_activations_int8(x)
+        scale = sx * mine(scale)
+    if spec.cin_pad:
+        x = F.pad(x, (0, spec.cin_pad))
+    groups = spec.groups
+    if groups > 1 and w_l != n_enc:
+        cin_g, cout_g = x.shape[-1] // groups, n_enc // groups
+        g0 = rank * w_l // cout_g
+        if w_l % cout_g == 0:
+            groups = w_l // cout_g
+        elif cout_g % w_l == 0:
+            groups = 1
+        else:
+            raise ValueError(
+                f"{w_l} columns a rank neither cover whole groups of "
+                f"{cout_g} nor lie inside one")
+        x = x[..., g0 * cin_g:(g0 + groups) * cin_g].contiguous()
+    y = vs_conv2d(
+        x, VectorSparse(vals=vl, idx=il, shape=(k_rows, w_l)), kh=spec.kh,
+        kw=spec.kw, stride=spec.stride, groups=groups,
+        dilation=spec.dilation, bias=mine(bias), residual=mine(residual),
+        scale=scale, fuse_relu=fuse_relu, impl=impl)
+    return _gather_columns(y, vals, w_l, n_enc)
+
+
+def _strip_rank(vals: DTensor) -> int:
+    """This rank's index among the shards of strip-sharded ``vals`` (the
+    mesh dims that shard them, the first the major one), on its own
+    mesh: a replica's ``("model",)`` mesh may be part of a larger
+    world."""
+    mesh, coord, r = vals.device_mesh, vals.device_mesh.get_coordinate(), 0
+    for i, p in enumerate(vals.placements):
         if isinstance(p, Shard):
-            r = r * mesh.size(i) + mesh.get_coordinate()[i]
-    cols = slice(r * w_l, (r + 1) * w_l)
+            r = r * mesh.size(i) + coord[i]
+    return r
+
+
+def _my_columns(rank: int, w_l: int, n_enc: int):
+    """The function that cuts a rank's ``w_l`` columns out of a bias,
+    scale or residual of ``n_enc`` columns (padded to them first: the
+    FC remainder strip); None stays None."""
+    cols = slice(rank * w_l, (rank + 1) * w_l)
 
     def mine(t: torch.Tensor | None) -> torch.Tensor | None:
         if t is None:
@@ -520,19 +591,21 @@ def _sharded_fc(x: torch.Tensor, spec: SparseFC, *,
         t = t.full_tensor() if isinstance(t, DTensor) else t
         if t.shape[-1] != n_enc:
             t = F.pad(t, (0, n_enc - t.shape[-1]))
-        return t[..., cols]
+        return t[..., cols].contiguous()
 
-    local = SparseFC(VectorSparse(vals=vl, idx=il,
-                                  shape=(spec.vs.shape[0], w_l)),
-                     scale=mine(spec.scale))
-    y = apply_sparse_fc(x, local, bias=mine(bias), fuse_relu=fuse_relu,
-                        residual=mine(residual), impl=impl)
-    if w_l != n_enc:
-        out = [Shard(y.ndim - 1) if isinstance(p, Shard) else Replicate()
-               for p in pls]
-        y = DTensor.from_local(y, mesh, out, run_check=False).full_tensor()
-    dout = spec.dout or n_enc
-    return y[..., :dout] if dout != n_enc else y
+    return mine
+
+
+def _gather_columns(y: torch.Tensor, vals: DTensor, w_l: int,
+                    n_enc: int) -> torch.Tensor:
+    """Each rank's ``w_l`` output columns (the last dim) gathered over the
+    mesh dims that shard ``vals``: the whole output on every rank."""
+    if w_l == n_enc:
+        return y
+    out = [Shard(y.ndim - 1) if isinstance(p, Shard) else Replicate()
+           for p in vals.placements]
+    return DTensor.from_local(y.contiguous(), vals.device_mesh, out,
+                              run_check=False).full_tensor()
 
 
 # --------------------------------------------------------------------------
@@ -886,8 +959,10 @@ def shard_sparse(sparse: dict, device: str | torch.device, *,
     each rank keeps its own strips; a strip count that does not divide
     stays whole on every rank (`sharding.spec_for`).  Bias and scale stay
     whole.  Convs follow the ``conv`` rule, replicated by default: they
-    stay plain tensors on ``device``.  A conv rule that shards them
-    raises `NotImplementedError`.
+    then stay plain tensors on ``device``.  A ``conv`` rule on a mesh dim
+    cout-shards each conv's strips the same way (`_sharded_conv` runs
+    them); a conv whose strip count does not divide stays whole, a
+    plain tensor.
 
     Without a mesh ``model`` must be 1 (one device a replica: every
     replica of one card); a wider ``model`` axis needs the mesh's ranks
@@ -911,14 +986,11 @@ def shard_sparse(sparse: dict, device: str | torch.device, *,
     out = {}
     for name, entry in sparse.items():
         if isinstance(entry, SparseConv):
-            if ctx is not None and any(shd.spec_for(
-                    ("conv", None, None, None), mesh=ctx.mesh,
-                    rules=ctx.rules, shape=tuple(entry.vs.vals.shape))):
-                raise NotImplementedError(
-                    f"{name}: cout-sharded convs (a 'conv' rule on a mesh "
-                    f"dim) are not ported; serving replicates the convs")
+            sharded = ctx is not None and shd.spec_for(
+                ("conv", None, None, None), mesh=ctx.mesh, rules=ctx.rules,
+                shape=tuple(entry.vs.vals.shape))[0] is not None
             out[name] = dataclasses.replace(
-                entry, vs=place_vs(entry.vs, None),
+                entry, vs=place_vs(entry.vs, "conv" if sharded else None),
                 bias=_placed(entry.bias, dev, copy),
                 scale=_placed(entry.scale, dev, copy))
         elif isinstance(entry, SparseFC):

@@ -53,10 +53,12 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from repro_torch.core.device import card_path, resolve_device
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import logical
+from repro_torch.utils.cost import scan
 
 __all__ = ["P", "init_params", "axes_tree", "stack", "rms_norm", "dense", "dense_f32",
            "dense_out", "matmul_f32", "matmul_out", "matmul_out_dtype",
-           "precision_flow", "rope", "mlp_schema", "mlp_apply"]
+           "precision_flow", "rope", "mlp_schema", "mlp_apply",
+           "chunked_remat_scan", "scan_chunk_size"]
 
 _MATMUL_OUT_F32 = contextvars.ContextVar("matmul_out_f32", default=True)
 
@@ -407,3 +409,133 @@ def _mlp_mesh(params: dict, x: torch.Tensor, *,
                                ctx=ctx).to(x.dtype)
     return logical(shd.from_local(y, ("batch", None, None), (b, t, d)),
                    ("batch", "seq", "embed"))
+
+
+# -- chunked remat scan (Mamba / RWKV recurrences) ---------------------------
+
+
+def scan_chunk_size(t: int, chunk: int) -> int:
+    """The largest divisor of ``t`` that is at most ``chunk`` (the
+    reference's: every chunk carries the state exactly)."""
+    c = max(1, min(chunk, t))
+    while t % c:
+        c -= 1
+    return c
+
+
+def chunked_remat_scan(step, carry: torch.Tensor, t: int,
+                       xs: tuple, shared: tuple = (), *, chunk: int,
+                       loop=scan) -> tuple[torch.Tensor, torch.Tensor]:
+    """``carry, y_i = step(carry, (x[:, i] for x in xs), shared)`` for i
+    in [0, t), with per-chunk rematerialization: (the last carry, the
+    outputs stacked on dim 1).  ``xs`` hold time on dim 1; ``shared``
+    are the tensors every trip reads whole (RWKV's bonus u, Mamba's A).
+
+    The reference's `chunked_remat_scan` (``layers.py:231``).  ``t``
+    splits into chunks of `scan_chunk_size` (``t``, ``chunk``) steps.
+    When a gradient flows, the loop is one autograd Function
+    (`_ChunkedScan`), as the reference rematerializes every chunk, one
+    or many: its forward runs every trip without a graph
+    and saves the chunks' first carries and its inputs; its backward
+    recomputes one chunk at a time, last first, and takes that chunk's
+    gradients.  Its saved tensors are ordinary ones, so under the layer
+    group's remat (`transformer.forward_hidden`) the forward keeps none
+    of them and the group's recompute makes them again: a training step
+    holds T / chunk carries, the inputs and one chunk's trips of one
+    layer at a time, as the reference's nested remat does.
+    Without a gradient (prefill, decode) it is the plain loop.  The
+    values, and the gradients bit for bit, do not depend on the chunk:
+    each trip's backward runs the same ops on the same inputs, a
+    time-indexed input gets each position's gradient from one trip, and
+    a shared tensor's gradient is summed trip by trip, last first,
+    across chunks as within one (`_ChunkedScan.backward`).
+
+    ``loop`` runs each loop (`utils.cost.scan`: every trip on the card,
+    on meta a few trips standing for all of them), so the dry run counts
+    ``t`` trips and the chunked form's peak."""
+    c = scan_chunk_size(t, chunk)
+    grad = torch.is_grad_enabled() and any(
+        a.requires_grad for a in (*xs, *shared, carry))
+    if not grad:
+        return _chunk(step, loop, carry, xs, shared, 0, t)
+    return _ChunkedScan.apply(step, loop, c, len(xs), carry, *xs, *shared)
+
+
+def _chunk(step, loop, carry: torch.Tensor, xs: tuple, shared: tuple,
+           t0: int, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Trips [t0, t0 + n) of the loop: (the carry after, their outputs
+    stacked on dim 1)."""
+    carry, ys = loop(
+        lambda s, i: step(s, tuple(x[:, t0 + i] for x in xs), shared),
+        carry, n, xs[0])
+    return carry, torch.stack(ys, dim=1)
+
+
+class _ChunkedScan(torch.autograd.Function):
+    """`chunked_remat_scan`'s loop under a gradient, ``c`` trips a
+    chunk."""
+
+    @staticmethod
+    def forward(ctx, step, loop, c: int, n_x: int, carry: torch.Tensor,
+                *tensors: torch.Tensor):
+        xs, shared = tensors[:n_x], tensors[n_x:]
+        firsts, ys = [], []
+        for t0 in range(0, xs[0].shape[1], c):
+            firsts.append(carry)
+            carry, y = _chunk(step, loop, carry, xs, shared, t0, c)
+            ys.append(y)
+        ctx.step, ctx.loop, ctx.c, ctx.n_x = step, loop, c, n_x
+        ctx.n_chunks = len(firsts)
+        ctx.save_for_backward(*firsts, *tensors)
+        return carry, torch.cat(ys, dim=1)
+
+    @staticmethod
+    def backward(ctx, g_carry: torch.Tensor | None,
+                 g_ys: torch.Tensor | None):
+        saved = ctx.saved_tensors
+        firsts, tensors = saved[:ctx.n_chunks], saved[ctx.n_chunks:]
+        xs, shared = tensors[:ctx.n_x], tensors[ctx.n_x:]
+        c = ctx.c
+        # contiguous, as the plain loop's select backward makes them:
+        # the layers before take the gradient in that layout
+        g_xs = [x.new_zeros(x.shape) if ctx.needs_input_grad[5 + i] else None
+                for i, x in enumerate(xs)]
+        g_shared: list = [None] * len(shared)
+        for j in reversed(range(ctx.n_chunks)):
+            t0 = j * c
+            with torch.enable_grad():
+                c_in = firsts[j].detach().requires_grad_(
+                    j > 0 or ctx.needs_input_grad[4])
+                x_in = [x[:, t0:t0 + c].detach().requires_grad_(g is not None)
+                        for x, g in zip(xs, g_xs)]
+                sh_in = [a.detach().requires_grad_(ctx.needs_input_grad[
+                    5 + ctx.n_x + k]) for k, a in enumerate(shared)]
+                c_out, y = _chunk(ctx.step, ctx.loop, c_in, tuple(x_in),
+                                  tuple(sh_in), 0, c)
+                outs, g_outs = [], []
+                for o, g in ((c_out, g_carry), (y, None if g_ys is None
+                                                else g_ys[:, t0:t0 + c])):
+                    if g is not None:
+                        outs.append(o)
+                        g_outs.append(g)
+                # a shared tensor's gradient so far enters its sum first
+                # (this view's backward runs before any trip's), so the
+                # sum goes on trip by trip, as in the plain loop
+                for a, g in zip(sh_in, g_shared):
+                    if g is not None:
+                        outs.append(a.view_as(a))
+                        g_outs.append(g)
+            wrt = [a for a in (c_in, *x_in, *sh_in) if a.requires_grad]
+            grads = iter(torch.autograd.grad(outs, wrt, g_outs,
+                                             allow_unused=True))
+            g_carry = next(grads) if c_in.requires_grad else None
+            for i, a in enumerate(x_in):
+                if a.requires_grad:
+                    g = next(grads)
+                    if g is not None:
+                        g_xs[i][:, t0:t0 + c].copy_(g)
+            for k, a in enumerate(sh_in):
+                if a.requires_grad:
+                    g = next(grads)
+                    g_shared[k] = g if g is not None else g_shared[k]
+        return (None, None, None, None, g_carry, *g_xs, *g_shared)

@@ -4,11 +4,12 @@ The port of `repro/models/mamba.py`.  d_inner = 2 * d_model, state size
 16, a causal depthwise conv of width 4, dt rank ceil(d_model / 16).  The
 in/out projections sum in f32 and round to the activations' dtype; the
 conv output, dt, B, C, the state and the scan are f32, as in the
-reference.  Where the reference runs a chunked `lax.scan` over the
-sequence, the port runs a plain loop over T of the same step; no kernel
-computes this scan in the JAX package, so none is written here.  On meta
-the dry run runs one or two trips of that loop, counted as T
-(`utils.cost.scan`).
+reference.  The scan over the sequence is the reference's chunked remat
+scan (`layers.chunked_remat_scan`: a loop over T of the same step, under
+a gradient recomputed a chunk of ``cfg.scan_chunk`` steps at a time);
+no kernel computes this scan in the JAX package, so none is written
+here.  On meta the dry run runs a few trips of each loop, counted as
+the loop's (`utils.cost.scan`).
 
 Matmul output precision (`layers.matmul_out_dtype`; reference
 ``mamba.py:97`` and ``:147``): both projections are rounded to the
@@ -35,7 +36,7 @@ from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import logical
 from repro_torch.utils.cost import scan
 
-from .layers import P, dense_out, matmul_f32
+from .layers import P, chunked_remat_scan, dense_out, matmul_f32
 
 __all__ = ["mamba_schema", "mamba_apply", "init_mamba_cache",
            "MAMBA_CACHE_AXES"]
@@ -164,10 +165,10 @@ def _mamba(params: dict, x: torch.Tensor, cfg, *, cache: dict | None,
         dt, b_ssm, c_ssm = _ssm_inputs(params, xc, cfg, reduce)
         h = torch.zeros((b, d_in, D_STATE), dtype=torch.float32,
                         device=x.device)
-        h, ys = scan(lambda h, i: _scan_step(a_neg, h, xc[:, i], dt[:, i],
-                                             b_ssm[:, i], c_ssm[:, i]),
-                     h, t, x)
-        y = torch.stack(ys, dim=1)                           # (B, T, d_in)
+        h, y = chunked_remat_scan(
+            lambda h, xi, sh: _scan_step(*sh, h, *xi), h, t,
+            (xc, dt, b_ssm, c_ssm), (a_neg,), chunk=cfg.scan_chunk,
+            loop=scan)                                        # (B, T, d_in)
         new_cache = None
         if prefill:  # persist the conv tail and the final ssm state
             tail = x_in[:, -(D_CONV - 1):, :]

@@ -11,11 +11,12 @@ place and sums in f32, the same function: each product of two bf16
 values is exact in f32); r, k, v are
 rounded to the activations' dtype and taken back to f32 for the
 recurrence, g stays f32 through its SiLU, the decay and the state are
-f32.  Where the reference runs a chunked `lax.scan` over the sequence,
-the port runs a plain loop over T of the same step (a handful of small
-kernels a token a layer); no kernel computes this scan in the JAX
-package, so none is written here.  On meta the dry run runs one or two
-trips of that loop, counted as T (`utils.cost.scan`).
+f32.  The scan over the sequence is the reference's chunked remat scan
+(`layers.chunked_remat_scan`: a loop over T of the same step, a handful
+of small kernels a token a layer, under a gradient recomputed a chunk
+of ``cfg.scan_chunk`` steps at a time); no kernel computes this scan in
+the JAX package, so none is written here.  On meta the dry run runs a
+few trips of each loop, counted as the loop's (`utils.cost.scan`).
 
 Matmul output precision (`layers.matmul_out_dtype`), site by site: the
 time mix's r, k, v (reference ``rwkv.py:124``) and its output
@@ -48,7 +49,7 @@ from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import logical
 from repro_torch.utils.cost import scan
 
-from .layers import P, dense_out, matmul_f32, rms_norm
+from .layers import P, chunked_remat_scan, dense_out, matmul_f32, rms_norm
 
 __all__ = ["rwkv_tm_schema", "rwkv_cm_schema", "rwkv_time_mix",
            "rwkv_channel_mix", "init_rwkv_tm_cache", "init_rwkv_cm_cache",
@@ -241,10 +242,10 @@ def _time_mix(params: dict, x: torch.Tensor, cfg, *, cache: dict | None,
     else:
         s = torch.zeros((b, h, hd, hd), dtype=torch.float32,
                         device=x.device)
-        s, ys = scan(lambda s, i: _tm_step(s, r32[:, i], k32[:, i],
-                                           v32[:, i], w_dec[:, i], u),
-                     s, t, x)
-        y = torch.stack(ys, dim=1)                           # (B, T, H, hd)
+        s, y = chunked_remat_scan(
+            lambda s, xi, sh: _tm_step(s, *xi, *sh), s, t,
+            (r32, k32, v32, w_dec), (u,), chunk=cfg.scan_chunk,
+            loop=scan)                                        # (B, T, H, hd)
         new_cache = None
         if prefill:
             new_cache = {"x_prev": x[:, -1, :].to(cfg.cache_dtype), "s": s}

@@ -125,10 +125,18 @@ def clip_by_global_norm_(grads: Any, max_norm: float) -> torch.Tensor:
 
 def _count_powers(count: torch.Tensor, b1: float, b2: float
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """1 - b1^t and 1 - b2^t in f32, t the (new) step count."""
-    t = count.to(F32)
+    """1 - b1^t and 1 - b2^t in f32, t the (new) step count.  Each power
+    of the f32 beta is taken in f64 and rounded once to f32 (the
+    correctly rounded f32 power but in a case of one in billions), so
+    that the card's ``pow`` and the CPU's give the same bits: an f32
+    ``pow`` is within an ulp or two on either, not the same."""
+    t = count.to(torch.float64)
     one = torch.ones((), dtype=F32, device=count.device)
-    return 1.0 - torch.pow(one * b1, t), 1.0 - torch.pow(one * b2, t)
+
+    def power(b: float) -> torch.Tensor:
+        return torch.pow((one * b).double(), t).to(F32)
+
+    return 1.0 - power(b1), 1.0 - power(b2)
 
 
 def _moment_(m: torch.Tensor, beta: float, x: torch.Tensor) -> torch.Tensor:
@@ -143,13 +151,25 @@ def _moment_(m: torch.Tensor, beta: float, x: torch.Tensor) -> torch.Tensor:
 
 def _adam_update(m32: torch.Tensor, v32: torch.Tensor, p: torch.Tensor,
                  c1: torch.Tensor, c2: torch.Tensor, eps: float,
-                 weight_decay: float, lr: Any) -> torch.Tensor:
+                 weight_decay: float, lr: Any,
+                 sqrt: Callable[[torch.Tensor], torch.Tensor] = torch.sqrt
+                 ) -> torch.Tensor:
     """(-lr * ((m / c1) / (sqrt(v / c2) + eps) + wd * p)) in p's dtype."""
-    den = torch.sqrt(v32 / c2).add_(eps)
+    den = sqrt(v32 / c2).add_(eps)
     upd = (m32 / c1).div_(den)
     del den
     upd.add_(p.float() * weight_decay)
     return upd.mul_(-lr).to(p.dtype)
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root, on every device: taken in
+    f64 and rounded once (f64 carries enough bits that the two roundings
+    give the f32 one).  The card's f32 ``torch.sqrt`` is not correctly
+    rounded (7,315 of 2^20 random values differ from the CPU's on an
+    H100), which `adamw8bit`'s requantization would turn into other
+    codes."""
+    return torch.sqrt(x.double()).to(x.dtype)
 
 
 def _make(init: Callable[[Any], Any], leaf_: Callable[..., torch.Tensor],
@@ -230,7 +250,10 @@ def _q8(x32: torch.Tensor, block: int = _QBLOCK
     if pad:
         flat = torch.nn.functional.pad(flat, (0, pad))
     blocks = flat.reshape(-1, block)
-    scale = torch.clamp_min(blocks.abs().amax(dim=1), 1e-12) / 127.0
+    # a division by a tensor: CUDA divides by a Python float as a
+    # multiply by its reciprocal, which is not the quotient
+    q127 = torch.full((), 127.0, dtype=F32, device=blocks.device)
+    scale = torch.clamp_min(blocks.abs().amax(dim=1), 1e-12) / q127
     q = torch.clamp(torch.round(blocks / scale[:, None]), -127, 127)
     return q.to(torch.int8), scale
 
@@ -246,7 +269,14 @@ def _dq8(q: torch.Tensor, scale: torch.Tensor, shape: tuple) -> torch.Tensor:
 def adamw8bit(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
               weight_decay: float = 0.1) -> Optimizer:
     """AdamW with int8 block-quantized moments: ~4.5 bits a parameter of
-    state per moment (int8 + an f32 scale per 256-block) instead of 32."""
+    state per moment (int8 + an f32 scale per 256-block) instead of 32.
+
+    The blocks cover the flattened *whole* leaf.  Under a mesh (DTensor
+    params and grads) the moments are replicated (`state_axes`, the
+    reference's), and each rank dequantizes, updates and requantizes the
+    whole leaf from the gathered gradient and param, as the reference's
+    GSPMD step computes the global arrays; the update comes back as the
+    rank's shard of the param."""
 
     def init(params: Any) -> dict:
         def state_of(p: torch.Tensor) -> dict:
@@ -254,30 +284,48 @@ def adamw8bit(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             z8 = torch.zeros((nb, _QBLOCK), dtype=torch.int8,
                              device=p.device)
             zs = torch.zeros((nb,), dtype=F32, device=p.device)
-            return {"mq": z8, "ms": zs, "vq": z8.clone(), "vs": zs.clone()}
+            st = {"mq": z8, "ms": zs, "vq": z8.clone(), "vs": zs.clone()}
+            if isinstance(p, DTensor):
+                rep = [Replicate()] * p.device_mesh.ndim
+                st = {k: DTensor.from_local(v, p.device_mesh, rep,
+                                            run_check=False)
+                      for k, v in st.items()}
+            return st
         return {"moments": tree_map(state_of, params),
                 "count": _count(params)}
 
     def leaf_(g, mom, p, lr, consts):
-        if isinstance(p, DTensor):
-            raise NotImplementedError(
-                "adamw8bit quantizes blocks of the whole leaf: it takes no "
-                "DTensor (no config trains with it)")
         c1, c2 = consts
-        g32 = g.float()
+        g32 = _whole(g).float()
+        pw = _whole(p)
+        mom = {k: _loc(v) for k, v in mom.items()}   # replicated: whole
         m = _dq8(mom["mq"], mom["ms"], tuple(p.shape))
         v = _dq8(mom["vq"], mom["vs"], tuple(p.shape))
         m = b1 * m + (1 - b1) * g32
         v = b2 * v + (1 - b2) * torch.square(g32)
-        u = _adam_update(m, v, p, c1, c2, eps, weight_decay, lr)
+        u = _adam_update(m, v, pw, c1, c2, eps, weight_decay, lr,
+                         sqrt=_sqrt_rn)
         for name, x in (("m", m), ("v", v)):
             q, s = _q8(x)
             mom[name + "q"].copy_(q)
             mom[name + "s"].copy_(s)
+        if isinstance(p, DTensor):
+            return shd.place(u, p.device_mesh, tuple(p.placements)
+                             ).to_local()
         return u
 
+    def state_axes(axes: tuple, shape: tuple) -> dict:
+        return {"mq": (None, None), "ms": (None,),
+                "vq": (None, None), "vs": (None,)}
+
     return _make(init, leaf_, lambda count: _count_powers(count, b1, b2),
-                 lambda x: isinstance(x, dict) and "mq" in x)
+                 lambda x: isinstance(x, dict) and "mq" in x, state_axes)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's global value on every rank (gathered); a plain tensor
+    as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 # ---------------------------------------------------------------------------

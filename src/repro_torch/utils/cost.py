@@ -239,13 +239,15 @@ def scan(step: Callable[[Any, int], tuple[Any, torch.Tensor]], carry: Any,
     counter = _COUNTER.get()
     region = counter.open_region() if counter is not None else None
     lo = torch._C._autograd._get_sequence_nr()
-    with repeat(stands):
-        carry, y = step(carry, head)
-    if counter is not None:
-        counter.close_region(region)
-        if grad:
-            counter.scale_backward(
-                lo, torch._C._autograd._get_sequence_nr(), stands)
+    try:   # (a checkpoint's recompute may stop inside the trip)
+        with repeat(stands):
+            carry, y = step(carry, head)
+    finally:
+        if counter is not None:
+            counter.close_region(region)
+    if counter is not None and grad:
+        counter.scale_backward(
+            lo, torch._C._autograd._get_sequence_nr(), stands)
     last = []
     for i in range(t - tail, t):
         carry, y_i = step(carry, i)

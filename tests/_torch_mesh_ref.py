@@ -2,7 +2,9 @@
 subprocess, the port in spawned gloo ranks.
 
 `run_reference` runs this file as a script in a fresh interpreter with
-four forced host devices (``XLA_FLAGS``), builds each job's mesh with
+four forced host devices (``XLA_FLAGS``) and an exact ``jnp.exp2`` of
+whole numbers (`exact_exp2`: the reference's int8 activation scales are
+powers of two), builds each job's mesh with
 **Auto** axes (``jax.make_mesh``'s default on this jax is Explicit, and
 the reference's `logical` refuses that), hands it to the reference's
 entry points as ``mesh=`` and saves numpy results.  Jobs:
@@ -13,7 +15,14 @@ entry points as ``mesh=`` and saves numpy results.  Jobs:
   probe batch;
 * ``cnn`` — the reference's `ReplicaGroup(shard_fc=True)` over the
   ``("model",)`` mesh of the four devices, serving the job's images with
-  the seeded ResNet-18 tree, its logits.
+  the seeded ResNet-18 tree (or the job's ``net``), its logits; with
+  ``conv`` the serving rules map ``conv`` to ``model`` (cout-sharded
+  convs), and every entry's strip spec comes back;
+* ``fleet`` — the reference's `ReplicaGroup(shard_fc=True, replicas=R)`
+  over its (data, model) grid of the four devices behind a
+  `FleetScheduler` (each replica in a `ChaosBackend` when the job has a
+  ``chaos`` seed), serving the job's images: each request's logits and
+  outcome, the runs' stats, the fleet's waves.
 
 `spawn_port` runs a function in ``world`` spawned processes joined in a
 gloo world through one ``file://`` store under the test's temporary
@@ -136,6 +145,116 @@ def port_lm(jobs: list[dict], trees: list) -> list[dict]:
     return out
 
 
+def cnn_net(job: dict, ref: bool):
+    """The job's CNN (``net``: ``resnet18`` by default) with its head."""
+    if ref:
+        from repro.models import graph as G
+    else:
+        from repro_torch.models import graph as G
+    return getattr(G, "build_" + job.get("net", "resnet18"))(job["classes"])
+
+
+def _strip_spec(vals) -> object:
+    """The port's strip spec of an entry: ``"model"`` where its strips
+    are sharded, else None (the reference's ``spec[0]``)."""
+    from torch.distributed.tensor import DTensor, Shard
+    if isinstance(vals, DTensor) and any(isinstance(p, Shard)
+                                         for p in vals.placements):
+        return "model"
+    return None
+
+
+def port_cnn_conv(job: dict, tree) -> dict:
+    """The port's side of a ``cnn`` job with ``conv``: its
+    `ReplicaGroup(shard_fc=True)` over the world with ``conv`` on
+    ``model``, and `net_apply` on one device."""
+    import torch
+
+    from repro_torch.launch.serve import ReplicaGroup
+    from repro_torch.models import graph as tg
+    from repro_torch.params import params_from_numpy
+    from repro_torch.parallel import sharding as shd
+
+    net = cnn_net(job, ref=False)
+    params = params_from_numpy(tree, "cpu")
+    sparse, _ = tg.sparsify(net, params, job["density"], vk=32, vn=128,
+                            dtype=job.get("dtype"))
+    group = ReplicaGroup(net, params, sparse=sparse, density=job["density"],
+                         replicas=1, shard_fc=True, device="cpu",
+                         rules=shd.SERVE_RULES.replace(conv="model"))
+    images = np.asarray(job["images"], np.float32)
+    apply = group.backends[0].apply
+    y = apply(images.shape, lambda o: o.__setitem__(slice(None), images))
+    one = tg.net_apply(net, params, torch.from_numpy(images), sparse=sparse)
+    return {"logits": y.numpy().copy(), "one": one.numpy(),
+            "specs": {n: _strip_spec(e.vs.vals) for n, e in
+                      apply.sparse.items()}}
+
+
+def fleet_requests(job: dict, ref: bool) -> list:
+    if ref:
+        from repro.launch.serve import ImageRequest
+    else:
+        from repro_torch.launch.serve import ImageRequest
+    return [ImageRequest(rid=i, image=im) for i, im in
+            enumerate(np.asarray(job["images"], np.float32))]
+
+
+def fleet_result(sch, reqs) -> dict:
+    """A served fleet's logits by request, outcomes, runs' stats (no
+    times) and waves."""
+    return {"logits": {r.rid: np.asarray(r.logits) for r in reqs
+                       if r.logits is not None},
+            "outcomes": {rid: (o.status, o.reason, o.replica, o.attempts,
+                               o.wave) for rid, o in sch.outcomes.items()},
+            "stats": [{k: v for k, v in st.items() if not k.endswith("_s")}
+                      for st in sch.last_stats],
+            "waves": sch.waves}
+
+
+def port_cnn_fleet(job: dict, tree) -> dict:
+    """The port's side of a ``fleet`` job: its `ReplicaGroup(shard_fc=
+    True)` over the world's (data, model) grid, and the same fleet on
+    this rank alone (``shard_fc=False``, every replica on one device)."""
+    from repro_torch.launch.faults import ChaosBackend, FaultPlan
+    from repro_torch.launch.scheduler import FleetScheduler
+    from repro_torch.launch.serve import ReplicaGroup
+    from repro_torch.models import graph as tg
+    from repro_torch.params import params_from_numpy
+
+    net = cnn_net(job, ref=False)
+    params = params_from_numpy(tree, "cpu")
+    sparse, _ = tg.sparsify(net, params, job["density"], vk=32, vn=128,
+                            dtype=job.get("dtype"))
+    out = {}
+    for name, shard in (("fleet", True), ("one", False)):
+        group = ReplicaGroup(net, params, sparse=sparse,
+                             density=job["density"],
+                             replicas=job["replicas"], shard_fc=shard,
+                             device="cpu")
+        backends = list(group.backends)
+        if job.get("chaos") is not None:
+            plan = FaultPlan.random(job["chaos"], replicas=job["replicas"])
+            backends = [ChaosBackend(b, plan, replica=i)
+                        for i, b in enumerate(backends)]
+        sch = FleetScheduler(backends, batch=job["batch"])
+        reqs = fleet_requests(job, ref=False)
+        sch.last_stats = sch.serve(reqs)
+        out[name] = fleet_result(sch, reqs)
+        if shard:
+            out["mesh"] = (None if group.mesh is None else
+                           dict(zip(group.mesh.mesh_dim_names,
+                                    group.mesh.mesh.shape)))
+    return out
+
+
+def port_cnn_jobs(jobs: list[dict], trees: list) -> list[dict]:
+    """The port's side of ``cnn`` jobs with ``conv`` and of ``fleet``
+    jobs, in one world."""
+    return [port_cnn_fleet(j, t) if j["kind"] == "fleet"
+            else port_cnn_conv(j, t) for j, t in zip(jobs, trees)]
+
+
 def port_cnn(jobs: list[dict], trees: list) -> list[dict]:
     """The port's side of CNN jobs (run on every rank): its
     `ReplicaGroup(shard_fc=True)` over the world, and `net_apply` on one
@@ -222,15 +341,17 @@ def _ref_cnn(job: dict) -> dict:
     import jax.numpy as jnp
 
     from repro.launch import serve as RS
-    from repro.models.graph import build_resnet18
+    from repro.parallel import sharding as shd
 
-    net = build_resnet18(job["classes"])
+    net = cnn_net(job, ref=True)
     params = jax.tree.map(jnp.asarray, cnn_params(job))
     sparse, _ = net.sparsify(params, job["density"], vk=32, vn=128,
                              dtype=job.get("dtype"))
+    rules = shd.SERVE_RULES.replace(conv="model") if job.get("conv") \
+        else None
     group = RS.ReplicaGroup(net, params, sparse=sparse, impl="jnp",
                             density=job["density"], replicas=1,
-                            shard_fc=True, validate=False)
+                            shard_fc=True, rules=rules, validate=False)
     mesh = group.meshes[0]
     assert dict(mesh.shape) == {"model": 4}, mesh.shape
     apply = group.backends[0].apply
@@ -238,26 +359,80 @@ def _ref_cnn(job: dict) -> dict:
     return {"logits": np.asarray(apply(jnp.asarray(images))),
             "fc_specs": {n: tuple(e.vs.vals.sharding.spec)
                          for n, e in apply.sparse.items()
-                         if type(e).__name__ == "SparseFC"}}
+                         if type(e).__name__ == "SparseFC"},
+            "specs": {n: tuple(e.vs.vals.sharding.spec)[0]
+                      for n, e in apply.sparse.items()}}
 
 
-def cnn_params(job: dict) -> dict:
-    """A CNN job's weights: the reference's init of ResNet-18 with the
-    job's head from ``seed``, as numpy, so that the port gets the same
-    tree."""
+def _ref_fleet(job: dict) -> dict:
     import jax
     import jax.numpy as jnp
 
-    from repro.models.graph import build_resnet18
+    from repro.launch import serve as RS
+    from repro.launch.faults import ChaosBackend, FaultPlan
+    from repro.launch.scheduler import FleetScheduler
+
+    net = cnn_net(job, ref=True)
+    params = jax.tree.map(jnp.asarray, cnn_params(job))
+    sparse, _ = net.sparsify(params, job["density"], vk=32, vn=128,
+                             dtype=job.get("dtype"))
+    group = RS.ReplicaGroup(net, params, sparse=sparse, impl="jnp",
+                            density=job["density"],
+                            replicas=job["replicas"], shard_fc=True,
+                            validate=False)
+    backends = list(group.backends)
+    if job.get("chaos") is not None:
+        plan = FaultPlan.random(job["chaos"], replicas=job["replicas"])
+        backends = [ChaosBackend(b, plan, replica=i)
+                    for i, b in enumerate(backends)]
+    sch = FleetScheduler(backends, batch=job["batch"])
+    reqs = fleet_requests(job, ref=True)
+    sch.last_stats = sch.serve(reqs)
+    out = fleet_result(sch, reqs)
+    out["meshes"] = [dict(m.shape) for m in group.meshes]
+    return out
+
+
+def cnn_params(job: dict) -> dict:
+    """A CNN job's weights: the reference's init of the job's net
+    (ResNet-18 by default) with its head from ``seed``, as numpy, so that
+    the port gets the same tree."""
+    import jax
+    import jax.numpy as jnp
+
     from repro.models.layers import init_params
-    net = build_resnet18(job["classes"])
+    net = cnn_net(job, ref=True)
     return jax.tree.map(np.asarray, init_params(
         net.schema(), jax.random.PRNGKey(job["seed"]), jnp.float32))
 
 
+_REF = {"lm": lambda j: _ref_lm(j), "cnn": lambda j: _ref_cnn(j),
+        "fleet": lambda j: _ref_fleet(j)}
+
+
+def exact_exp2() -> None:
+    """Make ``jnp.exp2`` of a whole number the exact power of two.  The
+    reference rounds int8 activation scales up to a power of two by
+    ``exp2(ceil(log2(s)))`` (`repro.models.graph.quantize_activations_int8`,
+    its only ``jnp.exp2``); this jax's CPU ``exp2`` misses 2^k for many
+    k (k = -13 gives 1.2207025e-4, not 2^-13 = 1.2207031e-4), and the
+    scale is then no power of two, as the reference's docstring says it
+    is.  Elsewhere ``exp2`` is left as it is."""
+    import jax.numpy as jnp
+    inexact = jnp.exp2
+
+    def exp2(x):
+        k = jnp.round(x)
+        return jnp.where(k == x, jnp.ldexp(jnp.ones_like(x),
+                                           k.astype(jnp.int32)), inexact(x))
+
+    jnp.exp2 = exp2
+
+
 def _main(spec: str, out: str) -> None:
+    exact_exp2()
     jobs = json.loads(Path(spec).read_text())
-    res = [_ref_lm(j) if j["kind"] == "lm" else _ref_cnn(j) for j in jobs]
+    res = [_REF[j["kind"]](j) for j in jobs]
     Path(out).write_bytes(pickle.dumps(res))
 
 

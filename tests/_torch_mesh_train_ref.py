@@ -26,9 +26,18 @@ fresh interpreter with four forced host devices, each job's mesh with
 * ``pipeline`` — `pipeline_apply` over an Auto ``("pod",)`` mesh of the
   job's ``stages`` devices with a tanh-linear stage (`pipeline_stage`):
   the outputs and the gradients of ``sum(out ** 2)`` in the stage
-  weights and the inputs.
+  weights and the inputs;
+* ``adamw8bit`` — `adamw8bit().update` op by op on a ``("data",
+  "model")`` mesh, the seeded weights laid out by `param_shardings`,
+  ``steps`` updates by the seeded gradients of `adam_grads` at
+  ``lr``: per step each leaf's ``p_new - p_old``, then the params and
+  the state (codes and scales);
+* ``lm`` — `_torch_mesh_ref`'s LM job (the reference's sharded
+  `Server`), so that one subprocess runs both kinds.
 
-`port_train` is the port's side of ``train`` jobs (run on every rank).
+`port_train` is the port's side of ``train`` jobs (run on every rank),
+`port_adamw8bit` of ``adamw8bit`` jobs, `port_jobs` of a list of
+``lm``, ``train`` and ``adamw8bit`` jobs.
 """
 from __future__ import annotations
 
@@ -205,6 +214,83 @@ def port_train(jobs: list[dict], trees: list) -> list[dict]:
             metrics.append({k: float(v) for k, v in m.items()})
         out.append({"metrics": metrics, "params": _gather(params),
                     "opt": _gather(state), "embed_layout": layout})
+    return out
+
+
+def adam_job(arch: str, mesh: tuple, *, steps: int = 3, lr: float = 1e-3,
+             overrides: dict | None = None) -> dict:
+    return dict(kind="adamw8bit", arch=arch, overrides=overrides or {},
+                mesh=list(mesh), steps=steps, lr=lr)
+
+
+def adam_grads(tree, step: int):
+    """Seeded gradients of the shapes of the numpy ``tree`` (dicts walked
+    in sorted key order, lists in order): 0.01 * N(0, 1) from ``step``,
+    the same arrays on either side."""
+    rng = np.random.default_rng(1000 + step)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        a = np.asarray(node)
+        return (0.01 * rng.standard_normal(a.shape)).astype(a.dtype)
+
+    return walk(tree)
+
+
+def port_adamw8bit(job: dict, tree, mesh_free: bool = False) -> dict:
+    """The port's side of an ``adamw8bit`` job: `optim.adamw8bit`'s
+    ``update_`` on the params laid out by the schema on the job's mesh
+    (DTensors), or with ``mesh_free`` on plain tensors."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.optimizers import adamw8bit
+    from repro_torch.params import params_from_numpy
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.utils.tree import leaves
+
+    cfg = lm_cfg(job, ref=False)
+    mesh = None if mesh_free else make_local_mesh(*job["mesh"])
+
+    def lay(t):
+        t = params_from_numpy(t, "cpu")
+        if mesh is None:
+            return t
+        with shd.use_mesh(mesh, shd.TRAIN_RULES):
+            return tfm.shard_params(t, cfg)
+
+    def whole(a):
+        return a.full_tensor() if mesh is not None else a
+
+    params = lay(tree)
+    opt = adamw8bit()
+    state = opt.init(params)
+    deltas = []
+    for i in range(job["steps"]):
+        before = [whole(p).clone() for p in leaves(params)]
+        opt.update_(lay(adam_grads(tree, i)), state, params, job["lr"])
+        deltas.append([(whole(p) - b).numpy() for p, b in
+                       zip(leaves(params), before)])
+    return {"deltas": deltas, "params": _gather(params),
+            "opt": _gather(state)}
+
+
+def port_jobs(jobs: list[dict], trees: list) -> list[dict]:
+    """The port's side of ``lm``, ``train`` and ``adamw8bit`` jobs, in
+    one world (``adamw8bit`` also mesh-free, under ``"mesh_free"``)."""
+    from _torch_mesh_ref import port_lm
+    out = []
+    for job, tree in zip(jobs, trees):
+        if job["kind"] == "lm":
+            out.extend(port_lm([job], [tree]))
+        elif job["kind"] == "train":
+            out.extend(port_train([job], [tree]))
+        else:
+            res = port_adamw8bit(job, tree)
+            res["mesh_free"] = port_adamw8bit(job, tree, mesh_free=True)
+            out.append(res)
     return out
 
 
@@ -399,8 +485,51 @@ def _ref_pipeline(job: dict) -> dict:
             "gb": np.asarray(gw["b"]), "gx": np.asarray(gx)}
 
 
+def _ref_adamw8bit(job: dict) -> dict:
+    import jax
+    import jax.numpy as jnp
+
+    from _torch_lm_params import seeded_params
+    from repro.launch import step_builders as RSB
+    from repro.optim.optimizers import adamw8bit
+    from repro.parallel import sharding as shd
+
+    cfg = lm_cfg(job, ref=True)
+    mesh = _auto_mesh(job["mesh"], ("data", "model"))
+    tree = seeded_params(cfg)
+    opt = adamw8bit()
+    with shd.use_mesh(mesh, shd.TRAIN_RULES) as ctx:
+        sh, _ = RSB.param_shardings(cfg, ctx)
+        params = jax.device_put(jax.tree.map(jnp.asarray, tree), sh)
+        state = opt.init(params)
+        # op by op, not jitted: under jit XLA rewrites ``amax / 127.0``
+        # (`_q8`) into a multiply by the f32 reciprocal, which moves 5%
+        # of the scales by an ulp; each op still runs under GSPMD on the
+        # sharded global arrays
+        def step(g, s, p):
+            return opt.update(g, s, p, job["lr"])
+        deltas = []
+        for i in range(job["steps"]):
+            g = jax.device_put(jax.tree.map(jnp.asarray,
+                                            adam_grads(tree, i)), sh)
+            u, state = step(g, state, params)
+            new = jax.tree.map(lambda p, d: p + d, params, u)
+            deltas.append([np.asarray(a) - np.asarray(b) for a, b in
+                           zip(jax.tree.leaves(new),
+                               jax.tree.leaves(params))])
+            params = new
+    return {"deltas": deltas, "params": _np_leaves(params),
+            "opt": _np_leaves(state)}
+
+
+def _ref_lm(job: dict) -> dict:
+    from _torch_mesh_ref import _ref_lm as ref_lm
+    return ref_lm(job)
+
+
 _REF = {"train": _ref_train, "restore": _ref_restore,
-        "compress": _ref_compress, "pipeline": _ref_pipeline}
+        "compress": _ref_compress, "pipeline": _ref_pipeline,
+        "adamw8bit": _ref_adamw8bit, "lm": _ref_lm}
 
 
 def _main(spec: str, out: str) -> None:

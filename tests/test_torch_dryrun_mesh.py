@@ -58,6 +58,11 @@ CASES = {
                                  overrides=TRAIN),
     "qwen-train-2x1x2": REF.job("qwen1.5-4b", "train", (2, 1, 2),
                                 overrides=TRAIN),
+    # heads that do not divide the model dim under ``sp``: each rank
+    # projects its block of the sequence only
+    "qwen-train-1x4-6heads": REF.job(
+        "qwen1.5-4b", "train", (1, 4),
+        overrides=dict(TRAIN, n_heads=6, n_kv_heads=2, d_model=192)),
 }
 # port / reference wire bytes measured on this tree where they miss
 WIRE_GAPS = {"qwen-train-2x2": 0.58, "granite-train-2x2": 0.70,
