@@ -1,0 +1,8 @@
+"""Percent of the traced stretch in which no operation ran on the
+device: 100 x (1 - busy / window)."""
+
+
+def read(ctx):
+    if ctx.trace is None or ctx.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
